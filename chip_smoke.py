@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU. Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code 1, no result line):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together) and print ``-Xptxas -v``;
+3. hold each kernel against its plain torch version at the serve path's
+   shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal),
+   paged decode (B=decode_batch, C=1), the quantize+norm at those rows
+   (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width);
+4. serve greedy requests through ``PagedEngine`` at the full width of
+   qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), with
+   every kernel launch counter set to 0 just before and read just after;
+   check output lengths, finish reasons, refcounts and that both kernels
+   ran; then hold a smoke-size engine on the card against the same
+   engine on the CPU;
+5. time each kernel and its plain version with CUDA events (L2 flushed
+   before every launch), the kernel alone with ``torch.profiler``, beside
+   the bound the card's memory rate sets;
+6. profile one decode-heavy wave of the engine: the device-busy share of
+   the wall time and the kernels with the most device time.
+
+Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
+when no CUDA device is available or the port is not beside this file.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
+QNORM_OPS_PER_ELEMENT = 16         # divide, round, clip, square, shifts, sums, affine
+PREFILL_CHUNK = 128
+DECODE_BATCH = 8
+BLOCK_SIZE = 16
+MAX_SEQ_LEN = 512
+NEW_TOKENS = 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+# -- kernel inputs at the path's shapes ---------------------------------------
+
+
+def paged_case(torch, gen, *, b, c, q_start, kv_lens, h, kvh, d, grid):
+    """Random paged-attention inputs: a pool with shuffled pages, garbage
+    in the null page 0, tables covering each sequence's keys. ``grid``
+    draws q and k from small integers so every q.k partial sum is exact
+    in fp32 and the kernel's codes must equal the plain version's."""
+    dev = "cuda"
+    nb = MAX_SEQ_LEN // BLOCK_SIZE
+    n = b * nb + 1
+    if grid:
+        q = torch.randint(-8, 9, (b, h, c, d), generator=gen, device=dev) / 4
+        k = torch.randint(-8, 9, (n, BLOCK_SIZE, kvh, d), generator=gen,
+                          device=dev).float()
+    else:
+        q = torch.randn((b, h, c, d), generator=gen, device=dev) * 2
+        k = torch.randn((n, BLOCK_SIZE, kvh, d), generator=gen, device=dev)
+    v = torch.randn((n, BLOCK_SIZE, kvh, d), generator=gen, device=dev)
+    perm = torch.randperm(n - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros((b, nb), dtype=torch.int32, device=dev)
+    for i, kl in enumerate(kv_lens):
+        if kl > 1:                    # kv_len 1: a null lane on page 0
+            used = -(-kl // BLOCK_SIZE)
+            tables[i, :used] = perm[i * nb:i * nb + used].int()
+    meta = torch.tensor([[q_start[i], kv_lens[i]] for i in range(b)],
+                        dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    return (q.to(bf).contiguous(), k.to(bf).contiguous(),
+            v.to(bf).contiguous(), tables, meta)
+
+
+def attention_work(case, causal, h, kvh, d):
+    """(bytes, flops) the paged attention must move / do on these inputs:
+    q, the live keys' K and V rows and the fp32 output once; 4*d flops
+    per unmasked (query, key) pair and head."""
+    q, k, _, _, meta = case
+    b, _, c, _ = q.shape
+    pairs = 0
+    keys = 0
+    for q_start, kv_len in meta.tolist():
+        keys += kv_len
+        for r in range(c):
+            pairs += min(kv_len, q_start + r + 1) if causal else kv_len
+    nbytes = (q.numel() * q.element_size()
+              + 2 * keys * kvh * d * k.element_size()
+              + b * h * c * d * 4 + meta.numel() * 4)
+    return nbytes, 4 * d * pairs * h
+
+
+def bound_ms(nbytes, flops, flops_rate):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, flush, reps=30):
+    """Mean device time of ``fn`` over ``reps`` calls, each preceded by an
+    L2 flush outside its CUDA-event interval. A device-side sleep holds
+    the stream while the host enqueues every call, so the intervals hold
+    device work only, never the host's launch gaps."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int((2 * host_s * reps + 2e-3) * 2e9))  # ~2 GHz clock
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def profiled_kernel_ms(torch, fn, flush, kernel, reps=20):
+    """Mean device time of the kernels whose name holds ``kernel`` per
+    call of ``fn`` (L2 flushed before each), from ``torch.profiler``'s
+    CUDA activity: the kernel alone, without launch or event overhead.
+    None when the profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _device_us(event) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+# -- phases -------------------------------------------------------------------
+
+
+def check_kernels(torch, cfg):
+    """Phase 3: each kernel against its plain version on the card."""
+    from repro_torch.core.sole.quant import calibrate_ptf
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(sole=True, exp_bits=cfg.exp_bits, int8_scale=LOGIT_INT8_SCALE)
+    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+    shapes = {
+        "prefill": dict(b=1, c=PREFILL_CHUNK, q_start=[PREFILL_CHUNK],
+                        kv_lens=[2 * PREFILL_CHUNK], causal=True),
+        "decode": dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+                       kv_lens=[49, 300, 117, 1, 256, 83, 160, 1],
+                       causal=False),
+    }
+    results = {}
+    for name, sh in shapes.items():
+        causal = sh.pop("causal")
+        res = {}
+        for grid in (True, False):
+            case = paged_case(torch, gen, h=h, kvh=kvh, d=d, grid=grid, **sh)
+            out = KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+            ref = KA.flash_e2softmax_paged_plain(*case, kvmap, causal=causal,
+                                                 **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"paged_e2softmax {name}: non-finite")
+            row_err = err.amax(-1).flatten()
+            if grid:
+                # exact logits -> identical codes; only the P.V sum order
+                # (fp32) differs: relative 1e-5 of the output scale.
+                tol = 1e-5 * max(ref.abs().max().item(), 1.0)
+                if err.max().item() > tol:
+                    raise AssertionError(
+                        f"paged_e2softmax {name}: max |err| "
+                        f"{err.max().item()} > {tol} on exact-logit inputs")
+                res["max_abs_err"] = err.max().item()
+            else:
+                # real-valued logits: the dot order may move a logit across
+                # an int8-snap rounding boundary and flip one 4-bit code;
+                # at most 1% of rows may differ by more than 1e-3.
+                frac = (row_err > 1e-3).float().mean().item()
+                if frac > 0.01:
+                    raise AssertionError(
+                        f"paged_e2softmax {name}: {frac:.4f} of rows off "
+                        "by > 1e-3 on random inputs")
+                res["max_abs_err_random"] = err.max().item()
+                res["rows_off_random"] = frac
+                res["case"] = case
+                res["causal"] = causal
+        results[name] = res
+        log(f"paged_e2softmax {name}: max|err| exact-logit "
+            f"{res['max_abs_err']:.3e}, random {res['max_abs_err_random']:.3e}"
+            f" ({res['rows_off_random']:.4f} of rows > 1e-3)")
+
+    norm = {}
+    for name, rows, c, rms in (("prefill", PREFILL_CHUNK, cfg.d_model, True),
+                               ("decode", DECODE_BATCH, cfg.d_model, True),
+                               ("layernorm_2048", PREFILL_CHUNK, 2048, False)):
+        x = torch.randn((rows, c), generator=gen, device="cuda") * 3
+        x[:, :: 7] *= 8                        # outlier channels, alpha > 0
+        x = x.to(torch.bfloat16)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        p = calibrate_ptf(x, unsigned=not rms)
+        args = (x.float().contiguous(), p.denom().contiguous(),
+                p.alpha.contiguous(), gamma,
+                torch.zeros_like(beta) if rms else beta)
+        out = KN.qnorm(*args, rms=rms)
+        ref = KN.qnorm_plain(*args, rms=rms)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # integer codes and sums are exact and the epilogue rounds like
+        # the plain ops, so the two agree to fp32 rounding (1e-6 rel.).
+        tol = 1e-6 * max(ref.abs().max().item(), 1.0)
+        if not torch.isfinite(out).all() or err > tol:
+            raise AssertionError(f"ailayernorm {name}: max |err| {err} > {tol}")
+        norm[name] = dict(max_abs_err=err, args=args, rms=rms)
+        log(f"ailayernorm_qnorm {name} rows={rows} C={c} "
+            f"{'rms' if rms else 'ln'}: max|err| {err:.3e}")
+    return results, norm
+
+
+def serve_full_width(torch, cfg):
+    """Phase 4: the main path at full width, counts from this run only."""
+    import numpy as np
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import api
+    from repro_torch.serve.engine import PagedEngine, Request
+
+    t0 = time.time()
+    params = api.init_params(0, cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"init_params: {time.time() - t0:.2f} s")
+    eng = PagedEngine(cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                      block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                      max_running=8, decode_batch=DECODE_BATCH,
+                      prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (48, 300, 120, 200)]
+    prompts += [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+                for n in (40, 100)]
+    prompts += [rng.integers(0, cfg.vocab_size, n) for n in (80, 250)]
+    wave1 = [Request(prompt=p.astype(np.int32), max_new_tokens=NEW_TOKENS)
+             for p in prompts]
+
+    KA.flash_e2softmax_paged.launches = 0
+    KN.qnorm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out1 = eng.generate(wave1)
+    torch.cuda.synchronize()
+    t1 = time.time() - t0
+    # wave 2: a repeat of request 0 whose eos ids are every token wave 1
+    # produced (a prefix hit that should finish by eos), and a second
+    # request on the shared system prompt (a prefix hit on its pages).
+    eos = sorted({t for o in out1 for t in o})
+    wave2 = [Request(prompt=prompts[0].astype(np.int32),
+                     max_new_tokens=NEW_TOKENS, eos_ids=tuple(eos)),
+             Request(prompt=np.concatenate(
+                 [system, rng.integers(0, cfg.vocab_size, 30)]).astype(np.int32),
+                 max_new_tokens=NEW_TOKENS)]
+    t0 = time.time()
+    out2 = eng.generate(wave2)
+    torch.cuda.synchronize()
+    t2 = time.time() - t0
+    launches = {"paged_e2softmax": KA.flash_e2softmax_paged.launches,
+                "ailayernorm_qnorm": KN.qnorm.launches}
+    stats = eng.stats()
+    eng.cache.check_refcounts()
+
+    for i, o in enumerate(out1):
+        if len(o) != NEW_TOKENS:
+            raise AssertionError(f"wave 1 request {i}: {len(o)} tokens")
+    if not all(0 <= t < cfg.vocab_size for o in out1 + out2 for t in o):
+        raise AssertionError("token id out of range")
+    eos = set(eos)
+    o = out2[0]
+    if o and o[-1] in eos and not any(t in eos for t in o[:-1]):
+        eos_fired = 1                 # cut right after its first eos token
+    elif len(o) == NEW_TOKENS and not any(t in eos for t in o):
+        eos_fired = 0                 # never sampled an eos: full budget
+    else:
+        raise AssertionError(f"eos request broke the finish contract: {o}")
+    if len(out2[1]) != NEW_TOKENS:
+        raise AssertionError(f"wave 2 request 1: {len(out2[1])} tokens")
+    want = {"length": 10 - eos_fired, "eos": eos_fired}
+    if stats["finish_reasons"] != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"finish reasons {stats['finish_reasons']}")
+    if stats["prefix_hit_tokens"] < 64 + len(prompts[0]) - 1:
+        raise AssertionError(f"prefix hits {stats['prefix_hit_tokens']}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    n_tok = sum(len(o) for o in out1 + out2)
+    log(f"served {len(out1) + len(out2)} requests, {n_tok} new tokens: "
+        f"wave 1 {t1:.3f} s, wave 2 {t2:.3f} s ({n_tok / (t1 + t2):.1f} "
+        f"tok/s); eos request: {len(o)} tokens, eos fired: {eos_fired}")
+    log("engine stats: " + json.dumps(stats, sort_keys=True))
+    log("launches on the main path: " + json.dumps(launches))
+    return launches, {"wave1_s": t1, "wave2_s": t2, "new_tokens": n_tok,
+                      "eos_fired": eos_fired}, params
+
+
+def small_engine_parity(torch):
+    """The same smoke-size trace through the kernels (cuda) and the plain
+    versions (cpu): >= 95% of greedy tokens equal in exact and SOLE mode
+    (cuBLAS and the CPU sum in other orders; in SOLE mode a logit that
+    moves across a rounding boundary flips a code)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import PagedEngine, Request
+    for mode in ("exact", "sole"):
+        cfg = get_config("qwen2_0_5b").smoke()
+        if mode == "exact":
+            cfg = dataclasses.replace(cfg, softmax_mode="exact",
+                                      norm_mode="exact", logit_int8=False)
+        params = api.init_params(0, cfg, "cpu")
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=8)
+                for n in (5, 20, 12, 30, 9)]
+        outs = []
+        for dev in ("cpu", "cuda"):
+            eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                              max_seq_len=64, decode_batch=4,
+                              prefill_chunk=8, device=dev)
+            outs.append(eng.generate(reqs))
+            eng.cache.check_refcounts()
+        pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+        agree = sum(a == b for a, b in pairs) / len(pairs)
+        log(f"smoke engine cuda vs cpu, {mode}: token agreement {agree:.3f}")
+        if agree < 0.95:
+            raise AssertionError(f"smoke parity {mode}: {agree}")
+
+
+def time_kernels(torch, attn, norm, launches, cfg):
+    """Phase 5: CUDA-event times of each kernel and its plain version,
+    and the kernel's own device time from ``torch.profiler``."""
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+    kw = dict(sole=True, exp_bits=cfg.exp_bits, int8_scale=LOGIT_INT8_SCALE)
+    table = []
+    entry = {"paged_e2softmax": dict(
+        name="paged_e2softmax", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_e2softmax.cu",
+        replaces="src/repro/kernels/flash_e2softmax.py:186", shapes={}),
+        "ailayernorm_qnorm": dict(
+        name="ailayernorm_qnorm", route="cuda",
+        source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+        replaces="src/repro/kernels/ailayernorm.py:133", shapes={})}
+    for name, res in attn.items():
+        case, causal = res["case"], res["causal"]
+
+        def run():
+            return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+        ms = time_ms(torch, run, flush)
+        kernel_ms = profiled_kernel_ms(torch, run, flush,
+                                       "paged_e2softmax_kernel")
+        plain = time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
+            *case, kvmap, causal=causal, **kw), flush, reps=5)
+        nbytes, flops = attention_work(case, causal, h, kvh, d)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        entry["paged_e2softmax"]["shapes"][name] = dict(
+            shape=f"q {tuple(case[0].shape)} kv_len {case[4][:, 1].tolist()}",
+            ms=ms, kernel_ms=kernel_ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by,
+            max_abs_err=res["max_abs_err"],
+            max_abs_err_random=res["max_abs_err_random"],
+            bytes=nbytes, flops=flops)
+    for name, res in norm.items():
+        args, rms = res["args"], res["rms"]
+
+        def run():
+            return KN.qnorm(*args, rms=rms)
+        ms = time_ms(torch, run, flush)
+        kernel_ms = profiled_kernel_ms(torch, run, flush, "qnorm_kernel")
+        plain = time_ms(torch, lambda: KN.qnorm_plain(*args, rms=rms), flush)
+        rows, c = args[0].shape
+        nbytes = 2 * rows * c * 4 + 4 * c * 4
+        bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
+                           FP32_FLOPS)
+        entry["ailayernorm_qnorm"]["shapes"][name] = dict(
+            shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}", ms=ms,
+            kernel_ms=kernel_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            max_abs_err=res["max_abs_err"], bytes=nbytes)
+    for key, e in entry.items():
+        main = e["shapes"]["decode"]            # the most-launched shape
+        e.update(launches=launches[key], max_abs_err=max(
+            s["max_abs_err"] for s in e["shapes"].values()),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None)
+        table.append(e)
+    for e in table:
+        for s, v in e["shapes"].items():
+            k = v["kernel_ms"]
+            log(f"{e['name']} {s} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+                f"(profiler: kernel "
+                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
+                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+    return table
+
+
+def profile_engine(torch, cfg, params):
+    """Where the time goes on the main path: one decode-heavy wave
+    (8 requests, 128-token prompts, 32 new tokens) under torch.profiler.
+    Prints the device-busy share of the wall time and the kernels with
+    the most device time; returns the summary."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import PagedEngine, Request
+    eng = PagedEngine(cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                      block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                      max_running=8, decode_batch=DECODE_BATCH,
+                      prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                      device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 128)
+                    .astype(np.int32), max_new_tokens=NEW_TOKENS)
+            for _ in range(DECODE_BATCH)]
+    eng.generate(reqs[:1])                      # warm the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = sorted(((_device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"profiled wave: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({busy / wall:.3f} of wall), {len(reqs) * NEW_TOKENS} new tokens")
+    for us, n, key in rows[:12]:
+        log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
+    return {"wall_s": wall, "device_busy_s": busy,
+            "top": [{"ms": us / 1e3, "count": n, "kernel": key[:100]}
+                    for us, n, key in rows[:12]]}
+
+
+def main() -> int:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.configs.base import get_config
+        from repro_torch.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        smi = nvidia_smi_line()
+        log(f"card: {smi}")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        t0 = time.time()
+        logs = build.build_all()
+        log(f"kernel build: {time.time() - t0:.1f} s")
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "ptxas" in line or "bytes" in line:
+                    log(f"[{name}] {line.strip()}")
+        cfg = get_config("qwen2_0_5b")
+        attn, norm = check_kernels(torch, cfg)
+        launches, trace, params = serve_full_width(torch, cfg)
+        small_engine_parity(torch)
+        table = time_kernels(torch, attn, norm, launches, cfg)
+        trace["profile"] = profile_engine(torch, cfg, params)
+        log(json.dumps({"trace": trace}))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"kernels": table}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Power-of-Two Factor (PTF) quantization — FQ-ViT, SOLE paper Eq. (6).
+
+    X_Q = Clip(round(X / (2^alpha * s)) + zp, 0, 2^b - 1)
+
+with a shared (s, zp) per tensor and a per-channel 2-bit alpha in {0..3}.
+
+Bit-compatibility with the reference: ``calibrate_ptf`` runs in the
+activation's own dtype, as the reference does (on bf16 activations the
+scale is bf16 and ``log2``/``ceil`` run in bf16). Every division is a
+true division by a tensor of the divisor's value: PyTorch's CUDA kernel
+turns a division by a Python scalar into a multiply by its reciprocal,
+which rounds differently.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as a correctly rounded elementwise division in
+    ``x``'s dtype (never a multiply by the reciprocal)."""
+    return x / torch.full_like(x, value)
+
+
+@dataclasses.dataclass(frozen=True)
+class PTFQuantParams:
+    scale: torch.Tensor       # 0-dim, the calibrated activation's dtype
+    zero_point: int           # 128 (unsigned codes) or 0 (symmetric)
+    alpha: torch.Tensor       # int32 [C], per-channel power-of-two factor
+    unsigned: bool = True
+
+    def denom(self) -> torch.Tensor:
+        """Per-channel divisor ``s * 2^alpha`` in float32 (exact: a
+        power-of-two multiple of the promoted scale)."""
+        return self.scale.float() * torch.exp2(self.alpha.float())
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = (0, 255) if self.unsigned else (-128, 127)
+        q = torch.round(x.float() / self.denom()) + self.zero_point
+        return torch.clamp(q, lo, hi).to(torch.int32)
+
+
+def calibrate_ptf(x: torch.Tensor, *, max_alpha: int = 3,
+                  unsigned: bool = True) -> PTFQuantParams:
+    """FQ-ViT-style PTF calibration over the last axis (channels),
+    reducing over **all** leading axes — in SOLE mode a row's codes
+    depend on the whole batch it was normalized with.
+
+    Channel ranges are symmetric around zero: the shared base scale is
+    the widest channel's ``amax / 127`` divided by ``2^max_alpha``, and
+    each channel takes the smallest alpha whose ``2^alpha * s`` covers
+    its range.
+    """
+    amax = x.abs()
+    if x.ndim > 1:
+        amax = amax.flatten(0, -2).amax(0)
+    ideal = true_div(torch.maximum(amax, torch.full_like(amax, 1e-8)), 127.0)
+    scale = true_div(ideal.amax(), float(2 ** max_alpha))
+    ratio = ideal / scale.expand_as(ideal)
+    expo = torch.log2(ratio)
+    expo = torch.ceil(expo - torch.full_like(expo, 1e-6))
+    alpha = torch.clamp(expo, 0, max_alpha).to(torch.int32)
+    return PTFQuantParams(scale=scale, zero_point=128 if unsigned else 0,
+                          alpha=alpha, unsigned=unsigned)

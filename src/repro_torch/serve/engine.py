@@ -1,0 +1,314 @@
+"""Serving engine: prefix-cached paged continuous batching (PagedEngine).
+
+A ref-counted, shared-page KV pool (serve/kv_cache.py) with token-level
+continuous batching, chunked prefill, prefix caching and
+recompute-preemption (serve/scheduler.py). On admission each prompt is
+hashed block by block against the page index; matched pages are
+attached and only the tail is prefilled. Pages are allocated on demand;
+a write into a shared page is copy-on-write, replayed on the device
+before the model step. Prefill-chunk and decode attention both stream
+pages through the paged Flash-E2Softmax kernel on CUDA.
+
+The engine runs on ``device`` ("cuda" unless the caller asks for the
+CPU, where every op runs its plain torch version); it never falls back
+from one to the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api
+from repro_torch.serve.kv_cache import PagedKVCache, copy_pages
+from repro_torch.serve.sampling import apply_finish, eos_table, sampler_for
+from repro_torch.serve.scheduler import Scheduler, Sequence
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray           # (prompt_len,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0     # 0 = greedy argmax (the only mode ported)
+    top_k: int = 0
+    seed: int = 0
+    # finish events: sampling any of eos_ids ends the request ("eos");
+    # stop holds multi-token sequences matched over the generated tokens
+    # ("stop"). The finishing token / sequence is kept in the output.
+    eos_ids: Tuple[int, ...] = ()
+    stop: Tuple[Tuple[int, ...], ...] = ()
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class PagedEngine:
+    """Continuous-batching engine over paged KV for the dense family.
+
+    Each step admits waiting requests, runs one prefill chunk of one
+    sequence (B=1, C=``prefill_chunk``; the final chunk padded with
+    token 0, its tail written to the null page) and one **decode
+    horizon** for up to ``decode_batch`` sequences: H fused greedy
+    decode steps on the device (short batches padded with null lanes:
+    token 0, position 0, all-null table), with only the (B, H) sampled
+    ids copied to the host. The padding matters in SOLE mode: PTF
+    calibration reduces over the whole batch, so padded rows take part
+    in every norm exactly as in the reference engine.
+
+    Features the port does not have yet raise here rather than being
+    silently downgraded: other families, quantized weights, int8 KV,
+    speculative decoding, mesh rules (and temperature > 0 at submit).
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
+                 block_size: int = 16, max_seq_len: int = 256,
+                 max_running: int = 8, decode_batch: int = 4,
+                 prefill_chunk: int = 16, decode_horizon: int = 8,
+                 device="cuda", prefix_cache: Optional[bool] = None,
+                 watermark: int = 1, rules=None, spec_config=None):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PagedEngine: no CUDA device is available; pass "
+                "device='cpu' to serve with the plain torch ops")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md "
+                "queue 1 item 9)")
+        if cfg.quant.mode != "off":
+            raise NotImplementedError(
+                f"quant mode {cfg.quant.mode!r} comes with the W8A8 slice "
+                "(ROADMAP.md queue 1 item 6)")
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "int8 KV pages come with the W8A8 slice (ROADMAP.md queue 1 "
+                "item 6)")
+        if spec_config is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP.md queue 1 "
+                "item 8)")
+        if rules is not None:
+            raise NotImplementedError(
+                "sharding rules are not ported yet (ROADMAP.md queue 1 "
+                "item 12)")
+        state_spec = api.sequence_state_spec(cfg)
+        if cfg.window and max_seq_len > cfg.window:
+            raise ValueError(
+                "pages are append-only: serving past the sliding window "
+                f"(max_seq_len {max_seq_len} > window {cfg.window}) would "
+                "keep dead KV resident; cap max_seq_len at the window")
+        if prefix_cache is None:
+            prefix_cache = state_spec.supports_prefix_cache
+        if decode_horizon < 1:
+            raise ValueError(
+                f"decode_horizon must be >= 1, got {decode_horizon}")
+        self.cfg = cfg
+        self.device = device
+        self.prefix_cache = prefix_cache
+        self.params = _to_device(params, device)
+        self.decode_batch = decode_batch
+        self.decode_horizon = decode_horizon
+        self.cache = PagedKVCache(cfg, num_blocks=num_blocks,
+                                  block_size=block_size,
+                                  max_seq_len=max_seq_len,
+                                  prefix_cache=prefix_cache, device=device)
+        self.sched = Scheduler(self.cache, max_running=max_running,
+                               prefill_chunk=prefill_chunk,
+                               watermark=watermark)
+        self.steps = 0
+        self.decode_tokens = 0
+        self.decode_dispatches = 0
+        self.truncated_tokens = 0        # horizon-tail draws discarded
+        self.reclaimed_pages = 0         # pages handed back by truncate
+        self.finish_reasons: Dict[str, int] = {}
+        self._finished: Dict[int, List[int]] = {}
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
+        """Replay COW page duplications on the device before the step
+        that writes into the fresh private pages."""
+        if not copies:
+            return
+        src, dst = zip(*copies)
+        copy_pages(self.cache.pools, self._tensor(np.array(src, np.int64)),
+                   self._tensor(np.array(dst, np.int64)))
+
+    def _refs(self, seqs: List[Optional[Sequence]]) -> Dict[str, torch.Tensor]:
+        """Page tables for a padded batch; ``None`` lanes get null rows."""
+        sids = [s.seq_id if s is not None else None for s in seqs]
+        return {"tables": self._tensor(self.cache.batch_tables(sids))}
+
+    # -- one engine iteration -------------------------------------------------
+
+    def _prefill_step(self, seq: Sequence) -> None:
+        c = self.sched.prefill_chunk
+        start = seq.prefilled
+        replay = seq.replay_tokens
+        real = min(c, len(replay) - start)
+        copies = self.sched.ensure_tokens(seq, start, start + real)
+        if copies is None:
+            return                       # seq itself was preempted
+        self._apply_copies(copies)
+        chunk = np.zeros((1, c), np.int32)
+        chunk[0, :real] = replay[start:start + real]
+        logits, state = api.prefill_paged(
+            self.params, self._tensor(chunk),
+            self._tensor(np.array([start], np.int32)),
+            self._tensor(np.array([real], np.int32)), self._refs([seq]),
+            self.cache.pools, self.cfg)
+        self.cache.pools = state
+        seq.prefilled = start + real
+        if not seq.in_prefill:
+            self.cache.register_prompt(seq.seq_id, seq.prompt,
+                                       seq.prefix_keys)
+            if not seq.out:
+                # fresh sequence: the first generated token comes from the
+                # last real prompt position's logits (a resumed sequence
+                # already holds its next feed token in out).
+                tok = seq.sampler(logits[0, real - 1].cpu().numpy())
+                # the first token can already be a finish event.
+                _, seq.finish_reason = apply_finish(seq.sampler, seq.out,
+                                                    [tok])
+
+    def _decode_step(self) -> None:
+        batch = self.sched.decode_batch(self.decode_batch)
+        # horizon: largest event-safe token count, floored to a power of
+        # two (the reference's compiled-shape discipline, kept so both
+        # engines take the same steps).
+        h = self.sched.decode_horizon(batch, self.decode_horizon)
+        if h == 0:
+            return
+        h = 1 << (h.bit_length() - 1)
+        lanes: List[Sequence] = []
+        for seq in batch:
+            if seq not in self.sched.running:
+                continue                 # preempted by an earlier lane
+            pos = seq.prompt_len + len(seq.out) - 1
+            # pre-extend the page table for the whole horizon.
+            copies = self.sched.ensure_tokens(seq, pos, pos + h)
+            if copies is None:
+                continue
+            self._apply_copies(copies)
+            lanes.append(seq)
+        # ensure_tokens preempts youngest-first and stops at the requesting
+        # seq, so a later lane's growth never evicts a lane collected above.
+        assert all(s in self.sched.running for s in lanes)
+        if not lanes:
+            return
+        d = self.decode_batch
+        token = np.zeros((d,), np.int32)
+        pos = np.zeros((d,), np.int32)
+        seqs: List[Optional[Sequence]] = [None] * d
+        for i, seq in enumerate(lanes):
+            token[i] = seq.out[-1]
+            pos[i] = seq.prompt_len + len(seq.out) - 1
+            seqs[i] = seq
+        widest = max(len(s.sampler.eos_ids) for s in lanes)
+        use_eos = widest > 0
+        eos = np.full((d, 1), -1, np.int32)
+        if use_eos:
+            eos = np.full((d, widest), -1, np.int32)
+            eos[:len(lanes)] = eos_table([s.sampler for s in lanes], widest)
+        toks, done, state = api.decode_horizon_paged(
+            self.params, self._tensor(token), self._tensor(pos),
+            self._refs(seqs), self.cache.pools, self._tensor(eos), self.cfg,
+            num_steps=h, use_eos=use_eos)
+        self.cache.pools = state
+        # the one device-to-host copy of the horizon
+        host = torch.cat([toks, done.to(torch.int32)], 1).cpu().numpy()
+        rows, done_rows = host[:, :h], host[:, h:].astype(bool)
+        for i, seq in enumerate(lanes):
+            # cut the lane at its first finish event; draws after the cut
+            # never entered the stream.
+            kept, reason = apply_finish(seq.sampler, seq.out, rows[i],
+                                        eos_row=done_rows[i])
+            seq.prefilled = int(pos[i]) + kept
+            self.decode_tokens += kept
+            self.truncated_tokens += h - kept
+            if reason is not None:
+                seq.finish_reason = reason
+                self.reclaimed_pages += self.cache.truncate(
+                    seq.seq_id, int(pos[i]) + kept)
+        self.decode_dispatches += 1
+
+    def _reap_done(self) -> None:
+        for seq in list(self.sched.running):
+            if seq.done:
+                seq.finish_reason = seq.finish_reason or "length"
+                self.finish_reasons[seq.finish_reason] = (
+                    self.finish_reasons.get(seq.finish_reason, 0) + 1)
+                self._finished[seq.seq_id] = seq.out
+                self.sched.finish(seq)
+
+    def step(self) -> None:
+        """One engine iteration: admit, one prefill chunk, one decode
+        horizon for the running batch, reclaim finished sequences."""
+        self.sched.admit()
+        seq = self.sched.next_prefill()
+        if seq is not None:
+            self._prefill_step(seq)
+        self._reap_done()
+        self._decode_step()
+        self._reap_done()
+        self.steps += 1
+
+    # -- public API -----------------------------------------------------------
+
+    def submit(self, request: Request) -> Sequence:
+        """Validate and queue one request; returns its live Sequence."""
+        return self.sched.submit(
+            request.prompt, request.max_new_tokens,
+            sampler=sampler_for(request, self.cfg.vocab_size))
+
+    def generate(self, requests: List[Request]) -> List[List[int]]:
+        """Serve all requests to completion; outputs in request order."""
+        order: List[int] = []
+        for i, r in enumerate(requests):
+            try:
+                order.append(self.submit(r).seq_id)
+            except (ValueError, NotImplementedError) as e:
+                self.sched.abandon(order)
+                raise type(e)(f"request {i}: {e}") from None
+        while self.sched.has_work:
+            self.step()
+        return [self._finished.pop(sid) for sid in order]
+
+    def stats(self) -> Dict[str, object]:
+        """Serving counters: prefix-cache hits, COW/eviction/preemption
+        activity, pool occupancy and decode dispatch counts."""
+        c, s = self.cache, self.sched
+        per_page = sum(int(np.prod((p.shape[0],) + tuple(p.shape[2:])))
+                       * p.element_size() for p in c.pools.values())
+        return {
+            "prefix_cache": self.prefix_cache,
+            "prefix_hit_rate": round(c.prefix_hit_rate(), 4),
+            "prefix_hit_tokens": c.prefix_hit_tokens,
+            "prefix_query_tokens": c.prefix_query_tokens,
+            "cow_copies": c.cow_copies,
+            "evictions": c.evictions,
+            "preemptions": s.preemptions,
+            "cached_blocks": c.cached_blocks,
+            "free_blocks": c.free_blocks,
+            "blocks_in_use": c.blocks_in_use,
+            "peak_blocks_in_use": c.peak_blocks_in_use,
+            "utilization": round(c.utilization(), 4),
+            "admitted": s.admitted,
+            "finished": s.finished,
+            "finish_reasons": dict(self.finish_reasons),
+            "steps": self.steps,
+            "decode_tokens": self.decode_tokens,
+            "decode_dispatches": self.decode_dispatches,
+            "tokens_per_dispatch": round(
+                self.decode_tokens / max(self.decode_dispatches, 1), 3),
+            "truncated_tokens": self.truncated_tokens,
+            "reclaimed_pages": self.reclaimed_pages,
+            "state_footprint_bytes": int(c.blocks_in_use * per_page),
+        }

@@ -1,0 +1,221 @@
+"""Admission/preemption scheduler: token-level continuous batching over
+a shared-page KV pool.
+
+Requests wait in a FIFO queue. Admission is **optimistic**: a request is
+admitted when the pool's drawable capacity (free + evictable pages)
+covers the part of its prompt the prefix cache cannot supply, plus a
+small watermark; pages are then allocated on demand, one prefill chunk
+or decode horizon at a time (:meth:`Scheduler.ensure_tokens`). When a
+growth step cannot be covered the youngest running sequence is
+**recompute-preempted**: its page references are released and it
+re-enters the front of the queue with its generated tokens intact, to
+replay ``prompt + out[:-1]`` through chunked prefill on re-admission.
+Long prompts are prefilled in fixed-size chunks, one per engine step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.sampling import Sampler
+
+
+@dataclasses.dataclass(eq=False)       # identity semantics: sequences are
+class Sequence:                        # tracked in running/waiting by object
+    """One in-flight request: prompt, progress, outputs, sampler."""
+    seq_id: int
+    prompt: np.ndarray                 # (prompt_len,) int32
+    max_new_tokens: int
+    sampler: Optional[Sampler] = None
+    prefilled: int = 0                 # replay tokens already written
+    out: List[int] = dataclasses.field(default_factory=list)
+    restarts: int = 0                  # recompute-preemption count
+    # "eos" | "stop" the moment the event fires; "length" at reap time.
+    finish_reason: Optional[str] = None
+    # cache.prefix_keys(prompt), computed once at the first admission try.
+    prefix_keys: Optional[List[Tuple[int, bytes]]] = None
+    _replay: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                      repr=False)
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt)
+
+    @property
+    def replay_len(self) -> int:
+        """Tokens whose KV must exist before the next decode feed: the
+        prompt plus every generated token but the one about to be fed."""
+        return self.prompt_len + max(len(self.out) - 1, 0)
+
+    @property
+    def replay_tokens(self) -> np.ndarray:
+        """(replay_len,) token stream a (re-)prefill must write."""
+        if self._replay is None or len(self._replay) != self.replay_len:
+            if self.out:
+                self._replay = np.concatenate(
+                    [self.prompt, np.asarray(self.out[:-1], np.int32)])
+            else:
+                self._replay = self.prompt
+        return self._replay
+
+    @property
+    def in_prefill(self) -> bool:
+        return self.prefilled < self.replay_len
+
+    @property
+    def done(self) -> bool:
+        """A finish event fired, or the token budget is met."""
+        return (self.finish_reason is not None
+                or (not self.in_prefill
+                    and len(self.out) >= self.max_new_tokens))
+
+
+class Scheduler:
+    """Pairs the waiting queue with the shared-page pool."""
+
+    def __init__(self, cache: PagedKVCache, *, max_running: int,
+                 prefill_chunk: int, watermark: int = 1):
+        self.cache = cache
+        self.max_running = max_running
+        self.prefill_chunk = prefill_chunk
+        self.watermark = watermark
+        self.waiting: Deque[Sequence] = deque()
+        self.running: List[Sequence] = []
+        self._next_id = 0
+        self.admitted = 0
+        self.finished = 0
+        self.preemptions = 0
+
+    # -- intake ---------------------------------------------------------------
+
+    def check_fits(self, prompt: np.ndarray, max_new_tokens: int) -> None:
+        """Raise if this request's footprint can never be allocated."""
+        footprint = len(prompt) + max(max_new_tokens - 1, 0)
+        need = self.cache.blocks_for_tokens(footprint)
+        limit = min(self.cache.max_blocks_per_seq, self.cache.num_blocks - 1)
+        if need > limit:
+            raise ValueError(
+                f"request footprint of {need} pages can never fit "
+                f"(per-seq/pool limit {limit})")
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               sampler: Optional[Sampler] = None) -> Sequence:
+        """Queue a request, failing fast if it can never fit."""
+        self.check_fits(prompt, max_new_tokens)
+        if sampler is None:
+            sampler = Sampler(vocab_size=self.cache.cfg.vocab_size)
+        seq = Sequence(self._next_id, np.asarray(prompt, np.int32),
+                       max_new_tokens, sampler=sampler)
+        self._next_id += 1
+        self.waiting.append(seq)
+        return seq
+
+    def abandon(self, seq_ids) -> None:
+        """Drop still-waiting submissions."""
+        drop = set(seq_ids)
+        self.waiting = deque(s for s in self.waiting
+                             if s.seq_id not in drop)
+
+    # -- admission ------------------------------------------------------------
+
+    def admit(self) -> int:
+        """FIFO-admit waiting requests while a lane is free and the pool
+        can plausibly cover the un-cached prompt tail + watermark; the
+        matched prefix pages are attached and the sequence starts
+        ``prefilled`` at the cached boundary. With nothing running the
+        head request is admitted unconditionally (liveness)."""
+        n = 0
+        while self.waiting and len(self.running) < self.max_running:
+            seq = self.waiting[0]
+            if self.cache.prefix_cache and seq.prefix_keys is None:
+                seq.prefix_keys = self.cache.prefix_keys(seq.prompt)
+            pages, matched = self.cache.lookup_prefix(seq.prompt,
+                                                      seq.prefix_keys)
+            need_new = max(0, self.cache.blocks_for_tokens(seq.replay_len)
+                           - len(pages))
+            avail = (self.cache.free_blocks + self.cache.cached_blocks
+                     - sum(1 for p in pages if self.cache.is_cached(p)))
+            if self.running and need_new + self.watermark > avail:
+                break
+            # re-admissions re-attach the sequence's own pages; count only
+            # first admissions so the hit rate reports cross-request sharing.
+            first = seq.restarts == 0
+            self.cache.attach(seq.seq_id, pages,
+                              query_tokens=seq.prompt_len if first else 0,
+                              hit_tokens=matched if first else 0)
+            seq.prefilled = matched
+            self.running.append(self.waiting.popleft())
+            self.admitted += 1
+            n += 1
+        return n
+
+    # -- on-demand growth + preemption ----------------------------------------
+
+    def ensure_tokens(self, seq: Sequence, start: int,
+                      end: int) -> Optional[List[Tuple[int, int]]]:
+        """Make positions ``[start, end)`` writable for ``seq``; on pool
+        exhaustion preempt the youngest running sequence and retry.
+        Returns the COW page copies, or None if ``seq`` itself was
+        preempted."""
+        while True:
+            copies = self.cache.append_tokens(seq.seq_id, start, end)
+            if copies is not None:
+                return copies
+            victim = self.running[-1]
+            self.preempt(victim)
+            if victim is seq:
+                return None
+
+    def preempt(self, seq: Sequence) -> None:
+        """Release page refs and push the sequence to the *front* of the
+        waiting queue, outputs intact."""
+        self.running.remove(seq)
+        self.cache.release(seq.seq_id)
+        seq.prefilled = 0
+        seq.restarts += 1
+        self.waiting.appendleft(seq)
+        self.preemptions += 1
+
+    # -- step composition -----------------------------------------------------
+
+    def next_prefill(self) -> Optional[Sequence]:
+        """Oldest running sequence that still has replay left to write."""
+        for seq in self.running:
+            if seq.in_prefill and not seq.done:
+                return seq
+        return None
+
+    def decode_batch(self, limit: int) -> List[Sequence]:
+        """Up to ``limit`` running sequences ready to decode a token."""
+        return [s for s in self.running
+                if not s.in_prefill and not s.done][:limit]
+
+    def decode_horizon(self, lanes: List[Sequence],
+                       max_horizon: int) -> int:
+        """Safe number of fused decode tokens before the next scheduling
+        event: capped by the smallest remaining budget over the batch,
+        and 1 while any running sequence still has prefill to write.
+        Eos/stop finishes are data-dependent and handled by
+        post-truncation instead."""
+        if not lanes:
+            return 0
+        if any(s.in_prefill for s in self.running):
+            return 1
+        h = max(1, max_horizon)
+        for s in lanes:
+            h = min(h, s.max_new_tokens - len(s.out))
+        return h
+
+    def finish(self, seq: Sequence) -> None:
+        """Release page refs; registered prompt pages stay hot."""
+        self.running.remove(seq)
+        self.cache.release(seq.seq_id)
+        self.finished += 1
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)

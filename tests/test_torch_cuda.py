@@ -1,0 +1,162 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version
+at the full width of qwen2_0_5b, and the engine on the card against the
+same engine on the CPU. Every test here carries the ``cuda`` marker and
+skips without a CUDA device.
+
+This file imports no JAX (the machine with the card need not have it).
+Run it there without the repository's conftest, whose autouse fixtures
+reach into the JAX package::
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances, and why:
+* paged attention on exact-logit inputs (q, k small integers, so every q.k
+  partial sum is exact in fp32): identical codes, only the P.V sum order
+  differs: 1e-5.
+* quantize+norm: codes and int32 sums are exact and the epilogue rounds
+  like the plain ops: 1e-6.
+* engine, card vs CPU: cuBLAS and the CPU sum in other orders, and in SOLE
+  mode a logit that moves across a rounding boundary flips a code: at
+  least 95% of greedy tokens equal.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.core.sole.quant import calibrate_ptf
+from repro_torch.kernels import ailayernorm as KN
+from repro_torch.kernels import flash_e2softmax as KA
+from repro_torch.models import api
+from repro_torch.models.layers import LOGIT_INT8_SCALE
+from repro_torch.serve.engine import PagedEngine, Request
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged_inputs(rng, *, b, c, h, kvh, d, bs, nb, q_start, kv_len):
+    """Kernel-layout inputs on exact-logit grids: q (B, H, C, d), pools
+    (N, bs, KV, d) with large garbage in the null page 0, tables on
+    shuffled pages (kv_len 1 with q_start 0 = a null lane)."""
+    n = b * nb + 1
+    q = rng.integers(-8, 9, (b, h, c, d)) / 4.0
+    k = rng.integers(-8, 9, (n, bs, kvh, d)).astype(np.float64)
+    v = rng.standard_normal((n, bs, kvh, d))
+    k[0] *= 50
+    v[0] *= 50
+    perm = rng.permutation(np.arange(1, n))
+    tables = np.zeros((b, nb), np.int32)
+    for i in range(b):
+        if kv_len[i] > 1 or q_start[i] > 0:
+            used = -(-kv_len[i] // bs)
+            tables[i, :used] = perm[i * nb:i * nb + used]
+    meta = np.stack([q_start, kv_len], 1).astype(np.int32)
+    return q, k, v, tables, meta
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_paged_kernel_matches_plain_full_width(cuda_device, mode, name):
+    """14 q heads, 2 KV heads (groups of 7), head_dim 64, bf16 pools,
+    16-token pages; a causal 128-row chunk at q_start 128, or a decode
+    batch of 8 with two null lanes and kv_len not a multiple of 16."""
+    cfg = get_config("qwen2_0_5b")
+    spec = (dict(b=1, c=128, nb=32, q_start=[128], kv_len=[256])
+            if name == "prefill" else
+            dict(b=8, c=1, nb=32, q_start=[0] * 8,
+                 kv_len=[49, 300, 117, 1, 256, 83, 160, 1]))
+    rng = np.random.default_rng(7)
+    arrays = _paged_inputs(rng, h=cfg.n_heads, kvh=cfg.n_kv_heads,
+                           d=cfg.head_dim, bs=16, **spec)
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(cuda_device, bf) for a in arrays[:3])
+    tables, meta = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    kw = dict(causal=name == "prefill", sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    before = KA.flash_e2softmax_paged.launches
+    out = KA.flash_e2softmax_paged(q, k, v, tables, meta, **kw)
+    assert KA.flash_e2softmax_paged.launches == before + 1
+    kvmap = KA.default_kv_head_map(cfg.n_heads, cfg.n_kv_heads, cuda_device)
+    ref = KA.flash_e2softmax_paged_plain(q, k, v, tables, meta, kvmap, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,rms", [(896, True), (2048, False)])
+@pytest.mark.parametrize("rows", [8, 128])
+def test_qnorm_kernel_matches_plain_full_width(cuda_device, c, rms, rows):
+    rng = np.random.default_rng(c + rows)
+    x = rng.standard_normal((rows, c)).astype(np.float32) * 2
+    x *= 2.0 ** rng.integers(0, 4, size=c)             # every PTF alpha
+    gamma = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    p = calibrate_ptf(xt, unsigned=not rms)
+    assert p.scale.dtype == torch.bfloat16
+    args = (xt.float().contiguous(), p.denom(), p.alpha,
+            torch.from_numpy(gamma).to(cuda_device),
+            torch.from_numpy(0 * beta if rms else beta).to(cuda_device))
+    before = KN.qnorm.launches
+    out = KN.qnorm(*args, rms=rms)
+    assert KN.qnorm.launches == before + 1
+    ref = KN.qnorm_plain(*args, rms=rms)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_calibration_on_card_equals_cpu(cuda_device):
+    """``calibrate_ptf`` gives the same scale and alpha bits on the card
+    as on the CPU, in f32 and in bf16."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((64, 896)).astype(np.float32)
+    x *= 2.0 ** rng.integers(0, 4, size=896)
+    for dt in (torch.float32, torch.bfloat16):
+        xc = torch.from_numpy(x).to(dt)
+        pc = calibrate_ptf(xc, unsigned=False)
+        pg = calibrate_ptf(xc.to(cuda_device), unsigned=False)
+        assert torch.equal(pg.scale.cpu(), pc.scale)
+        assert torch.equal(pg.alpha.cpu(), pc.alpha)
+        assert torch.equal(pg.quantize(xc.to(cuda_device)).cpu(),
+                           pc.quantize(xc))
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+def test_engine_on_card_matches_cpu(cuda_device, mode):
+    """The smoke engine through the kernels (card) and through the plain
+    versions (CPU): both kernels launch, refcounts hold, and at least 95%
+    of greedy tokens agree."""
+    cfg = get_config("qwen2_0_5b").smoke()
+    if mode == "exact":
+        cfg = dataclasses.replace(cfg, softmax_mode="exact",
+                                  norm_mode="exact", logit_int8=False)
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=8)
+            for n in (5, 20, 12, 30, 9)]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                          max_seq_len=64, decode_batch=4, prefill_chunk=8,
+                          device=dev)
+        attn0, norm0 = KA.flash_e2softmax_paged.launches, KN.qnorm.launches
+        outs.append(eng.generate(reqs))
+        eng.cache.check_refcounts()
+        if dev == cuda_device:
+            assert KA.flash_e2softmax_paged.launches > attn0
+            assert (KN.qnorm.launches > norm0) == (mode == "sole")
+    pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+    assert all(len(o) == 8 for o in outs[1])
+    assert sum(a == b for a, b in pairs) / len(pairs) >= 0.95
