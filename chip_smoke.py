@@ -7,22 +7,30 @@ NVIDIA GPU. Run from the repository root with no arguments::
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``-Xptxas -v``;
-3. hold each kernel against its plain torch version at the serve path's
-   shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal),
-   paged decode (B=decode_batch, C=1), the quantize+norm at those rows
-   (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width);
+3. hold each kernel against its plain torch version at the serve paths'
+   shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
+   decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
+   (``quant_pv`` on and off, SOLE and exact), the quantize+norm at those
+   rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), and the
+   int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path and two ragged
+   shapes;
 4. serve greedy requests through ``PagedEngine`` at the full width of
-   qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), with
-   every kernel launch counter set to 0 just before and read just after;
-   check output lengths, finish reasons, refcounts and that both kernels
-   ran; then hold a smoke-size engine on the card against the same
-   engine on the CPU;
+   qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), twice:
+   first in bf16 (bf16 weights and pages), then at w8a8 with int8 KV
+   pages. Every kernel launch counter is set to 0 just before each trace
+   and read just after it; check output lengths, finish reasons,
+   refcounts and that the path's kernels ran (at w8a8: 169 int8 GEMM
+   launches per forward, paged attention over int8 pools); then hold
+   smoke-size engines on the card against the same engines on the CPU
+   (bf16 exact and SOLE, w8a8 exact with float and int8 pages);
 5. time each kernel and its plain version with CUDA events (L2 flushed
    before every launch), the kernel alone with ``torch.profiler``, beside
-   the bound the card's memory rate sets;
-6. profile one decode-heavy wave of the engine: the device-busy share of
+   the bound the card's memory rate or peak sets and, for the int8 GEMM,
+   ``torch._int_mm`` where it takes the shape (a yardstick the port never
+   calls);
+6. profile one decode-heavy wave of each engine: the device-busy share of
    the wall time and the kernels with the most device time.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
@@ -43,12 +51,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 QNORM_OPS_PER_ELEMENT = 16         # divide, round, clip, square, shifts, sums, affine
 PREFILL_CHUNK = 128
 DECODE_BATCH = 8
 BLOCK_SIZE = 16
 MAX_SEQ_LEN = 512
 NEW_TOKENS = 32
+# (K, N) of the w8a8 path's GEMMs: wq/wo, wk/wv, gate/up, down, LM head;
+# per forward 24 layers x 7 projections + the head.
+GEMM_KN = (("wq_wo", 896, 896), ("wk_wv", 896, 128),
+           ("gate_up", 896, 4864), ("down", 4864, 896),
+           ("head", 896, 151936))
+GEMM_PER_FORWARD = 24 * 7 + 1
 
 
 def log(msg: str) -> None:
@@ -66,11 +81,14 @@ def nvidia_smi_line() -> str:
 # -- kernel inputs at the path's shapes ---------------------------------------
 
 
-def paged_case(torch, gen, *, b, c, q_start, kv_lens, h, kvh, d, grid):
+def paged_case(torch, gen, *, b, c, q_start, kv_lens, h, kvh, d, grid,
+               int8=False):
     """Random paged-attention inputs: a pool with shuffled pages, garbage
     in the null page 0, tables covering each sequence's keys. ``grid``
     draws q and k from small integers so every q.k partial sum is exact
-    in fp32 and the kernel's codes must equal the plain version's."""
+    in fp32 and the kernel's codes must equal the plain version's.
+    ``int8`` gives int8 code pools (K on the grid, V over the full
+    range), as the w8a8 path stores them."""
     dev = "cuda"
     nb = MAX_SEQ_LEN // BLOCK_SIZE
     n = b * nb + 1
@@ -91,6 +109,11 @@ def paged_case(torch, gen, *, b, c, q_start, kv_lens, h, kvh, d, grid):
     meta = torch.tensor([[q_start[i], kv_lens[i]] for i in range(b)],
                         dtype=torch.int32, device=dev)
     bf = torch.bfloat16
+    if int8:
+        v = torch.randint(-127, 128, v.shape, generator=gen, device=dev)
+        k = k if grid else torch.clamp(torch.round(k * 16), -127, 127)
+        return (q.to(bf).contiguous(), k.to(torch.int8).contiguous(),
+                v.to(torch.int8).contiguous(), tables, meta)
     return (q.to(bf).contiguous(), k.to(bf).contiguous(),
             v.to(bf).contiguous(), tables, meta)
 
@@ -256,18 +279,101 @@ def check_kernels(torch, cfg):
     return results, norm
 
 
-def serve_full_width(torch, cfg):
-    """Phase 4: the main path at full width, counts from this run only."""
+def check_int8_paged(torch, cfg):
+    """Phase 3, int8 pools: the paged kernel against its plain version at
+    the decode and prefill-chunk shapes, ``quant_pv`` on and off, SOLE
+    (int8-snapped logits) and exact, on exact-logit inputs: identical
+    codes, only the P.V sum order differs (1e-5 of the output scale)."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+    shapes = {
+        "prefill": dict(b=1, c=PREFILL_CHUNK, q_start=[PREFILL_CHUNK],
+                        kv_lens=[2 * PREFILL_CHUNK]),
+        "decode": dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+                       kv_lens=[49, 300, 117, 1, 256, 83, 160, 1]),
+    }
+    results = {}
+    for name, sh in shapes.items():
+        causal = name == "prefill"
+        case = paged_case(torch, gen, h=h, kvh=kvh, d=d, grid=True,
+                          int8=True, **sh)
+        errs = {}
+        for mode in ("sole", "exact"):
+            for quant_pv in (True, False):
+                kw = dict(sole=mode == "sole", exp_bits=cfg.exp_bits,
+                          int8_scale=LOGIT_INT8_SCALE if mode == "sole"
+                          else None, kv_scale=KV_INT8_SCALE, quant_pv=quant_pv)
+                out = KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+                ref = KA.flash_e2softmax_paged_plain(*case, kvmap,
+                                                     causal=causal, **kw)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                tol = 1e-5 * max(ref.abs().max().item(), 1.0)
+                if not torch.isfinite(out).all() or err > tol:
+                    raise AssertionError(
+                        f"paged_e2softmax int8 {name} {mode} quant_pv="
+                        f"{quant_pv}: max |err| {err} > {tol}")
+                errs[f"{mode}{'_pv' if quant_pv else ''}"] = err
+        results[name] = dict(case=case, causal=causal, errs=errs,
+                             max_abs_err=max(errs.values()))
+        log(f"paged_e2softmax int8 pools {name}: max|err| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+    return results
+
+
+def check_int8_gemm(torch):
+    """Phase 3, int8 GEMM: bitwise equal to its plain version (float64,
+    exact) at every path shape (M = decode_batch or prefill_chunk) and
+    two ragged ones, on random codes with one all-127 row and column
+    (the largest sums)."""
+    from repro_torch.kernels import int8_matmul as KM
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(f"{nm}_m{m}", m, k, n) for m in (DECODE_BATCH, PREFILL_CHUNK)
+              for nm, k, n in GEMM_KN]
+    shapes += [("ragged_7x130x33", 7, 130, 33),
+               ("ragged_64x256x128", 64, 256, 128)]
+    results = {}
+    for name, m, k, n in shapes:
+        x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        x[0] = 127
+        w[:, 0] = 127
+        out = KM.int8_matmul(x, w)
+        ref = KM.int8_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if out.dtype != torch.int32 or not torch.equal(out, ref):
+            bad = (out != ref).sum().item()
+            raise AssertionError(f"int8_matmul {name} ({m}x{k}x{n}): "
+                                 f"{bad} of {out.numel()} outputs differ")
+        results[name] = dict(x=x, w=w, max_abs_err=0.0)
+    log(f"int8_matmul: bitwise equal to the plain version at {len(shapes)}"
+        " shapes: " + ", ".join(f"{nm} {m}x{k}x{n}"
+                               for nm, m, k, n in shapes))
+    return results
+
+
+def serve_full_width(torch, cfg, label):
+    """Phase 4: one main path at full width, counts from this run only.
+    At w8a8 also checks 169 int8 GEMM launches per forward (24 paged
+    attention launches mark one forward) and int8 page pools, and reports
+    the peak device memory of the trace."""
     import numpy as np
     from repro_torch.kernels import ailayernorm as KN
     from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.kernels import int8_matmul as KM
     from repro_torch.models import api
     from repro_torch.serve.engine import PagedEngine, Request
 
     t0 = time.time()
     params = api.init_params(0, cfg, "cuda")
     torch.cuda.synchronize()
-    log(f"init_params: {time.time() - t0:.2f} s")
+    log(f"[{label}] init_params: {time.time() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
     eng = PagedEngine(cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
                       block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
                       max_running=8, decode_batch=DECODE_BATCH,
@@ -284,6 +390,7 @@ def serve_full_width(torch, cfg):
 
     KA.flash_e2softmax_paged.launches = 0
     KN.qnorm.launches = 0
+    KM.int8_matmul.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     out1 = eng.generate(wave1)
@@ -303,7 +410,9 @@ def serve_full_width(torch, cfg):
     torch.cuda.synchronize()
     t2 = time.time() - t0
     launches = {"paged_e2softmax": KA.flash_e2softmax_paged.launches,
-                "ailayernorm_qnorm": KN.qnorm.launches}
+                "ailayernorm_qnorm": KN.qnorm.launches,
+                "int8_matmul": KM.int8_matmul.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = eng.stats()
     eng.cache.check_refcounts()
 
@@ -327,33 +436,57 @@ def serve_full_width(torch, cfg):
         raise AssertionError(f"finish reasons {stats['finish_reasons']}")
     if stats["prefix_hit_tokens"] < 64 + len(prompts[0]) - 1:
         raise AssertionError(f"prefix hits {stats['prefix_hit_tokens']}")
-    for name, n in launches.items():
-        if n <= 0:
+    w8a8 = cfg.quant.acts
+    path_kernels = (("paged_e2softmax", "ailayernorm_qnorm", "int8_matmul")
+                    if w8a8 else ("paged_e2softmax", "ailayernorm_qnorm"))
+    for name in path_kernels:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
+    forwards, rest = divmod(launches["paged_e2softmax"], cfg.n_layers)
+    if rest:
+        raise AssertionError(f"{launches['paged_e2softmax']} attention "
+                             f"launches are not whole forwards")
+    if w8a8:
+        if launches["int8_matmul"] != GEMM_PER_FORWARD * forwards:
+            raise AssertionError(
+                f"{launches['int8_matmul']} int8 GEMM launches over "
+                f"{forwards} forwards, not {GEMM_PER_FORWARD} each")
+        dtypes = {str(p.dtype) for p in eng.cache.pools.values()}
+        if dtypes != {"torch.int8"}:
+            raise AssertionError(f"w8a8 trace pools are {dtypes}, not int8")
+    elif launches["int8_matmul"]:
+        raise AssertionError("the bf16 path launched the int8 GEMM")
     n_tok = sum(len(o) for o in out1 + out2)
-    log(f"served {len(out1) + len(out2)} requests, {n_tok} new tokens: "
-        f"wave 1 {t1:.3f} s, wave 2 {t2:.3f} s ({n_tok / (t1 + t2):.1f} "
-        f"tok/s); eos request: {len(o)} tokens, eos fired: {eos_fired}")
-    log("engine stats: " + json.dumps(stats, sort_keys=True))
-    log("launches on the main path: " + json.dumps(launches))
+    log(f"[{label}] served {len(out1) + len(out2)} requests, {n_tok} new "
+        f"tokens: wave 1 {t1:.3f} s, wave 2 {t2:.3f} s "
+        f"({n_tok / (t1 + t2):.1f} tok/s); eos request: {len(o)} tokens, "
+        f"eos fired: {eos_fired}; {forwards} forwards; peak device memory "
+        f"{peak_gib:.3f} GiB")
+    log(f"[{label}] engine stats: " + json.dumps(stats, sort_keys=True))
+    log(f"[{label}] launches on the path: " + json.dumps(launches))
     return launches, {"wave1_s": t1, "wave2_s": t2, "new_tokens": n_tok,
-                      "eos_fired": eos_fired}, params
+                      "eos_fired": eos_fired, "forwards": forwards,
+                      "max_memory_allocated_gib": peak_gib}, params
 
 
 def small_engine_parity(torch):
     """The same smoke-size trace through the kernels (cuda) and the plain
-    versions (cpu): >= 95% of greedy tokens equal in exact and SOLE mode
-    (cuBLAS and the CPU sum in other orders; in SOLE mode a logit that
-    moves across a rounding boundary flips a code)."""
+    versions (cpu): in bf16, >= 95% of greedy tokens equal in exact and
+    SOLE mode (cuBLAS and the CPU sum in other orders; in SOLE mode a
+    logit that moves across a rounding boundary flips a code); at w8a8 in
+    exact mode, with float and with int8 pages, tokens equal (every
+    projection is an exact int32 sum)."""
     import numpy as np
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import QuantConfig, get_config
     from repro_torch.models import api
     from repro_torch.serve.engine import PagedEngine, Request
-    for mode in ("exact", "sole"):
-        cfg = get_config("qwen2_0_5b").smoke()
-        if mode == "exact":
-            cfg = dataclasses.replace(cfg, softmax_mode="exact",
-                                      norm_mode="exact", logit_int8=False)
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    w8a8 = dict(exact, quant=QuantConfig("w8a8"))
+    for mode, change, bar in (
+            ("exact", exact, 0.95), ("sole", {}, 0.95),
+            ("w8a8 exact", w8a8, 1.0),
+            ("w8a8 exact int8 kv", dict(w8a8, kv_cache_dtype="int8"), 1.0)):
+        cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(), **change)
         params = api.init_params(0, cfg, "cpu")
         rng = np.random.default_rng(1)
         reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
@@ -369,8 +502,8 @@ def small_engine_parity(torch):
         pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
         agree = sum(a == b for a, b in pairs) / len(pairs)
         log(f"smoke engine cuda vs cpu, {mode}: token agreement {agree:.3f}")
-        if agree < 0.95:
-            raise AssertionError(f"smoke parity {mode}: {agree}")
+        if agree < bar:
+            raise AssertionError(f"smoke parity {mode}: {agree} < {bar}")
 
 
 def time_kernels(torch, attn, norm, launches, cfg):
@@ -447,7 +580,100 @@ def time_kernels(torch, attn, norm, launches, cfg):
     return table
 
 
-def profile_engine(torch, cfg, params):
+def _int_mm_ms(torch, x, w, flush):
+    """``torch._int_mm`` (cuBLAS) on the same inputs, the yardstick:
+    (ms, note), or (None, why it refused). The port never calls it."""
+    from repro_torch.kernels.int8_matmul import int8_matmul_plain
+    try:
+        exact = torch.equal(torch._int_mm(x, w), int8_matmul_plain(x, w))
+    except RuntimeError as e:
+        return None, "torch._int_mm refuses: " + str(e).strip()[:120]
+    ms = time_ms(torch, lambda: torch._int_mm(x, w), flush)
+    return ms, "torch._int_mm" + ("" if exact else
+                                  ", NOT equal to the exact product")
+
+
+def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
+    """Phase 5 for the w8a8 path: the paged kernel over int8 pools (SOLE,
+    ``quant_pv``, as the path runs it) and the int8 GEMM at every path
+    shape, timed like the bf16 kernels; launches from the w8a8 trace."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.kernels import int8_matmul as KM
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+    kw = dict(sole=True, exp_bits=cfg.exp_bits, int8_scale=LOGIT_INT8_SCALE,
+              kv_scale=KV_INT8_SCALE, quant_pv=True)
+    paged = dict(name="paged_e2softmax_int8kv", route="cuda",
+                 source="src/repro_torch/kernels/csrc/paged_e2softmax.cu",
+                 replaces="src/repro/kernels/flash_e2softmax.py:186",
+                 shapes={})
+    for name, res in attn8.items():
+        case, causal = res["case"], res["causal"]
+
+        def run():
+            return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+        nbytes, flops = attention_work(case, causal, h, kvh, d)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        paged["shapes"][name] = dict(
+            shape=f"q {tuple(case[0].shape)} int8 pools kv_len "
+                  f"{case[4][:, 1].tolist()}",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "paged_e2softmax_kernel"),
+            plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
+                *case, kvmap, causal=causal, **kw), flush, reps=5),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            bytes=nbytes, flops=flops)
+    mm = dict(name="int8_matmul", route="cuda",
+              source="src/repro_torch/kernels/csrc/int8_matmul.cu",
+              replaces="src/repro/kernels/int8_matmul.py:29", shapes={})
+    for name, res in gemm.items():
+        if name.startswith("ragged"):
+            continue
+        x, w = res["x"], res["w"]
+        (m, k), n = x.shape, w.shape[1]
+        nbytes = m * k + k * n + 4 * m * n
+        bms, by = bound_ms(nbytes, 2 * m * k * n, INT8_OPS)
+        lib_ms, lib_note = _int_mm_ms(torch, x, w, flush)
+        mm["shapes"][name] = dict(
+            shape=f"M {m} K {k} N {n}",
+            ms=time_ms(torch, lambda: KM.int8_matmul(x, w), flush),
+            kernel_ms=profiled_kernel_ms(torch, lambda: KM.int8_matmul(x, w),
+                                         flush, "int8_matmul_kernel"),
+            plain_ms=time_ms(torch, lambda: KM.int8_matmul_plain(x, w),
+                             flush, reps=5),
+            library_ms=lib_ms, library=lib_note, bound_ms=bms, bound_by=by,
+            max_abs_err=0.0, bytes=nbytes, ops=2 * m * k * n)
+    # the most-launched shapes: a decode step; for the GEMM its largest,
+    # the LM head
+    for e, key, main in ((paged, "paged_e2softmax", "decode"),
+                         (mm, "int8_matmul", f"head_m{DECODE_BATCH}")):
+        top = e["shapes"][main]
+        e.update(launches=launches[key], max_abs_err=max(
+            v["max_abs_err"] for v in e["shapes"].values()),
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top.get("library_ms"),
+            main_shape=main)
+    for e in (paged, mm):
+        for sname, v in e["shapes"].items():
+            k = v["kernel_ms"]
+            lib = v.get("library")
+            log(f"{e['name']} {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+                f"(profiler: kernel "
+                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
+                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']}"
+                + ("" if lib is None else
+                   f"; {lib}: " + ("-" if v["library_ms"] is None
+                                   else f"{v['library_ms'] * 1e3:.1f} us"))
+                + ")")
+    return [paged, mm]
+
+
+def profile_engine(torch, cfg, params, label):
     """Where the time goes on the main path: one decode-heavy wave
     (8 requests, 128-token prompts, 32 new tokens) under torch.profiler.
     Prints the device-busy share of the wall time and the kernels with
@@ -475,8 +701,9 @@ def profile_engine(torch, cfg, params):
                    for e in prof.key_averages() if _device_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"profiled wave: wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"({busy / wall:.3f} of wall), {len(reqs) * NEW_TOKENS} new tokens")
+    log(f"[{label}] profiled wave: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({busy / wall:.3f} of wall), "
+        f"{len(reqs) * NEW_TOKENS} new tokens")
     for us, n, key in rows[:12]:
         log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
     return {"wall_s": wall, "device_busy_s": busy,
@@ -495,7 +722,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from repro_torch.configs.base import get_config
+        from repro_torch.configs.base import QuantConfig, get_config
         from repro_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -516,12 +743,23 @@ def main() -> int:
                 if "ptxas" in line or "bytes" in line:
                     log(f"[{name}] {line.strip()}")
         cfg = get_config("qwen2_0_5b")
+        cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
+                                   kv_cache_dtype="int8")
         attn, norm = check_kernels(torch, cfg)
-        launches, trace, params = serve_full_width(torch, cfg)
+        attn8 = check_int8_paged(torch, cfg)
+        gemm = check_int8_gemm(torch)
+        launches, trace, params = serve_full_width(torch, cfg, "bf16")
+        launches8, trace8, params8 = serve_full_width(torch, cfg8, "w8a8")
         small_engine_parity(torch)
         table = time_kernels(torch, attn, norm, launches, cfg)
-        trace["profile"] = profile_engine(torch, cfg, params)
-        log(json.dumps({"trace": trace}))
+        table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
+        for e in table:
+            if e["name"] == "ailayernorm_qnorm":
+                e["launches_w8a8"] = launches8["ailayernorm_qnorm"]
+        trace["profile"] = profile_engine(torch, cfg, params, "bf16")
+        del params
+        trace8["profile"] = profile_engine(torch, cfg8, params8, "w8a8")
+        log(json.dumps({"trace": trace, "trace_w8a8": trace8}))
     except Exception:
         traceback.print_exc()
         return 1

@@ -15,7 +15,8 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
     """Serving-time quantization knob (SOLE W8A8 pipeline): ``off`` |
-    ``w8a16`` | ``w8a8``. The port serves ``off`` only so far."""
+    ``w8a16`` | ``w8a8`` (int8 weights; at w8a8 also int8 activations
+    between ops)."""
 
     mode: str = "off"
 

@@ -7,6 +7,11 @@ in its serving dtype — ``cfg.dtype`` for projections, biases and
 embeddings, which is bit-identical to the reference's per-use ``cast``
 (both round to nearest even), and float32 for norm gains and biases,
 which the reference feeds to its norms uncast.
+
+Under ``cfg.quant.weights`` packed ``{"q", "s"}`` leaves become int8 codes
+and float32 scales, and unpacked matmul weights (``QUANT_WEIGHT_SPEC``)
+stay float32 so that the engine packs them from the same float32 masters
+as the reference: codes packed from a bf16 copy would differ.
 """
 from __future__ import annotations
 
@@ -17,25 +22,32 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import torch_dtype
+from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC
 
 NORM_KEYS = ("ln1", "ln2", "final_norm")
 
 
 def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda"):
     """Reference value tree (numpy leaves) -> the port's tensors."""
-    if cfg.quant.mode != "off":
-        raise NotImplementedError("quantized weights come with the W8A8 "
-                                  "slice (ROADMAP.md queue 1 item 6)")
     dt = torch_dtype(cfg.dtype)
+    quant = cfg.quant.weights
 
-    def conv(node, in_norm: bool):
+    def leaf(a, dtype):
+        return torch.tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    def conv(node, key, in_norm: bool):
         if isinstance(node, Mapping):
             if set(node) == {"q", "s"}:
-                raise NotImplementedError("int8 weight leaves are not ported")
-            return {k: conv(v, in_norm or k in NORM_KEYS)
+                if not quant:
+                    raise ValueError(
+                        f"packed int8 leaf {key!r} under quant mode "
+                        f"{cfg.quant.mode!r}")
+                return {"q": leaf(node["q"], torch.int8),
+                        "s": leaf(node["s"], torch.float32)}
+            return {k: conv(v, k, in_norm or k in NORM_KEYS)
                     for k, v in node.items()}
-        a = torch.tensor(np.asarray(node))
-        return a.to(device=device,
-                    dtype=torch.float32 if in_norm else dt)
+        if in_norm or (quant and key in QUANT_WEIGHT_SPEC):
+            return leaf(node, torch.float32)
+        return leaf(node, dt)
 
-    return conv(tree, False)
+    return conv(tree, None, False)

@@ -64,3 +64,64 @@ def calibrate_ptf(x: torch.Tensor, *, max_alpha: int = 3,
     alpha = torch.clamp(expo, 0, max_alpha).to(torch.int32)
     return PTFQuantParams(scale=scale, zero_point=128 if unsigned else 0,
                           alpha=alpha, unsigned=unsigned)
+
+
+# -- W8A8 serving primitives --------------------------------------------------
+#
+# Weights: per-output-channel symmetric int8, the scale reducing over the
+# matmul's contraction axes (the leading axes of every serve-path weight),
+# so it applies once after the int8 dot. Activations: dynamic per-row
+# symmetric int8 over the contracted trailing axes. Codes are
+# ``round(x / scale)`` (half to even) in float32, clipped to +-127.
+#
+# The two scales follow the reference as it runs. The engine packs weights
+# eagerly: ``where(amax > 0, amax, 1) / 127`` in the weight's dtype, then
+# float32. Activations are quantized inside the jitted model steps, where
+# XLA rewrites the division by the constant 127 into a float32 multiply by
+# its rounded reciprocal (and computes a bf16 amax in float32): the scale
+# is ``float32(amax) * float32(1 / 127)``, which differs from the division
+# in the last bit for ~5% of rows. Per-row codes of a SOLE norm's output
+# sit exactly on rounding ties often enough that the last bit decides
+# codes, so the port takes the jitted form.
+
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def is_qtensor(x) -> bool:
+    """A packed int8 weight: ``{"q": codes, "s": scale}`` and nothing else."""
+    return isinstance(x, dict) and set(x.keys()) == {"q", "s"}
+
+
+def _nonzero(amax: torch.Tensor) -> torch.Tensor:
+    return torch.where(amax > 0, amax, torch.ones_like(amax))
+
+
+def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    q = torch.round(x.float() / scale)
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def quantize_weight(w: torch.Tensor, n_contract: int = 1, *,
+                    offset: int = 0) -> dict:
+    """Per-output-channel symmetric int8 over the ``n_contract``
+    contraction axes starting at ``offset`` (``offset`` > 0 skips leading
+    stacking axes such as ``layers``). Returns ``{"q": int8 codes, "s":
+    float32 scale}``, the scale keeping the contraction axes as size 1."""
+    axes = tuple(range(offset, offset + n_contract))
+    amax = w.abs().amax(dim=axes, keepdim=True)
+    scale = true_div(_nonzero(amax), 127.0).float()
+    return {"q": _codes(w, scale), "s": scale}
+
+
+def dequantize_weight(qw: dict) -> torch.Tensor:
+    return qw["q"].float() * qw["s"]
+
+
+def quantize_act(x: torch.Tensor, n_contract: int = 1):
+    """Dynamic per-row symmetric int8 over the trailing ``n_contract``
+    axes: ``(int8 codes, float32 scale)``, the scale keeping the reduced
+    axes as size 1."""
+    axes = tuple(range(x.ndim - n_contract, x.ndim))
+    amax = _nonzero(x.abs().amax(dim=axes, keepdim=True)).float()
+    scale = amax * _INV_127.to(amax.device)
+    return _codes(x, scale), scale

@@ -20,6 +20,10 @@
 //   s = s * corr + sum(w);  acc = acc * corr + w . v
 // and at the end out = acc * 2^-e * {1.636, 1.136} (ALDivision, e and the
 // mantissa bit from frexp(max(s, 2^-30))) or acc / s (exact mode).
+// Int8 page pools (the W8A8 path) carry codes with one scale kv_scale: K is
+// dequantized as it is staged (k * kv_scale in fp32, like the TPU kernel),
+// and so is V unless quant_pv, where P.V accumulates the raw V codes and
+// kv_scale multiplies the final row scale instead.
 // A page is skipped when its first column is >= kv_len or, causal, past the
 // tile's last query row: for rows that see none of its keys the update is
 // the identity (corr = 1, w = 0), so this matches the TPU kernel's skip.
@@ -29,6 +33,7 @@
 // head dimension, about 1 flop per byte; prefill chunks reach ~BQ flops
 // per byte, still far below the card's ~295 operations per byte. The bound
 // is the bytes of q, the live K/V pages and the output at 3.35 TB/s.
+// Int8 pools halve the page bytes of bf16 ones.
 // Design, simple and right first: each page's K and V tile goes through
 // shared memory as fp32 (K rows padded by one word against bank conflicts),
 // one warp per query row computes the page's logits (a lane per key), the
@@ -41,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,6 +63,7 @@ constexpr float kAldivBiasHalf = 1.136f;    // ALDIV_BIAS - 0.5 in float32
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -69,14 +77,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 __global__ void __launch_bounds__(kThreads)
-paged_e2softmax_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool, const int* __restrict__ tables,
+paged_e2softmax_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
+                       const TP* __restrict__ v_pool, const int* __restrict__ tables,
                        const int* __restrict__ meta, const int* __restrict__ kv_head_map,
                        float* __restrict__ out, int H, int C, int d, int bs, int KV,
                        int NB, int BQ, int causal, int sole, int exp_bits,
-                       int has_snap, float int8_scale, float qk_scale) {
+                       int has_snap, float int8_scale, float qk_scale,
+                       int quant_pv, float kv_scale) {
+  // Int8 pools always carry kv_scale; float pools compile without it.
+  constexpr bool kInt8Pool = std::is_same<TP, int8_t>::value;
   extern __shared__ float smem[];
   const int kstride = d + 1;
   float* Ks = smem;                         // bs x (d + 1)
@@ -92,7 +103,7 @@ paged_e2softmax_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const float kmax = (float)((1 << exp_bits) - 1);
   const float submax = (float)((1 << (exp_bits + 2)) - 1);
 
-  const T* qb = q + (((size_t)b * H + h) * C + q0) * d;
+  const TQ* qb = q + (((size_t)b * H + h) * C + q0) * d;
   for (int idx = threadIdx.x; idx < rows * d; idx += kThreads)
     Qs[idx] = __fmul_rn(to_f32(qb[idx]), qk_scale);
 
@@ -116,8 +127,14 @@ paged_e2softmax_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int idx = threadIdx.x; idx < bs * d; idx += kThreads) {
       const int t = idx / d, i = idx - t * d;
       const size_t src = ((page * bs + t) * KV + kvh) * (size_t)d + i;
-      Ks[t * kstride + i] = to_f32(k_pool[src]);
-      Vs[idx] = to_f32(v_pool[src]);
+      if constexpr (kInt8Pool) {
+        const float vf = to_f32(v_pool[src]);
+        Ks[t * kstride + i] = __fmul_rn(to_f32(k_pool[src]), kv_scale);
+        Vs[idx] = quant_pv ? vf : __fmul_rn(vf, kv_scale);
+      } else {
+        Ks[t * kstride + i] = to_f32(k_pool[src]);
+        Vs[idx] = to_f32(v_pool[src]);
+      }
     }
     __syncthreads();
 
@@ -196,6 +213,7 @@ paged_e2softmax_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     } else {
       scale = __fdiv_rn(1.0f, s);
     }
+    if (kInt8Pool && quant_pv) scale = __fmul_rn(scale, kv_scale);
     float* orow = out + (((size_t)b * H + h) * C + q0 + r) * d;
 #pragma unroll
     for (int ch = 0; ch < kMaxDimChunks; ++ch) {
@@ -205,26 +223,28 @@ paged_e2softmax_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
            const void* meta, const void* kv_head_map, void* out, int B, int H, int C,
            int d, int bs, int KV, int NB, int causal, int sole, int exp_bits,
-           int has_snap, float int8_scale, float qk_scale, cudaStream_t stream) {
+           int has_snap, float int8_scale, float qk_scale, int quant_pv,
+           float kv_scale, cudaStream_t stream) {
   const int BQ = C < kWarps * kMaxRowsPerWarp ? C : kWarps * kMaxRowsPerWarp;
   const size_t smem = sizeof(float) *
       ((size_t)bs * (d + 1) + (size_t)bs * d + (size_t)BQ * d + (size_t)kWarps * bs);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_e2softmax_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(paged_e2softmax_kernel<TQ, TP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(B, H, (C + BQ - 1) / BQ);
-  paged_e2softmax_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(meta),
-      static_cast<const int*>(kv_head_map), static_cast<float*>(out), H, C, d, bs, KV, NB,
-      BQ, causal, sole, exp_bits, has_snap, int8_scale, qk_scale);
+  paged_e2softmax_kernel<TQ, TP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool), static_cast<const int*>(tables),
+      static_cast<const int*>(meta), static_cast<const int*>(kv_head_map),
+      static_cast<float*>(out), H, C, d, bs, KV, NB, BQ, causal, sole, exp_bits, has_snap,
+      int8_scale, qk_scale, quant_pv, kv_scale);
   return (int)cudaGetLastError();
 }
 
@@ -236,23 +256,33 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q: (B, H, C, d); k_pool, v_pool: (N, bs, KV, d), all float32 (is_bf16 = 0)
-// or all bfloat16 (is_bf16 = 1), contiguous; tables: (B, NB) int32;
-// meta: (B, 2) int32 rows (q_start, kv_len); kv_head_map: (H,) int32;
-// out: (B, H, C, d) float32. Requires d <= 256. Launches on `stream` and
-// returns the launch's cudaError_t (0 on success).
+// Element types: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
+// q: (B, H, C, d) of q_type; k_pool, v_pool: (N, bs, KV, d) of pool_type,
+// which is q_type or int8; all contiguous. tables: (B, NB) int32; meta:
+// (B, 2) int32 rows (q_start, kv_len); kv_head_map: (H,) int32; out:
+// (B, H, C, d) float32. Int8 pools are dequantized by kv_scale: K, and V
+// unless quant_pv, where kv_scale multiplies the final row scale instead;
+// float pools ignore kv_scale and quant_pv.
+// Requires d <= 256. Launches on `stream` and returns the launch's
+// cudaError_t (0 on success; cudaErrorInvalidValue for a type pair it
+// does not take).
 int paged_e2softmax(const void* q, const void* k_pool, const void* v_pool,
                     const void* tables, const void* meta, const void* kv_head_map,
                     void* out, int B, int H, int C, int d, int bs, int KV, int NB,
-                    int causal, int sole, int exp_bits, int has_snap, int is_bf16,
-                    float int8_scale, float qk_scale, void* stream) {
+                    int causal, int sole, int exp_bits, int has_snap, int q_type,
+                    int pool_type, int quant_pv, float int8_scale,
+                    float qk_scale, float kv_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, meta, kv_head_map, out, B, H,
-                                 C, d, bs, KV, NB, causal, sole, exp_bits, has_snap,
-                                 int8_scale, qk_scale, s);
-  return launch<float>(q, k_pool, v_pool, tables, meta, kv_head_map, out, B, H, C, d, bs,
-                       KV, NB, causal, sole, exp_bits, has_snap, int8_scale, qk_scale, s);
+#define REPRO_PAGED_LAUNCH(TQ, TP)                                                     \
+  return launch<TQ, TP>(q, k_pool, v_pool, tables, meta, kv_head_map, out, B, H, C, d, \
+                        bs, KV, NB, causal, sole, exp_bits, has_snap, int8_scale,       \
+                        qk_scale, quant_pv, kv_scale, s)
+  if (q_type == 0 && pool_type == 0) REPRO_PAGED_LAUNCH(float, float);
+  if (q_type == 1 && pool_type == 1) REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_type == 0 && pool_type == 2) REPRO_PAGED_LAUNCH(float, int8_t);
+  if (q_type == 1 && pool_type == 2) REPRO_PAGED_LAUNCH(__nv_bfloat16, int8_t);
+#undef REPRO_PAGED_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

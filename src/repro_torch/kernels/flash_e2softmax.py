@@ -8,9 +8,13 @@ pools (N, bs, KV, d), tables (B, NB) int32, meta (B, 2) int32 rows
 (q_start, kv_len), optional kv_head_map (H,) int32; output
 (B, H, C, d) float32.
 
+Pools may hold int8 codes with one scale ``kv_scale`` (the W8A8 path):
+K is dequantized page by page in float32, and so is V unless
+``quant_pv``, where P.V accumulates the raw V codes and ``kv_scale``
+multiplies the final row scale (exact: it is a power of two).
+
 A wrapper given CPU tensors computes the plain version; given CUDA
-tensors it launches the kernel or raises. Int8 page pools (``kv_scale``,
-``quant_pv``) belong to the W8A8 slice and raise here.
+tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -41,7 +45,9 @@ def default_kv_head_map(h: int, kvh: int, device) -> torch.Tensor:
 
 def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
                                 *, causal: bool, sole: bool, exp_bits: int,
-                                int8_scale: Optional[float]) -> torch.Tensor:
+                                int8_scale: Optional[float],
+                                kv_scale: Optional[float] = None,
+                                quant_pv: bool = False) -> torch.Tensor:
     """The kernel's function in plain torch: one online update per page,
     pages in table order, the whole batch at once (a page a sequence
     does not run leaves its state untouched)."""
@@ -65,6 +71,10 @@ def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
         pages = tables[:, j]
         k = k_pool[pages][:, :, kvmap].float()                      # (B,bs,H,d)
         v = v_pool[pages][:, :, kvmap].float()
+        if kv_scale is not None:                    # int8 page pools
+            k = k * kv_scale
+            if not quant_pv:
+                v = v * kv_scale
         logits = torch.einsum("bhcd,bthd->bhct", qf, k)
         cols = j * bs + torch.arange(bs, device=dev)
         mask = (cols[None, :] < kv_len[:, None])[:, None, None, :]  # (B,1,1,bs)
@@ -98,6 +108,8 @@ def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
         scale = factor.float() * exp2_int(-expo)
     else:
         scale = torch.ones_like(s) / s
+    if quant_pv and kv_scale is not None:
+        scale = scale * kv_scale
     return acc * scale[..., None]
 
 
@@ -113,8 +125,12 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# element type codes of the kernel's C interface
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
 def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
-            exp_bits, int8_scale) -> torch.Tensor:
+            exp_bits, int8_scale, kv_scale, quant_pv) -> torch.Tensor:
     b, h, c, d = q.shape
     n, bs, kvh, dk = k_pool.shape
     nb = tables.shape[1]
@@ -122,9 +138,10 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
                         "bfloat16")
+    pool_dtype = torch.int8 if kv_scale is not None else q.dtype
     _check(q, "q", q.dtype, 4, dev)
-    _check(k_pool, "k_pool", q.dtype, 4, dev)
-    _check(v_pool, "v_pool", q.dtype, 4, dev)
+    _check(k_pool, "k_pool", pool_dtype, 4, dev)
+    _check(v_pool, "v_pool", pool_dtype, 4, dev)
     _check(tables, "tables", torch.int32, 2, dev)
     _check(meta, "meta", torch.int32, 2, dev)
     _check(kv_head_map, "kv_head_map", torch.int32, 1, dev)
@@ -139,16 +156,16 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
     out = torch.empty((b, h, c, d), dtype=torch.float32, device=dev)
     lib = build.load("paged_e2softmax")
-    fn = build.declare(lib, "paged_e2softmax", 7, 12, 2)
+    fn = build.declare(lib, "paged_e2softmax", 7, 14, 3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), meta.data_ptr(), kv_head_map.data_ptr(),
                 out.data_ptr(), b, h, c, d, bs, kvh, nb, int(causal),
                 int(sole), exp_bits, int(int8_scale is not None),
-                int(q.dtype == torch.bfloat16),
+                _TYPE_CODES[q.dtype], _TYPE_CODES[pool_dtype], int(quant_pv),
                 ctypes.c_float(int8_scale or 0.0), ctypes.c_float(d ** -0.5),
-                ctypes.c_void_p(stream))
+                ctypes.c_float(kv_scale or 0.0), ctypes.c_void_p(stream))
     build.check(lib, rc, "paged_e2softmax launch")
     flash_e2softmax_paged.launches += 1
     return out
@@ -161,16 +178,14 @@ def flash_e2softmax_paged(q, k_pool, v_pool, tables, meta, *,
                           kv_scale: Optional[float] = None,
                           quant_pv: bool = False) -> torch.Tensor:
     """Fused attention over a block-paged KV pool (see module docstring);
-    ``kv_len`` counts the chunk's own keys, written before the call."""
-    if kv_scale is not None or quant_pv:
-        raise NotImplementedError(
-            "int8 page pools (kv_scale / quant_pv) come with the W8A8 "
-            "slice (ROADMAP.md queue 1 item 6)")
+    ``kv_len`` counts the chunk's own keys, written before the call.
+    ``kv_scale`` marks int8 pools; without it ``quant_pv`` does nothing,
+    as in the reference."""
     if kv_head_map is None:
         kv_head_map = default_kv_head_map(q.shape[1], k_pool.shape[2],
                                           q.device)
     kw = dict(causal=causal, sole=sole, exp_bits=exp_bits,
-              int8_scale=int8_scale)
+              int8_scale=int8_scale, kv_scale=kv_scale, quant_pv=quant_pv)
     if q.device.type == "cpu":
         return flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta,
                                            kv_head_map, **kw)

@@ -9,6 +9,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import layers as L
 from repro_torch.models.state import SequenceStateSpec
 from repro_torch.serve.kv_cache import slots_for_positions, write_tokens
@@ -32,32 +33,38 @@ def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
     """Random weights with the reference's shapes and scales (normal x
     0.02; the LM head x d_model^-0.5; norms ones/zeros; QKV biases zero),
     drawn from ``gen`` and stored once in their serving dtype. Per-layer
-    leaves carry the stacked leading ``layers`` axis."""
+    leaves carry the stacked leading ``layers`` axis. Under
+    ``cfg.quant.weights`` the matmul weights stay float32 masters, as in
+    the reference, so the engine packs its int8 codes from float32."""
     if cfg.mlp_kind != "swiglu":
         raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported")
     dt = L.torch_dtype(cfg.dtype)
+    master = torch.float32 if cfg.quant.weights else dt
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     n = cfg.n_layers
     v = cfg.padded_vocab
 
-    def w(shape, scale=0.02):
-        return _normal(gen, shape, scale, dt, device)
+    def w(shape, scale=0.02, dtype=dt):
+        return _normal(gen, shape, scale, dtype, device)
 
-    attn = {"wq": w((n, d, h, hd)), "wk": w((n, d, kv, hd)),
-            "wv": w((n, d, kv, hd)), "wo": w((n, h, hd, d))}
+    def mw(shape, scale=0.02):     # a matmul weight (QUANT_WEIGHT_SPEC)
+        return w(shape, scale, master)
+
+    attn = {"wq": mw((n, d, h, hd)), "wk": mw((n, d, kv, hd)),
+            "wv": mw((n, d, kv, hd)), "wo": mw((n, h, hd, d))}
     if cfg.qkv_bias:
         attn["bq"] = torch.zeros((n, h, hd), dtype=dt, device=device)
         attn["bk"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
         attn["bv"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
     return {
-        "embed": {"table": w((v, d)), "head": w((d, v), d ** -0.5)},
+        "embed": {"table": w((v, d)), "head": mw((d, v), d ** -0.5)},
         "layers": {
             "ln1": _norm(cfg, (n,), device),
             "attn": attn,
             "ln2": _norm(cfg, (n,), device),
-            "mlp": {"gate": w((n, d, f)), "up": w((n, d, f)),
-                    "down": w((n, f, d))},
+            "mlp": {"gate": mw((n, d, f)), "up": mw((n, d, f)),
+                    "down": mw((n, f, d))},
         },
         "final_norm": _norm(cfg, (), device),
     }
@@ -92,7 +99,15 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     norm (the MLP output of layer i merges with layer i+1's ln1, the
     last with the final norm), as in the reference. Returns
     (logits (B, C, padded_vocab) float32, pools).
+
+    At w8a8 the residual norms whose consumer is an int8 matmul emit
+    ``(int8 codes, per-row scale)`` pairs (ln1 for QKV, ln2 for the MLP,
+    the final norm for the head); layer 0's plain norm output is
+    quantized on the fly inside the QKV projections.
     """
+    lay = params["layers"]
+    qact = cfg.quant.acts and is_qtensor(lay["attn"]["wq"])
+    quant_ffn = qact and is_qtensor(lay["mlp"]["up"])
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_start = positions[:, 0]
     pk, pv = pools["k"], pools["v"]
@@ -101,11 +116,12 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     block_ids = torch.where(positions < write_end, block_ids, 0)
     pending = None                      # deferred MLP residual
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = _layer(lay, i)
         if pending is None:
             h = L.apply_norm(x, lp["ln1"], cfg, "serve")
         else:
-            x, h = L.apply_residual_norm(x, pending, lp["ln1"], cfg, "serve")
+            x, h = L.apply_residual_norm(x, pending, lp["ln1"], cfg, "serve",
+                                         quant_out=qact)
         q, k, v = L._project_qkv(lp["attn"], h, cfg)
         if cfg.pos_kind == "rope":
             q = L.apply_rope(q, positions, cfg)
@@ -115,10 +131,11 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         ctx = L.paged_attend(q, pk[i], pv[i], tables, q_start, kv_len, cfg,
                              causal=causal)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg)
-        x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
+        x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve",
+                                     quant_out=quant_ffn)
         pending = L.apply_mlp(h, lp["mlp"], cfg)
     _, x = L.apply_residual_norm(x, pending, params["final_norm"], cfg,
-                                 "serve")
+                                 "serve", quant_out=qact)
     return L.lm_logits(params["embed"], x, cfg), pools
 
 

@@ -6,6 +6,7 @@ live on (:func:`registry.backend_for`)::
 
     h    = ops.rmsnorm_fn(mode, x.device)(x, gamma)
     x, h = ops.residual_norm_fn("rmsnorm", mode, x.device)(x, r, gamma)
+    y    = ops.matmul_fn("w8a8", q.device)((q, scale), w, n_contract=1)
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ __all__ = [
     "OPS", "BACKENDS", "SOFTMAX_MODES", "NORM_MODES", "ATTN_MODES",
     "MATMUL_MODES", "MODES_BY_OP", "UNPORTED_KERNELS", "register", "resolve",
     "is_registered", "backend_for", "layernorm_fn", "rmsnorm_fn",
-    "residual_norm_fn", "paged_attention_fn", "reference", "cuda",
+    "residual_norm_fn", "residual_norm_q_fn", "matmul_fn",
+    "paged_attention_fn", "reference", "cuda",
 ]
 
 
@@ -46,6 +48,20 @@ def residual_norm_fn(kind: str, mode: str, device) -> Callable:
     if kind not in ("layernorm", "rmsnorm"):
         raise ValueError(f"unknown norm kind {kind!r}")
     return _fn(f"residual_{kind}", mode, device)
+
+
+def residual_norm_q_fn(kind: str, mode: str, device) -> Callable:
+    """(x, r, gamma[, beta]) -> (x + r, (int8 codes, per-row scale)): the
+    residual norm whose output leaves as per-row int8 for the next w8a8
+    matmul."""
+    if kind not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"unknown norm kind {kind!r}")
+    return _fn(f"residual_{kind}_q", mode, device)
+
+
+def matmul_fn(mode: str, device) -> Callable:
+    """(x, w, *, n_contract) serve-path matmul: exact | w8a16 | w8a8."""
+    return _fn("matmul", mode, device)
 
 
 def paged_attention_fn(mode: str, device) -> Callable:

@@ -10,10 +10,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core.sole.quant import quantize_act
 from repro_torch.kernels import ailayernorm as K_norm
 from repro_torch.kernels.flash_e2softmax import flash_e2softmax_paged
+from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.ops import registry
-from repro_torch.ops.reference import paged_meta
+from repro_torch.ops.reference import paged_meta, w8a8_matmul_with
 
 
 @registry.register("layernorm", "sole", "cuda")
@@ -26,14 +28,53 @@ def sole_rmsnorm_cuda(x, gamma, **kw):
     return K_norm.airmsnorm(x, gamma)
 
 
+def _no_static_params(params, kernel: str) -> None:
+    if params is not None:
+        raise NotImplementedError(
+            f"static PTF params run the reference's {kernel}, which has no "
+            "Hopper kernel yet (ROADMAP.md queue 2)")
+
+
 @registry.register("residual_layernorm", "sole", "cuda")
-def sole_residual_layernorm_cuda(x, r, gamma, beta=None, **kw):
+def sole_residual_layernorm_cuda(x, r, gamma, beta=None, *, params=None,
+                                 **kw):
+    _no_static_params(params, "_fused_kernel")
     return K_norm.fused_add_norm(x, r, gamma, beta, rms=False)
 
 
 @registry.register("residual_rmsnorm", "sole", "cuda")
-def sole_residual_rmsnorm_cuda(x, r, gamma, beta=None, **kw):
+def sole_residual_rmsnorm_cuda(x, r, gamma, beta=None, *, params=None,
+                               **kw):
+    _no_static_params(params, "_fused_kernel")
     return K_norm.fused_add_norm(x, r, gamma, None, rms=True)
+
+
+def _residual_norm_q(rms: bool):
+    def fn(x, r, gamma, beta=None, *, params=None, **kw):
+        """The reference's ``params=None`` branch of
+        ``fused_add_norm_quant_pallas``: the add and calibration as torch
+        ops, the quantize+norm kernel, then ``quantize_act`` of its
+        float32 output -> ``(x + r, (int8 codes, per-row scale))``."""
+        _no_static_params(params, "_fused_q_kernel")
+        h, out = K_norm.fused_add_norm(x, r, gamma, None if rms else beta,
+                                       rms=rms)
+        return h, quantize_act(out)
+    return fn
+
+
+registry.register("residual_layernorm_q", "sole", "cuda")(
+    _residual_norm_q(rms=False))
+registry.register("residual_rmsnorm_q", "sole", "cuda")(
+    _residual_norm_q(rms=True))
+
+
+@registry.register("matmul", "w8a8", "cuda")
+def w8a8_matmul_cuda(x, w, *, n_contract: int = 1, **kw):
+    """int8 x int8 through the GEMM kernel: both sides flatten to 2-D
+    (the contraction axes are contiguous, activation trailing, weight
+    leading) and the scales apply afterwards in the reference twin's
+    order, so the two agree bit for bit."""
+    return w8a8_matmul_with(int8_matmul, x, w, n_contract)
 
 
 def _paged_attention(sole: bool):

@@ -1,10 +1,12 @@
-"""Reference backend: plain torch versions of the ops this slice serves.
+"""Reference backend: plain torch versions of the ops the port serves.
 
 Signatures match the JAX package's registry:
 
   layernorm(x, gamma, beta)            rmsnorm(x, gamma)
   residual_layernorm(x, r, gamma, beta) -> (x + r, norm(x + r))
   residual_rmsnorm(x, r, gamma)         -> (x + r, norm(x + r))
+  residual_{layernorm,rmsnorm}_q(...)   -> (x + r, (int8 codes, row scale))
+  matmul(x, w, *, n_contract)           exact | w8a16 | w8a8
   paged_attention(q, pool_k, pool_v, tables, q_start, kv_len, *, causal, ...)
 
 The paged attention here is the paged kernel's own plain version — one
@@ -19,8 +21,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.sole.ailayernorm import ailayernorm, airmsnorm
+from repro_torch.core.sole.quant import quantize_act
 from repro_torch.kernels.flash_e2softmax import (default_kv_head_map,
                                                  flash_e2softmax_paged_plain)
+from repro_torch.kernels.int8_matmul import int8_matmul_plain
 from repro_torch.ops import registry
 
 
@@ -69,6 +73,69 @@ for _mode in ("exact", "sole"):
         _residual_norm(_mode, "rmsnorm"))
 
 
+def _residual_norm_q(norm_mode: str, kind: str):
+    base = _residual_norm(norm_mode, kind)
+
+    def fn(x, r, gamma, beta=None, **kw):
+        s, out = base(x, r, gamma, beta, **kw)
+        return s, quantize_act(out.float())
+    return fn
+
+
+for _mode in ("exact", "sole"):
+    registry.register("residual_layernorm_q", _mode, "reference")(
+        _residual_norm_q(_mode, "layernorm"))
+    registry.register("residual_rmsnorm_q", _mode, "reference")(
+        _residual_norm_q(_mode, "rmsnorm"))
+
+
+# -- quantized matmul ---------------------------------------------------------
+#
+# The activation's trailing ``n_contract`` axes contract against the
+# weight's leading ``n_contract`` axes; the per-channel weight scale
+# (leading size-1 axes) and the per-row activation scale (trailing size-1
+# axes) apply once, after the reduction.
+
+
+def wscale(w, n_contract: int) -> torch.Tensor:
+    """Per-channel scale reshaped to the output axes it broadcasts over."""
+    return w["s"].reshape(w["s"].shape[n_contract:])
+
+
+def w8a8_matmul_with(int_mm, x, w, n_contract: int) -> torch.Tensor:
+    """Flatten the contraction axes to 2-D, take the exact int32 product
+    with ``int_mm`` ((M, K) int8, (K, N) int8 -> (M, N) int32), then
+    ``acc * sx * sw`` in float32, left to right, as the reference."""
+    q, sx = x
+    qw = w["q"]
+    batch, out_dims = q.shape[:q.ndim - n_contract], qw.shape[n_contract:]
+    k = qw.shape[:n_contract].numel()
+    acc = int_mm(q.reshape(-1, k).contiguous(), qw.reshape(k, -1).contiguous())
+    acc = acc.reshape(batch + out_dims)
+    sx = sx.reshape(sx.shape[:sx.ndim - n_contract] + (1,) * len(out_dims))
+    return acc.float() * sx.float() * wscale(w, n_contract)
+
+
+@registry.register("matmul", "exact", "reference")
+def exact_matmul(x, w, *, n_contract: int = 1, **kw):
+    return torch.tensordot(x, w, n_contract)
+
+
+@registry.register("matmul", "w8a16", "reference")
+def w8a16_matmul(x, w, *, n_contract: int = 1, **kw):
+    """fp activations x int8 weight codes, the per-channel scale applied
+    once after the contraction."""
+    out = torch.tensordot(x, w["q"].to(x.dtype), n_contract)
+    return out * wscale(w, n_contract).to(out.dtype)
+
+
+@registry.register("matmul", "w8a8", "reference")
+def w8a8_matmul(x, w, *, n_contract: int = 1, **kw):
+    """int8 x int8 with exact int32 sums; ``x`` is a ``(codes, per-row
+    scale)`` pair."""
+    return w8a8_matmul_with(int8_matmul_plain, x, w, n_contract)
+
+
 def paged_meta(q_start, kv_len) -> torch.Tensor:
     """(B, 2) int32 rows (q_start, kv_len) — the paged kernel's metadata."""
     return torch.stack([q_start.to(torch.int32), kv_len.to(torch.int32)], 1)
@@ -77,16 +144,19 @@ def paged_meta(q_start, kv_len) -> torch.Tensor:
 def _paged_attention_ref(sole: bool):
     def fn(q, pool_k, pool_v, tables, q_start, kv_len, *, causal: bool,
            exp_bits: int = 4, int8_scale: Optional[float] = None,
+           kv_scale: Optional[float] = None, quant_pv: bool = False,
            kv_head_map=None, **kw):
-        """q (B, C, H, hd); pools (N, bs, KV, hd); tables (B, NB);
-        q_start/kv_len (B,) -> (B, C, H, hd) in q.dtype."""
+        """q (B, C, H, hd); pools (N, bs, KV, hd), int8 codes when
+        ``kv_scale`` is given; tables (B, NB); q_start/kv_len (B,) ->
+        (B, C, H, hd) in q.dtype."""
         if kv_head_map is None:
             kv_head_map = default_kv_head_map(q.shape[2], pool_k.shape[2],
                                               q.device)
         ctx = flash_e2softmax_paged_plain(
             q.transpose(1, 2), pool_k, pool_v, tables,
             paged_meta(q_start, kv_len), kv_head_map, causal=causal,
-            sole=sole, exp_bits=exp_bits, int8_scale=int8_scale)
+            sole=sole, exp_bits=exp_bits, int8_scale=int8_scale,
+            kv_scale=kv_scale, quant_pv=quant_pv)
         return ctx.transpose(1, 2).to(q.dtype)
     return fn
 

@@ -53,11 +53,6 @@ UNPORTED_KERNELS: Dict[Tuple[str, str], str] = {
     ("softmax", "sole"): "ROADMAP.md queue 2, e2softmax_pallas",
     ("flash_attention", "exact"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
     ("flash_attention", "sole"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
-    ("matmul", "w8a8"): "ROADMAP.md queue 2, int8_matmul_pallas",
-    ("residual_layernorm_q", "sole"):
-        "ROADMAP.md queue 2, fused_add_norm_quant_pallas",
-    ("residual_rmsnorm_q", "sole"):
-        "ROADMAP.md queue 2, fused_add_norm_quant_pallas",
 }
 
 _REGISTRY: Dict[Tuple[str, str, str], Callable] = {}

@@ -11,7 +11,10 @@ pages through the paged Flash-E2Softmax kernel on CUDA.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for the
 CPU, where every op runs its plain torch version); it never falls back
-from one to the other.
+from one to the other. Under ``cfg.quant`` w8a16/w8a8 it packs the
+matmul weights to int8 at construction (every projection and the LM head
+then run through the int8 GEMM kernel at w8a8), and
+``cfg.kv_cache_dtype="int8"`` keeps int8 KV pages.
 """
 from __future__ import annotations
 
@@ -22,10 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, copy_pages
 from repro_torch.serve.sampling import apply_finish, eos_table, sampler_for
 from repro_torch.serve.scheduler import Scheduler, Sequence
+from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
 
 
 @dataclasses.dataclass
@@ -40,6 +45,18 @@ class Request:
     # ("stop"). The finishing token / sequence is kept in the output.
     eos_ids: Tuple[int, ...] = ()
     stop: Tuple[Tuple[int, ...], ...] = ()
+
+
+def _check_float32_masters(tree, key=None) -> None:
+    if isinstance(tree, dict):
+        if not is_qtensor(tree):
+            for k, v in tree.items():
+                _check_float32_masters(v, k)
+    elif key in QUANT_WEIGHT_SPEC and tree.dtype != torch.float32:
+        raise ValueError(
+            f"weight {key!r} is {tree.dtype}: quantized serving packs int8 "
+            "codes from float32 masters (init_params and params_from_jax "
+            "keep them under cfg.quant.weights)")
 
 
 def _to_device(tree, device):
@@ -62,8 +79,8 @@ class PagedEngine:
     in every norm exactly as in the reference engine.
 
     Features the port does not have yet raise here rather than being
-    silently downgraded: other families, quantized weights, int8 KV,
-    speculative decoding, mesh rules (and temperature > 0 at submit).
+    silently downgraded: other families, speculative decoding, mesh
+    rules (and temperature > 0 at submit).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -77,18 +94,14 @@ class PagedEngine:
             raise RuntimeError(
                 "PagedEngine: no CUDA device is available; pass "
                 "device='cpu' to serve with the plain torch ops")
+        if cfg.quant.weights and cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"family {cfg.family!r} has no quantized serving path "
+                "(quant.weights is dense/moe-only)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md "
                 "queue 1 item 9)")
-        if cfg.quant.mode != "off":
-            raise NotImplementedError(
-                f"quant mode {cfg.quant.mode!r} comes with the W8A8 slice "
-                "(ROADMAP.md queue 1 item 6)")
-        if cfg.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "int8 KV pages come with the W8A8 slice (ROADMAP.md queue 1 "
-                "item 6)")
         if spec_config is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue 1 "
@@ -111,6 +124,12 @@ class PagedEngine:
         self.cfg = cfg
         self.device = device
         self.prefix_cache = prefix_cache
+        if cfg.quant.weights:
+            # w8a16/w8a8: pack every matmul weight to int8 + per-channel
+            # scales, as the reference engine does (idempotent), from
+            # float32 masters only: codes packed from bf16 would differ.
+            _check_float32_masters(params)
+            params = quantize_params(params)
         self.params = _to_device(params, device)
         self.decode_batch = decode_batch
         self.decode_horizon = decode_horizon

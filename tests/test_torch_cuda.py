@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 at the full width of qwen2_0_5b, and the engine on the card against the
-same engine on the CPU. Every test here carries the ``cuda`` marker and
+same engine on the CPU, in bf16 and at w8a8. Every test here carries the ``cuda`` marker and
 skips without a CUDA device.
 
 This file imports no JAX (the machine with the card need not have it).
@@ -15,6 +15,13 @@ Tolerances, and why:
   differs: 1e-5.
 * quantize+norm: codes and int32 sums are exact and the epilogue rounds
   like the plain ops: 1e-6.
+* int8 GEMM: integer sums are exact in any order: bitwise equal.
+* paged attention over int8 pools on exact-logit inputs: as for bf16
+  pools, 1e-5.
+* w8a8 engine in exact mode, card vs CPU: every projection is an exact
+  int32 sum, so the float ops that still round in other orders (RoPE,
+  norms, softmax) only move an activation code at a rounding tie: greedy
+  tokens equal.
 * engine, card vs CPU: cuBLAS and the CPU sum in other orders, and in SOLE
   mode a logit that moves across a rounding boundary flips a code: at
   least 95% of greedy tokens equal.
@@ -28,9 +35,11 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core.sole.quant import calibrate_ptf
 from repro_torch.kernels import ailayernorm as KN
+from repro_torch.configs.base import QuantConfig
 from repro_torch.kernels import flash_e2softmax as KA
+from repro_torch.kernels import int8_matmul as KM
 from repro_torch.models import api
-from repro_torch.models.layers import LOGIT_INT8_SCALE
+from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
 from repro_torch.serve.engine import PagedEngine, Request
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +169,94 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
     pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
     assert all(len(o) == 8 for o in outs[1])
     assert sum(a == b for a, b in pairs) / len(pairs) >= 0.95
+
+
+# (M, K, N) of every int8 GEMM on the w8a8 path of qwen2_0_5b (M = 8 at a
+# decode step, 128 at a prefill chunk), and two ragged shapes.
+GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 151936))
+GEMM_SHAPES = [(m, k, n) for m in (8, 128) for k, n in GEMM_KN] + [
+    (7, 130, 33), (64, 256, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in GEMM_SHAPES])
+def test_int8_gemm_bitwise_equals_plain(cuda_device, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    x[0] = 127                                 # the largest sums
+    w[:, 0] = 127
+    before = KM.int8_matmul.launches
+    out = KM.int8_matmul(x, w)
+    assert KM.int8_matmul.launches == before + 1
+    ref = KM.int8_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("quant_pv", [False, True], ids=["pv-f32", "pv-int8"])
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_paged_kernel_int8_pools_match_plain(cuda_device, mode, name,
+                                             quant_pv):
+    """qwen2_0_5b widths over int8 pools: K codes on the exact-logit grid,
+    V codes over the full int8 range, bf16 queries."""
+    cfg = get_config("qwen2_0_5b")
+    spec = (dict(b=1, c=128, nb=32, q_start=[128], kv_len=[256])
+            if name == "prefill" else
+            dict(b=8, c=1, nb=32, q_start=[0] * 8,
+                 kv_len=[49, 300, 117, 1, 256, 83, 160, 1]))
+    rng = np.random.default_rng(11)
+    q, k, v, tables, meta = _paged_inputs(
+        rng, h=cfg.n_heads, kvh=cfg.n_kv_heads, d=cfg.head_dim, bs=16,
+        **spec)
+    v = rng.integers(-127, 128, v.shape)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                          torch.int8)
+              for a in (k, v))
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kw = dict(causal=name == "prefill", sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None,
+              kv_scale=KV_INT8_SCALE, quant_pv=quant_pv)
+    before = KA.flash_e2softmax_paged.launches
+    out = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta, **kw)
+    assert KA.flash_e2softmax_paged.launches == before + 1
+    kvmap = KA.default_kv_head_map(cfg.n_heads, cfg.n_kv_heads, cuda_device)
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, vt, tables, meta, kvmap,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_w8a8_engine_on_card_matches_cpu(cuda_device, kv):
+    """The w8a8 smoke engine in exact mode through the kernels (card) and
+    the plain versions (CPU): the GEMM and paged kernels launch, refcounts
+    hold, and the greedy tokens are equal."""
+    cfg = dataclasses.replace(
+        get_config("qwen2_0_5b").smoke(), softmax_mode="exact",
+        norm_mode="exact", logit_int8=False, quant=QuantConfig("w8a8"),
+        kv_cache_dtype=kv)
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=8)
+            for n in (5, 20, 12, 30, 9)]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                          max_seq_len=64, decode_batch=4, prefill_chunk=8,
+                          device=dev)
+        mm0, attn0 = KM.int8_matmul.launches, KA.flash_e2softmax_paged.launches
+        outs.append(eng.generate(reqs))
+        eng.cache.check_refcounts()
+        if dev == cuda_device:
+            assert KM.int8_matmul.launches > mm0
+            assert KA.flash_e2softmax_paged.launches > attn0
+    assert all(len(o) == 8 for o in outs[1])
+    assert outs[1] == outs[0]

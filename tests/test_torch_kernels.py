@@ -176,8 +176,9 @@ def test_paged_attention_sole_real_valued(name):
 
 
 def test_paged_wrappers_layouts_and_guards():
-    """The decode wrapper is the C=1, non-causal paged call; int8 pools
-    raise (they come with the W8A8 slice)."""
+    """The decode wrapper is the C=1, non-causal paged call, over float
+    and over int8 pools; ``quant_pv`` without int8 pools (``kv_scale``)
+    changes nothing, as in the reference."""
     rng = np.random.default_rng(2)
     q, k, v, tables, _, kv_len = (torch.from_numpy(np.ascontiguousarray(a))
                                   for a in _paged_case(
@@ -190,9 +191,13 @@ def test_paged_wrappers_layouts_and_guards():
     full = KA.flash_e2softmax_paged(qk[:, :, None], k, v, tables, meta,
                                     causal=False)
     assert torch.equal(dec, full[:, :, 0]) and dec.shape == (3, 4, 16)
-    with pytest.raises(NotImplementedError):
-        KA.flash_e2softmax_paged(qk[:, :, None], k, v, tables, meta,
-                                 kv_scale=1 / 16)
+    assert torch.equal(full, KA.flash_e2softmax_paged(
+        qk[:, :, None], k, v, tables, meta, causal=False, quant_pv=True))
+    codes = [torch.clamp(torch.round(t * 16), -127, 127).to(torch.int8)
+             for t in (k, v)]
+    dec8 = KA.flash_e2softmax_paged_decode(qk, *codes, tables, kv_len,
+                                           kv_scale=1 / 16, quant_pv=True)
+    assert dec8.shape == (3, 4, 16) and torch.isfinite(dec8).all()
 
 
 # -- backend resolution -------------------------------------------------------

@@ -7,7 +7,8 @@
   ``importlib.import_module`` call).
 * Random init has the reference's tree, shapes and scales.
 * ``PagedEngine`` never runs on the CPU unless asked to, and features the
-  port does not have yet raise instead of being downgraded.
+  port does not have yet raise instead of being downgraded; quantized
+  serving packs only float32 masters and only for the dense family.
 * A missing ``nvcc`` raises; the kernel wrappers take no device other than
   the CPU (plain version) and CUDA (the kernel).
 """
@@ -29,6 +30,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels import ailayernorm as KN
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_e2softmax as KA
+from repro_torch.kernels import int8_matmul as KM
+from repro_torch import ops as tops
 from repro_torch.models import api
 from repro_torch.serve.engine import PagedEngine, Request
 
@@ -93,6 +96,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_repro():
     paths = list(_port_sources())
     assert len(paths) > 20
+    scanned = {os.path.relpath(p, REPO) for p in paths}
+    for mod in ("kernels/int8_matmul.py", "sharding/rules.py",
+                "sharding/__init__.py", "core/sole/quant.py", "ops/cuda.py"):
+        assert os.path.join("src", "repro_torch", mod) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -167,13 +174,47 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     eng.cache.check_refcounts()
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="moe"), dict(quant=QuantConfig("w8a8")),
-    dict(quant=QuantConfig("w8a16")), dict(kv_cache_dtype="int8")])
-def test_engine_raises_for_unported_config(change):
+@pytest.mark.parametrize("change,err,match", [
+    (dict(family="moe"), NotImplementedError, "ROADMAP"),
+    (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
+     "ROADMAP"),
+    (dict(family="ssm", quant=QuantConfig("w8a8")), ValueError,
+     "no quantized serving path"),
+    (dict(family="hybrid", quant=QuantConfig("w8a16")), ValueError,
+     "no quantized serving path")])
+def test_engine_raises_for_unported_config(change, err, match):
     cfg, params = _smoke_engine_args()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match=match):
         PagedEngine(dataclasses.replace(cfg, **change), params, device="cpu")
+
+
+def test_quantized_engine_packs_only_float32_masters():
+    """init keeps float32 masters under quant.weights and the engine packs
+    them; a bf16 projection (a lossy copy) is refused, not packed."""
+    cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(),
+                              dtype="bfloat16", quant=QuantConfig("w8a8"))
+    params = api.init_params(0, cfg, "cpu")
+    assert params["layers"]["attn"]["wq"].dtype == torch.float32
+    assert params["embed"]["table"].dtype == torch.bfloat16
+    eng = PagedEngine(cfg, params, device="cpu")
+    assert eng.params["embed"]["head"]["q"].dtype == torch.int8
+    assert set(eng.params["layers"]["mlp"]["down"]) == {"q", "s"}
+    params["layers"]["attn"]["wq"] = params["layers"]["attn"]["wq"].bfloat16()
+    with pytest.raises(ValueError, match="float32 masters"):
+        PagedEngine(cfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("quant_out", [True, False])
+def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
+    """Static PTF params run a fused kernel the port does not have yet:
+    the cuda adapters raise and name it instead of ignoring them."""
+    op = f"residual_{kind}_q" if quant_out else f"residual_{kind}"
+    fn = tops.resolve(op, "sole", "cuda")
+    x = torch.zeros((2, 8))
+    kernel = "_fused_q_kernel" if quant_out else "_fused_kernel"
+    with pytest.raises(NotImplementedError, match=kernel):
+        fn(x, x, torch.ones(8), torch.zeros(8), params=object())
 
 
 @pytest.mark.parametrize("kw", [dict(spec_config=object()),
@@ -212,3 +253,6 @@ def test_wrappers_take_only_cpu_or_cuda_tensors():
     x = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="no ailayernorm kernel"):
         KN.qnorm(x, x[0], x[0].int(), x[0], x[0], rms=True)
+    a = torch.zeros((2, 8), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no int8_matmul kernel"):
+        KM.int8_matmul(a, a.t().contiguous())
