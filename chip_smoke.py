@@ -7,7 +7,7 @@ NVIDIA GPU. Run from the repository root with no arguments::
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``-Xptxas -v``;
 3. hold each kernel against its plain torch version at the serve paths'
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
@@ -15,7 +15,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``quant_pv`` on and off, SOLE and exact), the quantize+norm at those
    rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), and the
    int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path and two ragged
-   shapes;
+   shapes, and the E2Softmax kernel at the dense-slot path's decode and
+   prefill shapes (masked), at two unmasked shapes, with ``int8_scale``
+   and with fully masked rows;
 4. serve greedy requests through ``PagedEngine`` at the full width of
    qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), twice:
    first in bf16 (bf16 weights and pages), then at w8a8 with int8 KV
@@ -25,13 +27,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    launches per forward, paged attention over int8 pools); then hold
    smoke-size engines on the card against the same engines on the CPU
    (bf16 exact and SOLE, w8a8 exact with float and int8 pages);
+   then the same requests through the dense-slot ``Engine`` (batches of 8,
+   384-column caches), in bf16 and at w8a8 with an int8 cache, with the
+   launch counts per prefill or decode call checked (24 E2Softmax, 49
+   norm, at w8a8 169 GEMM), and the smoke dense engine on the card
+   against the CPU (SOLE, and w8a8 exact with an int8 cache);
 5. time each kernel and its plain version with CUDA events (L2 flushed
    before every launch), the kernel alone with ``torch.profiler``, beside
    the bound the card's memory rate or peak sets and, for the int8 GEMM,
    ``torch._int_mm`` where it takes the shape (a yardstick the port never
    calls);
-6. profile one decode-heavy wave of each engine: the device-busy share of
-   the wall time and the kernels with the most device time.
+6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
+   of the dense-slot engine (bf16): the device-busy share of the wall time
+   and the kernels with the most device time.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -53,6 +61,8 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 QNORM_OPS_PER_ELEMENT = 16         # divide, round, clip, square, shifts, sums, affine
+E2_OPS_PER_ELEMENT = 16            # max, subtract, snap, multiply, round, clip, 2^-k, sum, scale
+DENSE_MAX_LEN = 384                # the dense-slot engine's cache columns
 PREFILL_CHUNK = 128
 DECODE_BATCH = 8
 BLOCK_SIZE = 16
@@ -357,15 +367,154 @@ def check_int8_gemm(torch):
     return results
 
 
+def e2_match(torch, out, ref, c, exp_bits=4):
+    """Kernel against plain E2Softmax: equal bit for bit while every
+    partial sum is exact (exp_bits 4, C <= 512); above that the two sum
+    in other orders and a row whose S rounds differently can only move
+    its ALDivision bucket, so each row must equal the plain row or differ
+    from it by one constant ratio, and at most 0.1% of rows may differ.
+    Returns (max |err|, share of rows that differ)."""
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    if not torch.isfinite(out).all():
+        raise AssertionError("e2softmax: non-finite output")
+    same = (out == ref).all(-1)
+    off = 1.0 - same.float().mean().item()
+    if c <= 512 and exp_bits == 4:
+        if off:
+            raise AssertionError(f"e2softmax C={c}: {off:.4f} of rows differ"
+                                 f" (max |err| {err}) where sums are exact")
+        return err, off
+    if off > 1e-3:
+        raise AssertionError(f"e2softmax C={c}: {off:.4f} of rows differ")
+    for i in torch.nonzero(~same).flatten().tolist():
+        nz = ref[i] != 0
+        ratio = out[i][nz] / ref[i][nz]
+        if not torch.equal(ratio, ratio[:1].expand_as(ratio)):
+            raise AssertionError(f"e2softmax C={c}: row {i} differs in codes")
+    return err, off
+
+
+def check_e2softmax(torch, cfg):
+    """Phase 3, E2Softmax: the kernel against its plain version at the
+    dense-slot path's shapes of qwen2_0_5b (decode: 8 lanes x 14 heads
+    rows of T+1 = 385 columns; prefill: 8 x 14 x 300 rows of 300
+    columns; both masked, logits snapped as the path snaps them), at the
+    JAX kernel benchmark's unmasked (8, 785) and (2, 8192), once with the
+    kernel's own ``int8_scale`` and once with fully masked rows."""
+    from repro_torch import ops
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h, t = cfg.n_heads, DENSE_MAX_LEN
+    dev = "cuda"
+
+    def path_logits(rows, c, mask):
+        raw = torch.randn((rows, c), generator=gen, device=dev) * 4
+        m = torch.where(mask, raw, -torch.inf).amax(-1, keepdim=True)
+        return ops.snap_logits(raw - torch.clamp_min(m, -1e30),
+                               LOGIT_INT8_SCALE)
+
+    # decode: lane b sees its cache columns up to a per-lane length, never
+    # the write slot, plus the current token (column T)
+    lens = torch.tensor([49, 300, 117, 1, 256, 83, 160, 1], device=dev)
+    cols = torch.arange(t + 1, device=dev)
+    dmask = (cols[None] < lens[:, None]) | (cols[None] == t)
+    dmask = dmask[:, None].expand(8, h, t + 1).reshape(8 * h, t + 1)
+    # prefill: causal over 300 columns with per-lane left padding
+    s = 300
+    n_pad = torch.tensor([252, 0, 180, 100, 196, 136, 220, 50], device=dev)
+    pos = torch.arange(s, device=dev)
+    local = pos[None] - n_pad[:, None]
+    kpos = torch.where(local < 0, 2 ** 30, local)
+    qpos = torch.clamp_min(local, 0)
+    pmask = (kpos[:, None, :] < 2 ** 29) & (qpos[:, :, None] >= kpos[:, None])
+    pmask = pmask[:, None].expand(8, h, s, s).reshape(8 * h * s, s)
+    full = dmask.clone()
+    full[:5] = False
+    cases = {
+        "decode": (path_logits(8 * h, t + 1, dmask), dmask, None),
+        "prefill": (path_logits(8 * h * s, s, pmask), pmask.contiguous(),
+                    None),
+        "bench_785": (torch.randn((8, 785), generator=gen, device=dev) * 4,
+                      None, None),
+        "bench_8192": (torch.randn((2, 8192), generator=gen, device=dev) * 4,
+                       None, None),
+        "int8_scale": (torch.randn((8 * h, t + 1), generator=gen,
+                                   device=dev) * 4, dmask, LOGIT_INT8_SCALE),
+        "fully_masked_rows": (path_logits(8 * h, t + 1, full), full, None),
+    }
+    results = {}
+    for name, (x, mask, snap) in cases.items():
+        kw = dict(exp_bits=cfg.exp_bits, int8_scale=snap, mask=mask)
+        out = KE.e2softmax(x, **kw)
+        ref = KE.e2softmax_plain(x, **kw)
+        torch.cuda.synchronize()
+        c = x.shape[-1]
+        err, off = e2_match(torch, out, ref, c)
+        if mask is not None and (out[~mask] != 0).any():
+            raise AssertionError(f"e2softmax {name}: a masked entry is not 0")
+        if name == "fully_masked_rows" and (out[:5] != 0).any():
+            raise AssertionError("e2softmax: a fully masked row is not 0")
+        results[name] = dict(x=x, mask=mask, kw=kw, max_abs_err=err,
+                             rows_off=off)
+        log(f"e2softmax {name} rows={x.shape[0]} C={c} "
+            f"{'masked' if mask is not None else 'unmasked'}"
+            f"{' int8_scale' if snap else ''}: max|err| {err:.3e}, "
+            f"rows that differ {off:.5f}")
+    return results
+
+
+def kernel_wrappers():
+    """Each kernel's launch-counting wrapper, by kernel name."""
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.kernels import int8_matmul as KM
+    return {"paged_e2softmax": KA.flash_e2softmax_paged,
+            "ailayernorm_qnorm": KN.qnorm, "int8_matmul": KM.int8_matmul,
+            "e2softmax": KE.e2softmax}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def trace_prompts(cfg):
+    """The trace's prompts: eight for wave 1 (48-300 tokens, two on a
+    shared 64-token system prompt) and wave 2's new prompt on the system
+    prompt, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (48, 300, 120, 200)]
+    prompts += [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+                for n in (40, 100)]
+    prompts += [rng.integers(0, cfg.vocab_size, n) for n in (80, 250)]
+    tail = np.concatenate([system, rng.integers(0, cfg.vocab_size, 30)])
+    return ([p.astype(np.int32) for p in prompts], tail.astype(np.int32))
+
+
+def eos_outcome(o, eos):
+    """1 if a request whose eos ids are ``eos`` was cut right after its
+    first eos token, 0 if it never sampled one and got its full budget;
+    raises otherwise."""
+    if o and o[-1] in eos and not any(t in eos for t in o[:-1]):
+        return 1
+    if len(o) == NEW_TOKENS and not any(t in eos for t in o):
+        return 0
+    raise AssertionError(f"eos request broke the finish contract: {o}")
+
+
 def serve_full_width(torch, cfg, label):
     """Phase 4: one main path at full width, counts from this run only.
     At w8a8 also checks 169 int8 GEMM launches per forward (24 paged
     attention launches mark one forward) and int8 page pools, and reports
     the peak device memory of the trace."""
-    import numpy as np
-    from repro_torch.kernels import ailayernorm as KN
-    from repro_torch.kernels import flash_e2softmax as KA
-    from repro_torch.kernels import int8_matmul as KM
     from repro_torch.models import api
     from repro_torch.serve.engine import PagedEngine, Request
 
@@ -379,18 +528,10 @@ def serve_full_width(torch, cfg, label):
                       max_running=8, decode_batch=DECODE_BATCH,
                       prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
                       device="cuda")
-    rng = np.random.default_rng(0)
-    system = rng.integers(0, cfg.vocab_size, 64)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (48, 300, 120, 200)]
-    prompts += [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
-                for n in (40, 100)]
-    prompts += [rng.integers(0, cfg.vocab_size, n) for n in (80, 250)]
-    wave1 = [Request(prompt=p.astype(np.int32), max_new_tokens=NEW_TOKENS)
-             for p in prompts]
+    prompts, tail = trace_prompts(cfg)
+    wave1 = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
 
-    KA.flash_e2softmax_paged.launches = 0
-    KN.qnorm.launches = 0
-    KM.int8_matmul.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     out1 = eng.generate(wave1)
@@ -400,18 +541,14 @@ def serve_full_width(torch, cfg, label):
     # produced (a prefix hit that should finish by eos), and a second
     # request on the shared system prompt (a prefix hit on its pages).
     eos = sorted({t for o in out1 for t in o})
-    wave2 = [Request(prompt=prompts[0].astype(np.int32),
-                     max_new_tokens=NEW_TOKENS, eos_ids=tuple(eos)),
-             Request(prompt=np.concatenate(
-                 [system, rng.integers(0, cfg.vocab_size, 30)]).astype(np.int32),
-                 max_new_tokens=NEW_TOKENS)]
+    wave2 = [Request(prompt=prompts[0], max_new_tokens=NEW_TOKENS,
+                     eos_ids=tuple(eos)),
+             Request(prompt=tail, max_new_tokens=NEW_TOKENS)]
     t0 = time.time()
     out2 = eng.generate(wave2)
     torch.cuda.synchronize()
     t2 = time.time() - t0
-    launches = {"paged_e2softmax": KA.flash_e2softmax_paged.launches,
-                "ailayernorm_qnorm": KN.qnorm.launches,
-                "int8_matmul": KM.int8_matmul.launches}
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = eng.stats()
     eng.cache.check_refcounts()
@@ -421,14 +558,8 @@ def serve_full_width(torch, cfg, label):
             raise AssertionError(f"wave 1 request {i}: {len(o)} tokens")
     if not all(0 <= t < cfg.vocab_size for o in out1 + out2 for t in o):
         raise AssertionError("token id out of range")
-    eos = set(eos)
     o = out2[0]
-    if o and o[-1] in eos and not any(t in eos for t in o[:-1]):
-        eos_fired = 1                 # cut right after its first eos token
-    elif len(o) == NEW_TOKENS and not any(t in eos for t in o):
-        eos_fired = 0                 # never sampled an eos: full budget
-    else:
-        raise AssertionError(f"eos request broke the finish contract: {o}")
+    eos_fired = eos_outcome(o, set(eos))
     if len(out2[1]) != NEW_TOKENS:
         raise AssertionError(f"wave 2 request 1: {len(out2[1])} tokens")
     want = {"length": 10 - eos_fired, "eos": eos_fired}
@@ -456,6 +587,8 @@ def serve_full_width(torch, cfg, label):
             raise AssertionError(f"w8a8 trace pools are {dtypes}, not int8")
     elif launches["int8_matmul"]:
         raise AssertionError("the bf16 path launched the int8 GEMM")
+    if launches["e2softmax"]:
+        raise AssertionError("the paged path launched the E2Softmax kernel")
     n_tok = sum(len(o) for o in out1 + out2)
     log(f"[{label}] served {len(out1) + len(out2)} requests, {n_tok} new "
         f"tokens: wave 1 {t1:.3f} s, wave 2 {t2:.3f} s "
@@ -469,17 +602,90 @@ def serve_full_width(torch, cfg, label):
                       "max_memory_allocated_gib": peak_gib}, params
 
 
+def serve_dense_full_width(torch, cfg, params, label):
+    """Phase 4, the dense-slot path: the trace's requests through
+    ``Engine`` (batches of 8 lanes, 384-column caches) at full width, the
+    counts set to 0 just before and read just after. Each prefill or
+    decode call must launch the E2Softmax kernel once per layer (24), the
+    norm kernel 49 times and, at w8a8, the int8 GEMM 169 times, and never
+    the paged kernel."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import Engine, Request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    eng = Engine(cfg, params, batch_size=DECODE_BATCH, max_len=DENSE_MAX_LEN,
+                 device="cuda")
+    prompts, tail = trace_prompts(cfg)
+    wave1 = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out1 = eng.generate(wave1)
+    torch.cuda.synchronize()
+    t1 = time.time() - t0
+    reasons = list(eng.finish_reasons)
+    eos = sorted({t for o in out1 for t in o})
+    wave2 = [Request(prompt=prompts[0], max_new_tokens=NEW_TOKENS,
+                     eos_ids=tuple(eos)),
+             Request(prompt=tail, max_new_tokens=NEW_TOKENS)]
+    t0 = time.time()
+    out2 = eng.generate(wave2)
+    torch.cuda.synchronize()
+    t2 = time.time() - t0
+    launches = read_launches()
+    reasons += eng.finish_reasons
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    outs = out1 + out2
+    for i, o in enumerate(outs):
+        log(f"[{label}] request {i}: {o}")
+    if any(len(o) != NEW_TOKENS for o in out1 + out2[1:]):
+        raise AssertionError(f"token counts {[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("token id out of range")
+    eos_fired = eos_outcome(out2[0], set(eos))
+    want = ["length"] * 8 + ["eos" if eos_fired else "length", "length"]
+    if reasons != want:
+        raise AssertionError(f"finish reasons {reasons}")
+    calls = eng.prefill_calls + eng.decode_calls
+    want_launches = {"e2softmax": cfg.n_layers * calls,
+                     "ailayernorm_qnorm": (2 * cfg.n_layers + 1) * calls,
+                     "int8_matmul": (GEMM_PER_FORWARD * calls
+                                     if cfg.quant.acts else 0),
+                     "paged_e2softmax": 0}
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches} over {calls} calls, "
+                             f"expected {want_launches}")
+    if cfg.quant.acts and L.kv_store_dtype(cfg) != torch.int8:
+        raise AssertionError("the w8a8 dense trace does not cache int8")
+    n_tok = sum(len(o) for o in outs)
+    log(f"[{label}] served {len(outs)} requests, {n_tok} new tokens: wave 1 "
+        f"{t1:.3f} s, wave 2 {t2:.3f} s ({n_tok / (t1 + t2):.1f} tok/s); "
+        f"eos request: {len(out2[0])} tokens, eos fired: {eos_fired}; "
+        f"{eng.prefill_calls} prefill + {eng.decode_calls} decode calls; "
+        f"peak device memory {peak_gib:.3f} GiB ({resident_gib:.3f} GiB "
+        "resident before the engine was built)")
+    log(f"[{label}] launches on the path: " + json.dumps(launches))
+    return launches, {"wave1_s": t1, "wave2_s": t2, "new_tokens": n_tok,
+                      "eos_fired": eos_fired, "prefill_calls":
+                      eng.prefill_calls, "decode_calls": eng.decode_calls,
+                      "max_memory_allocated_gib": peak_gib,
+                      "resident_before_gib": resident_gib}
+
+
 def small_engine_parity(torch):
     """The same smoke-size trace through the kernels (cuda) and the plain
     versions (cpu): in bf16, >= 95% of greedy tokens equal in exact and
     SOLE mode (cuBLAS and the CPU sum in other orders; in SOLE mode a
     logit that moves across a rounding boundary flips a code); at w8a8 in
     exact mode, with float and with int8 pages, tokens equal (every
-    projection is an exact int32 sum)."""
+    projection is an exact int32 sum). The dense-slot engine likewise in
+    SOLE mode and at w8a8 exact with an int8 cache."""
     import numpy as np
     from repro_torch.configs.base import QuantConfig, get_config
     from repro_torch.models import api
-    from repro_torch.serve.engine import PagedEngine, Request
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
     exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
     w8a8 = dict(exact, quant=QuantConfig("w8a8"))
     for mode, change, bar in (
@@ -499,11 +705,30 @@ def small_engine_parity(torch):
                               prefill_chunk=8, device=dev)
             outs.append(eng.generate(reqs))
             eng.cache.check_refcounts()
-        pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
-        agree = sum(a == b for a, b in pairs) / len(pairs)
-        log(f"smoke engine cuda vs cpu, {mode}: token agreement {agree:.3f}")
-        if agree < bar:
-            raise AssertionError(f"smoke parity {mode}: {agree} < {bar}")
+        check_agreement(outs, f"paged {mode}", bar)
+    for mode, change, bar in (
+            ("sole", {}, 0.95),
+            ("w8a8 exact int8 kv", dict(w8a8, kv_cache_dtype="int8"), 1.0)):
+        cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(), **change)
+        params = api.init_params(0, cfg, "cpu")
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                        .astype(np.int32), max_new_tokens=8)
+                for n in (5, 20, 12, 30, 9)]
+        outs = [Engine(cfg, params, batch_size=4, max_len=64,
+                       device=dev).generate(reqs) for dev in ("cpu", "cuda")]
+        check_agreement(outs, f"dense {mode}", bar)
+
+
+def check_agreement(outs, label, bar):
+    """Share of equal greedy tokens between the CPU and card outputs."""
+    if any(len(o) != 8 for o in outs[1]):
+        raise AssertionError(f"smoke {label}: token counts")
+    pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"smoke engine cuda vs cpu, {label}: token agreement {agree:.3f}")
+    if agree < bar:
+        raise AssertionError(f"smoke parity {label}: {agree} < {bar}")
 
 
 def time_kernels(torch, attn, norm, launches, cfg):
@@ -578,6 +803,55 @@ def time_kernels(torch, attn, norm, launches, cfg):
                 f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
                 f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
     return table
+
+
+def time_e2softmax(torch, e2, launches, launches8):
+    """Phase 5 for the E2Softmax kernel: CUDA-event and profiler times at
+    the path's decode and prefill shapes and the two benchmark shapes,
+    the plain version's time, and the bound: the logits and mask read
+    once and the float32 output written once at the card's memory rate
+    (the ~16 operations per element are far below its peak)."""
+    from repro_torch.kernels import e2softmax as KE
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    entry = dict(name="e2softmax", route="cuda",
+                 source="src/repro_torch/kernels/csrc/e2softmax.cu",
+                 replaces="src/repro/kernels/e2softmax.py:48", shapes={})
+    for name in ("decode", "prefill", "bench_785", "bench_8192"):
+        res = e2[name]
+        x, kw = res["x"], res["kw"]
+        mask = kw["mask"]
+
+        def run():
+            return KE.e2softmax(x, **kw)
+        nbytes = (x.numel() * x.element_size() + x.numel() * 4
+                  + (0 if mask is None else mask.numel()))
+        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * x.numel(), FP32_FLOPS)
+        entry["shapes"][name] = dict(
+            shape=f"rows {x.shape[0]} C {x.shape[1]} "
+                  f"{'masked' if mask is not None else 'unmasked'}",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "e2softmax_kernel"),
+            plain_ms=time_ms(torch, lambda: KE.e2softmax_plain(x, **kw),
+                             flush, reps=10),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            rows_off=res["rows_off"], bytes=nbytes)
+    top = entry["shapes"]["decode"]            # the most-launched shape
+    entry.update(launches=launches["e2softmax"],
+                 launches_w8a8=launches8["e2softmax"],
+                 max_abs_err=max(v["max_abs_err"] for v in e2.values()),
+                 ms=top["ms"], plain_ms=top["plain_ms"],
+                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                 library_ms=None, main_shape="decode")
+    for sname, v in entry["shapes"].items():
+        k = v["kernel_ms"]
+        log(f"e2softmax {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+            f"(profiler: kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+            f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
+            f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+    return [entry]
 
 
 def _int_mm_ms(torch, x, w, flush):
@@ -673,19 +947,24 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
     return [paged, mm]
 
 
-def profile_engine(torch, cfg, params, label):
-    """Where the time goes on the main path: one decode-heavy wave
-    (8 requests, 128-token prompts, 32 new tokens) under torch.profiler.
-    Prints the device-busy share of the wall time and the kernels with
-    the most device time; returns the summary."""
+def profile_engine(torch, cfg, params, label, dense=False):
+    """Where the time goes on a main path: one decode-heavy wave
+    (8 requests, 128-token prompts, 32 new tokens) through the paged
+    engine, or the dense-slot one, under torch.profiler. Prints the
+    device-busy share of the wall time and the kernels with the most
+    device time; returns the summary."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import PagedEngine, Request
-    eng = PagedEngine(cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
-                      block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
-                      max_running=8, decode_batch=DECODE_BATCH,
-                      prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
-                      device="cuda")
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
+    if dense:
+        eng = Engine(cfg, params, batch_size=DECODE_BATCH,
+                     max_len=DENSE_MAX_LEN, device="cuda")
+    else:
+        eng = PagedEngine(
+            cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+            block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN, max_running=8,
+            decode_batch=DECODE_BATCH, prefill_chunk=PREFILL_CHUNK,
+            decode_horizon=8, device="cuda")
     rng = np.random.default_rng(2)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 128)
                     .astype(np.int32), max_new_tokens=NEW_TOKENS)
@@ -730,6 +1009,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     try:
         smi = nvidia_smi_line()
         log(f"card: {smi}")
@@ -748,18 +1028,31 @@ def main() -> int:
         attn, norm = check_kernels(torch, cfg)
         attn8 = check_int8_paged(torch, cfg)
         gemm = check_int8_gemm(torch)
+        e2 = check_e2softmax(torch, cfg)
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
         launches8, trace8, params8 = serve_full_width(torch, cfg8, "w8a8")
+        dlaunches, dtrace = serve_dense_full_width(torch, cfg, params,
+                                                   "dense bf16")
+        dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
+                                                     "dense w8a8")
         small_engine_parity(torch)
         table = time_kernels(torch, attn, norm, launches, cfg)
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
+        table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
         for e in table:
             if e["name"] == "ailayernorm_qnorm":
                 e["launches_w8a8"] = launches8["ailayernorm_qnorm"]
+                e["launches_dense"] = dlaunches["ailayernorm_qnorm"]
+            if e["name"] == "int8_matmul":
+                e["launches_dense_w8a8"] = dlaunches8["int8_matmul"]
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")
+        dtrace["profile"] = profile_engine(torch, cfg, params, "dense bf16",
+                                           dense=True)
         del params
         trace8["profile"] = profile_engine(torch, cfg8, params8, "w8a8")
-        log(json.dumps({"trace": trace, "trace_w8a8": trace8}))
+        log(json.dumps({"trace": trace, "trace_w8a8": trace8,
+                        "trace_dense": dtrace, "trace_dense_w8a8": dtrace8}))
+        log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.sole.quant import true_div
+
 # 1/ln2 ~= 1.442695 approximated by shifts: 1 + 1/2 - 1/16 (paper Eq. 8).
 INV_LN2_SHIFT_APPROX = 1.4375
 # Unbiasedness correction constant (paper Eq. 13).
@@ -43,18 +45,24 @@ def aldivision(k_y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.exp2(-(k_y + k_s + 1).float()) * factor
 
 
-def e2softmax(x: torch.Tensor, *, exp_bits: int = 4,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Two-pass E2Softmax over the last axis; ``mask`` True = keep."""
+def e2softmax(x: torch.Tensor, *, axis: int = -1, exp_bits: int = 4,
+              mask: Optional[torch.Tensor] = None,
+              input_scale: Optional[float] = None) -> torch.Tensor:
+    """Two-pass E2Softmax over ``axis``; ``mask`` True = keep.
+    ``input_scale`` first snaps the logits to the int8 grid of that scale
+    (``clip(round(x / s), -128, 127) * s``, a true division)."""
     x = x.float()
+    if input_scale is not None:
+        x = torch.clamp(torch.round(true_div(x, input_scale)), -128, 127) \
+            * input_scale
     neg = torch.finfo(torch.float32).min
     xm = x if mask is None else torch.where(mask, x, neg)
-    m = torch.clamp_min(xm.amax(-1, keepdim=True), neg / 2)
+    m = torch.clamp_min(xm.amax(axis, keepdim=True), neg / 2)
     k = log2exp(xm - m, exp_bits=exp_bits)
     p = torch.exp2(-k.float())
     if mask is not None:
         p = torch.where(mask, p, 0.0)
-    s = torch.clamp_min(p.sum(-1, keepdim=True), 2.0 ** -30)
+    s = torch.clamp_min(p.sum(axis, keepdim=True), 2.0 ** -30)
     out = aldivision(k, s)
     if mask is not None:
         out = torch.where(mask, out, 0.0)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NAMES = ("paged_e2softmax", "ailayernorm", "int8_matmul")
+NAMES = ("paged_e2softmax", "ailayernorm", "int8_matmul", "e2softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

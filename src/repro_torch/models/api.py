@@ -1,9 +1,11 @@
 """Model API: the only model surface ``serve/`` talks to. Dense family
 only in this slice; other families raise.
 
-State and reference vectors follow the reference's calling convention:
-``state`` is the engine's composite device state (``{"k", "v"}`` page
-pools) and ``refs`` the per-dispatch references (``"tables"`` (B, NB)).
+The dense-slot engine calls :func:`prefill` / :func:`decode_step` on
+stacked caches (:func:`init_cache`). The paged calls follow the
+reference's calling convention: ``state`` is the engine's composite
+device state (``{"k", "v"}`` page pools) and ``refs`` the per-dispatch
+references (``"tables"`` (B, NB)).
 """
 from __future__ import annotations
 
@@ -35,6 +37,30 @@ def init_params(seed: Union[int, torch.Generator], cfg: ArchConfig,
 
 def sequence_state_spec(cfg: ArchConfig):
     return get_model(cfg).sequence_state_spec(cfg)
+
+
+def forward(params, batch, cfg: ArchConfig, phase: str = "serve"):
+    """batch {"tokens": (B, S)} -> logits (B, S, padded_vocab) float32."""
+    return get_model(cfg).forward(params, batch["tokens"], cfg, phase)
+
+
+def init_cache(cfg: ArchConfig, batch: int, length: int, device="cuda"):
+    """Empty dense-slot caches for ``batch`` lanes of ``length`` tokens."""
+    return get_model(cfg).init_cache(cfg, batch, length, device)
+
+
+def prefill(params, tokens, cfg: ArchConfig, cache_len: int, n_pad=None):
+    """Whole-prompt prefill of tokens (B, S) into a fresh cache of
+    ``cache_len`` columns. Returns (last-position logits (B, 1, V), cache)."""
+    return get_model(cfg).prefill(params, tokens, cfg, cache_len,
+                                  n_pad=n_pad)
+
+
+def decode_step(params, cache, token, pos, cfg: ArchConfig, write_pos=None):
+    """One decode step on the dense-slot cache (updated in place). Returns
+    (logits (B, V), cache)."""
+    return get_model(cfg).decode_step(params, cache, token, pos, cfg,
+                                      write_pos=write_pos)
 
 
 def prefill_paged(params, tokens, q_start, n_valid, refs, state,

@@ -1,6 +1,7 @@
-"""Shared model components on the paged serve path: embeddings, RoPE,
-norms, the SwiGLU MLP, QKV/output projections and paged attention, with
-the SOLE technique as the softmax/norm implementation.
+"""Shared model components of the serve paths: embeddings, RoPE, norms,
+the SwiGLU MLP, QKV/output projections, paged attention and the dense
+(materialized-logits) attention of the dense-slot engine, with the SOLE
+technique as the softmax/norm implementation.
 
 Plain functions on tensors, in the JAX package's layouts. Parameters are
 stored once in their serving dtype (``cfg.dtype`` for projections,
@@ -11,6 +12,8 @@ leaves (``sharding.rules.quantize_params``) and go through
 :func:`qmatmul`.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -225,3 +228,173 @@ def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
               # w8a8: V stays raw int8 codes through P.V and kv_scale
               # folds into the final row scale (exact: a power of two).
               quant_pv=bool(cfg.quant.acts and kv_scale is not None))
+
+
+# -- dense attention (the dense-slot engine) ------------------------------------
+
+
+def _snap_logits(d: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """int8-grid snap of post-max logits (paper: 8-bit softmax inputs), in
+    the form the jitted reference computes (see ``ops.snap_logits``)."""
+    return ops.snap_logits(d, LOGIT_INT8_SCALE if cfg.logit_int8 else None)
+
+
+def _mask(q_pos, k_pos, cfg: ArchConfig, causal: bool) -> torch.Tensor:
+    """(..., S_q, S_k) boolean mask from positions; padded keys carry
+    position 2**30."""
+    m = k_pos[..., None, :] < 2 ** 29
+    m = torch.broadcast_to(m, tuple(q_pos.shape) + (k_pos.shape[-1],))
+    if causal:
+        m = m & (q_pos[..., :, None] >= k_pos[..., None, :])
+    if cfg.window:
+        m = m & ((q_pos[..., :, None] - k_pos[..., None, :]) < cfg.window)
+    return m
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: broadcast KV heads (axis 2) to the full head count."""
+    kvh = k.shape[2]
+    if kvh == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kvh, dim=2)
+
+
+def _sole_probs(logits, mask, cfg: ArchConfig) -> torch.Tensor:
+    """SOLE attention probabilities: the masked row max (floored at -1e30
+    for fully masked rows), the int8 snap of ``logits - max``, then the
+    E2Softmax op (the kernel on CUDA)."""
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    m = torch.clamp_min(m, -1e30)
+    return ops.softmax_fn("sole", logits.device)(
+        _snap_logits(logits - m, cfg), mask=mask, exp_bits=cfg.exp_bits)
+
+
+def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
+                 causal: bool = True) -> torch.Tensor:
+    """Materialized-logits attention. q (B,S,H,hd), k/v (B,T,KV,hd);
+    positions (S,)/(T,) shared or (B,S)/(B,T) per lane. The logits are the
+    model-dtype product, then float32, as in the reference."""
+    b, s, h, hd = q.shape
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    qs = q * (hd ** -0.5)
+    logits = torch.einsum("bshd,bthd->bhst", qs, k).float()
+    mask = _mask(q_pos, k_pos, cfg, causal)          # (s, t) or (b, s, t)
+    if mask.ndim == 3:                               # per-lane positions
+        mask = mask[:, None]
+    mask = torch.broadcast_to(mask, logits.shape)
+    mode = _softmax_mode(cfg, phase)
+    if mode == "sole":
+        probs = _sole_probs(logits, mask, cfg)
+    else:
+        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask)
+    probs = probs.to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def apply_attention(p, x, positions, cfg: ArchConfig, phase: str,
+                    causal: Optional[bool] = None) -> torch.Tensor:
+    """Self-attention over x (B,S,D) at ``positions`` (S,)."""
+    causal = cfg.causal if causal is None else causal
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.pos_kind == "rope":
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    s = x.shape[1]
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "blocked" if s >= 8192 else "dense"
+    _check_attn_impl(impl)
+    ctx = attend_dense(q, k, v, positions, positions, cfg, phase,
+                       causal=causal)
+    return _wo_proj(ctx, p, cfg)
+
+
+def _check_attn_impl(impl: str) -> None:
+    if impl == "blocked":
+        raise NotImplementedError(
+            "blocked (online-normalized) attention is not ported yet "
+            "(ROADMAP.md queue 1 item 4); sequences of 8192 tokens or more "
+            "select it under attn_impl='auto'")
+
+
+def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
+                          cfg: ArchConfig, slot: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention against the stacked dot-layout caches
+    ck (L,B,KV,hd,T) and cv (L,B,KV,T,hd), which are only read here: the
+    current token's (k, v) is attended as column T+1 and returned, and the
+    caller writes every layer's column after the layer loop. ``cpos`` is
+    the position ring (T,) or per lane (B,T); ``pos`` scalar or per lane
+    (B,); ``slot`` the ring column this step writes (its stale content is
+    masked out). The logits are float32 products of the model-dtype
+    operands. Returns (attn_out, k_col (B,KV,hd,1), v_row (B,KV,1,hd)).
+    """
+    q, k, v = _project_qkv(p, x1, cfg)
+    if cfg.pos_kind == "rope":
+        rp = pos[:, None] if pos.ndim else pos[None]
+        q = apply_rope(q, rp, cfg)
+        k = apply_rope(k, rp, cfg)
+    t = ck.shape[-1]
+    kl = kv_dequant(ck[layer_idx], cfg)                  # (B,KV,hd,T)
+    vl = kv_dequant(cv[layer_idx], cfg)                  # (B,KV,T,hd)
+    b, _, h, hd = q.shape
+    kvh = kl.shape[1]
+    g = h // kvh
+    cpos2 = cpos if cpos.ndim == 2 else cpos[None]       # (1|B, T)
+    pos2 = (pos if pos.ndim else pos[None])[:, None]     # (1|B, 1)
+    valid = cpos2 <= pos2
+    if cfg.window:
+        valid = valid & ((pos2 - cpos2) < cfg.window)
+    valid = valid & (torch.arange(t, device=q.device)[None] != slot)
+    mode = _softmax_mode(cfg, phase="serve")
+    qg = (q * (hd ** -0.5)).reshape(b, kvh, g, hd)
+    kc = k.reshape(b, kvh, 1, hd)                        # current token
+    vc = v.reshape(b, kvh, 1, hd)
+    logits_c = torch.einsum("bkgd,bkdt->bkgt", qg.float(), kl.float())
+    logit_s = torch.einsum("bkgd,bkxd->bkgx", qg.float(),
+                           kc.to(qg.dtype).float())
+    logits = torch.cat([logits_c, logit_s], -1)          # (B,KV,g,T+1)
+    mask = torch.cat(
+        [torch.broadcast_to(valid[:, None, None, :], (b, kvh, g, t)),
+         torch.ones((b, kvh, g, 1), dtype=torch.bool, device=q.device)], -1)
+    if mode == "sole":
+        probs = _sole_probs(logits, mask, cfg)
+    else:
+        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask)
+    probs = probs.to(q.dtype)
+    ctx = torch.einsum("bkgt,bktd->bkgd", probs[..., :t], vl)
+    ctx = ctx + probs[..., t:] * vc
+    out = _wo_proj(ctx.reshape(b, 1, h, hd), p, cfg)
+    k_col = kv_quant(k, cfg).permute(0, 2, 3, 1)         # (B,KV,hd,1)
+    v_row = kv_quant(v, cfg).permute(0, 2, 1, 3)         # (B,KV,1,hd)
+    return out, k_col, v_row
+
+
+def write_kv_columns(ck, cv, k_cols, v_rows, slot: int) -> None:
+    """Write all layers' decode columns, k_cols (L,B,KV,hd,1) and v_rows
+    (L,B,KV,1,hd), into the stacked caches at ring column ``slot``, in
+    place."""
+    ck[..., slot] = k_cols[..., 0].to(ck.dtype)
+    cv[..., slot, :] = v_rows[..., 0, :].to(cv.dtype)
+
+
+def pack_prefill_cache(k, v, positions, t: int, cfg: ArchConfig):
+    """One layer's prefill K/V (B,S,KV,hd) -> the dot-layout rings
+    (B,KV,hd,T) and (B,KV,T,hd) and their positions, (T,) shared or (B,T)
+    per lane (pad slots hold 2**30)."""
+    s = k.shape[1]
+    if s >= t:
+        kk, vv, pp = k[:, -t:], v[:, -t:], positions[..., -t:]
+    else:
+        kk = F.pad(k, (0, 0, 0, 0, 0, t - s))
+        vv = F.pad(v, (0, 0, 0, 0, 0, t - s))
+        pp = F.pad(positions, (0, t - s), value=2 ** 30)
+    if cfg.window:
+        shift = s % t if s >= t else 0
+        kk = torch.roll(kk, shift, 1)
+        vv = torch.roll(vv, shift, 1)
+        pp = torch.roll(pp, shift, -1)
+    kq = kv_quant(kk, cfg).permute(0, 2, 3, 1).contiguous()
+    vq = kv_quant(vv, cfg).permute(0, 2, 1, 3).contiguous()
+    return kq, vq, pp.to(torch.int32)

@@ -1,10 +1,12 @@
-"""Dense decoder-only LM (qwen2 / stablelm backbone) on the paged serve
-path: parameter init, the paged forward, chunked prefill, decode steps
-and fused greedy decode horizons.
+"""Dense decoder-only LM (qwen2 / stablelm backbone): parameter init, the
+full-sequence forward, the dense-slot serve path (whole-prompt prefill
+into stacked dot-layout caches, one-token decode steps) and the paged
+serve path (the paged forward, chunked prefill, decode steps and fused
+greedy decode horizons).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -81,6 +83,132 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(t, i) for k, t in tree.items()}
     return tree[i]
+
+
+def forward(params, tokens, cfg: ArchConfig, phase: str) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab) float32."""
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    lay = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer(lay, i)
+        h = L.apply_norm(x, lp["ln1"], cfg, phase)
+        attn_out = L.apply_attention(lp["attn"], h, positions, cfg, phase)
+        x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, phase)
+        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+    x = L.apply_norm(x, params["final_norm"], cfg, phase)
+    return L.lm_logits(params["embed"], x, cfg)
+
+
+# -- dense-slot serving --------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, length: int, device):
+    """Stacked dot-layout caches k (L,B,KV,hd,T), v (L,B,KV,T,hd) in the
+    KV store dtype and one shared position ring (T,) of 2**30 (empty)."""
+    t = min(length, cfg.window) if cfg.window else length
+    dt = L.kv_store_dtype(cfg)
+    lk = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.head_dim, t)
+    lv = (cfg.n_layers, batch, cfg.n_kv_heads, t, cfg.head_dim)
+    return {"k": torch.zeros(lk, dtype=dt, device=device),
+            "v": torch.zeros(lv, dtype=dt, device=device),
+            "pos": torch.full((t,), 2 ** 30, dtype=torch.int32,
+                              device=device)}
+
+
+def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
+            n_pad: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the whole prompt, returning the last position's logits
+    (B, 1, padded_vocab) and the filled cache.
+
+    ``n_pad`` (B,) marks left padding per lane: lane ``j``'s real tokens
+    occupy columns ``n_pad[j]..S-1`` at logical positions ``0..``. Pad
+    columns are masked out of every key set (stored position 2**30) and
+    RoPE sees the local positions; pad rows still take part in every SOLE
+    norm's batch-global calibration, as in the reference. ``n_pad=None``
+    keeps the shared ``arange(S)`` positions.
+    """
+    b, s = tokens.shape
+    dev = tokens.device
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    if n_pad is None:
+        q_pos = k_pos = rope_pos = torch.arange(s, device=dev)
+    else:
+        local = torch.arange(s, device=dev)[None] - n_pad[:, None].long()
+        k_pos = torch.where(local < 0, 2 ** 30, local)  # pads: masked keys
+        q_pos = rope_pos = torch.clamp_min(local, 0)
+    t = min(cache_len, cfg.window) if cfg.window else cache_len
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "blocked" if s >= 8192 else "dense"
+    if impl == "blocked" and n_pad is not None:
+        impl = "dense"          # the blocked path is shared-positions only
+    L._check_attn_impl(impl)
+    lay = params["layers"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(lay, i)
+        h = L.apply_norm(x, lp["ln1"], cfg, "serve")
+        q, k, v = L._project_qkv(lp["attn"], h, cfg)
+        if cfg.pos_kind == "rope":
+            q = L.apply_rope(q, rope_pos, cfg)
+            k = L.apply_rope(k, rope_pos, cfg)
+        ctx = L.attend_dense(q, k, v, q_pos, k_pos, cfg, "serve",
+                             causal=cfg.causal)
+        attn_out = L._wo_proj(ctx, lp["attn"], cfg)
+        x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
+        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        kq, vq, pp = L.pack_prefill_cache(k, v, k_pos, t, cfg)
+        ks.append(kq)
+        vs.append(vq)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pp}
+    x = L.apply_norm(x, params["final_norm"], cfg, "serve")
+    return L.lm_logits(params["embed"], x[:, -1:], cfg), cache
+
+
+def decode_step(params, cache, token, pos, cfg: ArchConfig,
+                write_pos: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step: token (B,) at ``pos``, a scalar or (B,) per-lane
+    logical positions (left-padded batches), with ``write_pos`` the shared
+    physical ring column (prompt length + step). Returns (logits
+    (B, padded_vocab), cache).
+
+    The cache is updated **in place**: the layers only read it (the
+    current token is attended as an extra column), then every layer's new
+    column is written at one slot, as the reference does after its layer
+    scan.
+    """
+    x = L.embed_tokens(params["embed"], token[:, None], cfg)
+    t = cache["k"].shape[-1]
+    wp = int(pos if write_pos is None else write_pos)
+    slot = wp % t if cfg.window else min(wp, t - 1)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    cpos = cache["pos"]
+    if cpos.ndim == 2:                   # per-lane position ring (B, T)
+        cpos[:, slot] = torch.broadcast_to(pos, (cpos.shape[0],))
+    else:
+        cpos[slot] = pos
+    ck, cv = cache["k"], cache["v"]
+    lay = params["layers"]
+    k_cols, v_rows = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(lay, i)
+        h = L.apply_norm(x, lp["ln1"], cfg, "serve")
+        attn_out, k_col, v_row = L.decode_attend_stacked(
+            lp["attn"], h, ck, cv, cpos, i, pos, cfg, slot)
+        x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
+        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        k_cols.append(k_col)
+        v_rows.append(v_row)
+    L.write_kv_columns(ck, cv, torch.stack(k_cols), torch.stack(v_rows), slot)
+    x = L.apply_norm(x, params["final_norm"], cfg, "serve")
+    logits = L.lm_logits(params["embed"], x, cfg)
+    return logits[:, 0], cache
+
+
+# -- paged serving --------------------------------------------------------------
 
 
 def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,

@@ -4,6 +4,7 @@
 The ``*_fn`` helpers resolve the backend from the device the tensors
 live on (:func:`registry.backend_for`)::
 
+    p    = ops.softmax_fn(mode, x.device)(logits, mask=mask)
     h    = ops.rmsnorm_fn(mode, x.device)(x, gamma)
     x, h = ops.residual_norm_fn("rmsnorm", mode, x.device)(x, r, gamma)
     y    = ops.matmul_fn("w8a8", q.device)((q, scale), w, n_contract=1)
@@ -19,11 +20,13 @@ from repro_torch.ops.registry import (ATTN_MODES, BACKENDS, MATMUL_MODES,
                                       resolve)
 from repro_torch.ops import reference  # registers the reference backend
 from repro_torch.ops import cuda       # registers the cuda backend
+from repro_torch.ops.reference import snap_logits
 
 __all__ = [
     "OPS", "BACKENDS", "SOFTMAX_MODES", "NORM_MODES", "ATTN_MODES",
     "MATMUL_MODES", "MODES_BY_OP", "UNPORTED_KERNELS", "register", "resolve",
-    "is_registered", "backend_for", "layernorm_fn", "rmsnorm_fn",
+    "is_registered", "backend_for", "snap_logits", "softmax_fn",
+    "layernorm_fn", "rmsnorm_fn",
     "residual_norm_fn", "residual_norm_q_fn", "matmul_fn",
     "paged_attention_fn", "reference", "cuda",
 ]
@@ -31,6 +34,11 @@ __all__ = [
 
 def _fn(op: str, mode: str, device) -> Callable:
     return resolve(op, mode, backend_for(op, mode, device))
+
+
+def softmax_fn(mode: str, device) -> Callable:
+    """softmax(x, axis=-1, mask=None, ...) for the given mode."""
+    return _fn("softmax", mode, device)
 
 
 def layernorm_fn(mode: str, device) -> Callable:

@@ -10,12 +10,30 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.sole.quant import quantize_act
+import torch
+
+from repro_torch.core.sole.quant import quantize_act, true_div
 from repro_torch.kernels import ailayernorm as K_norm
+from repro_torch.kernels.e2softmax import e2softmax
 from repro_torch.kernels.flash_e2softmax import flash_e2softmax_paged
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.ops import registry
 from repro_torch.ops.reference import paged_meta, w8a8_matmul_with
+
+
+@registry.register("softmax", "sole", "cuda")
+def sole_softmax_cuda(x, *, axis: int = -1, mask=None, exp_bits: int = 4,
+                      input_scale: Optional[float] = None, **kw):
+    """The E2Softmax kernel over the last axis; masked entries give exact
+    0. ``input_scale`` snaps the logits to its int8 grid before the kernel,
+    in their own dtype, as the reference's Pallas adapter does."""
+    if axis not in (-1, x.ndim - 1):
+        raise ValueError("the e2softmax kernel normalizes the last axis only")
+    if input_scale is not None:
+        scale = torch.full_like(x, input_scale)
+        x = torch.clamp(torch.round(true_div(x, input_scale)), -128, 127) \
+            * scale
+    return e2softmax(x, exp_bits=exp_bits, mask=mask)
 
 
 @registry.register("layernorm", "sole", "cuda")

@@ -2,6 +2,7 @@
 
 Signatures match the JAX package's registry:
 
+  softmax(x, *, axis=-1, mask=None, ...)   exact | sole
   layernorm(x, gamma, beta)            rmsnorm(x, gamma)
   residual_layernorm(x, r, gamma, beta) -> (x + r, norm(x + r))
   residual_rmsnorm(x, r, gamma)         -> (x + r, norm(x + r))
@@ -16,16 +17,62 @@ so the two differ as soon as a sequence spans more than one page.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core.sole.ailayernorm import ailayernorm, airmsnorm
+from repro_torch.core.sole.e2softmax import e2softmax
 from repro_torch.core.sole.quant import quantize_act
 from repro_torch.kernels.flash_e2softmax import (default_kv_head_map,
                                                  flash_e2softmax_paged_plain)
 from repro_torch.kernels.int8_matmul import int8_matmul_plain
 from repro_torch.ops import registry
+
+
+# -- softmax ------------------------------------------------------------------
+
+
+@registry.register("softmax", "exact", "reference")
+def exact_softmax(x, *, axis=-1, mask=None, **kw):
+    x = x.float()
+    if mask is not None:
+        x = torch.where(mask, x, torch.finfo(torch.float32).min)
+    out = torch.softmax(x, dim=axis)
+    if mask is not None:
+        out = torch.where(mask, out, 0.0)
+    return out
+
+
+@registry.register("softmax", "sole", "reference")
+def sole_softmax(x, *, axis=-1, mask=None, exp_bits: int = 4,
+                 input_scale=None, **kw):
+    return e2softmax(x, axis=axis, exp_bits=exp_bits, mask=mask,
+                     input_scale=input_scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _snap_reciprocal(int8_scale: float) -> float:
+    """float32(1 / float32(s)) as a Python float (exact in float32, so a
+    tensor times it rounds once, on any device, with no host copy)."""
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.tensor(int8_scale, dtype=torch.float32))
+
+
+def snap_logits(d: torch.Tensor, int8_scale: Optional[float]) -> torch.Tensor:
+    """int8-grid snap of post-max logits (paper: 8-bit softmax inputs):
+    ``clip(round(d * float32(1 / s)), -127, 0) * s``. The JAX model steps
+    snap inside ``jit``, where XLA rewrites ``d / s`` for the constant
+    ``s`` into this multiply; it differs from the true division at rare
+    ties (3 of 2e6 random logits), so the port takes the jitted form."""
+    if int8_scale is None:
+        return d
+    inv = _snap_reciprocal(int8_scale)
+    return torch.clamp(torch.round(d * inv), -127, 0) * int8_scale
+
+
+# -- norms --------------------------------------------------------------------
 
 
 @registry.register("layernorm", "exact", "reference")

@@ -50,7 +50,6 @@ MODES_BY_OP: Dict[str, Tuple[str, ...]] = {
 # (op, mode) pairs the reference runs through a Pallas kernel that has no
 # Hopper counterpart yet -> the ROADMAP item that ports it.
 UNPORTED_KERNELS: Dict[Tuple[str, str], str] = {
-    ("softmax", "sole"): "ROADMAP.md queue 2, e2softmax_pallas",
     ("flash_attention", "exact"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
     ("flash_attention", "sole"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
 }

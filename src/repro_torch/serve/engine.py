@@ -1,4 +1,5 @@
-"""Serving engine: prefix-cached paged continuous batching (PagedEngine).
+"""Serving engines: prefix-cached paged continuous batching
+(PagedEngine) and the dense-slot batched engine (Engine).
 
 A ref-counted, shared-page KV pool (serve/kv_cache.py) with token-level
 continuous batching, chunked prefill, prefix caching and
@@ -9,12 +10,17 @@ a write into a shared page is copy-on-write, replayed on the device
 before the model step. Prefill-chunk and decode attention both stream
 pages through the paged Flash-E2Softmax kernel on CUDA.
 
-The engine runs on ``device`` ("cuda" unless the caller asks for the
-CPU, where every op runs its plain torch version); it never falls back
-from one to the other. Under ``cfg.quant`` w8a16/w8a8 it packs the
+``Engine`` serves fixed batches of requests against stacked dense
+caches: one whole-prompt prefill per batch (left-padded, per-lane
+positions), then one decode step per token; its attention softmax runs
+the E2Softmax kernel on CUDA.
+
+Both engines run on ``device`` ("cuda" unless the caller asks for the
+CPU, where every op runs its plain torch version); they never fall back
+from one to the other. Under ``cfg.quant`` w8a16/w8a8 each packs the
 matmul weights to int8 at construction (every projection and the LM head
 then run through the int8 GEMM kernel at w8a8), and
-``cfg.kv_cache_dtype="int8"`` keeps int8 KV pages.
+``cfg.kv_cache_dtype="int8"`` keeps int8 KV pages or dense caches.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, copy_pages
-from repro_torch.serve.sampling import apply_finish, eos_table, sampler_for
+from repro_torch.serve.sampling import (apply_finish, eos_table,
+                                        greedy_tokens, sampler_for)
 from repro_torch.serve.scheduler import Scheduler, Sequence
 from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
 
@@ -65,6 +72,26 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _resolve_device(device, engine: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{engine}: no CUDA device is available; pass device='cpu' to "
+            "serve with the plain torch ops")
+    return device
+
+
+def _serving_params(cfg: ArchConfig, params, device):
+    """The engine's parameter tree on ``device``: under ``cfg.quant.weights``
+    every matmul weight packed to int8 + per-channel scales, as the
+    reference engines do (idempotent), from float32 masters only (codes
+    packed from bf16 would differ)."""
+    if cfg.quant.weights:
+        _check_float32_masters(params)
+        params = quantize_params(params)
+    return _to_device(params, device)
+
+
 class PagedEngine:
     """Continuous-batching engine over paged KV for the dense family.
 
@@ -89,11 +116,7 @@ class PagedEngine:
                  prefill_chunk: int = 16, decode_horizon: int = 8,
                  device="cuda", prefix_cache: Optional[bool] = None,
                  watermark: int = 1, rules=None, spec_config=None):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "PagedEngine: no CUDA device is available; pass "
-                "device='cpu' to serve with the plain torch ops")
+        device = _resolve_device(device, "PagedEngine")
         if cfg.quant.weights and cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"family {cfg.family!r} has no quantized serving path "
@@ -124,13 +147,7 @@ class PagedEngine:
         self.cfg = cfg
         self.device = device
         self.prefix_cache = prefix_cache
-        if cfg.quant.weights:
-            # w8a16/w8a8: pack every matmul weight to int8 + per-channel
-            # scales, as the reference engine does (idempotent), from
-            # float32 masters only: codes packed from bf16 would differ.
-            _check_float32_masters(params)
-            params = quantize_params(params)
-        self.params = _to_device(params, device)
+        self.params = _serving_params(cfg, params, device)
         self.decode_batch = decode_batch
         self.decode_horizon = decode_horizon
         self.cache = PagedKVCache(cfg, num_blocks=num_blocks,
@@ -331,3 +348,115 @@ class PagedEngine:
             "reclaimed_pages": self.reclaimed_pages,
             "state_footprint_bytes": int(c.blocks_in_use * per_page),
         }
+
+
+class Engine:
+    """Dense-slot batched engine (the reference launcher's default).
+
+    Requests are served ``batch_size`` at a time against stacked dense
+    caches of ``max_len`` columns: one whole-prompt prefill per batch
+    (prompts left-padded to the longest, pad columns masked out of every
+    key set, per-lane logical positions), then one decode step per token
+    with the shared physical write column. The final ragged chunk of a
+    trace is padded to ``batch_size`` with zero-prompt, zero-budget lanes;
+    in SOLE mode those lanes and the pad rows take part in every norm's
+    batch-global calibration, exactly as in the reference. Finished lanes
+    feed token 0 and are never sampled again; when every real lane has
+    finished the decode loop exits. Sampling is greedy on the device
+    (first index on ties); only the (B,) ids come to the host.
+
+    Dense family only; moe, ssm and hybrid raise (ROADMAP.md queue 1
+    item 9), as do mesh rules and temperature > 0.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
+                 max_len: int = 256, device="cuda", rules=None):
+        device = _resolve_device(device, "Engine")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"Engine serves LM families, got {cfg.family}")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md "
+                "queue 1 item 9)")
+        if rules is not None:
+            raise NotImplementedError(
+                "sharding rules are not ported yet (ROADMAP.md queue 1 "
+                "item 12)")
+        self.cfg = cfg
+        self.device = device
+        self.params = _serving_params(cfg, params, device)
+        self.batch = batch_size
+        self.max_len = max_len
+        # why each request of the last generate() call stopped, parallel
+        # to its returned outputs
+        self.finish_reasons: List[str] = []
+        self.prefill_calls = 0
+        self.decode_calls = 0
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _greedy(self, logits: torch.Tensor) -> np.ndarray:
+        return greedy_tokens(logits, self.cfg.vocab_size).cpu().numpy()
+
+    def generate(self, requests: List[Request]) -> List[List[int]]:
+        """Serve all requests, ``batch_size`` at a time; outputs in request
+        order, ``finish_reasons`` parallel to them ("eos", "stop" or
+        "length")."""
+        outs: List[List[int]] = []
+        self.finish_reasons = []
+        for i in range(0, len(requests), self.batch):
+            res, reasons = self._generate_batch(requests[i:i + self.batch])
+            outs.extend(res)
+            self.finish_reasons.extend(reasons)
+        return outs
+
+    def _generate_batch(self, chunk: List[Request]
+                        ) -> Tuple[List[List[int]], List[str]]:
+        real = len(chunk)
+        pad = Request(prompt=np.zeros(1, np.int32), max_new_tokens=0)
+        chunk = chunk + [pad] * (self.batch - real)
+        b = len(chunk)
+        samplers = [sampler_for(r, self.cfg.vocab_size) for r in chunk]
+        plen = max(len(r.prompt) for r in chunk)
+        toks = np.zeros((b, plen), np.int32)
+        n_pad = np.zeros((b,), np.int32)
+        for j, r in enumerate(chunk):
+            toks[j, plen - len(r.prompt):] = r.prompt      # left-pad
+            n_pad[j] = plen - len(r.prompt)
+        logits, cache = api.prefill(self.params, self._tensor(toks),
+                                    self.cfg, self.max_len,
+                                    n_pad=self._tensor(n_pad))
+        self.prefill_calls += 1
+        first = self._greedy(logits[:, -1])
+        results: List[List[int]] = [[] for _ in range(b)]
+        reasons: List[Optional[str]] = [None] * b
+        for j in range(real):
+            _, reasons[j] = apply_finish(samplers[j], results[j], [first[j]])
+
+        def live(j: int) -> bool:
+            return (j < real and reasons[j] is None
+                    and len(results[j]) < chunk[j].max_new_tokens)
+
+        token = np.array([results[j][-1] if live(j) else 0
+                          for j in range(b)], np.int32)
+        max_new = max(r.max_new_tokens for r in chunk)
+        pos = plen                       # shared physical write column
+        for _ in range(max_new - 1):
+            if not any(live(j) for j in range(b)):
+                break                    # early exit: all lanes finished
+            logits, cache = api.decode_step(
+                self.params, cache, self._tensor(token),
+                self._tensor((pos - n_pad).astype(np.int32)), self.cfg,
+                write_pos=pos)
+            self.decode_calls += 1
+            drawn = self._greedy(logits)
+            token = np.zeros((b,), np.int32)
+            for j in range(b):
+                if live(j):
+                    _, reasons[j] = apply_finish(samplers[j], results[j],
+                                                 [drawn[j]])
+                    if live(j):
+                        token[j] = results[j][-1]
+            pos += 1
+        return results[:real], [r or "length" for r in reasons[:real]]

@@ -24,7 +24,14 @@ Tolerances, and why:
   tokens equal.
 * engine, card vs CPU: cuBLAS and the CPU sum in other orders, and in SOLE
   mode a logit that moves across a rounding boundary flips a code: at
-  least 95% of greedy tokens equal.
+  least 95% of greedy tokens equal. The same holds for the dense-slot
+  engine; at w8a8 in exact mode its tokens are equal.
+* E2Softmax: codes and the power-of-two sum are exact, so with C <= 512
+  columns (exp_bits 4) the output equals the plain version bit for bit.
+  Above that the kernel and torch sum in other orders and may round S
+  differently; that can only move a row's ALDivision bucket, so a row
+  either equals the plain row or differs from it by one constant ratio,
+  and at most 0.1% of rows may differ.
 """
 import dataclasses
 
@@ -36,11 +43,13 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.sole.quant import calibrate_ptf
 from repro_torch.kernels import ailayernorm as KN
 from repro_torch.configs.base import QuantConfig
+from repro_torch.kernels import build
+from repro_torch.kernels import e2softmax as KE
 from repro_torch.kernels import flash_e2softmax as KA
 from repro_torch.kernels import int8_matmul as KM
 from repro_torch.models import api
 from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
-from repro_torch.serve.engine import PagedEngine, Request
+from repro_torch.serve.engine import Engine, PagedEngine, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -260,3 +269,134 @@ def test_w8a8_engine_on_card_matches_cpu(cuda_device, kv):
             assert KA.flash_e2softmax_paged.launches > attn0
     assert all(len(o) == 8 for o in outs[1])
     assert outs[1] == outs[0]
+
+
+# (rows, C, masked) of the E2Softmax calls of qwen2_0_5b's dense-slot path
+# (decode: B*H rows of T+1 columns; prefill: B*H*S rows of S columns) and
+# the JAX kernel benchmark's unmasked shapes.
+E2_SHAPES = {"decode": (8 * 14, 385, True), "prefill": (8 * 14 * 300, 300, True),
+             "bench_785": (8, 785, False), "bench_8192": (2, 8192, False)}
+
+
+def _e2_inputs(gen, rows, c, masked, dtype, device):
+    x = (torch.randn((rows, c), generator=gen, device=device) * 4).to(dtype)
+    mask = None
+    if masked:
+        n = torch.randint(1, c + 1, (rows, 1), generator=gen, device=device)
+        mask = torch.arange(c, device=device)[None] < n
+        mask[:, -1] = True                     # the current token (decode)
+        mask[:3] = False                       # fully masked rows
+    return x, mask
+
+
+def _assert_e2_matches(out, ref, c):
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    if c <= 512:
+        assert torch.equal(out, ref)
+        return
+    same = (out == ref).all(-1)
+    assert same.float().mean().item() >= 0.999
+    for i in torch.nonzero(~same).flatten().tolist():
+        nz = ref[i] != 0
+        ratio = out[i][nz] / ref[i][nz]
+        assert torch.equal(ratio, ratio[:1].expand_as(ratio))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("snap", [False, True], ids=["raw", "int8_scale"])
+@pytest.mark.parametrize("name", list(E2_SHAPES))
+def test_e2softmax_kernel_matches_plain(cuda_device, name, snap, dtype):
+    rows, c, masked = E2_SHAPES[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + c)
+    x, mask = _e2_inputs(gen, rows, c, masked, getattr(torch, dtype),
+                         cuda_device)
+    kw = dict(exp_bits=4, int8_scale=LOGIT_INT8_SCALE if snap else None,
+              mask=mask)
+    before = KE.e2softmax.launches
+    out = KE.e2softmax(x, **kw)
+    assert KE.e2softmax.launches == before + 1
+    ref = KE.e2softmax_plain(x, **kw)
+    torch.cuda.synchronize()
+    _assert_e2_matches(out, ref, c)
+    if masked:
+        assert (out[~mask] == 0).all() and (out[:3] == 0).all()
+
+
+def test_snap_logits_on_card_equals_cpu(cuda_device):
+    """The path's int8 snap (a multiply by the float32 reciprocal) gives
+    the same bits on the card as on the CPU, ties included."""
+    from repro_torch import ops
+    gen = torch.Generator().manual_seed(0)
+    d = -(torch.randn(1_000_000, generator=gen) * 5).abs()
+    ties = torch.tensor([3219111808, 3228491195, 3238778800],
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    d = torch.cat([ties, d])
+    got = ops.snap_logits(d.to(cuda_device), LOGIT_INT8_SCALE).cpu()
+    assert torch.equal(got, ops.snap_logits(d, LOGIT_INT8_SCALE))
+
+
+def test_e2softmax_kernel_long_rows_and_exp_bits_6(cuda_device):
+    """Rows too long for shared memory (the kernel re-reads them) and the
+    6-bit codes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for c, exp_bits in ((50_000, 4), (300, 6), (1000, 6)):
+        x, mask = _e2_inputs(gen, 4, c, True, torch.float32, cuda_device)
+        out = KE.e2softmax(x, exp_bits=exp_bits, mask=mask)
+        ref = KE.e2softmax_plain(x, exp_bits=exp_bits, mask=mask)
+        torch.cuda.synchronize()
+        _assert_e2_matches(out, ref, c if exp_bits == 4 else 513)
+
+
+def test_e2softmax_build_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A source that does not compile raises from the wrapper; nothing
+    falls back to the plain version and no launch is counted."""
+    (tmp_path / "e2softmax.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(build._LIBS, "e2softmax", raising=False)
+    before = KE.e2softmax.launches
+    with pytest.raises(RuntimeError, match="nvcc failed on e2softmax.cu"):
+        KE.e2softmax(torch.zeros((2, 8), device=cuda_device))
+    assert KE.e2softmax.launches == before
+
+
+@pytest.mark.parametrize("mode", ["sole", "w8a8 exact int8 kv"])
+def test_dense_engine_on_card_matches_cpu(cuda_device, mode):
+    """The smoke dense-slot engine through the kernels (card) and the plain
+    versions (CPU). SOLE mode: per prefill or decode call the E2Softmax
+    kernel launches once per layer and the norm kernel 2 * layers + 1
+    times, and at least 95% of greedy tokens agree. w8a8 in exact mode
+    with an int8 cache: 7 * layers + 1 GEMM launches per call and equal
+    tokens."""
+    cfg = get_config("qwen2_0_5b").smoke()
+    if mode != "sole":
+        cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                                  logit_int8=False, quant=QuantConfig("w8a8"),
+                                  kv_cache_dtype="int8")
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=8)
+            for n in (5, 20, 12, 30, 9)]
+    outs = []
+    for dev in ("cpu", cuda_device):
+        eng = Engine(cfg, params, batch_size=4, max_len=64, device=dev)
+        sm0, norm0, mm0 = (KE.e2softmax.launches, KN.qnorm.launches,
+                           KM.int8_matmul.launches)
+        outs.append(eng.generate(reqs))
+        calls = eng.prefill_calls + eng.decode_calls
+        if dev == cuda_device:
+            if mode == "sole":
+                assert KE.e2softmax.launches - sm0 == cfg.n_layers * calls
+                assert KN.qnorm.launches - norm0 == (2 * cfg.n_layers + 1) \
+                    * calls
+            else:
+                assert KM.int8_matmul.launches - mm0 == (7 * cfg.n_layers + 1) \
+                    * calls
+                assert KE.e2softmax.launches == sm0
+    assert all(len(o) == 8 for o in outs[1])
+    if mode == "sole":
+        pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+        assert sum(a == b for a, b in pairs) / len(pairs) >= 0.95
+    else:
+        assert outs[1] == outs[0]

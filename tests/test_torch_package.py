@@ -98,7 +98,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(paths) > 20
     scanned = {os.path.relpath(p, REPO) for p in paths}
     for mod in ("kernels/int8_matmul.py", "sharding/rules.py",
-                "sharding/__init__.py", "core/sole/quant.py", "ops/cuda.py"):
+                "sharding/__init__.py", "core/sole/quant.py", "ops/cuda.py",
+                "kernels/e2softmax.py", "launch/__init__.py",
+                "launch/serve.py"):
         assert os.path.join("src", "repro_torch", mod) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
