@@ -7,8 +7,9 @@ NVIDIA GPU. Run from the repository root with no arguments::
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together) and print ``-Xptxas -v``;
+2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together; eight kernels) and print
+   ``-Xptxas -v``;
 3. hold each kernel against its plain torch version at the serve paths'
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
    decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
@@ -17,7 +18,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path and two ragged
    shapes, and the E2Softmax kernel at the dense-slot path's decode and
    prefill shapes (masked), at two unmasked shapes, with ``int8_scale``
-   and with fully masked rows;
+   and with fully masked rows; and the op layer's kernels: the dense
+   Flash-E2Softmax at qwen2_0_5b's attention (2048 tokens, causal, in
+   four modes), a ragged non-causal case and stablelm_1_6b's MHA, the
+   static-PTF fused add+norm and add+norm+quantize-out at qwen2's and
+   stablelm's widths, and the LayerNorm of int32 codes;
 4. serve greedy requests through ``PagedEngine`` at the full width of
    qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), twice:
    first in bf16 (bf16 weights and pages), then at w8a8 with int8 KV
@@ -31,12 +36,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    384-column caches), in bf16 and at w8a8 with an int8 cache, with the
    launch counts per prefill or decode call checked (24 E2Softmax, 49
    norm, at w8a8 169 GEMM), and the smoke dense engine on the card
-   against the CPU (SOLE, and w8a8 exact with an int8 cache);
+   against the CPU (SOLE, and w8a8 exact with an int8 cache); then the
+   op layer's path: flash attention, the static-params SOLE norms, their
+   residual and quantize-out twins and the codes norm through
+   ``repro_torch.ops`` on CUDA tensors, and the port's quickstart
+   ``main()``, with the counts read around them (every op-layer kernel,
+   E2Softmax and the quantize+norm must launch; the model paths above
+   must launch no op-layer kernel);
 5. time each kernel and its plain version with CUDA events (L2 flushed
    before every launch), the kernel alone with ``torch.profiler``, beside
    the bound the card's memory rate or peak sets and, for the int8 GEMM,
-   ``torch._int_mm`` where it takes the shape (a yardstick the port never
-   calls);
+   ``torch._int_mm`` where it takes the shape, for exact-mode flash
+   ``scaled_dot_product_attention`` (yardsticks the port never calls);
 6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
    of the dense-slot engine (bf16): the device-busy share of the wall time
    and the kernels with the most device time.
@@ -464,6 +475,10 @@ def check_e2softmax(torch, cfg):
     return results
 
 
+OPS_KERNELS = ("flash_e2softmax", "ailayernorm_add_norm",
+               "ailayernorm_add_norm_quant", "ailayernorm_codes")
+
+
 def kernel_wrappers():
     """Each kernel's launch-counting wrapper, by kernel name."""
     from repro_torch.kernels import ailayernorm as KN
@@ -472,7 +487,10 @@ def kernel_wrappers():
     from repro_torch.kernels import int8_matmul as KM
     return {"paged_e2softmax": KA.flash_e2softmax_paged,
             "ailayernorm_qnorm": KN.qnorm, "int8_matmul": KM.int8_matmul,
-            "e2softmax": KE.e2softmax}
+            "e2softmax": KE.e2softmax, "flash_e2softmax": KA.flash_e2softmax,
+            "ailayernorm_add_norm": KN.add_norm,
+            "ailayernorm_add_norm_quant": KN.add_norm_quant,
+            "ailayernorm_codes": KN.codes_norm}
 
 
 def reset_launches() -> None:
@@ -589,6 +607,8 @@ def serve_full_width(torch, cfg, label):
         raise AssertionError("the bf16 path launched the int8 GEMM")
     if launches["e2softmax"]:
         raise AssertionError("the paged path launched the E2Softmax kernel")
+    if any(launches[k] for k in OPS_KERNELS):
+        raise AssertionError("the paged path launched an op-layer kernel")
     n_tok = sum(len(o) for o in out1 + out2)
     log(f"[{label}] served {len(out1) + len(out2)} requests, {n_tok} new "
         f"tokens: wave 1 {t1:.3f} s, wave 2 {t2:.3f} s "
@@ -653,7 +673,7 @@ def serve_dense_full_width(torch, cfg, params, label):
                      "ailayernorm_qnorm": (2 * cfg.n_layers + 1) * calls,
                      "int8_matmul": (GEMM_PER_FORWARD * calls
                                      if cfg.quant.acts else 0),
-                     "paged_e2softmax": 0}
+                     "paged_e2softmax": 0, **{k: 0 for k in OPS_KERNELS}}
     if launches != want_launches:
         raise AssertionError(f"launches {launches} over {calls} calls, "
                              f"expected {want_launches}")
@@ -947,6 +967,374 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
     return [paged, mm]
 
 
+# -- the op layer: dense flash, static-PTF fused norms, the codes norm --------
+
+# (B, S, T, H, KV, hd, causal) of the dense flash cases: qwen2_0_5b's
+# attention at 2048 tokens, a ragged non-causal case, stablelm_1_6b's MHA
+FLASH_CASES = {"qwen2_causal": (1, 2048, 2048, 14, 2, 64, True),
+               "ragged_noncausal": (2, 300, 1000, 14, 2, 64, False),
+               "stablelm_mha": (1, 2048, 2048, 32, 32, 64, True)}
+# (case, mode) of each flash check: "sole_int8" snaps the logits to the
+# path's int8 grid, "sole_exact_corr" rescales by the float32 correction
+FLASH_MODES = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
+               ("qwen2_causal", "sole_exact_corr"), ("qwen2_causal", "exact"),
+               ("ragged_noncausal", "sole"), ("stablelm_mha", "sole"))
+FLASH_BLOCK = 128
+# (rows, C, rms) of the static-PTF norms: qwen2_0_5b's RMS width at decode,
+# prefill-chunk and 2048-token rows; stablelm_1_6b's LayerNorm width
+NORM_CASES = ((8, 896, True), (128, 896, True), (2048, 896, True),
+              (128, 2048, False), (2048, 2048, False))
+CODES_SHAPE = (2048, 2048)
+
+
+def ops_inputs(torch):
+    """The op layer's inputs, from seeds: flash q/k/v in bf16 on exact-
+    logit grids (q in quarters, k integers, head dim 64 so d^-1/2 = 1/8:
+    every q.k partial sum is exact), plus one real-valued qwen2 case;
+    norm activations with outlier channels (every PTF alpha) and static
+    params calibrated once on a held-out batch of the same shape; int32
+    codes in [-128, 127] with alpha in 0..3."""
+    from repro_torch.core.sole.quant import calibrate_ptf
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    dev, bf = "cuda", torch.bfloat16
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    flash = {}
+    for name, (b, s, t, h, kvh, hd, causal) in FLASH_CASES.items():
+        flash[name] = dict(q=(randint(-8, 9, (b, s, h, hd)) / 4).to(bf),
+                           k=randint(-8, 9, (b, t, kvh, hd)).to(bf),
+                           v=randn(b, t, kvh, hd).to(bf), causal=causal)
+    b, s, t, h, kvh, hd, _ = FLASH_CASES["qwen2_causal"]
+    flash["qwen2_random"] = dict(q=(randn(b, s, h, hd) * 2).to(bf),
+                                 k=randn(b, t, kvh, hd).to(bf),
+                                 v=randn(b, t, kvh, hd).to(bf), causal=True)
+
+    def acts(rows, c):
+        x = randn(rows, c) * 2
+        x[:, ::7] *= 8
+        return x
+
+    norms = {}
+    for rows, c, rms in NORM_CASES:
+        held_out = acts(rows, c)
+        norms[f"{'rms' if rms else 'ln'}_{rows}x{c}"] = dict(
+            x=acts(rows, c), r=randn(rows, c), rms=rms,
+            params=calibrate_ptf(held_out, unsigned=not rms),
+            gamma=1 + 0.1 * randn(c), beta=0.1 * randn(c))
+    c = CODES_SHAPE[1]
+    codes = dict(xi=randint(-128, 128, CODES_SHAPE).int(),
+                 alpha=randint(0, 4, (c,)).int(), gamma=1 + 0.1 * randn(c),
+                 beta=0.1 * randn(c))
+    return dict(flash=flash, norms=norms, codes=codes)
+
+
+def _fold(torch, case):
+    """The flash op's kernel inputs: K/V repeated to every query head,
+    all three folded to (B * H, ., hd)."""
+    from repro_torch.ops.reference import fold_heads, repeat_kv
+    h = case["q"].shape[2]
+    return [fold_heads(x).contiguous() for x in
+            (case["q"], repeat_kv(case["k"], h), repeat_kv(case["v"], h))]
+
+
+def _flash_kw(mode, causal):
+    """The kernel's keyword arguments for one ``FLASH_MODES`` mode."""
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    return dict(causal=causal, sole=mode != "exact", exp_bits=4,
+                int8_scale=LOGIT_INT8_SCALE if mode == "sole_int8" else None,
+                exact_corr=mode == "sole_exact_corr", block_q=FLASH_BLOCK,
+                block_k=FLASH_BLOCK)
+
+
+def norm_args(case):
+    p = case["params"]
+    beta = case["beta"] * 0 if case["rms"] else case["beta"]
+    return (case["x"], case["r"], p.denom().contiguous(), p.alpha,
+            case["gamma"], beta)
+
+
+def check_ops_kernels(torch, inp):
+    """Phase 3, the op layer's kernels against their plain versions at full
+    width: the dense Flash-E2Softmax (exact-logit inputs: 1e-5 of the
+    output scale, only the w.v order differs; real-valued logits: at most
+    1% of rows off by more than 1e-3), the fused add+norm (``h`` bitwise,
+    the norm to 1e-6) and add+norm+quantize-out (``h`` bitwise; codes and
+    scale bitwise equal to ``quantize_act`` of the add+norm kernel's
+    output), and the codes norm (1e-6)."""
+    from repro_torch.core.sole.quant import quantize_act
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    res = {"flash": {}, "norms": {}}
+    for name, mode in FLASH_MODES + (("qwen2_random", "sole_int8"),):
+        case = inp["flash"][name]
+        args = _fold(torch, case)
+        kkw = _flash_kw(mode, case["causal"])
+        out = KA.flash_e2softmax(*args, **kkw)
+        ref = KA.flash_e2softmax_plain(*args, **kkw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_e2softmax {name} {mode}: non-finite")
+        err = (out - ref).abs()
+        scale = max(ref.abs().max().item(), 1.0)
+        if name == "qwen2_random":
+            off = (err.amax(-1) > 1e-3 * scale).float().mean().item()
+            if off > 0.01:
+                raise AssertionError(f"flash_e2softmax random logits: {off}"
+                                     " of rows off by > 1e-3")
+            log(f"flash_e2softmax {name} {mode}: max|err| "
+                f"{err.max().item():.3e}, rows off {off:.5f}")
+            res["flash_random"] = dict(max_abs_err=err.max().item(),
+                                       rows_off=off)
+            continue
+        if err.max().item() > 1e-5 * scale:
+            raise AssertionError(f"flash_e2softmax {name} {mode}: max |err| "
+                                 f"{err.max().item()} > {1e-5 * scale}")
+        res["flash"][f"{name}_{mode}"] = dict(
+            name=name, mode=mode, max_abs_err=err.max().item(), args=args,
+            kkw=kkw, out=out)
+        log(f"flash_e2softmax {name} {mode} q {tuple(case['q'].shape)} "
+            f"kv {tuple(case['k'].shape)}: max|err| {err.max().item():.3e}")
+    for name, case in inp["norms"].items():
+        args, rms = norm_args(case), case["rms"]
+        h, out = KN.add_norm(*args, rms=rms)
+        h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
+        h_ref, out_ref = KN.add_norm_plain(*args, rms=rms)
+        _, codes_ref, scale_ref = KN.add_norm_quant_plain(*args, rms=rms)
+        torch.cuda.synchronize()
+        err = (out - out_ref).abs().max().item()
+        tol = 1e-6 * max(out_ref.abs().max().item(), 1.0)
+        want_codes, want_scale = quantize_act(out)
+        if not (torch.equal(h, h_ref) and torch.equal(h8, h_ref)):
+            raise AssertionError(f"fused norm {name}: h is not bitwise x + r")
+        if not torch.isfinite(out).all() or err > tol:
+            raise AssertionError(f"add_norm {name}: max |err| {err} > {tol}")
+        if not (torch.equal(codes, want_codes)
+                and torch.equal(scale, want_scale)):
+            raise AssertionError(f"add_norm_quant {name}: codes or scale "
+                                 "differ from quantize_act of add_norm")
+        agree = (codes == codes_ref).float().mean().item()
+        res["norms"][name] = dict(max_abs_err=err, codes_vs_plain=agree,
+                                  args=args, rms=rms, h=h, out=out,
+                                  codes=codes, scale=scale)
+        log(f"ailayernorm fused {name}: h bitwise, norm max|err| {err:.3e}, "
+            f"quant-out codes/scale bitwise = quantize_act(add_norm), codes "
+            f"equal to the plain version's: {agree:.6f}")
+    cd = inp["codes"]
+    cargs = (cd["xi"], cd["alpha"], cd["gamma"], cd["beta"])
+    out = KN.codes_norm(*cargs)
+    ref = KN.codes_norm_plain(*cargs)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-6 * max(ref.abs().max().item(), 1.0)
+    if not torch.isfinite(out).all() or err > tol:
+        raise AssertionError(f"codes_norm: max |err| {err} > {tol}")
+    res["codes"] = dict(max_abs_err=err, args=cargs, out=out)
+    log(f"ailayernorm codes {tuple(cd['xi'].shape)}: max|err| {err:.3e}")
+    return res
+
+
+def serve_ops_path(torch, inp, res):
+    """Phase 4, the op layer's path: every op call through the public
+    ``repro_torch.ops`` entry points on CUDA tensors (flash attention in
+    each mode and case, the static-params SOLE norms and their residual
+    and quantize-out twins, the codes norm), then the port's quickstart
+    ``main()``, with the counts set to 0 just before and read just after.
+    The registry must route each to the cuda backend, each output must
+    equal the kernel's checked in phase 3, and kernels A-D, E2Softmax
+    and the quantize+norm must have launched."""
+    from repro_torch import ops
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.launch import quickstart
+    dev = torch.device("cuda")
+    for op, mode in (("flash_attention", "sole"), ("flash_attention", "exact"),
+                     ("layernorm", "sole"), ("rmsnorm", "sole"),
+                     ("residual_layernorm", "sole"),
+                     ("residual_rmsnorm_q", "sole")):
+        if ops.backend_for(op, mode, dev) != "cuda":
+            raise AssertionError(f"{op} {mode} does not resolve to cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = {}
+    for name, mode in FLASH_MODES:
+        case = inp["flash"][name]
+        kkw = _flash_kw(mode, case["causal"])
+        outs[f"{name}_{mode}"] = ops.flash_attention_fn(
+            "exact" if mode == "exact" else "sole", dev)(
+            case["q"], case["k"], case["v"], causal=case["causal"],
+            block=FLASH_BLOCK, int8_scale=kkw["int8_scale"],
+            exact_corr=kkw["exact_corr"])
+    for name, case in inp["norms"].items():
+        kind = "rmsnorm" if case["rms"] else "layernorm"
+        extra = () if case["rms"] else (case["beta"],)
+        p = case["params"]
+        outs[f"norm_{name}"] = getattr(ops, f"{kind}_fn")("sole", dev)(
+            case["x"], case["gamma"], *extra, params=p)
+        outs[f"res_{name}"] = ops.residual_norm_fn(kind, "sole", dev)(
+            case["x"], case["r"], case["gamma"], *extra, params=p)
+        outs[f"resq_{name}"] = ops.residual_norm_q_fn(kind, "sole", dev)(
+            case["x"], case["r"], case["gamma"], *extra, params=p)
+    cd = inp["codes"]
+    outs["codes"] = KN.ailayernorm_codes(cd["xi"], cd["alpha"], cd["gamma"],
+                                         cd["beta"])
+    if quickstart.main([]) != 0:
+        raise AssertionError("quickstart failed")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    want_zero = ("paged_e2softmax", "int8_matmul")
+    for k in OPS_KERNELS + ("e2softmax", "ailayernorm_qnorm"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the op path")
+    if any(launches[k] for k in want_zero):
+        raise AssertionError(f"op path launched {want_zero}: {launches}")
+    if launches["flash_e2softmax"] != len(FLASH_MODES) + 1:
+        raise AssertionError(f"{launches['flash_e2softmax']} flash launches")
+    for key, r in res["flash"].items():
+        b, s, _, h, _, hd, _ = FLASH_CASES[r["name"]]
+        want = r["out"].reshape(b, h, s, hd).transpose(1, 2).to(torch.bfloat16)
+        if not torch.equal(outs[key], want):
+            raise AssertionError(f"flash op {key}: output differs from the "
+                                 "kernel's")
+    for name, r in res["norms"].items():
+        h, out = outs[f"res_{name}"]
+        hq, (codes, scale) = outs[f"resq_{name}"]
+        if not (torch.equal(h, r["h"]) and torch.equal(out, r["out"])
+                and torch.equal(hq, r["h"]) and torch.equal(codes, r["codes"])
+                and torch.equal(scale, r["scale"])
+                and torch.isfinite(outs[f"norm_{name}"]).all()):
+            raise AssertionError(f"static-params norm ops {name} differ from "
+                                 "the kernels'")
+    if not torch.equal(outs["codes"], res["codes"]["out"]):
+        raise AssertionError("codes norm op differs from the kernel's")
+    log(f"op path: {len(outs)} op calls and the quickstart in {wall:.2f} s; "
+        "launches: " + json.dumps(launches))
+    return launches
+
+
+def _causal_pairs(s, t, causal):
+    """(query, key) pairs a row-by-row attention computes: causal row r
+    sees min(r + 1, t) keys."""
+    if not causal:
+        return s * t
+    n = min(s, t)
+    return n * (n + 1) // 2 + (s - n) * t
+
+
+def time_ops_kernels(torch, res, launches):
+    """Phase 5 for the op layer's kernels: CUDA-event times (L2 flushed)
+    and profiler times at every checked shape, the plain versions' times,
+    the bound (flash: q, k, v read once in bf16 and the float32 output
+    written once, against 4 d flops per computed (query, key) pair at the
+    bf16 peak; norms: the rows read and written once at the memory rate)
+    and, for exact-mode flash, ``scaled_dot_product_attention`` on the
+    same expanded bf16 q/k/v (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    flash = dict(name="flash_e2softmax", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_e2softmax.cu",
+                 replaces="src/repro/kernels/flash_e2softmax.py:82",
+                 shapes={})
+    for key, r in res["flash"].items():
+        args, kkw = r["args"], r["kkw"]
+        b, s, t, h, _, hd, causal = FLASH_CASES[r["name"]]
+        nbytes = sum(x.numel() * x.element_size() for x in args) \
+            + b * h * s * hd * 4
+        flops = 4 * hd * b * h * _causal_pairs(s, t, causal)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        lib = None
+        if r["mode"] == "exact":
+            q4, k4, v4 = (x.reshape(b, h, -1, hd) for x in args)
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), flush)
+
+        def run():
+            return KA.flash_e2softmax(*args, **kkw)
+        flash["shapes"][key] = dict(
+            shape=f"BH {b * h} S {s} T {t} d {hd} "
+                  f"{'causal' if causal else 'non-causal'} {r['mode']}",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "flash_e2softmax_dense_kernel"),
+            plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_plain(
+                *args, **kkw), flush, reps=3),
+            bound_ms=bms, bound_by=by, library_ms=lib,
+            library="torch.nn.functional.scaled_dot_product_attention"
+            if lib is not None else None,
+            max_abs_err=r["max_abs_err"], bytes=nbytes, flops=flops)
+    add = dict(name="ailayernorm_add_norm", route="cuda",
+               source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+               replaces="src/repro/kernels/ailayernorm.py:205", shapes={})
+    addq = dict(name="ailayernorm_add_norm_quant", route="cuda",
+                source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+                replaces="src/repro/kernels/ailayernorm.py:257", shapes={})
+    for name, r in res["norms"].items():
+        args, rms = r["args"], r["rms"]
+        rows, c = args[0].shape
+        for e, fn, plain, out_bytes, kname in (
+                (add, KN.add_norm, KN.add_norm_plain, 8, "add_norm_kernel"),
+                (addq, KN.add_norm_quant, KN.add_norm_quant_plain, 5,
+                 "add_norm_quant_kernel")):
+            nbytes = rows * c * (8 + out_bytes) + 16 * c \
+                + (4 * rows if e is addq else 0)
+            bms, by = bound_ms(nbytes, (QNORM_OPS_PER_ELEMENT + 4) * rows * c,
+                               FP32_FLOPS)
+
+            def run(fn=fn):
+                return fn(*args, rms=rms)
+            e["shapes"][name] = dict(
+                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}",
+                ms=time_ms(torch, run, flush),
+                kernel_ms=profiled_kernel_ms(torch, run, flush, kname),
+                plain_ms=time_ms(torch, lambda plain=plain: plain(
+                    *args, rms=rms), flush, reps=10),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                max_abs_err=r["max_abs_err"], bytes=nbytes)
+    codes = dict(name="ailayernorm_codes", route="cuda",
+                 source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+                 replaces="src/repro/kernels/ailayernorm.py:53", shapes={})
+    cargs = res["codes"]["args"]
+    rows, c = cargs[0].shape
+    nbytes = rows * c * 8 + 12 * c
+    bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c, FP32_FLOPS)
+    codes["shapes"]["codes"] = dict(
+        shape=f"rows {rows} C {c} int32 codes",
+        ms=time_ms(torch, lambda: KN.codes_norm(*cargs), flush),
+        kernel_ms=profiled_kernel_ms(torch, lambda: KN.codes_norm(*cargs),
+                                     flush, "codes_norm_kernel"),
+        plain_ms=time_ms(torch, lambda: KN.codes_norm_plain(*cargs), flush,
+                         reps=10),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err=res["codes"]["max_abs_err"], bytes=nbytes)
+    table = []
+    for e, main in ((flash, "qwen2_causal_sole"), (add, "rms_2048x896"),
+                    (addq, "rms_2048x896"), (codes, "codes")):
+        top = e["shapes"][main]
+        e.update(launches=launches[e["name"]], max_abs_err=max(
+            v["max_abs_err"] for v in e["shapes"].values()),
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"],
+            main_shape=main)
+        table.append(e)
+        for sname, v in e["shapes"].items():
+            k, lib = v["kernel_ms"], v["library_ms"]
+            log(f"{e['name']} {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+                f"(profiler: kernel "
+                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
+                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']}"
+                + ("" if lib is None else f"; SDPA {lib * 1e3:.1f} us") + ")")
+    return table
+
+
 def profile_engine(torch, cfg, params, label, dense=False):
     """Where the time goes on a main path: one decode-heavy wave
     (8 requests, 128-token prompts, 32 new tokens) through the paged
@@ -1029,20 +1417,27 @@ def main() -> int:
         attn8 = check_int8_paged(torch, cfg)
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
+        ops_inp = ops_inputs(torch)
+        ops_res = check_ops_kernels(torch, ops_inp)
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
         launches8, trace8, params8 = serve_full_width(torch, cfg8, "w8a8")
         dlaunches, dtrace = serve_dense_full_width(torch, cfg, params,
                                                    "dense bf16")
         dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
                                                      "dense w8a8")
+        olaunches = serve_ops_path(torch, ops_inp, ops_res)
         small_engine_parity(torch)
         table = time_kernels(torch, attn, norm, launches, cfg)
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
         table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
+        table += time_ops_kernels(torch, ops_res, olaunches)
         for e in table:
             if e["name"] == "ailayernorm_qnorm":
                 e["launches_w8a8"] = launches8["ailayernorm_qnorm"]
                 e["launches_dense"] = dlaunches["ailayernorm_qnorm"]
+                e["launches_ops"] = olaunches["ailayernorm_qnorm"]
+            if e["name"] == "e2softmax":
+                e["launches_ops"] = olaunches["e2softmax"]
             if e["name"] == "int8_matmul":
                 e["launches_dense_w8a8"] = dlaunches8["int8_matmul"]
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")

@@ -9,6 +9,11 @@
    ``S = 2^k_s (1 + s)`` and ``q = 0.5`` iff ``s >= 0.5``.
 
 Masked positions contribute exactly zero to S and to the output.
+
+:func:`e2softmax` is the two-pass dataflow (global max known);
+:func:`e2softmax_online` the streaming one (paper Alg. 1: running max and
+sum, the sum rescaled by a quantized power-of-two correction), a Python
+loop over blocks in place of the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -67,3 +72,58 @@ def e2softmax(x: torch.Tensor, *, axis: int = -1, exp_bits: int = 4,
     if mask is not None:
         out = torch.where(mask, out, 0.0)
     return out
+
+
+def e2softmax_online(x: torch.Tensor, *, block: int = 128, exp_bits: int = 4,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Streaming E2Softmax over the last axis, in blocks of ``block``.
+
+    Carries a running (max, sum); on a max update the sum is rescaled by
+    ``2^-Log2Exp(m_old - m_new)`` (``exp_bits + 2`` bits). Stage 2 adds
+    each block's correction ``Log2Exp(m_block - m_global)`` to its stored
+    4-bit codes, then ALDivision."""
+    x = x.float()
+    n = x.shape[-1]
+    pad = (-n) % block
+    neg = torch.finfo(torch.float32).min / 2
+    if mask is None:
+        mask = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    mask = torch.broadcast_to(mask, x.shape)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    m_run = torch.full(x.shape[:-1] + (1,), neg, device=x.device)
+    s_run = torch.zeros(x.shape[:-1] + (1,), device=x.device)
+    ks, ms = [], []
+    for j in range(x.shape[-1] // block):
+        xi = x[..., j * block:(j + 1) * block]
+        mi = mask[..., j * block:(j + 1) * block]
+        xi = torch.where(mi, xi, neg)
+        m_new = torch.maximum(m_run, xi.amax(-1, keepdim=True))
+        sub = log2exp(m_run - m_new, exp_bits=exp_bits + 2)
+        k = log2exp(xi - m_new, exp_bits=exp_bits)
+        p = torch.where(mi, torch.exp2(-k.float()), 0.0)
+        s_run = s_run * torch.exp2(-sub.float()) + p.sum(-1, keepdim=True)
+        m_run = m_new
+        ks.append(k)
+        ms.append(m_new.expand_as(k))
+    k_blk, m_blk = torch.cat(ks, -1), torch.cat(ms, -1)
+    sub = log2exp(m_blk - m_run, exp_bits=exp_bits + 2)
+    k_tot = torch.clamp(k_blk + sub, 0, 2 ** (exp_bits + 2) - 1)
+    out = aldivision(k_tot, torch.clamp_min(s_run, 2.0 ** -30))
+    out = torch.where(mask, out, 0.0)
+    return out[..., :n]
+
+
+def pack_e2(k_tot: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Pack (k, q) into a uint8 code: k in [0, 31] (5 bits), q 1 bit."""
+    return (torch.clamp(k_tot.to(torch.int32), 0, 31) * 2
+            + q.to(torch.int32)).to(torch.uint8)
+
+
+def unpack_e2(code: torch.Tensor) -> torch.Tensor:
+    """Decode a packed E2Softmax output back to float probabilities."""
+    code = code.to(torch.int32)
+    k = (code >> 1).float()
+    q = (code & 1).float()
+    return torch.exp2(-(k + 1.0)) * (ALDIV_BIAS - 0.5 * q)

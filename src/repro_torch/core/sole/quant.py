@@ -24,6 +24,59 @@ def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
     return x / torch.full_like(x, value)
 
 
+def log2_quantize(x: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """Paper Eq. (2): ``Log2Q(X) = clip(round(-log2 X), 0, 2^b - 1)`` for X
+    in (0, 1): the int32 code k with X ~= 2^-k."""
+    k = torch.round(-torch.log2(torch.clamp_min(x, 1e-38)))
+    return torch.clamp(k, 0, 2 ** bits - 1).to(torch.int32)
+
+
+def log2_dequantize(k: torch.Tensor) -> torch.Tensor:
+    """``2^-k`` in float32, exact: built from the exponent bits (k in
+    [0, 126])."""
+    return ((127 - k.to(torch.int32)) << 23).view(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AffineQuantParams:
+    """Per-tensor affine int8 quantization parameters."""
+
+    scale: torch.Tensor       # 0-dim, the calibrated tensor's dtype
+    zero_point: torch.Tensor  # 0-dim int32
+
+    def quantize(self, x: torch.Tensor, *,
+                 unsigned: bool = False) -> torch.Tensor:
+        lo, hi = (0, 255) if unsigned else (-128, 127)
+        q = torch.round(x / self.scale) + self.zero_point
+        return torch.clamp(q, lo, hi).to(torch.int32)
+
+    def dequantize(self, q: torch.Tensor) -> torch.Tensor:
+        return (q.float() - self.zero_point) * self.scale
+
+
+def calibrate_affine(x: torch.Tensor, *, unsigned: bool = False,
+                     symmetric: bool = True) -> AffineQuantParams:
+    """Min/max calibration of a per-tensor int8 quantizer, in ``x``'s
+    dtype, with true divisions (the reference runs it eagerly)."""
+    if symmetric and not unsigned:
+        amax = torch.clamp_min(x.abs().amax(), 1e-8)
+        return AffineQuantParams(
+            scale=true_div(amax, 127.0),
+            zero_point=torch.zeros((), dtype=torch.int32, device=x.device))
+    xmin = torch.clamp_max(x.amin(), 0.0)
+    xmax = torch.maximum(x.amax(), xmin + 1e-8)
+    scale = true_div(xmax - xmin, 255.0)
+    zp = torch.round(-xmin / scale).to(torch.int32)
+    return AffineQuantParams(scale=scale, zero_point=zp)
+
+
+def fake_quant_int8(x: torch.Tensor, *, symmetric: bool = True
+                    ) -> torch.Tensor:
+    """Quantize-dequantize round trip (simulated int8 matmul inputs)."""
+    p = calibrate_affine(x, symmetric=symmetric)
+    return p.dequantize(p.quantize(x))
+
+
 @dataclasses.dataclass(frozen=True)
 class PTFQuantParams:
     scale: torch.Tensor       # 0-dim, the calibrated activation's dtype

@@ -21,9 +21,8 @@ import torch
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, INV_LN2_SHIFT_APPROX
 from repro_torch.core.sole.quant import true_div
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_e2softmax import exp2_int
+from repro_torch.kernels.flash_e2softmax import MAX_EXP_BITS, exp2_int
 
-MAX_EXP_BITS = 6            # codes and their exponents stay inside float32's
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}     # elements per 16-byte load
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sole.quant import is_qtensor, quantize_act, true_div
+from repro_torch.ops.reference import repeat_kv
 
 # int8 logit grid for E2Softmax inputs: exp(-12) is below the 4-bit log2
 # resolution, so [-12, 0] covers the useful post-max range.
@@ -251,14 +252,6 @@ def _mask(q_pos, k_pos, cfg: ArchConfig, causal: bool) -> torch.Tensor:
     return m
 
 
-def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """GQA: broadcast KV heads (axis 2) to the full head count."""
-    kvh = k.shape[2]
-    if kvh == n_heads:
-        return k
-    return torch.repeat_interleave(k, n_heads // kvh, dim=2)
-
-
 def _sole_probs(logits, mask, cfg: ArchConfig) -> torch.Tensor:
     """SOLE attention probabilities: the masked row max (floored at -1e30
     for fully masked rows), the int8 snap of ``logits - max``, then the
@@ -275,8 +268,8 @@ def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
     positions (S,)/(T,) shared or (B,S)/(B,T) per lane. The logits are the
     model-dtype product, then float32, as in the reference."""
     b, s, h, hd = q.shape
-    k = _repeat_kv(k, h)
-    v = _repeat_kv(v, h)
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
     qs = q * (hd ** -0.5)
     logits = torch.einsum("bshd,bthd->bhst", qs, k).float()
     mask = _mask(q_pos, k_pos, cfg, causal)          # (s, t) or (b, s, t)

@@ -6,6 +6,7 @@ live on (:func:`registry.backend_for`)::
 
     p    = ops.softmax_fn(mode, x.device)(logits, mask=mask)
     h    = ops.rmsnorm_fn(mode, x.device)(x, gamma)
+    o    = ops.flash_attention_fn(mode, q.device)(q, k, v, causal=True)
     x, h = ops.residual_norm_fn("rmsnorm", mode, x.device)(x, r, gamma)
     y    = ops.matmul_fn("w8a8", q.device)((q, scale), w, n_contract=1)
 """
@@ -15,20 +16,19 @@ from typing import Callable
 
 from repro_torch.ops.registry import (ATTN_MODES, BACKENDS, MATMUL_MODES,
                                       MODES_BY_OP, NORM_MODES, OPS,
-                                      SOFTMAX_MODES, UNPORTED_KERNELS,
-                                      backend_for, is_registered, register,
-                                      resolve)
+                                      SOFTMAX_MODES, backend_for,
+                                      is_registered, register, resolve)
 from repro_torch.ops import reference  # registers the reference backend
 from repro_torch.ops import cuda       # registers the cuda backend
 from repro_torch.ops.reference import snap_logits
 
 __all__ = [
     "OPS", "BACKENDS", "SOFTMAX_MODES", "NORM_MODES", "ATTN_MODES",
-    "MATMUL_MODES", "MODES_BY_OP", "UNPORTED_KERNELS", "register", "resolve",
+    "MATMUL_MODES", "MODES_BY_OP", "register", "resolve",
     "is_registered", "backend_for", "snap_logits", "softmax_fn",
     "layernorm_fn", "rmsnorm_fn",
     "residual_norm_fn", "residual_norm_q_fn", "matmul_fn",
-    "paged_attention_fn", "reference", "cuda",
+    "flash_attention_fn", "paged_attention_fn", "reference", "cuda",
 ]
 
 
@@ -70,6 +70,12 @@ def residual_norm_q_fn(kind: str, mode: str, device) -> Callable:
 def matmul_fn(mode: str, device) -> Callable:
     """(x, w, *, n_contract) serve-path matmul: exact | w8a16 | w8a8."""
     return _fn("matmul", mode, device)
+
+
+def flash_attention_fn(mode: str, device) -> Callable:
+    """(q, k, v, *, causal, ...) fused-softmax attention in model layout:
+    q (B, S, H, hd), k/v (B, T, KV, hd) -> (B, S, H, hd)."""
+    return _fn("flash_attention", mode, device)
 
 
 def paged_attention_fn(mode: str, device) -> Callable:

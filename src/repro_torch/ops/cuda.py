@@ -12,13 +12,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sole.quant import quantize_act, true_div
+from repro_torch.core.sole.quant import PTFQuantParams, true_div
 from repro_torch.kernels import ailayernorm as K_norm
 from repro_torch.kernels.e2softmax import e2softmax
-from repro_torch.kernels.flash_e2softmax import flash_e2softmax_paged
+from repro_torch.kernels.flash_e2softmax import (flash_e2softmax,
+                                                 flash_e2softmax_paged)
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.ops import registry
-from repro_torch.ops.reference import paged_meta, w8a8_matmul_with
+from repro_torch.ops.reference import (repeat_kv, fold_heads, paged_meta,
+                                       w8a8_matmul_with)
 
 
 @registry.register("softmax", "sole", "cuda")
@@ -36,47 +38,52 @@ def sole_softmax_cuda(x, *, axis: int = -1, mask=None, exp_bits: int = 4,
     return e2softmax(x, exp_bits=exp_bits, mask=mask)
 
 
+def _static(params) -> Optional[PTFQuantParams]:
+    if params is not None and not isinstance(params, PTFQuantParams):
+        raise TypeError(f"static params must be PTFQuantParams, got "
+                        f"{type(params).__name__}")
+    return params
+
+
 @registry.register("layernorm", "sole", "cuda")
-def sole_layernorm_cuda(x, gamma, beta, **kw):
-    return K_norm.ailayernorm(x, gamma, beta)
+def sole_layernorm_cuda(x, gamma, beta, *, params=None, **kw):
+    """The quantize+norm kernel with the caller's static PTF ``params``,
+    or calibrated on the fly."""
+    return K_norm.ailayernorm(x, gamma, beta, params=_static(params))
 
 
 @registry.register("rmsnorm", "sole", "cuda")
-def sole_rmsnorm_cuda(x, gamma, **kw):
-    return K_norm.airmsnorm(x, gamma)
-
-
-def _no_static_params(params, kernel: str) -> None:
-    if params is not None:
-        raise NotImplementedError(
-            f"static PTF params run the reference's {kernel}, which has no "
-            "Hopper kernel yet (ROADMAP.md queue 2)")
+def sole_rmsnorm_cuda(x, gamma, *, params=None, **kw):
+    return K_norm.airmsnorm(x, gamma, params=_static(params))
 
 
 @registry.register("residual_layernorm", "sole", "cuda")
 def sole_residual_layernorm_cuda(x, r, gamma, beta=None, *, params=None,
                                  **kw):
-    _no_static_params(params, "_fused_kernel")
-    return K_norm.fused_add_norm(x, r, gamma, beta, rms=False)
+    """Static ``params``: the fused add+norm kernel (``_fused_kernel``);
+    without them the add and calibration as torch ops, then the
+    quantize+norm kernel."""
+    return K_norm.fused_add_norm(x, r, gamma, beta, params=_static(params),
+                                 rms=False)
 
 
 @registry.register("residual_rmsnorm", "sole", "cuda")
 def sole_residual_rmsnorm_cuda(x, r, gamma, beta=None, *, params=None,
                                **kw):
-    _no_static_params(params, "_fused_kernel")
-    return K_norm.fused_add_norm(x, r, gamma, None, rms=True)
+    return K_norm.fused_add_norm(x, r, gamma, None, params=_static(params),
+                                 rms=True)
 
 
 def _residual_norm_q(rms: bool):
     def fn(x, r, gamma, beta=None, *, params=None, **kw):
-        """The reference's ``params=None`` branch of
-        ``fused_add_norm_quant_pallas``: the add and calibration as torch
-        ops, the quantize+norm kernel, then ``quantize_act`` of its
-        float32 output -> ``(x + r, (int8 codes, per-row scale))``."""
-        _no_static_params(params, "_fused_q_kernel")
-        h, out = K_norm.fused_add_norm(x, r, gamma, None if rms else beta,
-                                       rms=rms)
-        return h, quantize_act(out)
+        """``(x + r, (int8 codes, per-row scale))``. Static ``params``:
+        the fused add+norm+quantize-out kernel (``_fused_q_kernel``);
+        without them the reference's ``params=None`` branch: the add and
+        calibration as torch ops, the quantize+norm kernel, then
+        ``quantize_act`` of its float32 output."""
+        return K_norm.fused_add_norm_quant(
+            x, r, gamma, None if rms else beta, params=_static(params),
+            rms=rms)
     return fn
 
 
@@ -93,6 +100,30 @@ def w8a8_matmul_cuda(x, w, *, n_contract: int = 1, **kw):
     leading) and the scales apply afterwards in the reference twin's
     order, so the two agree bit for bit."""
     return w8a8_matmul_with(int8_matmul, x, w, n_contract)
+
+
+def _flash_attention(sole: bool):
+    def fn(q, k, v, *, causal: bool = True, exp_bits: int = 4,
+           int8_scale: Optional[float] = None, block: int = 128,
+           exact_corr: bool = False, **kw):
+        """The dense Flash-E2Softmax kernel in model layout: q (B, S, H,
+        hd), k/v (B, T, KV, hd) -> (B, S, H, hd) in q.dtype. K/V are
+        repeated to every query head and folded to (B * H, T, hd) here, so
+        the kernel sees single-head attention, as in the reference."""
+        b, s, h, hd = q.shape
+        out = flash_e2softmax(
+            fold_heads(q), fold_heads(repeat_kv(k, h)),
+            fold_heads(repeat_kv(v, h)), causal=causal, sole=sole,
+            exp_bits=exp_bits, int8_scale=int8_scale, block_q=block,
+            block_k=block, exact_corr=exact_corr)
+        return out.reshape(b, h, s, hd).transpose(1, 2).to(q.dtype)
+    return fn
+
+
+registry.register("flash_attention", "exact", "cuda")(
+    _flash_attention(sole=False))
+registry.register("flash_attention", "sole", "cuda")(
+    _flash_attention(sole=True))
 
 
 def _paged_attention(sole: bool):

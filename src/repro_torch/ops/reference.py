@@ -1,34 +1,41 @@
 """Reference backend: plain torch versions of the ops the port serves.
 
-Signatures match the JAX package's registry:
+Signatures match the JAX package's registry, which this backend covers
+pair for pair:
 
-  softmax(x, *, axis=-1, mask=None, ...)   exact | sole
-  layernorm(x, gamma, beta)            rmsnorm(x, gamma)
+  softmax(x, *, axis=-1, mask=None, ...)   exact | sole | softermax | ibert
+  layernorm(x, gamma, beta)            rmsnorm(x, gamma)   exact|sole|ibert
   residual_layernorm(x, r, gamma, beta) -> (x + r, norm(x + r))
   residual_rmsnorm(x, r, gamma)         -> (x + r, norm(x + r))
   residual_{layernorm,rmsnorm}_q(...)   -> (x + r, (int8 codes, row scale))
   matmul(x, w, *, n_contract)           exact | w8a16 | w8a8
+  flash_attention(q, k, v, *, causal, ...)       model layout (B,S,H,hd)
   paged_attention(q, pool_k, pool_v, tables, q_start, kv_len, *, causal, ...)
 
-The paged attention here is the paged kernel's own plain version — one
-online update per page — not the reference package's gather-and-two-pass
-oracle: in SOLE mode the quantized correction is applied once per page,
-so the two differ as soon as a sequence spans more than one page.
+``flash_attention`` is the two-pass oracle, like the JAX reference: in
+SOLE mode the dense kernel's per-k-block quantized correction differs
+from it once the keys span more than one block. The exact and SOLE paged
+attention here is the paged kernel's own plain version — one online
+update per page — not the reference package's gather-and-two-pass oracle,
+for the same reason; the baseline modes, which have no kernel, take the
+reference's gather-and-two-pass form.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.core.baselines.ibert import i_layernorm, i_softmax
+from repro_torch.core.baselines.softermax import softermax
 from repro_torch.core.sole.ailayernorm import ailayernorm, airmsnorm
 from repro_torch.core.sole.e2softmax import e2softmax
 from repro_torch.core.sole.quant import quantize_act
 from repro_torch.kernels.flash_e2softmax import (default_kv_head_map,
-                                                 flash_e2softmax_paged_plain)
+                                                 flash_e2softmax_paged_plain,
+                                                 snap_reciprocal)
 from repro_torch.kernels.int8_matmul import int8_matmul_plain
-from repro_torch.ops import registry
+from repro_torch.ops import oracles, registry
 
 
 # -- softmax ------------------------------------------------------------------
@@ -52,12 +59,8 @@ def sole_softmax(x, *, axis=-1, mask=None, exp_bits: int = 4,
                      input_scale=input_scale)
 
 
-@functools.lru_cache(maxsize=None)
-def _snap_reciprocal(int8_scale: float) -> float:
-    """float32(1 / float32(s)) as a Python float (exact in float32, so a
-    tensor times it rounds once, on any device, with no host copy)."""
-    one = torch.ones((), dtype=torch.float32)
-    return float(one / torch.tensor(int8_scale, dtype=torch.float32))
+registry.register("softmax", "softermax", "reference")(softermax)
+registry.register("softmax", "ibert", "reference")(i_softmax)
 
 
 def snap_logits(d: torch.Tensor, int8_scale: Optional[float]) -> torch.Tensor:
@@ -68,7 +71,7 @@ def snap_logits(d: torch.Tensor, int8_scale: Optional[float]) -> torch.Tensor:
     ties (3 of 2e6 random logits), so the port takes the jitted form."""
     if int8_scale is None:
         return d
-    inv = _snap_reciprocal(int8_scale)
+    inv = snap_reciprocal(int8_scale)
     return torch.clamp(torch.round(d * inv), -127, 0) * int8_scale
 
 
@@ -100,6 +103,17 @@ def sole_rmsnorm(x, gamma, **kw):
     return airmsnorm(x, gamma, **kw)
 
 
+@registry.register("layernorm", "ibert", "reference")
+def ibert_layernorm(x, gamma, beta, **kw):
+    return i_layernorm(x, gamma, beta)
+
+
+@registry.register("rmsnorm", "ibert", "reference")
+def ibert_rmsnorm(x, gamma, **kw):
+    """I-BERT has no RMSNorm: its LayerNorm with beta = 0, mean kept."""
+    return i_layernorm(x, gamma, torch.zeros_like(gamma))
+
+
 def _residual_norm(norm_mode: str, kind: str):
     def fn(x, r, gamma, beta=None, **kw):
         s = x + r
@@ -113,7 +127,7 @@ def _residual_norm(norm_mode: str, kind: str):
     return fn
 
 
-for _mode in ("exact", "sole"):
+for _mode in registry.NORM_MODES:
     registry.register("residual_layernorm", _mode, "reference")(
         _residual_norm(_mode, "layernorm"))
     registry.register("residual_rmsnorm", _mode, "reference")(
@@ -129,7 +143,7 @@ def _residual_norm_q(norm_mode: str, kind: str):
     return fn
 
 
-for _mode in ("exact", "sole"):
+for _mode in registry.NORM_MODES:
     registry.register("residual_layernorm_q", _mode, "reference")(
         _residual_norm_q(_mode, "layernorm"))
     registry.register("residual_rmsnorm_q", _mode, "reference")(
@@ -183,6 +197,43 @@ def w8a8_matmul(x, w, *, n_contract: int = 1, **kw):
     return w8a8_matmul_with(int8_matmul_plain, x, w, n_contract)
 
 
+# -- attention ----------------------------------------------------------------
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat each KV head (axis 2) for its group of query heads."""
+    kvh = k.shape[2]
+    if kvh == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kvh, dim=2)
+
+
+def fold_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B * H, S, hd), the kernels' single-head layout."""
+    b, s, h, hd = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, hd)
+
+
+def _flash_attention_ref(sole: bool):
+    def fn(q, k, v, *, causal: bool = True, exp_bits: int = 4,
+           int8_scale: Optional[float] = None, **kw):
+        """q (B, S, H, hd), k/v (B, T, KV, hd) -> (B, S, H, hd) in
+        q.dtype, through the two-pass oracle."""
+        b, s, h, hd = q.shape
+        out = oracles.flash_e2softmax_ref(
+            fold_heads(q), fold_heads(repeat_kv(k, h)),
+            fold_heads(repeat_kv(v, h)), causal=causal, sole=sole,
+            exp_bits=exp_bits, int8_scale=int8_scale)
+        return out.reshape(b, h, s, hd).transpose(1, 2).to(q.dtype)
+    return fn
+
+
+registry.register("flash_attention", "exact", "reference")(
+    _flash_attention_ref(sole=False))
+registry.register("flash_attention", "sole", "reference")(
+    _flash_attention_ref(sole=True))
+
+
 def paged_meta(q_start, kv_len) -> torch.Tensor:
     """(B, 2) int32 rows (q_start, kv_len) — the paged kernel's metadata."""
     return torch.stack([q_start.to(torch.int32), kv_len.to(torch.int32)], 1)
@@ -212,3 +263,55 @@ registry.register("paged_attention", "exact", "reference")(
     _paged_attention_ref(sole=False))
 registry.register("paged_attention", "sole", "reference")(
     _paged_attention_ref(sole=True))
+
+
+def _paged_attention_gather(mode: str):
+    def fn(q, pool_k, pool_v, tables, q_start, kv_len, *, causal: bool,
+           kv_scale: Optional[float] = None, quant_pv: bool = False,
+           kv_head_map=None, **kw):
+        """The reference's gather-and-two-pass paged attention, for the
+        softmax modes with no kernel: pages gathered to a contiguous
+        cache, the mode's softmax over the masked logits; q (B, C, H, hd)
+        -> (B, C, H, hd) in q.dtype."""
+        b, c, h, hd = q.shape
+        n, bs, kvh, _ = pool_k.shape
+        idx = tables.long().reshape(-1)
+        k = pool_k[idx].reshape(b, -1, kvh, hd)
+        v = pool_v[idx].reshape(b, -1, kvh, hd)
+        pv_scale = None
+        if kv_scale is not None:                        # int8 page pools
+            scale = torch.tensor(kv_scale, dtype=q.dtype)
+            k = k.to(q.dtype) * scale
+            if quant_pv:
+                pv_scale = kv_scale
+                v = v.to(q.dtype)
+            else:
+                v = v.to(q.dtype) * scale
+        t = k.shape[1]
+        if kv_head_map is not None:
+            kf = k.to(q.dtype)[:, :, kv_head_map.long()]
+            vf = v.to(q.dtype)[:, :, kv_head_map.long()]
+        else:
+            kf = repeat_kv(k.to(q.dtype), h)
+            vf = repeat_kv(v.to(q.dtype), h)
+        logits = torch.einsum("bchd,bthd->bhct", q * (hd ** -0.5),
+                              kf).float()
+        cols = torch.arange(t, device=q.device)[None, None, None, :]
+        mask = cols < kv_len.to(q.device)[:, None, None, None]
+        if causal:
+            rows = (q_start.to(q.device)[:, None]
+                    + torch.arange(c, device=q.device)[None])
+            mask = mask & (rows[:, None, :, None] >= cols)
+        mask = torch.broadcast_to(mask, logits.shape)
+        probs = registry.resolve("softmax", mode, "reference")(logits,
+                                                               mask=mask)
+        ctx = torch.einsum("bhct,bthd->bchd", probs.to(q.dtype), vf)
+        if pv_scale is not None:
+            ctx = ctx * torch.tensor(pv_scale, dtype=ctx.dtype)
+        return ctx
+    return fn
+
+
+for _mode in ("softermax", "ibert"):
+    registry.register("paged_attention", _mode, "reference")(
+        _paged_attention_gather(_mode))

@@ -7,13 +7,11 @@ kernels). The backend follows the tensors' device, never an autodetect
 of the machine (:func:`backend_for`):
 
 * CPU tensors run ``reference``;
-* CUDA tensors run ``cuda`` where a kernel is registered;
-* CUDA tensors of a pair whose reference implementation is a Pallas
-  kernel this port has not brought to Hopper yet raise
-  ``NotImplementedError`` naming its ROADMAP item — plain torch on the
-  card is not a port of a kernel;
+* CUDA tensors run ``cuda`` where a kernel is registered — every pair
+  whose reference implementation is a Pallas kernel has one;
 * every other pair (no kernel in the reference either, e.g. exact
-  norms, which are XLA there) runs ``reference`` torch ops on the card.
+  norms or the softermax / I-BERT baselines, which are XLA there) runs
+  ``reference`` torch ops on the card.
 
 :func:`resolve` is strict: an unregistered combination raises
 ``NotImplementedError``; unknown names raise ``ValueError``.
@@ -45,13 +43,6 @@ MODES_BY_OP: Dict[str, Tuple[str, ...]] = {
     "matmul": MATMUL_MODES,
     "residual_layernorm_q": NORM_MODES,
     "residual_rmsnorm_q": NORM_MODES,
-}
-
-# (op, mode) pairs the reference runs through a Pallas kernel that has no
-# Hopper counterpart yet -> the ROADMAP item that ports it.
-UNPORTED_KERNELS: Dict[Tuple[str, str], str] = {
-    ("flash_attention", "exact"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
-    ("flash_attention", "sole"): "ROADMAP.md queue 2, flash_e2softmax_pallas",
 }
 
 _REGISTRY: Dict[Tuple[str, str, str], Callable] = {}
@@ -100,10 +91,4 @@ def backend_for(op: str, mode: str, device) -> str:
     _check_names(op, mode, "reference")
     if torch.device(device).type != "cuda":
         return "reference"
-    if is_registered(op, mode, "cuda"):
-        return "cuda"
-    if (op, mode) in UNPORTED_KERNELS:
-        raise NotImplementedError(
-            f"op {op!r} mode {mode!r} runs a Pallas kernel in the reference "
-            f"that has no Hopper kernel yet ({UNPORTED_KERNELS[(op, mode)]})")
-    return "reference"
+    return "cuda" if is_registered(op, mode, "cuda") else "reference"

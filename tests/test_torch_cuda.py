@@ -32,6 +32,16 @@ Tolerances, and why:
   differently; that can only move a row's ALDivision bucket, so a row
   either equals the plain row or differs from it by one constant ratio,
   and at most 0.1% of rows may differ.
+* dense Flash-E2Softmax on exact-logit inputs (q, k on small grids and
+  head dim 16 or 64, whose d^-1/2 is a power of two, so every q.k partial
+  sum is exact in fp32): identical codes and sums, only the w.v sum order
+  (and in exact mode exp2's last bit) differ: 1e-5 of the output scale.
+  Otherwise the dot order may move a logit across a rounding boundary
+  and flip one code: at most 1% of rows off by more than 1e-3.
+* fused add+norm: ``h`` is one float32 add, bitwise; the norm as the
+  quantize+norm kernel, 1e-6. Quantize-out: codes and scale bitwise equal
+  to ``quantize_act`` of the add+norm kernel's output on the same inputs.
+* codes entry: integer sums exact, epilogue as the quantize+norm: 1e-6.
 """
 import dataclasses
 
@@ -39,8 +49,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import ops
 from repro_torch.configs.base import get_config
-from repro_torch.core.sole.quant import calibrate_ptf
+from repro_torch.core.sole.quant import calibrate_ptf, quantize_act
 from repro_torch.kernels import ailayernorm as KN
 from repro_torch.configs.base import QuantConfig
 from repro_torch.kernels import build
@@ -400,3 +411,181 @@ def test_dense_engine_on_card_matches_cpu(cuda_device, mode):
         assert sum(a == b for a, b in pairs) / len(pairs) >= 0.95
     else:
         assert outs[1] == outs[0]
+
+
+def _flash_inputs(rng, shape_q, shape_kv, grid, dtype, device):
+    if grid:
+        q = rng.integers(-8, 9, shape_q) / 4.0
+        k = rng.integers(-8, 9, shape_kv).astype(np.float64)
+    else:
+        q = rng.standard_normal(shape_q) * 2
+        k = rng.standard_normal(shape_kv)
+    v = rng.standard_normal(shape_kv)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+                 for a in (q, k, v))
+
+
+FLASH_CASES = {
+    # (B, S, T, H, KV, hd, causal, block)
+    "qwen2_causal": (1, 2048, 2048, 14, 2, 64, True, 128),
+    "ragged_noncausal": (2, 300, 1000, 14, 2, 64, False, 128),
+    "stablelm_mha": (1, 2048, 2048, 32, 32, 64, True, 128),
+    "small_blocks_hd_16": (2, 200, 200, 4, 2, 16, True, 32),
+    "block_96_hd_128": (1, 256, 256, 2, 1, 128, True, 96),
+}
+
+
+@pytest.mark.parametrize("mode", ["sole", "sole_int8", "sole_exact_corr",
+                                  "exact"])
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda_device, name, mode):
+    """The dense Flash-E2Softmax kernel through the op's cuda adapter
+    against its plain version on the same (repeated, folded) inputs."""
+    b, s, t, h, kvh, hd, causal, block = FLASH_CASES[name]
+    rng = np.random.default_rng(s + t + h)
+    q, k, v = _flash_inputs(rng, (b, s, h, hd), (b, t, kvh, hd), True,
+                            torch.bfloat16, cuda_device)
+    kw = dict(causal=causal, block=block, exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole_int8" else None,
+              exact_corr=mode == "sole_exact_corr")
+    op_mode = "exact" if mode == "exact" else "sole"
+    assert ops.backend_for("flash_attention", op_mode, cuda_device) == "cuda"
+    before = KA.flash_e2softmax.launches
+    out = ops.flash_attention_fn(op_mode, cuda_device)(q, k, v, **kw)
+    assert KA.flash_e2softmax.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, h, hd)
+    fold = [x.transpose(1, 2).reshape(b * h, -1, hd) for x in
+            (q, k.repeat_interleave(h // kvh, 2),
+             v.repeat_interleave(h // kvh, 2))]
+    kern_kw = dict(causal=causal, sole=op_mode == "sole", exp_bits=4,
+                   int8_scale=kw["int8_scale"], exact_corr=kw["exact_corr"],
+                   block_q=block, block_k=block)
+    got = KA.flash_e2softmax(*fold, **kern_kw)
+    ref = KA.flash_e2softmax_plain(*fold, **kern_kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = max(ref.abs().max().item(), 1.0)
+    if hd in (16, 64):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * scale)
+    else:
+        off = ((got - ref).abs().amax(-1) > 1e-3 * scale).float().mean()
+        assert off.item() <= 0.01
+
+
+def test_flash_kernel_random_logits_and_guards(cuda_device):
+    """Real-valued logits (SOLE, int8 snap): at most 1% of rows differ by
+    more than 1e-3; f32 inputs run too; tiles above 128 raise."""
+    rng = np.random.default_rng(11)
+    q, k, v = _flash_inputs(rng, (1, 512, 4, 64), (1, 512, 4, 64), False,
+                            torch.float32, cuda_device)
+    fold = [x.transpose(1, 2).reshape(4, 512, 64).contiguous()
+            for x in (q, k, v)]
+    kw = dict(causal=True, sole=True, int8_scale=LOGIT_INT8_SCALE,
+              block_q=64, block_k=64)
+    out = KA.flash_e2softmax(*fold, **kw)
+    ref = KA.flash_e2softmax_plain(*fold, **kw)
+    torch.cuda.synchronize()
+    off = ((out - ref).abs().amax(-1) > 1e-3).float().mean().item()
+    assert off <= 0.01
+    with pytest.raises(ValueError, match="tiles"):
+        KA.flash_e2softmax(*fold, causal=True, block_q=256, block_k=256)
+
+
+def _norm_case(rng, rows, c, device):
+    x = rng.standard_normal((rows, c)).astype(np.float32) * 2
+    x *= 2.0 ** rng.integers(0, 4, size=c)             # every PTF alpha
+    r = rng.standard_normal((rows, c)).astype(np.float32)
+    calib = rng.standard_normal((rows, c)).astype(np.float32) * 2 \
+        * 2.0 ** rng.integers(0, 4, size=c)
+    gamma = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, r, calib, gamma,
+                                                     beta)]
+
+
+@pytest.mark.parametrize("rows,c,rms", [(8, 896, True), (128, 896, True),
+                                        (2048, 896, True),
+                                        (128, 2048, False),
+                                        (2048, 2048, False)])
+def test_fused_norm_kernels_match_plain(cuda_device, rows, c, rms):
+    """Static PTF params (calibrated on a held-out batch): the add+norm
+    kernel's ``h`` bitwise and its norm to 1e-6; the quantize-out kernel's
+    ``h`` bitwise and its codes and scale bitwise equal to
+    ``quantize_act`` of the add+norm kernel's output."""
+    rng = np.random.default_rng(rows + c)
+    x, r, calib, gamma, beta = _norm_case(rng, rows, c, cuda_device)
+    p = calibrate_ptf(calib, unsigned=not rms)
+    args = (x, r, p.denom(), p.alpha, gamma,
+            torch.zeros_like(beta) if rms else beta)
+    n0, q0 = KN.add_norm.launches, KN.add_norm_quant.launches
+    h, out = KN.add_norm(*args, rms=rms)
+    h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
+    assert (KN.add_norm.launches, KN.add_norm_quant.launches) == (n0 + 1,
+                                                                  q0 + 1)
+    h_ref, out_ref = KN.add_norm_plain(*args, rms=rms)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_ref) and torch.equal(h8, h_ref)
+    torch.testing.assert_close(out, out_ref, rtol=1e-6, atol=1e-6)
+    want_codes, want_scale = quantize_act(out)
+    assert codes.dtype == torch.int8 and scale.shape == (rows, 1)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_static_params_adapters_on_card(cuda_device, kind):
+    """The registry sends static-params SOLE norms to the kernels: the
+    plain norm to the quantize+norm kernel with the caller's params, the
+    residual norm to the add+norm kernel and its ``_q`` twin to the
+    quantize-out kernel; each matches the same adapter on the CPU."""
+    rng = np.random.default_rng(5)
+    x, r, calib, gamma, beta = _norm_case(rng, 64, 896, cuda_device)
+    p = calibrate_ptf(calib, unsigned=kind == "layernorm")
+    extra = (beta,) if kind == "layernorm" else ()
+    cpu = [t.cpu() for t in (x, r, gamma) + extra]
+    pc = calibrate_ptf(calib.cpu(), unsigned=kind == "layernorm")
+    counters = (KN.qnorm, KN.add_norm, KN.add_norm_quant)
+    before = [f.launches for f in counters]
+    norm = ops.resolve(kind, "sole", "cuda")
+    got = norm(x, gamma, *extra, params=p)
+    want = norm(cpu[0], *cpu[2:], params=pc)
+    h, out = ops.residual_norm_fn(kind, "sole", cuda_device)(
+        x, r, gamma, *extra, params=p)
+    hq, (codes, scale) = ops.residual_norm_q_fn(kind, "sole", cuda_device)(
+        x, r, gamma, *extra, params=p)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    h_c, out_c = ops.residual_norm_fn(kind, "sole", "cpu")(*cpu, params=pc)
+    assert torch.equal(h.cpu(), h_c) and torch.equal(hq.cpu(), h_c)
+    torch.testing.assert_close(out.cpu(), out_c, rtol=1e-6, atol=1e-6)
+    agree = (codes.cpu() == quantize_act(out_c)[0]).float().mean().item()
+    assert agree >= 0.999
+
+
+def test_codes_kernel_matches_plain(cuda_device):
+    """LayerNorm on centred int32 codes in [-128, 127], alpha in 0..3."""
+    rng = np.random.default_rng(9)
+    xi = torch.from_numpy(rng.integers(-128, 128, (2048, 2048))
+                          .astype(np.int32)).to(cuda_device)
+    alpha = torch.from_numpy(rng.integers(0, 4, 2048).astype(np.int32)) \
+        .to(cuda_device)
+    gamma = torch.from_numpy((1 + 0.1 * rng.standard_normal(2048))
+                             .astype(np.float32)).to(cuda_device)
+    beta = torch.from_numpy((0.1 * rng.standard_normal(2048))
+                            .astype(np.float32)).to(cuda_device)
+    before = KN.codes_norm.launches
+    out = KN.ailayernorm_codes(xi, alpha, gamma, beta)
+    assert KN.codes_norm.launches == before + 1
+    ref = KN.codes_norm_plain(xi, alpha, gamma, beta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_quickstart_runs_through_the_kernels(cuda_device, capsys):
+    """The port's quickstart on the card launches the E2Softmax, the
+    quantize+norm and the dense Flash-E2Softmax kernels."""
+    from repro_torch.launch import quickstart
+    counters = (KE.e2softmax, KN.qnorm, KA.flash_e2softmax)
+    before = [f.launches for f in counters]
+    assert quickstart.main([]) == 0
+    assert all(f.launches > b for f, b in zip(counters, before))
+    assert "done." in capsys.readouterr().out

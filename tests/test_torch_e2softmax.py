@@ -162,4 +162,4 @@ def test_wrapper_guards():
     with pytest.raises(ValueError, match="last axis"):
         tops.resolve("softmax", "sole", "cuda")(x, axis=0)
     assert tops.backend_for("softmax", "sole", "cuda") == "cuda"
-    assert ("softmax", "sole") not in tops.UNPORTED_KERNELS
+    assert tops.is_registered("softmax", "sole", "cuda")

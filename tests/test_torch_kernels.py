@@ -209,11 +209,11 @@ def test_backend_follows_device():
     assert tops.backend_for("rmsnorm", "sole", "cuda") == "cuda"
     # no kernel in the reference either: plain torch on the card
     assert tops.backend_for("rmsnorm", "exact", "cuda") == "reference"
-    for op, mode in tops.UNPORTED_KERNELS:
-        assert tops.backend_for(op, mode, "cpu") == "reference"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tops.backend_for(op, mode, "cuda")
+    assert tops.backend_for("softmax", "ibert", "cuda") == "reference"
+    for mode in ("exact", "sole"):
+        assert tops.backend_for("flash_attention", mode, "cpu") == "reference"
+        assert tops.backend_for("flash_attention", mode, "cuda") == "cuda"
     with pytest.raises(ValueError):
         tops.backend_for("softmax", "nope", "cpu")
     with pytest.raises(NotImplementedError):
-        tops.resolve("rmsnorm", "ibert", "reference")
+        tops.resolve("rmsnorm", "ibert", "cuda")
