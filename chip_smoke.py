@@ -8,20 +8,27 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together; eight kernels) and print
-   ``-Xptxas -v``;
+   ``nvcc`` per source, started together; eight kernels), print
+   ``-Xptxas -v`` and count the tensor-core instructions in the dense
+   flash and int8 GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash
+   kernel must issue bf16 ``HMMA``);
 3. hold each kernel against its plain torch version at the serve paths'
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
    decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
    (``quant_pv`` on and off, SOLE and exact), the quantize+norm at those
    rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), and the
-   int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path and two ragged
-   shapes, and the E2Softmax kernel at the dense-slot path's decode and
+   int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path, two ragged
+   shapes and four whose K splits are uneven, each on two calls in a row
+   (the split's tickets reset themselves), with at least 132 CTAs at
+   every path shape, and the E2Softmax kernel at the dense-slot path's decode and
    prefill shapes (masked), at two unmasked shapes, with ``int8_scale``
    and with fully masked rows; and the op layer's kernels: the dense
-   Flash-E2Softmax at qwen2_0_5b's attention (2048 tokens, causal, in
-   four modes), a ragged non-causal case and stablelm_1_6b's MHA, the
-   static-PTF fused add+norm and add+norm+quantize-out at qwen2's and
+   Flash-E2Softmax in four modes at qwen2_0_5b's attention (2048 tokens,
+   causal), a ragged non-causal case, stablelm_1_6b's MHA, a causal case
+   whose last k-block is not a multiple of 16, one shorter than 16 rows,
+   one at head dim 128 (held to a share of rows) and qwen2's case in
+   float32 (the CUDA-core instantiation; bf16 runs on the tensor cores),
+   the static-PTF fused add+norm and add+norm+quantize-out at qwen2's and
    stablelm's widths, and the LayerNorm of int32 codes;
 4. serve greedy requests through ``PagedEngine`` at the full width of
    qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), twice:
@@ -46,7 +53,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 5. time each kernel and its plain version with CUDA events (L2 flushed
    before every launch), the kernel alone with ``torch.profiler``, beside
    the bound the card's memory rate or peak sets and, for the int8 GEMM,
-   ``torch._int_mm`` where it takes the shape, for exact-mode flash
+   ``torch._int_mm`` (at M = 8 on the activation zero-padded to 24 rows:
+   it refuses M <= 16), for exact-mode flash
    ``scaled_dot_product_attention`` (yardsticks the port never calls);
 6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
    of the dense-slot engine (bf16): the device-busy share of the wall time
@@ -211,6 +219,32 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def sass_mma_counts(build):
+    """Tensor-core instructions in the built kernels' SASS (``cuobjdump
+    -sass``): per kernel function of the dense flash library, its
+    ``HMMA...BF16`` count, and of the int8 GEMM library, its
+    ``IMMA...S8`` count; None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts = {}
+    for lib, kind, op in (("flash_e2softmax", "flash_e2softmax_", "HMMA"),
+                          ("int8_matmul", "int8_matmul_kernel", "IMMA")):
+        text = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for sec in text.split("Function : ")[1:]:
+            fn, body = sec.split("\n", 1)
+            if kind not in fn:
+                continue
+            ops = {}
+            for tok in body.split():
+                if tok.startswith(op + "."):
+                    ops[tok.rstrip(";")] = ops.get(tok.rstrip(";"), 0) + 1
+            counts[fn.strip()] = ops
+    return counts
+
+
 # -- phases -------------------------------------------------------------------
 
 
@@ -347,34 +381,50 @@ def check_int8_paged(torch, cfg):
 
 def check_int8_gemm(torch):
     """Phase 3, int8 GEMM: bitwise equal to its plain version (float64,
-    exact) at every path shape (M = decode_batch or prefill_chunk) and
-    two ragged ones, on random codes with one all-127 row and column
-    (the largest sums)."""
+    exact) at every path shape (M = decode_batch or prefill_chunk), two
+    ragged ones and four whose K splits are uneven (M = 1 at down's K; K
+    not a multiple of 64 x splits, with and without 16-byte loads; N % 4
+    != 0), on random codes with one all-127 row and column (the largest
+    sums); each shape twice in a row, so the split's self-resetting
+    tickets must leave no state behind. Every path shape must launch at
+    least one CTA per SM."""
     from repro_torch.kernels import int8_matmul as KM
     gen = torch.Generator(device="cuda").manual_seed(2)
     shapes = [(f"{nm}_m{m}", m, k, n) for m in (DECODE_BATCH, PREFILL_CHUNK)
               for nm, k, n in GEMM_KN]
+    n_path = len(shapes)
     shapes += [("ragged_7x130x33", 7, 130, 33),
-               ("ragged_64x256x128", 64, 256, 128)]
+               ("ragged_64x256x128", 64, 256, 128),
+               ("uneven_down_m1", 1, 4864, 896),
+               ("uneven_8x1008x896", 8, 1008, 896),
+               ("uneven_8x1000x896", 8, 1000, 896),
+               ("uneven_8x896x130", 8, 896, 130)]
     results = {}
-    for name, m, k, n in shapes:
+    for i, (name, m, k, n) in enumerate(shapes):
         x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                           dtype=torch.int8)
         x[0] = 127
         w[:, 0] = 127
-        out = KM.int8_matmul(x, w)
         ref = KM.int8_matmul_plain(x, w)
-        torch.cuda.synchronize()
-        if out.dtype != torch.int32 or not torch.equal(out, ref):
-            bad = (out != ref).sum().item()
-            raise AssertionError(f"int8_matmul {name} ({m}x{k}x{n}): "
-                                 f"{bad} of {out.numel()} outputs differ")
-        results[name] = dict(x=x, w=w, max_abs_err=0.0)
-    log(f"int8_matmul: bitwise equal to the plain version at {len(shapes)}"
-        " shapes: " + ", ".join(f"{nm} {m}x{k}x{n}"
-                               for nm, m, k, n in shapes))
+        plan = KM.split_plan(m, n, k)
+        for call in (1, 2):
+            out = KM.int8_matmul(x, w)
+            torch.cuda.synchronize()
+            if out.dtype != torch.int32 or not torch.equal(out, ref):
+                bad = (out != ref).sum().item()
+                raise AssertionError(f"int8_matmul {name} ({m}x{k}x{n}), "
+                                     f"call {call}: {bad} of {out.numel()} "
+                                     "outputs differ")
+        if i < n_path and plan.ctas < KM.MIN_CTAS:
+            raise AssertionError(f"int8_matmul {name}: {plan.ctas} CTAs")
+        bm, bn = KM.TILES[plan.tile]
+        results[name] = dict(x=x, w=w, max_abs_err=0.0,
+                             plan=f"tile {bm}x{bn}, {plan.splits} K splits, "
+                                  f"{plan.ctas} CTAs")
+        log(f"int8_matmul {name} {m}x{k}x{n}: bitwise equal on two calls; "
+            f"{results[name]['plan']}")
     return results
 
 
@@ -874,17 +924,30 @@ def time_e2softmax(torch, e2, launches, launches8):
     return [entry]
 
 
+INT_MM_MIN_M = 24      # torch._int_mm refuses M <= 16
+
+
 def _int_mm_ms(torch, x, w, flush):
     """``torch._int_mm`` (cuBLAS) on the same inputs, the yardstick:
-    (ms, note), or (None, why it refused). The port never calls it."""
+    (ms, note), or (None, why it refused). It refuses M <= 16, so a decode
+    activation is zero-padded to M = 24 rows first (outside the timing;
+    the first M rows of the product are the exact product). The port never
+    calls it."""
     from repro_torch.kernels.int8_matmul import int8_matmul_plain
+    m = x.shape[0]
+    xp = x
+    note = "torch._int_mm"
+    if m < INT_MM_MIN_M:
+        xp = torch.zeros((INT_MM_MIN_M, x.shape[1]), dtype=x.dtype,
+                         device=x.device)
+        xp[:m] = x
+        note += f" on x zero-padded from M = {m} to {INT_MM_MIN_M}"
     try:
-        exact = torch.equal(torch._int_mm(x, w), int8_matmul_plain(x, w))
+        exact = torch.equal(torch._int_mm(xp, w)[:m], int8_matmul_plain(x, w))
     except RuntimeError as e:
         return None, "torch._int_mm refuses: " + str(e).strip()[:120]
-    ms = time_ms(torch, lambda: torch._int_mm(x, w), flush)
-    return ms, "torch._int_mm" + ("" if exact else
-                                  ", NOT equal to the exact product")
+    ms = time_ms(torch, lambda: torch._int_mm(xp, w), flush)
+    return ms, note + ("" if exact else ", NOT equal to the exact product")
 
 
 def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
@@ -925,7 +988,7 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
               source="src/repro_torch/kernels/csrc/int8_matmul.cu",
               replaces="src/repro/kernels/int8_matmul.py:29", shapes={})
     for name, res in gemm.items():
-        if name.startswith("ragged"):
+        if name.startswith(("ragged", "uneven")):
             continue
         x, w = res["x"], res["w"]
         (m, k), n = x.shape, w.shape[1]
@@ -940,7 +1003,8 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
             plain_ms=time_ms(torch, lambda: KM.int8_matmul_plain(x, w),
                              flush, reps=5),
             library_ms=lib_ms, library=lib_note, bound_ms=bms, bound_by=by,
-            max_abs_err=0.0, bytes=nbytes, ops=2 * m * k * n)
+            plan=res["plan"], max_abs_err=0.0, bytes=nbytes,
+            ops=2 * m * k * n)
     # the most-launched shapes: a decode step; for the GEMM its largest,
     # the LM head
     for e, key, main in ((paged, "paged_e2softmax", "decode"),
@@ -950,7 +1014,7 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
             v["max_abs_err"] for v in e["shapes"].values()),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top.get("library_ms"),
-            main_shape=main)
+            library=top.get("library"), main_shape=main)
     for e in (paged, mm):
         for sname, v in e["shapes"].items():
             k = v["kernel_ms"]
@@ -970,15 +1034,24 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
 # -- the op layer: dense flash, static-PTF fused norms, the codes norm --------
 
 # (B, S, T, H, KV, hd, causal) of the dense flash cases: qwen2_0_5b's
-# attention at 2048 tokens, a ragged non-causal case, stablelm_1_6b's MHA
+# attention at 2048 tokens, a ragged non-causal case, stablelm_1_6b's MHA;
+# a causal case whose last k-block (104 keys) is not a multiple of 16, one
+# shorter than 16 rows, and one at head dim 128 (d^-1/2 not a power of
+# two, so held to a share of rows). bf16 inputs run the tensor-core
+# kernel; "_f32" cases take qwen2's inputs in float32 (the CUDA-core
+# kernel).
 FLASH_CASES = {"qwen2_causal": (1, 2048, 2048, 14, 2, 64, True),
                "ragged_noncausal": (2, 300, 1000, 14, 2, 64, False),
-               "stablelm_mha": (1, 2048, 2048, 32, 32, 64, True)}
-# (case, mode) of each flash check: "sole_int8" snaps the logits to the
-# path's int8 grid, "sole_exact_corr" rescales by the float32 correction
-FLASH_MODES = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
-               ("qwen2_causal", "sole_exact_corr"), ("qwen2_causal", "exact"),
-               ("ragged_noncausal", "sole"), ("stablelm_mha", "sole"))
+               "stablelm_mha": (1, 2048, 2048, 32, 32, 64, True),
+               "causal_1000": (1, 1000, 1000, 14, 2, 64, True),
+               "short_8": (2, 8, 8, 14, 2, 64, True),
+               "hd_128": (1, 1024, 1024, 8, 8, 128, True),
+               "qwen2_causal_f32": (1, 2048, 2048, 14, 2, 64, True)}
+# each flash check: every case in every mode. "sole_int8" snaps the logits
+# to the path's int8 grid, "sole_exact_corr" rescales by the float32
+# correction
+FLASH_MODES = tuple((c, m) for c in FLASH_CASES
+                    for m in ("sole", "sole_int8", "sole_exact_corr", "exact"))
 FLASH_BLOCK = 128
 # (rows, C, rms) of the static-PTF norms: qwen2_0_5b's RMS width at decode,
 # prefill-chunk and 2048-token rows; stablelm_1_6b's LayerNorm width
@@ -1006,9 +1079,16 @@ def ops_inputs(torch):
 
     flash = {}
     for name, (b, s, t, h, kvh, hd, causal) in FLASH_CASES.items():
+        if name.endswith("_f32"):
+            continue
         flash[name] = dict(q=(randint(-8, 9, (b, s, h, hd)) / 4).to(bf),
                            k=randint(-8, 9, (b, t, kvh, hd)).to(bf),
                            v=randn(b, t, kvh, hd).to(bf), causal=causal)
+    for name in FLASH_CASES:
+        if name.endswith("_f32"):
+            base = flash[name[:-4]]
+            flash[name] = dict(base, **{x: base[x].float()
+                                        for x in ("q", "k", "v")})
     b, s, t, h, kvh, hd, _ = FLASH_CASES["qwen2_causal"]
     flash["qwen2_random"] = dict(q=(randn(b, s, h, hd) * 2).to(bf),
                                  k=randn(b, t, kvh, hd).to(bf),
@@ -1070,9 +1150,12 @@ def check_ops_kernels(torch, inp):
     from repro_torch.kernels import ailayernorm as KN
     from repro_torch.kernels import flash_e2softmax as KA
     res = {"flash": {}, "norms": {}}
+    folded = {}
     for name, mode in FLASH_MODES + (("qwen2_random", "sole_int8"),):
         case = inp["flash"][name]
-        args = _fold(torch, case)
+        if name not in folded:
+            folded[name] = _fold(torch, case)
+        args = folded[name]
         kkw = _flash_kw(mode, case["causal"])
         out = KA.flash_e2softmax(*args, **kkw)
         ref = KA.flash_e2softmax_plain(*args, **kkw)
@@ -1081,6 +1164,21 @@ def check_ops_kernels(torch, inp):
             raise AssertionError(f"flash_e2softmax {name} {mode}: non-finite")
         err = (out - ref).abs()
         scale = max(ref.abs().max().item(), 1.0)
+        variant = KA.dense_variant(args[0].dtype)
+        if case["q"].shape[-1] == 128:
+            # d^-1/2 is no power of two: the scaled q (plain) and the
+            # scaled logits (kernel) round apart, and a code may flip at a
+            # tie: at most 1% of rows off by more than 1e-3
+            off = (err.amax(-1) > 1e-3 * scale).float().mean().item()
+            if off > 0.01:
+                raise AssertionError(f"flash_e2softmax {name} {mode}: {off}"
+                                     " of rows off by > 1e-3")
+            res["flash"][f"{name}_{mode}"] = dict(
+                name=name, mode=mode, max_abs_err=err.max().item(),
+                rows_off=off, args=args, kkw=kkw, out=out, variant=variant)
+            log(f"flash_e2softmax {name} {mode} [{variant}]: max|err| "
+                f"{err.max().item():.3e}, rows off {off:.5f}")
+            continue
         if name == "qwen2_random":
             off = (err.amax(-1) > 1e-3 * scale).float().mean().item()
             if off > 0.01:
@@ -1096,9 +1194,10 @@ def check_ops_kernels(torch, inp):
                                  f"{err.max().item()} > {1e-5 * scale}")
         res["flash"][f"{name}_{mode}"] = dict(
             name=name, mode=mode, max_abs_err=err.max().item(), args=args,
-            kkw=kkw, out=out)
+            kkw=kkw, out=out, variant=variant)
         log(f"flash_e2softmax {name} {mode} q {tuple(case['q'].shape)} "
-            f"kv {tuple(case['k'].shape)}: max|err| {err.max().item():.3e}")
+            f"kv {tuple(case['k'].shape)} [{variant}]: max|err| "
+            f"{err.max().item():.3e}")
     for name, case in inp["norms"].items():
         args, rms = norm_args(case), case["rms"]
         h, out = KN.add_norm(*args, rms=rms)
@@ -1197,7 +1296,8 @@ def serve_ops_path(torch, inp, res):
         raise AssertionError(f"{launches['flash_e2softmax']} flash launches")
     for key, r in res["flash"].items():
         b, s, _, h, _, hd, _ = FLASH_CASES[r["name"]]
-        want = r["out"].reshape(b, h, s, hd).transpose(1, 2).to(torch.bfloat16)
+        want = r["out"].reshape(b, h, s, hd).transpose(1, 2).to(
+            inp["flash"][r["name"]]["q"].dtype)
         if not torch.equal(outs[key], want):
             raise AssertionError(f"flash op {key}: output differs from the "
                                  "kernel's")
@@ -1260,10 +1360,12 @@ def time_ops_kernels(torch, res, launches):
             return KA.flash_e2softmax(*args, **kkw)
         flash["shapes"][key] = dict(
             shape=f"BH {b * h} S {s} T {t} d {hd} "
-                  f"{'causal' if causal else 'non-causal'} {r['mode']}",
+                  f"{'causal' if causal else 'non-causal'} {r['mode']} "
+                  f"{str(args[0].dtype).replace('torch.', '')}",
+            variant=r["variant"],
             ms=time_ms(torch, run, flush),
             kernel_ms=profiled_kernel_ms(torch, run, flush,
-                                         "flash_e2softmax_dense_kernel"),
+                                         "flash_e2softmax_"),
             plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_plain(
                 *args, **kkw), flush, reps=3),
             bound_ms=bms, bound_by=by, library_ms=lib,
@@ -1410,6 +1512,16 @@ def main() -> int:
             for line in text.splitlines():
                 if "ptxas" in line or "bytes" in line:
                     log(f"[{name}] {line.strip()}")
+        sass = sass_mma_counts(build)
+        if sass is None:
+            log("[sass] cuobjdump not found: tensor-core instructions not "
+                "counted")
+        else:
+            for fn, ops in sass.items():
+                log(f"[sass] {fn}: {json.dumps(ops)}")
+            for fn, ops in sass.items():
+                if "mma_kernel" in fn and not any("BF16" in o for o in ops):
+                    raise AssertionError(f"{fn} issues no bf16 HMMA")
         cfg = get_config("qwen2_0_5b")
         cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                    kv_cache_dtype="int8")

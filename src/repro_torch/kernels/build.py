@@ -50,7 +50,9 @@ def nvcc_path() -> str:
         "kernels are compiled from kernels/csrc on the machine with the card")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``kernels/csrc/<name>.cu`` is built, keyed by
+    the source and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
@@ -80,7 +82,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     processes started together, and load them. Returns the build logs."""
     names = tuple(names or NAMES)
     with _LOCK:
-        todo = {n: _target(n) for n in names if n not in _LIBS}
+        todo = {n: library_path(n) for n in names if n not in _LIBS}
         procs = {n: _start(n, out) for n, out in todo.items()
                  if not out.exists()}
         try:

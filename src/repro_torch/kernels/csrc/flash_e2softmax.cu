@@ -30,28 +30,56 @@
 // (q, k, v read once in bf16, the float32 output written once) for ~0.54
 // GFLOP per head of q.k and w.v, ~400 flops per byte, above the card's
 // ~295 bf16 operations per byte, so the bound is the products at the
-// tensor cores' 989 TFLOP/s. This kernel computes them with float32 FMAs
-// on the CUDA cores (67 TFLOP/s at most), so it cannot come near that
-// bound; it is built to be exact first.
-// Design, simple and right first: the tile's q rows (pre-scaled), and each
-// k-block's K (rows padded by one word against bank conflicts) and V go
-// through shared memory as float32. Eight warps each own 8 or 16 query-row
-// slots (interleaved); a lane holds the logits of its rows for 2 or 4 keys
-// (lane + 32 j) in registers, the warp-reduced max and sum run per row, and
-// w . v reads each weight from its owner lane by shuffle while each lane
-// accumulates 2 or 4 head-dim columns (lane + 32 c) of every row in
-// registers. Slots past the tile or the k-block hold zeros, so the inner
-// loops carry no guards and their shared loads and shuffles pipeline (a
-// first version that guarded every row took 3.6x as long on an H100 at
-// qwen2_0_5b's 2048-token causal shape). All arithmetic is
-// float32 on the CUDA cores; powers of two come exactly from ldexpf, rintf
-// rounds half to even like jnp.round, and __fmul_rn/__fsub_rn keep the
-// codes' inputs out of FMA contraction. Tensor-core (mma/wgmma) products,
-// TMA tiles, and reading each KV head once per GQA group (the op repeats
-// K/V to every query head) are later work.
+// tensor cores' 989 TFLOP/s. In SOLE mode each logit also takes ~15
+// CUDA-core instructions (subtract, snap, round, clamp, the power of two),
+// which no tensor core does.
+//
+// Two instantiations, chosen by the inputs' type:
+//
+// bf16 q/k/v (the op layer's type): tensor cores. A CTA of BQ/16 warps
+// owns one q tile, 16 rows per warp, and walks the k-blocks in order:
+// * K and V tiles stay bf16 in shared memory, copied with cp.async into
+//   a two-stage ring: block j + 1 loads while block j computes. The head
+//   dim is zero-padded to 64 or 128 and the key rows to the widest block's
+//   64 or 128 (zero rows are masked), so every block runs the same
+//   unguarded code; rows are padded by 16 bytes so ldmatrix hits 32 banks.
+//   Causal CTAs are scheduled heaviest q tile first.
+// * Q.K^T: mma.sync.m16n8k16 bf16 -> float32, Q fragments held in
+//   registers, K fragments by ldmatrix. bf16 x bf16 products are exact in
+//   float32; only the summation order differs from the plain version.
+//   Where d^-1/2 is a power of two (d = 16, 64, 256) it is folded into the
+//   bf16 q exactly; otherwise it multiplies the float32 logits (codes may
+//   then flip at rounding ties against the plain version's scaled q).
+// * The whole BQ x BK logits tile of a k-block is in registers (at BK =
+//   128, 64 float32 a thread); the row max over the whole block comes from
+//   the quad's shuffles, and only then the weights: one online update per
+//   k-block, as the Pallas kernel's sequential grid axis, never a split.
+// * P.V: the weights go to the tensor cores as the A operand straight from
+//   the logits' accumulator layout; V fragments by ldmatrix.trans. SOLE
+//   weights 2^-k (k <= 63) are exact in bf16, so P.V rounds only in the
+//   float32 sums; their codes round with two full-rate adds, not rintf.
+//   Exact-mode exp2 weights would lose 2^-9 relative in bf16, so P is
+//   split into hi = bf16(P) and lo = bf16(P - hi) and both are multiplied
+//   (~2^-17 relative). The correction multiplies the float32 accumulator
+//   in registers.
+// float32 q/k/v (the quickstart's type): the CUDA cores, as the first
+// version of this kernel was built, and right as it is: float32 tiles in
+// shared memory, a lane per key for the logits and per head-dim column
+// for the accumulator, weights read by shuffle. It is the float32 path's
+// kernel, not a fallback of the bf16 one.
+// Both: masked logits NEG (-inf in registers), weights 0; powers of two
+// from exponent bits or ldexpf; rounding is half to even like jnp.round;
+// __fmul_rn/__fsub_rn keep the codes' inputs out of FMA contraction.
+// On an NVIDIA H100 80GB HBM3 at a 700 W power limit the bf16 kernel
+// takes 0.103 ms (exact) and 0.135 ms (SOLE) at qwen2_0_5b's 2048-token
+// causal shape, the first (CUDA-core) version 1.05 and 1.20; at 194
+// registers one 8-warp CTA fits an SM and the SOLE arithmetic is
+// latency-bound. wgmma with TMA tiles, and reading each KV head once per
+// GQA group (the op repeats K/V to every query head), are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -66,7 +94,6 @@ constexpr float kAldivBias = 1.636f;
 constexpr float kAldivBiasHalf = 1.136f;    // ALDIV_BIAS - 0.5 in float32
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -270,7 +297,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int S
   return (int)cudaGetLastError();
 }
 
-// Instantiations: d <= 64 or <= 128; tiles of up to 64 or 128 rows and keys.
+// float32 instantiations: d <= 64 or <= 128; tiles of up to 64 or 128 rows
+// and keys.
 template <typename T>
 int launch_shape(const void* q, const void* k, const void* v, void* out, int BH, int S,
                  int Tk, int d, int BQ, int BK, int causal, int sole, int exp_bits,
@@ -289,6 +317,392 @@ int launch_shape(const void* q, const void* k, const void* v, void* out, int BH,
   REPRO_DENSE_LAUNCH(4, 16, 4);
 #undef REPRO_DENSE_LAUNCH
 }
+
+// -- bf16 q/k/v: tensor cores ---------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaMaxWarps = kMaxBlock / 16;   // 16 query rows per warp
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+// c += a . b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 float32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, round to nearest; `lo` in the low half (the
+// smaller column of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Rows [0, nrows) of DP bf16 into shared rows of DP + 8: source rows
+// [0, valid) of a row-major (., d) tensor, zeros past `valid` and past
+// column d. vec (d % 8 == 0, 16-byte aligned base): cp.async per 16 bytes,
+// each wholly inside or outside; otherwise synchronous element copies.
+template <int DP>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int nrows, int valid,
+                                           int d, int vec) {
+  constexpr int kStride = DP + 8, kChunks = DP / 8;
+  for (int idx = threadIdx.x; idx < nrows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
+    bf16* o = dst + r * kStride + c;
+    if (vec) {
+      const bool ok = r < valid && c < d;
+      cp_async16(o, ok ? src + (size_t)r * d + c : src, ok ? 16 : 0);
+    } else {
+      const uint16_t* s = reinterpret_cast<const uint16_t*>(src) + (size_t)r * d;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      for (int e = 0; e < 8; ++e)
+        if (r < valid && c + e < d) w[e / 2] |= (uint32_t)s[c + e] << (16 * (e % 2));
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rint(x) (half to even) with two full-rate adds: exact for |x| < 2^22;
+// beyond, a value as far out, which the callers' clamps treat alike.
+__device__ __forceinline__ float round_even(float x) {
+  return __fsub_rn(__fadd_rn(x, 12582912.0f), 12582912.0f);   // 1.5 * 2^23
+}
+
+// The SOLE weights of a block's logits in place (masked, -inf: 0) and
+// their row sums. w = 2^-kc, built from the exponent bits: kc + 2^23
+// holds the integer kc in its low mantissa bits.
+template <int NT, bool SNAP>
+__device__ __forceinline__ void sole_weights(float (&sc)[NT][4], float mn_a, float mn_b,
+                                             float snap_inv, float int8_scale, float kmax,
+                                             float& ls_a, float& ls_b) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = sc[nt][r];
+      float dm = __fsub_rn(x, r < 2 ? mn_a : mn_b);
+      if (SNAP)
+        dm = __fmul_rn(fminf(fmaxf(round_even(__fmul_rn(dm, snap_inv)), -127.0f), 0.0f),
+                       int8_scale);
+      const float kc = fminf(fmaxf(round_even(__fmul_rn(-dm, kInvLn2Shift)), 0.0f), kmax);
+      const int bits = __float_as_int(__fadd_rn(kc, 8388608.0f));   // 0x4B000000 + kc
+      const float w = x == -CUDART_INF_F ? 0.0f : __int_as_float((0x4B00007F - bits) << 23);
+      sc[nt][r] = w;
+      if (r < 2) ls_a = __fadd_rn(ls_a, w);
+      else ls_b = __fadd_rn(ls_b, w);
+    }
+}
+
+__device__ __forceinline__ float block_corr(float m_prev, float m_new, int quantized,
+                                            float submax) {
+  if (quantized) {
+    const float sub = fminf(fmaxf(rintf(__fmul_rn(__fsub_rn(m_new, m_prev), kInvLn2Shift)),
+                                  0.0f), submax);
+    return ldexpf(1.0f, -(int)sub);
+  }
+  return exp2f(__fmul_rn(__fsub_rn(m_prev, m_new), kLog2e));
+}
+
+__device__ __forceinline__ float final_scale(float s, int sole) {
+  s = fmaxf(s, 9.313225746154785e-10f);     // 2^-30
+  if (!sole) return __fdiv_rn(1.0f, s);
+  int e;
+  const float mant = frexpf(s, &e);
+  return ldexpf(mant >= 0.75f ? kAldivBiasHalf : kAldivBias, -e);
+}
+
+// acc += P . V over the block's KT 16-key tiles: P from the logits'
+// accumulator layout as bf16 A fragments; V fragments by ldmatrix.trans.
+// SPLIT (exact mode): P = bf16(P) + bf16(P - bf16(P)), two products.
+template <int DP, int KT, bool SPLIT>
+__device__ __forceinline__ void pv_product(float (&acc)[DP / 8][4], const float (&sc)[2 * KT][4],
+                                           const bf16* vs, int lane) {
+  constexpr int kStride = DP + 8;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    const float* p0 = sc[2 * kt];
+    const float* p1 = sc[2 * kt + 1];
+    const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+                           pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+    uint32_t lo[4];
+    if (SPLIT) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* p = r < 2 ? p0 : p1;
+        const int c = (r & 1) * 2;
+        const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[r]));
+        lo[r] = pack_bf16(__fsub_rn(p[c], h.x), __fsub_rn(p[c + 1], h.y));
+      }
+    }
+#pragma unroll
+    for (int dp = 0; dp < DP / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vs + (kt * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * kStride +
+                           dp * 16 + ((lane >> 4) << 3));
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      if (SPLIT) {
+        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// DP: head dim padded to 64 or 128; KT: 16-key tiles of the widest k-block
+// (4: BK <= 64, 8: BK <= 128); every block stages and computes all KT
+// tiles (zero rows past its keys, masked), so the inner loops carry no
+// runtime guards and schedule as one basic block. blockDim.x = 32 *
+// ceil(BQ / 16). Thread (g = lane / 4, t = lane % 4) of warp w holds rows
+// q0 + 16 w + g and + 8, and of each 8-key (or 8-column) tile the columns
+// 2 t and 2 t + 1: the mma.sync accumulator layout, which is also the
+// A-operand layout of the following P.V product.
+template <int DP, int KT>
+__global__ void __launch_bounds__(kMmaMaxWarps * 32, 1)
+flash_e2softmax_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, float* __restrict__ out, int S,
+                           int Tk, int d, int BQ, int BK, int causal, int sole, int exp_bits,
+                           int has_snap, int exact_corr, int vec, int scale_q,
+                           float int8_scale, float snap_inv, float qk_scale) {
+  constexpr int kStride = DP + 8;           // bf16 per shared row: 16-byte pad
+  constexpr int DK = DP / 16;               // k-steps of Q.K^T
+  constexpr int DN = DP / 8;                // 8-column tiles of the output
+  constexpr int NT = 2 * KT;                // 8-key tiles of a k-block
+  constexpr int kRows = KT * 16;            // key rows staged per k-block
+  constexpr int kvTile = kRows * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nwarps = blockDim.x / 32;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // nwarps * 16 rows
+  bf16* Ks = Qs + nwarps * 16 * kStride;            // two stages of kRows rows
+  bf16* Vs = Ks + 2 * kvTile;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int rows = min(BQ, S - q0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float kmax = (float)((1 << exp_bits) - 1);
+  const float submax = (float)((1 << (exp_bits + 2)) - 1);
+  const int last_row = q0 + rows - 1;
+  const int nk = (Tk + BK - 1) / BK;
+  const int nblocks = causal ? min(nk, last_row / BK + 1) : nk;
+  const bf16* kb = k + (size_t)bh * Tk * d;
+  const bf16* vb = v + (size_t)bh * Tk * d;
+
+  stage_rows<DP>(Qs, q + ((size_t)bh * S + q0) * d, nwarps * 16, rows, d, vec);
+  auto stage_kv = [&](int j) {
+    const int c0 = j * BK, valid = min(BK, Tk - c0);
+    stage_rows<DP>(Ks + (j & 1) * kvTile, kb + (size_t)c0 * d, kRows, valid, d, vec);
+    stage_rows<DP>(Vs + (j & 1) * kvTile, vb + (size_t)c0 * d, kRows, valid, d, vec);
+  };
+  stage_kv(0);
+  cp_async_commit();
+
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  uint32_t qf[DK][4];
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[dn][r] = 0.0f;
+  float m_a = kNeg, m_b = kNeg, s_a = 0.0f, s_b = 0.0f;
+
+  for (int j = 0; j < nblocks; ++j) {
+    if (j + 1 < nblocks) stage_kv(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                     // block j (and, at j = 0, the q tile) landed
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * kStride + kk * 16 + (lane >> 4) * 8);
+        if (scale_q) {                      // a power of two: exact in bf16
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][r]));
+            qf[kk][r] = pack_bf16(__fmul_rn(f.x, qk_scale), __fmul_rn(f.y, qk_scale));
+          }
+        }
+      }
+    }
+    const bf16* ks = Ks + (j & 1) * kvTile;
+    const bf16* vs = Vs + (j & 1) * kvTile;
+    const int c0 = j * BK;
+    const int valid = min(BK, Tk - c0);     // keys of this k-block
+
+    // logits of the warp's 16 rows x the block's key tiles
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sc[nt][r] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * kStride + kk * 16 +
+                       (((lane >> 3) & 1) << 3));
+        mma_bf16(sc[2 * kt], qf[kk], b[0], b[1]);
+        mma_bf16(sc[2 * kt + 1], qf[kk], b[2], b[3]);
+      }
+    if (!scale_q) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[nt][r] = __fmul_rn(sc[nt][r], qk_scale);
+    }
+    // mask (keys past the block, the causal diagonal) to -inf
+    if (valid < kRows || (causal && c0 + valid - 1 > q0 + warp * 16)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int tcol = nt * 8 + 2 * t4 + (r & 1), col = c0 + tcol;
+          const int row = r < 2 ? row_a : row_b;
+          if (tcol >= valid || (causal && row < col)) sc[nt][r] = -CUDART_INF_F;
+        }
+    }
+    // row max over the whole block, then the weights
+    float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[nt][0], sc[nt][1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[nt][2], sc[nt][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    float ls_a = 0.0f, ls_b = 0.0f;
+    if (sole && has_snap) {
+      sole_weights<NT, true>(sc, mn_a, mn_b, snap_inv, int8_scale, kmax, ls_a, ls_b);
+    } else if (sole) {
+      sole_weights<NT, false>(sc, mn_a, mn_b, snap_inv, int8_scale, kmax, ls_a, ls_b);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {       // masked: exp2(-inf) = 0
+          const float w = exp2f(__fmul_rn(__fsub_rn(sc[nt][r], r < 2 ? mn_a : mn_b), kLog2e));
+          sc[nt][r] = w;
+          if (r < 2) ls_a = __fadd_rn(ls_a, w);
+          else ls_b = __fadd_rn(ls_b, w);
+        }
+    }
+    const int quantized = sole && !exact_corr;
+    const float corr_a = block_corr(m_a, mn_a, quantized, submax);
+    const float corr_b = block_corr(m_b, mn_b, quantized, submax);
+    s_a = __fadd_rn(__fmul_rn(s_a, corr_a), quad_sum(ls_a));
+    s_b = __fadd_rn(__fmul_rn(s_b, corr_b), quad_sum(ls_b));
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      acc[dn][0] = __fmul_rn(acc[dn][0], corr_a);
+      acc[dn][1] = __fmul_rn(acc[dn][1], corr_a);
+      acc[dn][2] = __fmul_rn(acc[dn][2], corr_b);
+      acc[dn][3] = __fmul_rn(acc[dn][3], corr_b);
+    }
+    if (sole) pv_product<DP, KT, false>(acc, sc, vs, lane);
+    else pv_product<DP, KT, true>(acc, sc, vs, lane);
+    __syncthreads();                        // this stage is refilled at block j + 2
+  }
+
+  const float sc_a = final_scale(s_a, sole), sc_b = final_scale(s_b, sole);
+  float* ob = out + (size_t)bh * S * d;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (col + e >= d) continue;
+      if (row_a - q0 < rows) ob[(size_t)row_a * d + col + e] = __fmul_rn(acc[dn][e], sc_a);
+      if (row_b - q0 < rows) ob[(size_t)row_b * d + col + e] = __fmul_rn(acc[dn][2 + e], sc_b);
+    }
+  }
+}
+
+template <int DP, int KT>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int BH, int S, int Tk,
+               int d, int BQ, int BK, int causal, int sole, int exp_bits, int has_snap,
+               int exact_corr, int vec, int scale_q, float int8_scale, float snap_inv,
+               float qk_scale, cudaStream_t stream) {
+  const int nwarps = (BQ + 15) / 16;
+  const size_t smem = sizeof(bf16) * (DP + 8) * ((size_t)nwarps * 16 + 4 * (size_t)KT * 16);
+  auto kernel = flash_e2softmax_mma_kernel<DP, KT>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((S + BQ - 1) / BQ, BH);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<float*>(out), S, Tk, d, BQ, BK, causal, sole, exp_bits, has_snap, exact_corr,
+      vec, scale_q, int8_scale, snap_inv, qk_scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma_shape(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                     int Tk, int d, int BQ, int BK, int causal, int sole, int exp_bits,
+                     int has_snap, int exact_corr, float int8_scale, float snap_inv,
+                     float qk_scale, cudaStream_t stream) {
+  const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const int vec = d % 8 == 0 && align % 16 == 0;
+  int e2;
+  const int scale_q = frexpf(qk_scale, &e2) == 0.5f;   // d^-1/2 a power of two
+#define REPRO_MMA_LAUNCH(DP, KT)                                                          \
+  return launch_mma<DP, KT>(q, k, v, out, BH, S, Tk, d, BQ, BK, causal, sole, exp_bits,   \
+                            has_snap, exact_corr, vec, scale_q, int8_scale, snap_inv,     \
+                            qk_scale, stream)
+  if (d <= 64) {
+    if (BK <= 64) REPRO_MMA_LAUNCH(64, 4);
+    REPRO_MMA_LAUNCH(64, 8);
+  }
+  if (BK <= 64) REPRO_MMA_LAUNCH(128, 4);
+  REPRO_MMA_LAUNCH(128, 8);
+#undef REPRO_MMA_LAUNCH
+}
+
 
 }  // namespace
 
@@ -316,9 +730,8 @@ int flash_e2softmax(const void* q, const void* k, const void* v, void* out, int 
     return launch_shape<float>(q, k, v, out, BH, S, T, d, BQ, BK, causal, sole, exp_bits,
                                has_snap, exact_corr, int8_scale, snap_inv, qk_scale, s);
   if (dtype == 1)
-    return launch_shape<__nv_bfloat16>(q, k, v, out, BH, S, T, d, BQ, BK, causal, sole,
-                                       exp_bits, has_snap, exact_corr, int8_scale,
-                                       snap_inv, qk_scale, s);
+    return launch_mma_shape(q, k, v, out, BH, S, T, d, BQ, BK, causal, sole, exp_bits,
+                            has_snap, exact_corr, int8_scale, snap_inv, qk_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,8 +14,9 @@
 // compute something else. Per page:
 //   logits = (q * d^-1/2) . k^T, masked to col < kv_len (and, causal,
 //            q_start + row >= col); masked logits are NEG = -1e30
-//   SOLE : dm = logit - m_new, optional int8 snap clip(rint(dm / s), -127, 0)
-//          * s, w = 2^-clip(rint(-1.4375 dm), 0, 2^b - 1), masked w = 0
+//   SOLE : dm = logit - m_new, optional int8 snap clip(rint(dm * (1/s)),
+//          -127, 0) * s (the jitted reference multiplies by float32(1/s)),
+//          w = 2^-clip(rint(-1.4375 dm), 0, 2^b - 1), masked w = 0
 //   exact: w = exp2(dm * log2 e), corr = exp2((m_prev - m_new) * log2 e)
 //   s = s * corr + sum(w);  acc = acc * corr + w . v
 // and at the end out = acc * 2^-e * {1.636, 1.136} (ALDivision, e and the
@@ -84,8 +85,8 @@ paged_e2softmax_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
                        const int* __restrict__ meta, const int* __restrict__ kv_head_map,
                        float* __restrict__ out, int H, int C, int d, int bs, int KV,
                        int NB, int BQ, int causal, int sole, int exp_bits,
-                       int has_snap, float int8_scale, float qk_scale,
-                       int quant_pv, float kv_scale) {
+                       int has_snap, float int8_scale, float snap_inv,
+                       float qk_scale, int quant_pv, float kv_scale) {
   // Int8 pools always carry kv_scale; float pools compile without it.
   constexpr bool kInt8Pool = std::is_same<TP, int8_t>::value;
   extern __shared__ float smem[];
@@ -173,7 +174,7 @@ paged_e2softmax_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
         float w;
         if (sole) {
           if (has_snap)
-            dm = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(dm, int8_scale)), -127.0f), 0.0f),
+            dm = __fmul_rn(fminf(fmaxf(rintf(__fmul_rn(dm, snap_inv)), -127.0f), 0.0f),
                            int8_scale);
           const float kc = fminf(fmaxf(rintf(__fmul_rn(-dm, kInvLn2Shift)), 0.0f), kmax);
           w = keep ? ldexpf(1.0f, -(int)kc) : 0.0f;
@@ -227,8 +228,8 @@ template <typename TQ, typename TP>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
            const void* meta, const void* kv_head_map, void* out, int B, int H, int C,
            int d, int bs, int KV, int NB, int causal, int sole, int exp_bits,
-           int has_snap, float int8_scale, float qk_scale, int quant_pv,
-           float kv_scale, cudaStream_t stream) {
+           int has_snap, float int8_scale, float snap_inv, float qk_scale,
+           int quant_pv, float kv_scale, cudaStream_t stream) {
   const int BQ = C < kWarps * kMaxRowsPerWarp ? C : kWarps * kMaxRowsPerWarp;
   const size_t smem = sizeof(float) *
       ((size_t)bs * (d + 1) + (size_t)bs * d + (size_t)BQ * d + (size_t)kWarps * bs);
@@ -244,7 +245,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
       static_cast<const TP*>(v_pool), static_cast<const int*>(tables),
       static_cast<const int*>(meta), static_cast<const int*>(kv_head_map),
       static_cast<float*>(out), H, C, d, bs, KV, NB, BQ, causal, sole, exp_bits, has_snap,
-      int8_scale, qk_scale, quant_pv, kv_scale);
+      int8_scale, snap_inv, qk_scale, quant_pv, kv_scale);
   return (int)cudaGetLastError();
 }
 
@@ -262,8 +263,8 @@ const char* repro_cuda_error_string(int err) {
 // (B, 2) int32 rows (q_start, kv_len); kv_head_map: (H,) int32; out:
 // (B, H, C, d) float32. Int8 pools are dequantized by kv_scale: K, and V
 // unless quant_pv, where kv_scale multiplies the final row scale instead;
-// float pools ignore kv_scale and quant_pv.
-// Requires d <= 256. Launches on `stream` and returns the launch's
+// float pools ignore kv_scale and quant_pv. snap_inv = float32(1 /
+// int8_scale). Requires d <= 256. Launches on `stream` and returns the launch's
 // cudaError_t (0 on success; cudaErrorInvalidValue for a type pair it
 // does not take).
 int paged_e2softmax(const void* q, const void* k_pool, const void* v_pool,
@@ -271,12 +272,12 @@ int paged_e2softmax(const void* q, const void* k_pool, const void* v_pool,
                     void* out, int B, int H, int C, int d, int bs, int KV, int NB,
                     int causal, int sole, int exp_bits, int has_snap, int q_type,
                     int pool_type, int quant_pv, float int8_scale,
-                    float qk_scale, float kv_scale, void* stream) {
+                    float snap_inv, float qk_scale, float kv_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED_LAUNCH(TQ, TP)                                                     \
   return launch<TQ, TP>(q, k_pool, v_pool, tables, meta, kv_head_map, out, B, H, C, d, \
                         bs, KV, NB, causal, sole, exp_bits, has_snap, int8_scale,       \
-                        qk_scale, quant_pv, kv_scale, s)
+                        snap_inv, qk_scale, quant_pv, kv_scale, s)
   if (q_type == 0 && pool_type == 0) REPRO_PAGED_LAUNCH(float, float);
   if (q_type == 1 && pool_type == 1) REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_type == 0 && pool_type == 2) REPRO_PAGED_LAUNCH(float, int8_t);

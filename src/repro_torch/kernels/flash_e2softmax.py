@@ -17,7 +17,8 @@ The dense half (:func:`flash_e2softmax`, ``csrc/flash_e2softmax.cu``) is
 the counterpart of ``flash_e2softmax_pallas`` (``_kernel``): q, k, v
 (BH, S, d) -> (BH, S, d) float32, one online update per k-block of width
 ``block_k`` in order, with the Pallas kernel's padding and its
-``block_q = block_k`` rule under ``causal``.
+``block_q = block_k`` rule under ``causal``. bf16 inputs run on the
+tensor cores, float32 ones on the CUDA cores (:func:`dense_variant`).
 
 A wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches the kernel or raises.
@@ -31,7 +32,6 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, INV_LN2_SHIFT_APPROX
-from repro_torch.core.sole.quant import true_div
 from repro_torch.kernels import build
 
 NEG = -1e30
@@ -76,7 +76,8 @@ def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
                                 quant_pv: bool = False) -> torch.Tensor:
     """The kernel's function in plain torch: one online update per page,
     pages in table order, the whole batch at once (a page a sequence
-    does not run leaves its state untouched)."""
+    does not run leaves its state untouched). The int8 snap multiplies by
+    ``float32(1 / s)``, as the jitted Pallas kernel does."""
     b, h, c, d = q.shape
     bs = k_pool.shape[1]
     nb = tables.shape[1]
@@ -111,7 +112,7 @@ def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
         dm = logits - m_new[..., None]
         if sole:
             if int8_scale is not None:
-                dm = torch.clamp(torch.round(true_div(dm, int8_scale)),
+                dm = torch.clamp(torch.round(dm * snap_reciprocal(int8_scale)),
                                  -127, 0) * int8_scale
             kc = torch.clamp(torch.round(-dm * INV_LN2_SHIFT_APPROX), 0, kmax)
             w = torch.where(mask, exp2_int(-kc), 0.0)
@@ -182,7 +183,7 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
     out = torch.empty((b, h, c, d), dtype=torch.float32, device=dev)
     lib = build.load("paged_e2softmax")
-    fn = build.declare(lib, "paged_e2softmax", 7, 14, 3)
+    fn = build.declare(lib, "paged_e2softmax", 7, 14, 4)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -190,8 +191,11 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
                 out.data_ptr(), b, h, c, d, bs, kvh, nb, int(causal),
                 int(sole), exp_bits, int(int8_scale is not None),
                 _TYPE_CODES[q.dtype], _TYPE_CODES[pool_dtype], int(quant_pv),
-                ctypes.c_float(int8_scale or 0.0), ctypes.c_float(d ** -0.5),
-                ctypes.c_float(kv_scale or 0.0), ctypes.c_void_p(stream))
+                ctypes.c_float(int8_scale or 0.0),
+                ctypes.c_float(snap_reciprocal(int8_scale) if int8_scale
+                               is not None else 0.0),
+                ctypes.c_float(d ** -0.5), ctypes.c_float(kv_scale or 0.0),
+                ctypes.c_void_p(stream))
     build.check(lib, rc, "paged_e2softmax launch")
     flash_e2softmax_paged.launches += 1
     return out
@@ -315,14 +319,22 @@ def flash_e2softmax_plain(q, k, v, *, causal: bool = True, sole: bool = True,
     return acc * scale[..., None]
 
 
+def dense_variant(dtype: torch.dtype) -> str:
+    """The dense kernel's instantiation for q/k/v of ``dtype``: bf16 runs
+    on the tensor cores, float32 on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        return "bf16 mma.sync tensor cores"
+    if dtype == torch.float32:
+        return "float32 CUDA cores"
+    raise TypeError(f"q dtype {dtype}: the kernel takes float32 or bfloat16")
+
+
 def _launch_dense(q, k, v, *, causal, sole, exp_bits, int8_scale, bq, bk,
                   exact_corr) -> torch.Tensor:
     bh, s, d = q.shape
     t = k.shape[1]
     dev = q.device
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
+    dense_variant(q.dtype)
     _check(q, "q", q.dtype, 3, dev)
     _check(k, "k", q.dtype, 3, dev)
     _check(v, "v", q.dtype, 3, dev)

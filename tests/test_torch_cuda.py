@@ -15,7 +15,12 @@ Tolerances, and why:
   differs: 1e-5.
 * quantize+norm: codes and int32 sums are exact and the epilogue rounds
   like the plain ops: 1e-6.
-* int8 GEMM: integer sums are exact in any order: bitwise equal.
+* int8 GEMM: integer sums are exact in any order, split over K or not:
+  bitwise equal, on two calls in a row (the split's self-resetting
+  tickets leave nothing behind).
+* paged attention on logits placed on the int8 snap's rounding ties:
+  kernel and plain version both multiply by float32(1/s): equal codes,
+  1e-6.
 * paged attention over int8 pools on exact-logit inputs: as for bf16
   pools, 1e-5.
 * w8a8 engine in exact mode, card vs CPU: every projection is an exact
@@ -35,7 +40,10 @@ Tolerances, and why:
 * dense Flash-E2Softmax on exact-logit inputs (q, k on small grids and
   head dim 16 or 64, whose d^-1/2 is a power of two, so every q.k partial
   sum is exact in fp32): identical codes and sums, only the w.v sum order
-  (and in exact mode exp2's last bit) differ: 1e-5 of the output scale.
+  (and in exact mode exp2's last bit and the bf16 kernel's split of P
+  into a bf16 head and tail, ~2^-17 relative) differ: 1e-5 of the output
+  scale. bf16 inputs run the tensor-core kernel, float32 the CUDA-core
+  one.
   Otherwise the dot order may move a logit across a rounding boundary
   and flip one code: at most 1% of rows off by more than 1e-3.
 * fused add+norm: ``h`` is one float32 add, bitwise; the norm as the
@@ -123,6 +131,49 @@ def test_paged_kernel_matches_plain_full_width(cuda_device, mode, name):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
+def _snap_tie_logits(scale):
+    """Float32 dm in [-127 s, 0] where round(dm / s) and round(dm *
+    float32(1 / s)) differ (see tests/test_torch_snap.py)."""
+    f = np.float32
+    s, ties = f(scale), []
+    for n in range(-127, 0):
+        bits = np.array([(n + 0.5) * float(s)], np.float32).view(np.int32)
+        for dm in (bits + np.arange(-256, 257, dtype=np.int32)).view(f):
+            if (-127 * float(s) <= dm <= 0
+                    and np.round(dm / s) != np.round(dm * (f(1) / s))):
+                ties.append(dm)
+    return np.array(ties, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_snap_ties_equal_plain(cuda_device, dtype):
+    """Logits on the int8 snap's rounding ties (q = 8 dm against one-hot
+    keys at head dim 64, a zero key for the row max 0): the kernel snaps
+    like its plain version (a multiply by float32(1/s)), so both give the
+    same codes. bf16 q holds each tie only where dm fits 8 bits; the rest
+    still land exactly on bf16 values both sides read alike."""
+    ties = _snap_tie_logits(LOGIT_INT8_SCALE)
+    d, bs = 64, 16
+    q = np.zeros((1, 2, 1, d), np.float32)
+    q[0, 0, 0, 1:1 + len(ties)] = 8 * ties
+    q[0, 1, 0, 1:1 + len(ties)] = 8 * ties[::-1]
+    eye = np.eye(d, dtype=np.float32)
+    eye[0, 0] = 0.0
+    pool = np.zeros((d // bs + 1, bs, 1, d), np.float32)
+    pool[1:] = eye.reshape(d // bs, bs, 1, d)
+    tables = np.arange(1, d // bs + 1, dtype=np.int32)[None]
+    meta = np.array([[0, d]], np.int32)
+    dt = getattr(torch, dtype)
+    qt, kt = (torch.from_numpy(a).to(cuda_device, dt) for a in (q, pool))
+    tables, meta = (torch.from_numpy(a).to(cuda_device) for a in (tables, meta))
+    kw = dict(causal=False, sole=True, exp_bits=4, int8_scale=LOGIT_INT8_SCALE)
+    out = KA.flash_e2softmax_paged(qt, kt, kt, tables, meta, **kw)
+    kvmap = KA.default_kv_head_map(2, 1, cuda_device)
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, kt, tables, meta, kvmap, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-9)
+
+
 @pytest.mark.parametrize("c,rms", [(896, True), (2048, False)])
 @pytest.mark.parametrize("rows", [8, 128])
 def test_qnorm_kernel_matches_plain_full_width(cuda_device, c, rms, rows):
@@ -192,10 +243,13 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
 
 
 # (M, K, N) of every int8 GEMM on the w8a8 path of qwen2_0_5b (M = 8 at a
-# decode step, 128 at a prefill chunk), and two ragged shapes.
+# decode step, 128 at a prefill chunk), two ragged shapes, and shapes whose
+# K splits are uneven: M = 1 at down's K, K not a multiple of 64 x splits
+# (K % 16 == 0 and not), N % 4 != 0 (no vectorized loads).
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 151936))
 GEMM_SHAPES = [(m, k, n) for m in (8, 128) for k, n in GEMM_KN] + [
-    (7, 130, 33), (64, 256, 128)]
+    (7, 130, 33), (64, 256, 128), (1, 4864, 896), (8, 1008, 896),
+    (8, 1000, 896), (8, 896, 130)]
 
 
 @pytest.mark.parametrize("m,k,n", GEMM_SHAPES,
@@ -210,10 +264,14 @@ def test_int8_gemm_bitwise_equals_plain(cuda_device, m, k, n):
     w[:, 0] = 127
     before = KM.int8_matmul.launches
     out = KM.int8_matmul(x, w)
-    assert KM.int8_matmul.launches == before + 1
+    again = KM.int8_matmul(x, w)
+    assert KM.int8_matmul.launches == before + 2
     ref = KM.int8_matmul_plain(x, w)
     torch.cuda.synchronize()
     assert out.dtype == torch.int32 and torch.equal(out, ref)
+    assert torch.equal(again, ref)
+    if (m, k, n) in GEMM_SHAPES[:10]:
+        assert KM.split_plan(m, n, k).ctas >= KM.MIN_CTAS
 
 
 @pytest.mark.parametrize("quant_pv", [False, True], ids=["pv-f32", "pv-int8"])
@@ -432,19 +490,29 @@ FLASH_CASES = {
     "stablelm_mha": (1, 2048, 2048, 32, 32, 64, True, 128),
     "small_blocks_hd_16": (2, 200, 200, 4, 2, 16, True, 32),
     "block_96_hd_128": (1, 256, 256, 2, 1, 128, True, 96),
+    # the last k-block (104 keys) not a multiple of 16
+    "causal_1000": (1, 1000, 1000, 14, 2, 64, True, 128),
+    # fewer than 16 rows and keys
+    "short_8": (2, 8, 8, 4, 2, 64, True, 128),
+    "hd_128": (1, 512, 512, 4, 4, 128, True, 128),
 }
 
 
 @pytest.mark.parametrize("mode", ["sole", "sole_int8", "sole_exact_corr",
                                   "exact"])
-@pytest.mark.parametrize("name", list(FLASH_CASES))
+@pytest.mark.parametrize("name", list(FLASH_CASES) + ["qwen2_causal_f32",
+                                                      "causal_1000_f32"])
 def test_flash_kernel_matches_plain(cuda_device, name, mode):
     """The dense Flash-E2Softmax kernel through the op's cuda adapter
-    against its plain version on the same (repeated, folded) inputs."""
-    b, s, t, h, kvh, hd, causal, block = FLASH_CASES[name]
+    against its plain version on the same (repeated, folded) inputs; bf16
+    inputs (the tensor-core kernel), and float32 ones (the CUDA-core
+    kernel) for the ``_f32`` cases."""
+    dtype = torch.float32 if name.endswith("_f32") else torch.bfloat16
+    b, s, t, h, kvh, hd, causal, block = FLASH_CASES[name.replace("_f32",
+                                                                  "")]
     rng = np.random.default_rng(s + t + h)
     q, k, v = _flash_inputs(rng, (b, s, h, hd), (b, t, kvh, hd), True,
-                            torch.bfloat16, cuda_device)
+                            dtype, cuda_device)
     kw = dict(causal=causal, block=block, exp_bits=4,
               int8_scale=LOGIT_INT8_SCALE if mode == "sole_int8" else None,
               exact_corr=mode == "sole_exact_corr")
@@ -453,7 +521,7 @@ def test_flash_kernel_matches_plain(cuda_device, name, mode):
     before = KA.flash_e2softmax.launches
     out = ops.flash_attention_fn(op_mode, cuda_device)(q, k, v, **kw)
     assert KA.flash_e2softmax.launches == before + 1
-    assert out.dtype == torch.bfloat16 and out.shape == (b, s, h, hd)
+    assert out.dtype == dtype and out.shape == (b, s, h, hd)
     fold = [x.transpose(1, 2).reshape(b * h, -1, hd) for x in
             (q, k.repeat_interleave(h // kvh, 2),
              v.repeat_interleave(h // kvh, 2))]
@@ -466,6 +534,37 @@ def test_flash_kernel_matches_plain(cuda_device, name, mode):
     assert torch.isfinite(got).all()
     scale = max(ref.abs().max().item(), 1.0)
     if hd in (16, 64):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * scale)
+    else:
+        off = ((got - ref).abs().amax(-1) > 1e-3 * scale).float().mean()
+        assert off.item() <= 0.01
+
+
+@pytest.mark.parametrize("hd,exp_bits", [(20, 4), (64, 6)],
+                         ids=["hd_20_unaligned", "exp_bits_6"])
+@pytest.mark.parametrize("mode", ["sole_int8", "exact"])
+def test_flash_tensor_core_kernel_edges(cuda_device, hd, exp_bits, mode):
+    """The bf16 kernel's synchronous staging (a head dim that is not a
+    multiple of 8: rows not 16-byte aligned, zero padding to 64) and
+    6-bit codes (weights down to 2^-63, exact in bf16), causal over 300
+    keys in blocks of 64, against the plain version: at hd 20 (d^-1/2 no
+    power of two) at most 1% of rows off by 1e-3, at hd 64 1e-5."""
+    b, s, h, kvh = 1, 300, 4, 2
+    rng = np.random.default_rng(hd + exp_bits)
+    q, k, v = _flash_inputs(rng, (b, s, h, hd), (b, s, kvh, hd), True,
+                            torch.bfloat16, cuda_device)
+    fold = [x.transpose(1, 2).reshape(b * h, -1, hd).contiguous() for x in
+            (q, k.repeat_interleave(h // kvh, 2),
+             v.repeat_interleave(h // kvh, 2))]
+    kw = dict(causal=True, sole=mode != "exact", exp_bits=exp_bits,
+              int8_scale=LOGIT_INT8_SCALE if mode != "exact" else None,
+              block_q=64, block_k=64)
+    got = KA.flash_e2softmax(*fold, **kw)
+    ref = KA.flash_e2softmax_plain(*fold, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = max(ref.abs().max().item(), 1.0)
+    if hd == 64:
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * scale)
     else:
         off = ((got - ref).abs().amax(-1) > 1e-3 * scale).float().mean()

@@ -198,3 +198,74 @@ def test_pow2_neg_is_exact_into_the_subnormals():
     want = torch.from_numpy(np.ldexp(np.float32(1), -k.numpy())
                             .astype(np.float32))
     assert torch.equal(KA.pow2_neg(k), want)
+
+
+# -- what the tensor-core kernel relies on --------------------------------------
+
+
+@pytest.mark.parametrize("exp_bits", [1, 2, 3, 4, 5, 6])
+def test_sole_weights_are_exact_in_bf16(exp_bits):
+    """Every SOLE weight 2^-k (k <= 2^b - 1) survives a round trip through
+    bf16, so the kernel's P.V takes P on the tensor cores unrounded; so do
+    the quantized corrections 2^-sub while they are normal floats (sub <=
+    126: every one for b <= 4), though the kernel multiplies them into the
+    float32 accumulator and never rounds them to bf16."""
+    k = torch.arange(0, 2 ** exp_bits)
+    w = KA.exp2_int(-k)
+    assert torch.equal(w.to(torch.bfloat16).float(), w)
+    sub = torch.arange(0, min(2 ** (exp_bits + 2), 127))
+    corr = KA.pow2_neg(sub)
+    assert torch.equal(corr.to(torch.bfloat16).float(), corr)
+
+
+def _split_p_exact(q, k, v, *, causal, block, tail=True):
+    """Exact mode as the tensor-core kernel computes it, in plain torch:
+    bf16 q, k, v; float32 weights; P.V as bf16(P) . V + bf16(P - bf16(P))
+    . V with float32 sums (without ``tail``, bf16(P) . V alone);
+    everything else as ``flash_e2softmax_plain``."""
+    bh, s, d = q.shape
+    t = k.shape[1]
+    _, bk = KA.dense_blocks(s, t, block, block, causal)
+    qf = q.float() * (d ** -0.5)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((bh, s), KA.NEG)
+    ssum = torch.zeros((bh, s))
+    acc = torch.zeros((bh, s, d))
+    for c0 in range(0, t, bk):
+        kb, vb = k[:, c0:c0 + bk].float(), v[:, c0:c0 + bk].float()
+        cols = c0 + torch.arange(kb.shape[1])[None, :]
+        mask = (cols < t) & ((rows >= cols) if causal else True)
+        logits = torch.where(mask, torch.einsum("bsd,btd->bst", qf, kb),
+                             KA.NEG)
+        m_new = torch.maximum(m, logits.amax(-1))
+        w = torch.where(mask, torch.exp2((logits - m_new[..., None])
+                                         * KA.LOG2E), 0.0)
+        corr = torch.exp2((m - m_new) * KA.LOG2E)
+        hi = w.to(torch.bfloat16).float()
+        lo = (w - hi).to(torch.bfloat16).float() if tail else 0 * hi
+        ssum = ssum * corr + w.sum(-1)
+        acc = (acc * corr[..., None] + torch.einsum("bst,btd->bsd", hi, vb)
+               + torch.einsum("bst,btd->bsd", lo, vb))
+        m = m_new
+    return acc / ssum[..., None]
+
+
+@pytest.mark.parametrize("bh,s,t,d,causal,block", [
+    (4, 130, 130, 64, True, 64), (2, 70, 200, 16, False, 32)])
+def test_exact_split_p_emulation_matches_plain(bh, s, t, d, causal, block):
+    """Splitting exact mode's weights into a bf16 head and a bf16 tail
+    keeps the output within 1e-5 of its scale of the plain version (one
+    bf16 rounding of P alone would move it by ~2^-9 relative); bf16
+    inputs on the exact-logit grid, random bf16 values."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(bh + s, 1, s, t, bh, bh,
+                                                    d))
+    q, k, v = (x[0].transpose(0, 1).to(torch.bfloat16).contiguous()
+               for x in (q, k, v))
+    kw = dict(causal=causal, sole=False, block_q=block, block_k=block)
+    want = KA.flash_e2softmax_plain(q, k, v, **kw)
+    got = _split_p_exact(q, k, v, causal=causal, block=block)
+    scale = max(want.abs().max().item(), 1.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    head_only = _split_p_exact(q, k, v, causal=causal, block=block,
+                               tail=False)
+    assert (head_only - want).abs().max().item() > 1e-5 * scale

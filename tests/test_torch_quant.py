@@ -18,6 +18,8 @@ Tolerances, and why:
   4-bit codes, only the P.V sum order differs: 1e-5, as for bf16 pools.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -294,3 +296,71 @@ def test_kv_quant_round_trip():
     np.testing.assert_array_equal(codes.numpy(), want)
     np.testing.assert_array_equal(TL.kv_dequant(codes, cfg).numpy(),
                                   want.astype(np.float32) * KV_INT8_SCALE)
+
+
+# -- the int8 GEMM's split-K plan ----------------------------------------------
+
+
+def _chip_smoke_gemm_kn():
+    """(name, K, N) of the w8a8 path's GEMMs, as ``chip_smoke.py`` times
+    and checks them."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_gemm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.GEMM_KN
+
+
+PATH_GEMMS = [(m, k, n) for m in (8, 128) for _, k, n in _chip_smoke_gemm_kn()]
+# the uneven splits the card tests add: M = 1 at down's K (480-byte
+# splits); K not a multiple of 64 x splits, with and without 16-byte loads
+# (K % 16 == 0 or not); N % 4 != 0 (no vectorized loads)
+UNEVEN_GEMMS = [(1, 4864, 896), (8, 1008, 896), (8, 1000, 896),
+                (8, 896, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", PATH_GEMMS + UNEVEN_GEMMS,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in
+                              PATH_GEMMS + UNEVEN_GEMMS])
+def test_split_plan_covers_k_once_and_fills_the_card(m, k, n):
+    """The splits' K ranges tile [0, K) in order with no gap, overlap or
+    empty range, on 32-byte boundaries; every path shape launches at
+    least one CTA per SM of an H100 (132)."""
+    plan = KM.split_plan(m, n, k)
+    ranges = [plan.k_range(s) for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+        assert lo < hi == lo2 and lo % KM.SPLIT_UNIT == 0
+    covered = np.zeros(k, np.int32)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if (m, k, n) in PATH_GEMMS:
+        assert plan.ctas >= KM.MIN_CTAS
+
+
+@pytest.mark.parametrize("m,k,n", PATH_GEMMS + UNEVEN_GEMMS,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in
+                              PATH_GEMMS + UNEVEN_GEMMS])
+def test_split_partials_sum_bitwise(m, k, n):
+    """int32 partial products over the plan's K ranges, added in a
+    shuffled order (as the last CTA of a tile finds them), equal the
+    exact product bitwise, with all-127 rows and columns at the K x 127^2
+    headroom. Columns are independent of the split, so the wide shapes
+    are checked on their first 160 columns."""
+    plan = KM.split_plan(m, n, k)
+    rng = np.random.default_rng(m + k + n)
+    nc = min(n, 160)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, nc)).astype(np.int8))
+    x[0] = 127
+    w[:, 0] = 127
+    w[:, 1] = -127
+    want = KM.int8_matmul_plain(x, w)
+    assert want[0, 0].item() == k * 127 * 127
+    parts = [(x[:, lo:hi].long() @ w[lo:hi].long()).to(torch.int32)
+             for lo, hi in (plan.k_range(s) for s in range(plan.splits))]
+    got = torch.zeros((m, nc), dtype=torch.int32)
+    for s in rng.permutation(plan.splits):
+        got += parts[s]
+    assert got.dtype == torch.int32 and torch.equal(got, want)
