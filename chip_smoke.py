@@ -8,15 +8,19 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together; eight kernels), print
+   ``nvcc`` per source, started together; nine kernels), print
    ``-Xptxas -v`` and count the tensor-core instructions in the dense
    flash and int8 GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash
    kernel must issue bf16 ``HMMA``);
 3. hold each kernel against its plain torch version at the serve paths'
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
    decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
-   (``quant_pv`` on and off, SOLE and exact), the quantize+norm at those
-   rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), and the
+   (``quant_pv`` on and off, SOLE and exact; bf16 q runs the tensor-core
+   kernel, one CTA per sequence and KV head), the quantize+norm at those
+   rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), the
+   calibrating norm (residual add, calibration over all rows and norm in
+   one cluster launch) bitwise against the torch chain it replaces at the
+   decode, prefill and dense-prefill (2400) rows and at C=2048, and the
    int8 GEMM, bitwise, at every (M, K, N) of the w8a8 path, two ragged
    shapes and four whose K splits are uneven, each on two calls in a row
    (the split's tickets reset themselves), with at least 132 CTAs at
@@ -35,30 +39,36 @@ Phases, each fatal on failure (exit code 1, no result line):
    first in bf16 (bf16 weights and pages), then at w8a8 with int8 KV
    pages. Every kernel launch counter is set to 0 just before each trace
    and read just after it; check output lengths, finish reasons,
-   refcounts and that the path's kernels ran (at w8a8: 169 int8 GEMM
-   launches per forward, paged attention over int8 pools); then hold
+   refcounts and that the path's kernels ran (paged attention once per
+   layer, the calibrating norm 49 times and the static-params
+   quantize+norm never per forward; at w8a8 also 169 int8 GEMM launches
+   per forward, paged attention over int8 pools); then hold
    smoke-size engines on the card against the same engines on the CPU
    (bf16 exact and SOLE, w8a8 exact with float and int8 pages);
    then the same requests through the dense-slot ``Engine`` (batches of 8,
    384-column caches), in bf16 and at w8a8 with an int8 cache, with the
    launch counts per prefill or decode call checked (24 E2Softmax, 49
-   norm, at w8a8 169 GEMM), and the smoke dense engine on the card
+   calibrating norm, at w8a8 169 GEMM), and the smoke dense engine on the card
    against the CPU (SOLE, and w8a8 exact with an int8 cache); then the
    op layer's path: flash attention, the static-params SOLE norms, their
    residual and quantize-out twins and the codes norm through
    ``repro_torch.ops`` on CUDA tensors, and the port's quickstart
    ``main()``, with the counts read around them (every op-layer kernel,
-   E2Softmax and the quantize+norm must launch; the model paths above
+   E2Softmax, the quantize+norm and, in the quickstart, the calibrating
+   norm must launch; the model paths above
    must launch no op-layer kernel);
 5. time each kernel and its plain version with CUDA events (L2 flushed
    before every launch), the kernel alone with ``torch.profiler``, beside
    the bound the card's memory rate or peak sets and, for the int8 GEMM,
    ``torch._int_mm`` (at M = 8 on the activation zero-padded to 24 rows:
-   it refuses M <= 16), for exact-mode flash
-   ``scaled_dot_product_attention`` (yardsticks the port never calls);
+   it refuses M <= 16), for exact-mode flash and exact-mode paged decode
+   (on K/V gathered beforehand) ``scaled_dot_product_attention``
+   (yardsticks the port never calls); the calibrating norm as the whole
+   norm stage (the ``residual_*`` op call a model makes) by events and by
+   the host's clock per call, beside the torch chain it replaces;
 6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
-   of the dense-slot engine (bf16): the device-busy share of the wall time
-   and the kernels with the most device time.
+   of the dense-slot engine (bf16): the device-busy share of the wall time,
+   kernels per forward and the kernels with the most device time.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -175,8 +185,11 @@ def time_ms(torch, fn, flush, reps=30):
     """Mean device time of ``fn`` over ``reps`` calls, each preceded by an
     L2 flush outside its CUDA-event interval. A device-side sleep holds
     the stream while the host enqueues every call, so the intervals hold
-    device work only, never the host's launch gaps."""
+    device work only, never the host's launch gaps. The warm-up runs the
+    flush too: a kernel's first launch in a process may load it and wait
+    for the device, which would drain the sleep."""
     for _ in range(3):
+        flush()
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -210,6 +223,19 @@ def profiled_kernel_ms(torch, fn, flush, kernel, reps=20):
         torch.cuda.synchronize()
     us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
     return us / reps / 1e3 if us > 0 else None
+
+
+def wall_ms(torch, fn, reps=100):
+    """Host wall time per call of ``fn`` in a loop that ends in a
+    synchronize: what a host-bound caller pays, launch overhead included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _device_us(event) -> float:
@@ -332,6 +358,63 @@ def check_kernels(torch, cfg):
         log(f"ailayernorm_qnorm {name} rows={rows} C={c} "
             f"{'rms' if rms else 'ln'}: max|err| {err:.3e}")
     return results, norm
+
+
+# (rows, C, rms) of the calibrating norm at the main paths' shapes: a decode
+# step (8 rows), a paged prefill chunk (128), the dense engine's prefill of
+# 8 lanes x 300 tokens (2400), all at qwen2_0_5b's width (RMS), and a
+# prefill chunk at stablelm_1_6b's (LayerNorm, 2048)
+CALIB_CASES = {"decode": (DECODE_BATCH, 896, True),
+               "prefill": (PREFILL_CHUNK, 896, True),
+               "dense_prefill": (DECODE_BATCH * 300, 896, True),
+               "layernorm_2048": (PREFILL_CHUNK, 2048, False)}
+
+
+def check_calib_norm(torch):
+    """Phase 3, the calibrating norm: residual add, PTF calibration over
+    all rows and quantize+norm in one cluster launch, against the torch
+    chain it replaces (its plain version) on bf16 activations: ``h``,
+    ``alpha``, ``scale``, the bf16 output and the quantize-out codes and
+    row scales bitwise, on two calls in a row."""
+    from repro_torch.kernels import ailayernorm as KN
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    for name, (rows, c, rms) in CALIB_CASES.items():
+        x = torch.randn((rows, c), generator=gen, device="cuda") * 3
+        x[:, ::7] *= 8                         # outlier channels, alpha > 0
+        x = x.to(torch.bfloat16)
+        r = torch.randn((rows, c), generator=gen, device="cuda").to(x.dtype)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        beta = None if rms else 0.1 * torch.randn((c,), generator=gen,
+                                                  device="cuda")
+        plain_beta = torch.zeros_like(gamma) if rms else beta
+        want = KN.calibrated_norm_plain(x, r, gamma, plain_beta, rms=rms,
+                                        out_dtype=x.dtype)
+        want_q = KN.calibrated_norm_plain(x, r, gamma, plain_beta, rms=rms,
+                                          quant_out=True)
+        for _ in range(2):
+            got = KN.calibrated_norm(x, r, gamma, beta, rms=rms,
+                                     out_dtype=x.dtype)
+            got_q = KN.calibrated_norm(x, r, gamma, beta, rms=rms,
+                                       quant_out=True)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                    and torch.equal(got_q[0], want[0])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(got_q[1], want_q[1]))
+                    and torch.equal(got_q[2], want[2])
+                    and torch.equal(got_q[3], want[3]))
+            if not same:
+                raise AssertionError(f"ailayernorm_calib {name}: not bitwise "
+                                     "equal to the torch chain")
+        res[name] = dict(x=x, r=r, gamma=gamma, beta=beta, rms=rms,
+                         max_abs_err=0.0)
+        log(f"ailayernorm_calib {name} rows={rows} C={c} "
+            f"{'rms' if rms else 'ln'}: h, alpha, scale, bf16 out, int8 "
+            f"codes and row scales bitwise equal (scale "
+            f"{want[3].item():.6g}, alpha histogram "
+            f"{torch.bincount(want[2], minlength=4).tolist()})")
+    return res
 
 
 def check_int8_paged(torch, cfg):
@@ -540,7 +623,8 @@ def kernel_wrappers():
             "e2softmax": KE.e2softmax, "flash_e2softmax": KA.flash_e2softmax,
             "ailayernorm_add_norm": KN.add_norm,
             "ailayernorm_add_norm_quant": KN.add_norm_quant,
-            "ailayernorm_codes": KN.codes_norm}
+            "ailayernorm_codes": KN.codes_norm,
+            "ailayernorm_calib": KN.calibrated_norm}
 
 
 def reset_launches() -> None:
@@ -636,8 +720,8 @@ def serve_full_width(torch, cfg, label):
     if stats["prefix_hit_tokens"] < 64 + len(prompts[0]) - 1:
         raise AssertionError(f"prefix hits {stats['prefix_hit_tokens']}")
     w8a8 = cfg.quant.acts
-    path_kernels = (("paged_e2softmax", "ailayernorm_qnorm", "int8_matmul")
-                    if w8a8 else ("paged_e2softmax", "ailayernorm_qnorm"))
+    path_kernels = (("paged_e2softmax", "ailayernorm_calib", "int8_matmul")
+                    if w8a8 else ("paged_e2softmax", "ailayernorm_calib"))
     for name in path_kernels:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
@@ -645,6 +729,15 @@ def serve_full_width(torch, cfg, label):
     if rest:
         raise AssertionError(f"{launches['paged_e2softmax']} attention "
                              f"launches are not whole forwards")
+    # one calibrating-norm launch per norm (2 per layer and the final
+    # one), and never the static-params quantize+norm
+    if launches["ailayernorm_calib"] != (2 * cfg.n_layers + 1) * forwards:
+        raise AssertionError(
+            f"{launches['ailayernorm_calib']} calibrating-norm launches over "
+            f"{forwards} forwards, not {2 * cfg.n_layers + 1} each")
+    if launches["ailayernorm_qnorm"]:
+        raise AssertionError("the paged path launched the static-params "
+                             "quantize+norm")
     if w8a8:
         if launches["int8_matmul"] != GEMM_PER_FORWARD * forwards:
             raise AssertionError(
@@ -677,7 +770,8 @@ def serve_dense_full_width(torch, cfg, params, label):
     ``Engine`` (batches of 8 lanes, 384-column caches) at full width, the
     counts set to 0 just before and read just after. Each prefill or
     decode call must launch the E2Softmax kernel once per layer (24), the
-    norm kernel 49 times and, at w8a8, the int8 GEMM 169 times, and never
+    calibrating norm kernel 49 times (the static-params quantize+norm
+    never) and, at w8a8, the int8 GEMM 169 times, and never
     the paged kernel."""
     from repro_torch.models import layers as L
     from repro_torch.serve.engine import Engine, Request
@@ -720,7 +814,8 @@ def serve_dense_full_width(torch, cfg, params, label):
         raise AssertionError(f"finish reasons {reasons}")
     calls = eng.prefill_calls + eng.decode_calls
     want_launches = {"e2softmax": cfg.n_layers * calls,
-                     "ailayernorm_qnorm": (2 * cfg.n_layers + 1) * calls,
+                     "ailayernorm_calib": (2 * cfg.n_layers + 1) * calls,
+                     "ailayernorm_qnorm": 0,
                      "int8_matmul": (GEMM_PER_FORWARD * calls
                                      if cfg.quant.acts else 0),
                      "paged_e2softmax": 0, **{k: 0 for k in OPS_KERNELS}}
@@ -827,8 +922,7 @@ def time_kernels(torch, attn, norm, launches, cfg):
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
         ms = time_ms(torch, run, flush)
-        kernel_ms = profiled_kernel_ms(torch, run, flush,
-                                       "paged_e2softmax_kernel")
+        kernel_ms = profiled_kernel_ms(torch, run, flush, "paged_e2softmax")
         plain = time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
             *case, kvmap, causal=causal, **kw), flush, reps=5)
         nbytes, flops = attention_work(case, causal, h, kvh, d)
@@ -840,6 +934,10 @@ def time_kernels(torch, attn, norm, launches, cfg):
             max_abs_err=res["max_abs_err"],
             max_abs_err_random=res["max_abs_err_random"],
             bytes=nbytes, flops=flops)
+    dec = entry["paged_e2softmax"]["shapes"]["decode"]
+    dec["exact_ms"], dec["library_ms"] = paged_exact_vs_sdpa(
+        torch, attn["decode"]["case"], kvmap, flush)
+    dec["library"] = "scaled_dot_product_attention (exact, K/V gathered)"
     for name, res in norm.items():
         args, rms = res["args"], res["rms"]
 
@@ -862,7 +960,7 @@ def time_kernels(torch, attn, norm, launches, cfg):
             s["max_abs_err"] for s in e["shapes"].values()),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=None)
+            library_ms=main.get("library_ms"), library=main.get("library"))
         table.append(e)
     for e in table:
         for s, v in e["shapes"].items():
@@ -871,8 +969,96 @@ def time_kernels(torch, attn, norm, launches, cfg):
                 f"(profiler: kernel "
                 f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
                 f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
-                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})"
+                + ("" if "exact_ms" not in v else
+                   f"; exact mode {v['exact_ms'] * 1e3:.1f} us, "
+                   f"{v['library']} {v['library_ms'] * 1e3:.1f} us"))
     return table
+
+
+def paged_exact_vs_sdpa(torch, case, kvmap, flush):
+    """The paged kernel in exact mode on a decode case, and
+    ``scaled_dot_product_attention`` on the same K/V gathered contiguous
+    beforehand (the gather is not timed; padded to the longest sequence
+    with a key mask): a yardstick the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_e2softmax as KA
+    q, k_pool, v_pool, tables, meta = case
+    b, h, _, d = q.shape
+    kv_lens = meta[:, 1].tolist()
+    t = max(kv_lens)
+    pages = tables[:, :-(-t // BLOCK_SIZE)].long()
+    rows = kvmap.long()
+
+    def gather(pool):                       # (B, H, T, d) per query head
+        g = pool[pages].flatten(1, 2)[:, :t]            # (B, T, KV, d)
+        return g[:, :, rows].transpose(1, 2).contiguous()
+    k4, v4 = gather(k_pool), gather(v_pool)
+    mask = (torch.arange(t, device=q.device)[None, :]
+            < meta[:, 1:2].long())[:, None, None, :]
+    exact = time_ms(torch, lambda: KA.flash_e2softmax_paged(
+        *case, causal=False, sole=False, exp_bits=4), flush)
+    sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k4, v4, attn_mask=mask), flush)
+    return exact, sdpa
+
+
+def time_calib_norm(torch, calib, launches):
+    """Phase 5 for the calibrating norm: the norm stage, the whole
+    ``residual_rmsnorm``/``residual_layernorm`` op call as a model's
+    ``apply_residual_norm`` makes it (bf16 out), timed with CUDA events
+    (device time) and with the host's clock per call (what the host-bound
+    path pays), beside its plain version (the torch chain it replaces) and
+    the kernel alone from the profiler; bound: the bytes of x, r, h and
+    the output at the memory rate."""
+    from repro_torch import ops
+    from repro_torch.kernels import ailayernorm as KN
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    e = dict(name="ailayernorm_calib", route="cuda",
+             source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+             replaces="src/repro/kernels/ailayernorm.py:305", shapes={})
+    for name, res in calib.items():
+        x, r, gamma, beta, rms = (res[k] for k in ("x", "r", "gamma", "beta",
+                                                   "rms"))
+        kind = "rmsnorm" if rms else "layernorm"
+        stage = ops.resolve(f"residual_{kind}", "sole", "cuda")
+        extra = () if rms else (beta,)
+        plain_beta = torch.zeros_like(gamma) if rms else beta
+
+        def run():
+            return stage(x, r, gamma, *extra, out_dtype=x.dtype)
+
+        def plain():
+            return KN.calibrated_norm_plain(x, r, gamma, plain_beta, rms=rms,
+                                            out_dtype=x.dtype)
+        rows, c = x.shape
+        nbytes = 4 * rows * c * x.element_size() + 2 * c * 4
+        bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
+                           FP32_FLOPS)
+        e["shapes"][name] = dict(
+            shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "calib_norm_kernel"),
+            plain_ms=time_ms(torch, plain, flush, reps=10),
+            wall_ms=wall_ms(torch, run), plain_wall_ms=wall_ms(torch, plain),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            bytes=nbytes)
+    main = e["shapes"]["decode"]
+    e.update(launches=launches["ailayernorm_calib"], max_abs_err=0.0,
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=None)
+    for s, v in e["shapes"].items():
+        k = v["kernel_ms"]
+        log(f"ailayernorm_calib stage {s} [{v['shape']}]: events "
+            f"{v['ms'] * 1e3:.1f} us, host wall {v['wall_ms'] * 1e3:.1f} us "
+            f"(profiler: kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; plain "
+            f"chain {v['plain_ms'] * 1e3:.1f} us events, "
+            f"{v['plain_wall_ms'] * 1e3:.1f} us wall; bound "
+            f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+    return e
 
 
 def time_e2softmax(torch, e2, launches, launches8):
@@ -978,8 +1164,7 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
             shape=f"q {tuple(case[0].shape)} int8 pools kv_len "
                   f"{case[4][:, 1].tolist()}",
             ms=time_ms(torch, run, flush),
-            kernel_ms=profiled_kernel_ms(torch, run, flush,
-                                         "paged_e2softmax_kernel"),
+            kernel_ms=profiled_kernel_ms(torch, run, flush, "paged_e2softmax"),
             plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
                 *case, kvmap, causal=causal, **kw), flush, reps=5),
             bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
@@ -1287,7 +1472,8 @@ def serve_ops_path(torch, inp, res):
     wall = time.time() - t0
     launches = read_launches()
     want_zero = ("paged_e2softmax", "int8_matmul")
-    for k in OPS_KERNELS + ("e2softmax", "ailayernorm_qnorm"):
+    for k in OPS_KERNELS + ("e2softmax", "ailayernorm_qnorm",
+                            "ailayernorm_calib"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the op path")
     if any(launches[k] for k in want_zero):
@@ -1470,12 +1656,21 @@ def profile_engine(torch, cfg, params, label, dense=False):
                    for e in prof.key_averages() if _device_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    # forwards: one attention launch per layer (the paged kernel, or the
+    # dense engine's E2Softmax); kernels per forward: every device kernel
+    kernels = sum(n for _, n, _ in rows)
+    attn = sum(n for _, n, key in rows
+               if ("e2softmax_kernel" if dense else "paged_e2softmax") in key)
+    forwards = attn / cfg.n_layers
+    per_fwd = kernels / forwards if forwards else float("nan")
     log(f"[{label}] profiled wave: wall {wall:.3f} s, device busy "
         f"{busy:.3f} s ({busy / wall:.3f} of wall), "
-        f"{len(reqs) * NEW_TOKENS} new tokens")
+        f"{len(reqs) * NEW_TOKENS} new tokens, {kernels} kernels over "
+        f"{forwards:.0f} forwards ({per_fwd:.1f} per forward)")
     for us, n, key in rows[:12]:
         log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
-    return {"wall_s": wall, "device_busy_s": busy,
+    return {"wall_s": wall, "device_busy_s": busy, "kernels": kernels,
+            "forwards": forwards, "kernels_per_forward": per_fwd,
             "top": [{"ms": us / 1e3, "count": n, "kernel": key[:100]}
                     for us, n, key in rows[:12]]}
 
@@ -1526,6 +1721,7 @@ def main() -> int:
         cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                    kv_cache_dtype="int8")
         attn, norm = check_kernels(torch, cfg)
+        calib = check_calib_norm(torch)
         attn8 = check_int8_paged(torch, cfg)
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
@@ -1540,14 +1736,15 @@ def main() -> int:
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
         small_engine_parity(torch)
         table = time_kernels(torch, attn, norm, launches, cfg)
+        table.append(time_calib_norm(torch, calib, launches))
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
         table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
         table += time_ops_kernels(torch, ops_res, olaunches)
         for e in table:
-            if e["name"] == "ailayernorm_qnorm":
-                e["launches_w8a8"] = launches8["ailayernorm_qnorm"]
-                e["launches_dense"] = dlaunches["ailayernorm_qnorm"]
-                e["launches_ops"] = olaunches["ailayernorm_qnorm"]
+            if e["name"] in ("ailayernorm_qnorm", "ailayernorm_calib"):
+                e["launches_w8a8"] = launches8[e["name"]]
+                e["launches_dense"] = dlaunches[e["name"]]
+                e["launches_ops"] = olaunches[e["name"]]
             if e["name"] == "e2softmax":
                 e["launches_ops"] = olaunches["e2softmax"]
             if e["name"] == "int8_matmul":

@@ -1,23 +1,41 @@
 #!/usr/bin/env python3
-"""Time the port's dense Flash-E2Softmax and int8 GEMM kernels from two
-checkouts on one NVIDIA GPU, in turns (base, this, this, base), so two
-versions are compared inside one run on one card. Run from the root of a
-checkout, with another checkout of the repository at ``BASE``::
+"""Time the port's kernels from two checkouts on one NVIDIA GPU, in turns
+(base, this, this, base), so two versions are compared inside one run on
+one card. Run from the root of a checkout, with another checkout of the
+repository at ``BASE``::
 
-    python3 kernel_ab.py --base BASE
+    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,wave]
 
 Each turn is a fresh process that puts ``<checkout>/src`` first on the
 path, builds that checkout's kernels there (``kernels/build.py``) and
-times, with CUDA events and the L2 cache flushed before each launch, the
-dense flash kernel on bf16 inputs at the op layer's shapes (qwen2_0_5b's
-2048-token causal attention in four modes, a ragged non-causal case,
-stablelm_1_6b's MHA) and the int8 GEMM at every (M, K, N) of the w8a8
-path (M = 8 and 128), beside ``scaled_dot_product_attention`` (exact
-mode) and ``torch._int_mm`` (at M = 8 on the activation zero-padded to
-24 rows: it refuses M <= 16) on the same inputs. Inputs come from fixed
-seeds, alike in every turn. Prints one line per shape (the mean of each
-checkout's two turns, and their ratio), the ``nvidia-smi`` line and one
-JSON object with every turn's times.
+times, with CUDA events and the L2 cache flushed before each launch:
+
+* ``paged``: the paged Flash-E2Softmax at qwen2_0_5b's serve shapes (a
+  decode step of 8 sequences over 1-300 keys, a causal 128-token prefill
+  chunk over 256 keys), SOLE with the int8 snap, over bf16 pools and over
+  int8 pools (``quant_pv``), as ``chip_smoke.py`` builds them;
+* ``sweep``: the paged decode step of 8 sequences at one kv length each,
+  from 16 to 2,048 keys (one to sixteen 128-key chunks);
+* ``norm``: the SOLE norm stage of a model's ``apply_residual_norm``, the
+  op ``residual_rmsnorm`` (``repro_torch.ops.resolve(..., "cuda")``, which
+  both checkouts have) on bf16 x and r at 8 and 128 rows of 896, with its
+  output cast to bf16: device time by CUDA events and host wall time per
+  call (the path is host-bound, so the wall is what it pays);
+* ``flash``: the dense flash kernel on bf16 inputs at the op layer's
+  shapes (qwen2_0_5b's 2048-token causal attention in four modes, a ragged
+  non-causal case, stablelm_1_6b's MHA), beside
+  ``scaled_dot_product_attention`` (exact mode);
+* ``gemm``: the int8 GEMM at every (M, K, N) of the w8a8 path (M = 8 and
+  128), beside ``torch._int_mm`` (at M = 8 on the activation zero-padded
+  to 24 rows: it refuses M <= 16);
+* ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` at
+  qwen2_0_5b's full width, in bf16 and at w8a8 with int8 pages (the
+  end-to-end effect of the kernels and the host work around them), and
+  the device kernels per forward of the same wave under the profiler.
+
+Inputs come from fixed seeds, alike in every turn. Prints one line per
+shape (the mean of each checkout's two turns, and their ratio), the
+``nvidia-smi`` line and one JSON object with every turn's times.
 """
 from __future__ import annotations
 
@@ -36,25 +54,93 @@ FLASH = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
          ("ragged_noncausal", "sole"), ("stablelm_mha", "sole"))
 
 
-def worker(src: str) -> dict:
+KINDS = ("paged", "sweep", "norm", "flash", "gemm", "wave")
+# kv lengths of the decode sweep: one to sixteen 128-key chunks
+SWEEP_KV = (16, 128, 300, 1024, 2048)
+
+
+def worker(src: str, kinds) -> dict:
     """One turn: the kernels of the checkout whose package is under
-    ``src``, timed at every shape."""
+    ``src``, timed at every shape of the kinds asked for."""
     sys.path.insert(0, src)
     import torch
     import torch.nn.functional as F
-    from chip_smoke import FLASH_CASES, GEMM_KN, INT_MM_MIN_M, time_ms
+    from chip_smoke import (DECODE_BATCH, FLASH_CASES, GEMM_KN, INT_MM_MIN_M,
+                            PREFILL_CHUNK, paged_case, time_ms, wall_ms)
+    from repro_torch import ops
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_e2softmax as KA
     from repro_torch.kernels import int8_matmul as KM
-    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
     if not KA.__file__.startswith(src):
         raise RuntimeError(f"imported {KA.__file__}, not from {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["flash_e2softmax", "int8_matmul"])
+    names = {"paged": "paged_e2softmax", "sweep": "paged_e2softmax",
+             "norm": "ailayernorm", "flash": "flash_e2softmax",
+             "gemm": "int8_matmul"}
+    # a wave runs every kernel of the serve paths
+    build.build_all(None if "wave" in kinds else [names[k] for k in kinds])
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
     gen = torch.Generator(device="cuda").manual_seed(15)
-    out = {"flash": {}, "gemm": {}, "sdpa": {}, "int_mm": {}}
-    for case, mode in FLASH:
+    out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
+           "gemm": {}, "sdpa": {}, "int_mm": {}, "wave": {}}
+    cfg = get_config("qwen2_0_5b")
+    if "paged" in kinds:
+        shapes = {"decode": dict(b=DECODE_BATCH, c=1,
+                                 q_start=[0] * DECODE_BATCH,
+                                 kv_lens=[49, 300, 117, 1, 256, 83, 160, 1]),
+                  "prefill": dict(b=1, c=PREFILL_CHUNK,
+                                  q_start=[PREFILL_CHUNK],
+                                  kv_lens=[2 * PREFILL_CHUNK])}
+        for pool in ("bf16", "int8"):
+            for name, sh in shapes.items():
+                case = paged_case(torch, gen, h=cfg.n_heads,
+                                  kvh=cfg.n_kv_heads, d=cfg.head_dim,
+                                  grid=True, int8=pool == "int8", **sh)
+                kw = dict(causal=sh["c"] > 1, sole=True, exp_bits=4,
+                          int8_scale=LOGIT_INT8_SCALE)
+                if pool == "int8":
+                    kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                out["paged"][f"{name}_{pool}"] = time_ms(
+                    torch, lambda: KA.flash_e2softmax_paged(*case, **kw),
+                    flush)
+    if "sweep" in kinds:
+        import chip_smoke
+        seq_len = chip_smoke.MAX_SEQ_LEN
+        for kv in SWEEP_KV:
+            chip_smoke.MAX_SEQ_LEN = max(SWEEP_KV)    # pages per sequence
+            try:
+                case = paged_case(torch, gen, b=DECODE_BATCH, c=1,
+                                  q_start=[0] * DECODE_BATCH,
+                                  kv_lens=[kv] * DECODE_BATCH,
+                                  h=cfg.n_heads, kvh=cfg.n_kv_heads,
+                                  d=cfg.head_dim, grid=True)
+            finally:
+                chip_smoke.MAX_SEQ_LEN = seq_len
+            out["sweep"][f"kv{kv}"] = time_ms(
+                torch, lambda: KA.flash_e2softmax_paged(
+                    *case, causal=False, sole=True, exp_bits=4,
+                    int8_scale=LOGIT_INT8_SCALE), flush)
+    if "norm" in kinds:
+        stage = ops.resolve("residual_rmsnorm", "sole", "cuda")
+        for rows in (DECODE_BATCH, PREFILL_CHUNK):
+            x = (torch.randn((rows, cfg.d_model), generator=gen,
+                             device="cuda") * 3).to(torch.bfloat16)
+            r = torch.randn((rows, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            gamma = 1 + 0.1 * torch.randn((cfg.d_model,), generator=gen,
+                                          device="cuda")
+
+            def run():                  # apply_residual_norm's calls
+                h, o = stage(x, r, gamma, out_dtype=torch.bfloat16)
+                return h.to(torch.bfloat16), o.to(torch.bfloat16)
+            name = f"rows{rows}"
+            out["norm"][name] = time_ms(torch, run, flush)
+            out["norm_wall"][name] = wall_ms(torch, run, reps=300)
+    if "wave" in kinds:
+        out["wave"] = waves(torch, cfg)
+    for case, mode in FLASH if "flash" in kinds else ():
         name = f"{case}_{mode}"
         b, s, t, h, kvh, hd, causal = FLASH_CASES[case]
         q = (torch.randint(-8, 9, (b * h, s, hd), generator=gen,
@@ -75,7 +161,7 @@ def worker(src: str) -> dict:
             out["sdpa"][name] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal), flush)
-    for m in (8, 128):
+    for m in (8, 128) if "gemm" in kinds else ():
         for nm, k, n in GEMM_KN:
             x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                               dtype=torch.int8)
@@ -94,13 +180,71 @@ def worker(src: str) -> dict:
     return out
 
 
+def waves(torch, cfg) -> dict:
+    """Host wall seconds of one decode-heavy wave (8 requests of 128-token
+    prompts, 32 new tokens each, as ``chip_smoke.py`` profiles it) through
+    ``PagedEngine`` at qwen2_0_5b's full width, in bf16 and at w8a8 with
+    int8 pages, after a warm-up request."""
+    import dataclasses
+    import numpy as np
+    from chip_smoke import (BLOCK_SIZE, DECODE_BATCH, MAX_SEQ_LEN, NEW_TOKENS,
+                            PREFILL_CHUNK, _device_us)
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models import api
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import PagedEngine, Request
+    res = {}
+    for label, c in (("paged_bf16", cfg),
+                     ("paged_w8a8", dataclasses.replace(
+                         cfg, quant=QuantConfig("w8a8"),
+                         kv_cache_dtype="int8"))):
+        params = api.init_params(0, c, "cuda")
+        eng = PagedEngine(c, params,
+                          num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                          block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                          max_running=8, decode_batch=DECODE_BATCH,
+                          prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                          device="cuda")
+        rng = np.random.default_rng(2)
+        reqs = [Request(prompt=rng.integers(0, c.vocab_size, 128)
+                        .astype(np.int32), max_new_tokens=NEW_TOKENS)
+                for _ in range(DECODE_BATCH)]
+        eng.generate(reqs[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+        res[label] = time.perf_counter() - t0
+        if sum(len(o) for o in outs) != DECODE_BATCH * NEW_TOKENS:
+            raise AssertionError(f"{label}: token counts")
+        # device kernels per forward (one paged attention launch per
+        # layer), from the same wave under the profiler
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if _device_us(e) > 0]
+        forwards = sum(n for k, n in events if "paged_e2softmax" in k) \
+            / c.n_layers
+        res[f"{label}_kernels_per_forward"] = \
+            sum(n for _, n in events) / forwards
+        del eng, params
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", help="root of the other checkout")
+    ap.add_argument("--only", default=",".join(KINDS),
+                    help="comma-separated kinds to time (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kinds = [k for k in args.only.split(",") if k]
+    if set(kinds) - set(KINDS):
+        ap.error(f"--only takes {KINDS}")
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, kinds)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -117,7 +261,8 @@ def main() -> int:
         src = os.path.join(trees[label], "src")
         t0 = time.time()
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", src], capture_output=True,
+                              "--worker", src, "--only", ",".join(kinds)],
+                             capture_output=True,
                              text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
@@ -125,14 +270,19 @@ def main() -> int:
         turns.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
         print(f"turn {len(turns)} ({label}): {time.time() - t0:.1f} s",
               flush=True)
-    for kind in ("flash", "gemm"):
+    for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
+                 "wave"):
         for name in turns[0][1][kind]:
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}
-            lib = {"flash": "sdpa", "gemm": "int_mm"}[kind]
-            libs = [t[lib][name] for _, t in turns if name in t[lib]]
-            print(f"{kind} {name}: base {mean['base'] * 1e3:.2f} us, this "
-                  f"{mean['this'] * 1e3:.2f} us, base/this "
+            lib = {"flash": "sdpa", "gemm": "int_mm"}.get(kind, "none")
+            libs = [t[lib][name] for _, t in turns if name in t.get(lib, {})]
+            unit = "s" if kind == "wave" else "us"
+            scale = 1 if kind == "wave" else 1e3
+            if name.endswith("_per_forward"):
+                unit, scale = "kernels", 1
+            print(f"{kind} {name}: base {mean['base'] * scale:.2f} {unit}, "
+                  f"this {mean['this'] * scale:.2f} {unit}, base/this "
                   f"{mean['base'] / mean['this']:.2f}"
                   + (f"; {lib} {sum(libs) / len(libs) * 1e3:.2f} us"
                      if libs else ""))

@@ -137,7 +137,9 @@ def calibrate_ptf(x: torch.Tensor, *, max_alpha: int = 3,
 # sit exactly on rounding ties often enough that the last bit decides
 # codes, so the port takes the jitted form.
 
-_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+# float32(1/127) as a Python float: a float32 tensor times it multiplies by
+# exactly that value on any device, with no host-to-device copy per call.
+INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
 
 
 def is_qtensor(x) -> bool:
@@ -176,5 +178,5 @@ def quantize_act(x: torch.Tensor, n_contract: int = 1):
     axes as size 1."""
     axes = tuple(range(x.ndim - n_contract, x.ndim))
     amax = _nonzero(x.abs().amax(dim=axes, keepdim=True)).float()
-    scale = amax * _INV_127.to(amax.device)
+    scale = amax * INV_127
     return _codes(x, scale), scale

@@ -7,10 +7,7 @@ entry points:
 * :func:`qnorm` (``_qnorm_kernel``): PTF quantize + integer statistics +
   affine of each row, given per-channel ``denom = s * 2^alpha`` and
   ``alpha``. :func:`ailayernorm`/:func:`airmsnorm` reach it with the
-  caller's static params or, without them, after ``calibrate_ptf`` over
-  the whole tensor (calibration is batch-global, torch ops);
-  :func:`fused_add_norm` without params adds and calibrates as torch ops
-  first.
+  caller's static params.
 * :func:`add_norm` (``_fused_kernel``): ``h = x + r`` written out, then the
   same body on ``h`` in one pass — :func:`fused_add_norm` with static
   params.
@@ -21,12 +18,20 @@ entry points:
 * :func:`codes_norm` (``_kernel``, ``ailayernorm_pallas_codes``): the
   statistics and LayerNorm affine on centred int32 codes —
   :func:`ailayernorm_codes`.
+* :func:`calibrated_norm`: the ``params=None`` chain of the serve path —
+  the residual add, ``calibrate_ptf`` over all rows and the quantize+norm
+  (``_qnorm_kernel``), with the output in the model dtype or as per-row
+  int8 — in one launch of one thread-block cluster.
+  :func:`ailayernorm`/:func:`airmsnorm`/:func:`fused_add_norm`/
+  :func:`fused_add_norm_quant` without params reach it.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,34 +39,84 @@ import torch
 from repro_torch.core.sole.ailayernorm import (compressed_square, inv_sqrt,
                                                ptf_shift)
 from repro_torch.core.sole.quant import (PTFQuantParams, calibrate_ptf,
-                                         quantize_act, true_div)
+                                         quantize_act)
 from repro_torch.kernels import build
 
 # shared memory holds one row of int32 codes (48 KB without opt-in)
 MAX_CHANNELS = 12288
 
 
-def _norm_codes_plain(xi, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
-    """The row body from int32 codes on, in the kernel's order."""
-    c = xi.shape[-1]
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``a * b + c`` (one rounding, as a fused
+    multiply-add), on any device. The float64 product is exact; the float64
+    sum and the cast to float32 round twice, which differs from one rounding
+    only where the sum lands exactly on a float32 midpoint while the exact
+    value does not: there the TwoSum error term says which neighbour the
+    exact value is nearer to."""
+    a, b, c = torch.broadcast_tensors(a.double(), b.double(), c.double())
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)                 # s + err == p + c exactly
+    r = s.float()
+    r64 = r.double()
+    above = s > r64
+    nb = torch.nextafter(r, torch.where(above, torch.full_like(r, torch.inf),
+                                        torch.full_like(r, -torch.inf)))
+    mid = (s != r64) & ((r64 + nb.double()) * 0.5 == s)
+    lo = torch.where(above, r, nb)
+    hi = torch.where(above, nb, r)
+    return torch.where(mid & (err > 0), hi, torch.where(mid & (err < 0), lo, r))
+
+
+@functools.lru_cache(maxsize=None)
+def inv_channels(c: int) -> float:
+    """float32(1 / C) as a Python float: inside ``jit`` XLA turns the
+    reference's ``/ C`` into a multiply by it (and ``* 16 / C`` into one by
+    ``16 * float32(1 / C)``, exactly ``float32(16 / C)``)."""
+    return float(torch.ones((), dtype=torch.float32)
+                 / torch.tensor(float(c), dtype=torch.float32))
+
+
+def row_stats(xi, alpha, *, rms: bool):
+    """``(xs, mu, var)`` of int32 codes ``xi`` (rows, C): the PTF-shifted
+    codes, the mean (None for RMS) and the clamped variance (mean square
+    for RMS) whose ``1/sqrt`` the affine takes, in the compiled reference's
+    forms: its divisions by C are multiplies by ``float32(1/C)`` and
+    ``float32(16/C)``, and LLVM contracts the LayerNorm variance
+    ``ex2 * (16/C) - mu * mu`` into one fused multiply-add."""
+    inv_c = inv_channels(xi.shape[-1])
     sq = compressed_square(xi.abs())
     xs = ptf_shift(xi, alpha)
-    ex2 = (sq << (2 * alpha)).sum(-1, keepdim=True, dtype=torch.int32)
-    mean_sq = true_div(ex2.float() * 16.0, c)
+    ex2 = (sq << (2 * alpha)).sum(-1, keepdim=True, dtype=torch.int32).float()
     if rms:
-        rs = inv_sqrt(torch.clamp_min(mean_sq, 1.0))
+        return xs, None, torch.clamp_min(ex2 * (16.0 * inv_c), 1.0)
+    mu = xs.sum(-1, keepdim=True, dtype=torch.int32).float() * inv_c
+    var = fma32(ex2, torch.full_like(ex2, 16.0 * inv_c), -(mu * mu))
+    return xs, mu, torch.clamp_min(var, 1.0)
+
+
+def _norm_codes_plain(xi, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
+    """The row body from int32 codes on, in the kernel's order. The
+    LayerNorm affine is one fused multiply-add, as LLVM contracts the
+    compiled reference's ``(gamma * rs) * (xs - mu) + beta``."""
+    xs, mu, var = row_stats(xi, alpha, rms=rms)
+    rs = inv_sqrt(var)
+    if rms:
         return gamma * xs.float() * rs
-    ex = xs.sum(-1, keepdim=True, dtype=torch.int32)
-    mu = true_div(ex.float(), c)
-    rs = inv_sqrt(torch.clamp_min(mean_sq - mu * mu, 1.0))
-    return gamma * rs * (xs.float() - mu) + beta
+    return fma32(gamma * rs, xs.float() - mu, beta)
+
+
+def ptf_codes(x, denom) -> torch.Tensor:
+    """Centred PTF codes ``clip(round(x / denom), -128, 127)`` as int32
+    (the unsigned codes minus their zero point, or the symmetric ones)."""
+    return torch.clamp(torch.round(x / denom), -128, 127).to(torch.int32)
 
 
 def qnorm_plain(x, denom, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
     """The kernel's arithmetic in plain torch, in the same order:
     (rows, C) float32 -> (rows, C) float32."""
-    xi = torch.clamp(torch.round(x / denom), -128, 127).to(torch.int32)
-    return _norm_codes_plain(xi, alpha, gamma, beta, rms=rms)
+    return _norm_codes_plain(ptf_codes(x, denom), alpha, gamma, beta, rms=rms)
 
 
 def add_norm_plain(x, r, denom, alpha, gamma, beta, *,
@@ -115,9 +170,7 @@ def _chan(denom, alpha, gamma, beta, c: int) -> dict:
 def _launch(fn_name: str, n_ptrs: int, n_ints: int, x, args, ints) -> None:
     lib = build.load("ailayernorm")
     fn = build.declare(lib, fn_name, n_ptrs, n_ints)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(*(t.data_ptr() for t in args), *ints, stream)
+    rc = build.launch(x.device, fn, *(t.data_ptr() for t in args), *ints)
     build.check(lib, rc, f"{fn_name} launch")
 
 
@@ -209,6 +262,114 @@ def codes_norm(xi, alpha, gamma, beta) -> torch.Tensor:
 codes_norm.launches = 0
 
 
+# -- the calibrating norm ------------------------------------------------------
+
+_CAL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_eps(dtype: torch.dtype) -> Tuple[float, float]:
+    """``calibrate_ptf``'s 1e-8 and 1e-6, as ``full_like`` fills them in
+    ``dtype``."""
+    return (torch.full((), 1e-8, dtype=dtype).item(),
+            torch.full((), 1e-6, dtype=dtype).item())
+
+
+def calibrated_norm_plain(x, r, gamma, beta, *, rms: bool,
+                          out_dtype=torch.float32, quant_out: bool = False):
+    """The torch chain the kernel replaces: ``h = x + r`` (``h = x``
+    without ``r``) in the activation dtype, ``calibrate_ptf(h)`` over all
+    rows, :func:`qnorm_plain` on ``h`` in float32, then the output cast to
+    ``out_dtype`` or, with ``quant_out``, ``quantize_act`` of it. Returns
+    ``(h, out or (codes, row scale), alpha, scale)``, the scale a (1,)
+    float32 tensor."""
+    h = x if r is None else x + r
+    params = calibrate_ptf(h, unsigned=not rms)
+    out = qnorm_plain(h.float(), params.denom(), params.alpha, gamma, beta,
+                      rms=rms)
+    res = quantize_act(out) if quant_out else out.to(out_dtype)
+    return h, res, params.alpha, params.scale.float().reshape(1)
+
+
+def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
+                    out_dtype=torch.float32, quant_out: bool = False,
+                    with_params: bool = True):
+    """The residual add, PTF calibration over all rows and the
+    quantize+norm of ``x`` (..., C) float32 or bf16, ``r`` of the same
+    shape and type or None, ``gamma``/``beta`` (C,) float32 (``beta`` None
+    for RMS): one cluster launch on CUDA tensors, which must be
+    contiguous. Returns what :func:`calibrated_norm_plain` returns, the
+    output in ``out_dtype`` (float32 or the activation type);
+    ``with_params=False`` leaves out the calibration (None, None) on the
+    card, where the model paths need no copy of it."""
+    if x.device.type == "cpu":
+        if beta is None:
+            beta = torch.zeros_like(gamma)
+        return calibrated_norm_plain(x, r, gamma, beta, rms=rms,
+                                     out_dtype=out_dtype, quant_out=quant_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ailayernorm kernel for device {x.device}")
+    if x.dtype not in _CAL_TYPES:
+        raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if out_dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"out_dtype {out_dtype}: float32 or x's {x.dtype}")
+    if not rms and beta is None:
+        raise ValueError("LayerNorm needs beta")
+    c = x.shape[-1]
+    chan = (gamma,) if rms else (gamma, beta)
+    if (c > MAX_CHANNELS or not x.is_contiguous()
+            or (r is not None and (r.shape != x.shape or r.dtype != x.dtype
+                                   or r.device != x.device
+                                   or not r.is_contiguous()))
+            or any(t.shape != (c,) or t.dtype != torch.float32
+                   or t.device != x.device or not t.is_contiguous()
+                   for t in chan)):
+        raise ValueError(
+            f"calibrated_norm takes contiguous x (..., C <= {MAX_CHANNELS}) "
+            f"and r alike, gamma/beta (C,) float32 on its device; got x "
+            f"{tuple(x.shape)} {x.dtype}, r "
+            f"{None if r is None else (tuple(r.shape), r.dtype)}, gamma/beta "
+            f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in chan]}")
+    rows = x.numel() // c if c else 0
+    dev = x.device
+    h = x if r is None else torch.empty_like(x)
+    alpha = scale = None
+    if with_params:
+        alpha = torch.empty((c,), dtype=torch.int32, device=dev)
+        scale = torch.empty((1,), dtype=torch.float32, device=dev)
+    out = codes = qscale = None
+    if quant_out:
+        codes = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        qscale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
+                             device=dev)
+        res = (codes, qscale)
+    else:
+        res = out = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    if rows == 0:
+        return h, res, alpha, scale
+    n = 16 // x.element_size()
+    vec = int(c % n == 0 and x.data_ptr() % 16 == 0
+              and (r is None or (r.data_ptr() % 16 == 0
+                                 and h.data_ptr() % 16 == 0)))
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (x, r, gamma, None if rms else beta,
+                      None if r is None else h, out, codes, qscale, alpha,
+                      scale)]
+    lib = build.load("ailayernorm")
+    fn = build.declare(lib, "ailayernorm_calib", 10, 7, 2)
+    eps, eps6 = _fill_eps(x.dtype)
+    rc = build.launch(dev, fn, *ptrs, rows, c, int(rms), _CAL_TYPES[x.dtype],
+                      int(out_dtype != torch.float32), int(quant_out), vec,
+                      ctypes.c_float(eps), ctypes.c_float(eps6))
+    build.check(lib, rc, "ailayernorm_calib launch")
+    calibrated_norm.launches += 1
+    return h, res, alpha, scale
+
+
+calibrated_norm.launches = 0
+
+
 # -- entry points in the reference's signatures -------------------------------
 
 
@@ -221,57 +382,73 @@ def _chan_args(params: PTFQuantParams, gamma, beta):
             gamma.float().contiguous(), beta.float().contiguous())
 
 
-def _norm_call(x, params: PTFQuantParams, gamma, beta, rms: bool):
+def _norm_call(x, params: PTFQuantParams, gamma, beta, rms: bool, out_dtype):
     """Flatten to rows, run :func:`qnorm`, restore the shape."""
     out = qnorm(_rows(x), *_chan_args(params, gamma, beta), rms=rms)
-    return out.reshape(x.shape)
+    return out.reshape(x.shape).to(out_dtype or torch.float32)
 
 
-def ailayernorm(x, gamma, beta, *,
-                params: Optional[PTFQuantParams] = None) -> torch.Tensor:
+def _calibrated(x, r, gamma, beta, rms: bool, out_dtype=None,
+                quant_out: bool = False):
+    """:func:`calibrated_norm` on ``x`` (..., C): ``(h, out)`` or ``(h,
+    (codes, scale))`` in ``x``'s shape."""
+    if not rms and beta is None:
+        beta = torch.zeros_like(gamma)
+    h, res, _, _ = calibrated_norm(
+        x.contiguous(), None if r is None else r.contiguous(),
+        gamma.float().contiguous(),
+        None if rms else beta.float().contiguous(), rms=rms,
+        out_dtype=out_dtype or torch.float32, quant_out=quant_out,
+        with_params=False)
+    return h, res
+
+
+def ailayernorm(x, gamma, beta, *, params: Optional[PTFQuantParams] = None,
+                out_dtype=None) -> torch.Tensor:
     """AILayerNorm (unsigned codes) with the caller's static PTF params,
-    or calibrated on the fly over the whole tensor."""
+    or calibrated on the fly over the whole tensor (:func:`calibrated_norm`).
+    The output is float32 unless ``out_dtype`` names x's dtype."""
     if params is None:
-        params = calibrate_ptf(x, unsigned=True)
-    return _norm_call(x, params, gamma, beta, False)
+        return _calibrated(x, None, gamma, beta, False, out_dtype)[1]
+    return _norm_call(x, params, gamma, beta, False, out_dtype)
 
 
-def airmsnorm(x, gamma, *,
-              params: Optional[PTFQuantParams] = None) -> torch.Tensor:
+def airmsnorm(x, gamma, *, params: Optional[PTFQuantParams] = None,
+              out_dtype=None) -> torch.Tensor:
     """AIRMSNorm (symmetric codes), params as :func:`ailayernorm`."""
     if params is None:
-        params = calibrate_ptf(x, unsigned=False)
-    return _norm_call(x, params, gamma, torch.zeros_like(gamma), True)
+        return _calibrated(x, None, gamma, None, True, out_dtype)[1]
+    return _norm_call(x, params, gamma, torch.zeros_like(gamma), True,
+                      out_dtype)
 
 
 def fused_add_norm(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
                    params: Optional[PTFQuantParams] = None,
-                   rms: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(h, norm(h))`` with ``h = x + r``: the residual carry and the
-    float32 norm. With static ``params`` the add, quantize, statistics and
-    affine are one kernel on float32 rows and ``h`` comes back float32;
-    without them the add (in the inputs' dtype) and the calibration on
-    ``h`` run as torch ops before the quantize+norm kernel."""
+                   rms: bool = False,
+                   out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(h, norm(h))`` with ``h = x + r``: the residual carry and the norm
+    (float32, or ``out_dtype``). With static ``params`` the add, quantize,
+    statistics and affine are one kernel on float32 rows and ``h`` comes
+    back float32; without them :func:`calibrated_norm` adds in the inputs'
+    dtype and calibrates on ``h`` in the same launch."""
+    if params is None:
+        return _calibrated(x, r, gamma, beta, rms, out_dtype)
     if beta is None:
         beta = torch.zeros_like(gamma)
-    if params is None:
-        h = x + r
-        return h, _norm_call(h, calibrate_ptf(h, unsigned=not rms), gamma,
-                             beta, rms)
     h, out = add_norm(_rows(x), _rows(r), *_chan_args(params, gamma, beta),
                       rms=rms)
-    return h.reshape(x.shape), out.reshape(x.shape)
+    return h.reshape(x.shape), out.reshape(x.shape).to(out_dtype
+                                                       or torch.float32)
 
 
 def fused_add_norm_quant(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
                          params: Optional[PTFQuantParams] = None,
                          rms: bool = False):
     """:func:`fused_add_norm` with the norm leaving as per-row int8:
-    ``(h, (codes, scale))``, the scale (..., 1). With static ``params`` one
-    kernel; without them :func:`fused_add_norm`, then ``quantize_act``."""
+    ``(h, (codes, scale))``, the scale (..., 1). One kernel either way:
+    the static-params one, or :func:`calibrated_norm` with quant-out."""
     if params is None:
-        h, out = fused_add_norm(x, r, gamma, beta, rms=rms)
-        return h, quantize_act(out)
+        return _calibrated(x, r, gamma, beta, rms, quant_out=True)
     if beta is None:
         beta = torch.zeros_like(gamma)
     h, codes, scale = add_norm_quant(_rows(x), _rows(r),

@@ -52,8 +52,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``kernels/csrc/<name>.cu`` is built, keyed by
-    the source and the flags."""
+    the source, the shared headers it may include (``csrc/*.cuh``) and the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
@@ -109,6 +111,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launch(device, fn, *args) -> int:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream, with ``device`` the current one (made so only where it is not:
+    a context switch costs the host microseconds on every launch); returns
+    the launcher's ``cudaError_t``."""
+    import torch
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = (raw(idx) if raw is not None
+              else torch.cuda.current_stream(idx).cuda_stream)
+    if idx == cur:
+        return fn(*args, ctypes.c_void_p(stream))
+    with torch.cuda.device(idx):
+        return fn(*args, ctypes.c_void_p(stream))
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned after a launch."""
     if rc != 0:
@@ -116,11 +135,18 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+_DECLARED: Dict[tuple, object] = {}
+
+
 def declare(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int,
             n_floats: int = 0):
     """Set ``argtypes``/``restype`` of a launcher taking ``n_ptrs``
     pointers, ``n_ints`` ints, ``n_floats`` floats and the stream, in
-    that order; returns the function."""
+    that order; returns the function (declared once per library)."""
+    key = (lib, fn, n_ptrs, n_ints, n_floats)
+    f = _DECLARED.get(key)
+    if f is not None:
+        return f
     f = getattr(lib, fn)
     f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
@@ -128,4 +154,5 @@ def declare(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int,
     err = lib.repro_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    _DECLARED[key] = f
     return f

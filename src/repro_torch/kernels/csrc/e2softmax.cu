@@ -8,7 +8,9 @@
 // Per row of C logits (float32 or bf16 in, float32 out):
 //   masked : xm = keep ? x : FLT_LOWEST,  m = max(max(xm), FLT_LOWEST / 2)
 //   plain  : xm = x,                      m = max(x)
-//   d  = xm - m; optional int8 snap d = clip(rint(d / s), -127, 0) * s
+//   d  = xm - m; optional int8 snap d = clip(rint(d * (1/s)), -127, 0) * s
+//        (the jitted reference multiplies by float32(1/s), XLA's rewrite of
+//        its division by the static scale)
 //   k  = clip(rint(-d * 1.4375), 0, 2^b - 1)        (the 4-bit log2 codes)
 //   S  = sum over kept entries of 2^-k; masked: S = max(S, 2^-30)
 //   out = 2^-(k + e) * (mant >= 0.75 ? 1.136 : 1.636), (mant, e) = frexp(S);
@@ -108,10 +110,10 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // The code of one logit (see the header), given the row max m.
 __device__ __forceinline__ int log2_code(float xm, float m, int has_snap, float snap_scale,
-                                         float kmax) {
+                                         float snap_inv, float kmax) {
   float d = __fsub_rn(xm, m);
   if (has_snap)
-    d = __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(d, snap_scale)), -127.0f), 0.0f), snap_scale);
+    d = __fmul_rn(fminf(fmaxf(rintf(__fmul_rn(d, snap_inv)), -127.0f), 0.0f), snap_scale);
   return (int)fminf(fmaxf(rintf(__fmul_rn(-d, kInvLn2Shift)), 0.0f), kmax);
 }
 
@@ -125,7 +127,7 @@ template <typename T, bool kMasked, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 e2softmax_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, int c, int exp_bits, int has_snap,
-                 float snap_scale, int vec) {
+                 float snap_scale, float snap_inv, int vec) {
   extern __shared__ float xs[];             // c float32 logits, then c codes
   uint8_t* codes = reinterpret_cast<uint8_t*>(xs + (kSmem ? c : 0));
   __shared__ float red[kWarps];
@@ -183,7 +185,7 @@ e2softmax_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
     } else {
       xm = load_masked<T, kMasked>(xr, mr, i, &keep);
     }
-    const int k = log2_code(xm, m, has_snap, snap_scale, kmax);
+    const int k = log2_code(xm, m, has_snap, snap_scale, snap_inv, kmax);
     if (kSmem) codes[i] = (uint8_t)(k | (keep ? 0 : kMaskedCode));
     if (keep) sum += exp2_int(-k);
   }
@@ -203,7 +205,7 @@ e2softmax_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
       k = code & 0x7f;
     } else {
       const float xm = load_masked<T, kMasked>(xr, mr, i, &keep);
-      k = log2_code(xm, m, has_snap, snap_scale, kmax);
+      k = log2_code(xm, m, has_snap, snap_scale, snap_inv, kmax);
     }
     orow[i] = keep ? __fmul_rn(exp2_int(-(k + expo)), factor) : 0.0f;
   }
@@ -211,7 +213,7 @@ e2softmax_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
 
 template <typename T, bool kMasked, bool kSmem>
 int launch(const void* x, const void* mask, void* out, int rows, int c, int exp_bits,
-           int has_snap, float snap_scale, int vec, cudaStream_t stream) {
+           int has_snap, float snap_scale, float snap_inv, int vec, cudaStream_t stream) {
   const size_t smem = kSmem ? (size_t)c * (sizeof(float) + 1) : 0;
   auto kern = e2softmax_kernel<T, kMasked, kSmem>;
   if (smem > 48 * 1024) {
@@ -222,24 +224,24 @@ int launch(const void* x, const void* mask, void* out, int rows, int c, int exp_
   kern<<<rows, kThreads, smem, stream>>>(static_cast<const T*>(x),
                                          static_cast<const uint8_t*>(mask),
                                          static_cast<float*>(out), c, exp_bits, has_snap,
-                                         snap_scale, vec);
+                                         snap_scale, snap_inv, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, const void* mask, void* out, int rows, int c, int exp_bits,
-             int has_snap, float snap_scale, int vec, cudaStream_t stream) {
+             int has_snap, float snap_scale, float snap_inv, int vec, cudaStream_t stream) {
   const bool smem = (size_t)c * (sizeof(float) + 1) <= (size_t)kMaxSmemBytes;
   if (mask != nullptr) {
     return smem ? launch<T, true, true>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale,
-                                        vec, stream)
+                                        snap_inv, vec, stream)
                 : launch<T, true, false>(x, mask, out, rows, c, exp_bits, has_snap,
-                                         snap_scale, vec, stream);
+                                         snap_scale, snap_inv, vec, stream);
   }
   return smem ? launch<T, false, true>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale,
-                                       vec, stream)
+                                       snap_inv, vec, stream)
               : launch<T, false, false>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale,
-                                        vec, stream);
+                                        snap_inv, vec, stream);
 }
 
 }  // namespace
@@ -254,14 +256,17 @@ const char* repro_cuda_error_string(int err) {
 // (rows, c) uint8/bool contiguous, or null for the unmasked variant; out:
 // (rows, c) float32. vec = 1 when c is a multiple of the 16-byte vector
 // (4 float32, 8 bf16) and x (16 B) and mask (vector width) are aligned.
-// Launches on `stream`; returns the cudaError_t of the launch (0 on success).
+// snap_inv = float32(1 / snap_scale). Launches on `stream`; returns the
+// cudaError_t of the launch (0 on success).
 int e2softmax(const void* x, const void* mask, void* out, int rows, int c, int exp_bits,
-              int has_snap, int x_type, int vec, float snap_scale, void* stream) {
+              int has_snap, int x_type, int vec, float snap_scale, float snap_inv,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_type == 1)
-    return dispatch<__nv_bfloat16>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale, vec,
-                                   s);
-  return dispatch<float>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale, vec, s);
+    return dispatch<__nv_bfloat16>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale,
+                                   snap_inv, vec, s);
+  return dispatch<float>(x, mask, out, rows, c, exp_bits, has_snap, snap_scale, snap_inv, vec,
+                         s);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ its wrapper and its plain torch version.
 Counterpart of ``repro/kernels/e2softmax.py``'s ``_kernel`` and
 ``_masked_kernel`` (entry point ``e2softmax_pallas``): max, optional int8
 snap of ``x - max``, 4-bit log2 codes ``k``, ``S = sum 2^-k``, ALDivision
-``2^-(k + e) * {1.636, 1.136}``; with a mask (True = keep) masked entries
+``2^-(k + e) * {1.636, 1.136}``; the snap multiplies by ``float32(1/s)``,
+as the jitted Pallas call does (XLA rewrites its division by the static
+scale); with a mask (True = keep) masked entries
 give exactly 0 and a fully masked row gives a row of zeros. Logits are
 float32 or bf16 with any leading dims; the output is float32.
 
@@ -19,9 +21,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, INV_LN2_SHIFT_APPROX
-from repro_torch.core.sole.quant import true_div
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_e2softmax import MAX_EXP_BITS, exp2_int
+from repro_torch.kernels.flash_e2softmax import (MAX_EXP_BITS, exp2_int,
+                                                 snap_reciprocal)
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}     # elements per 16-byte load
@@ -44,8 +46,8 @@ def e2softmax_plain(x, *, exp_bits: int = 4,
         m = torch.clamp_min(xm.amax(-1, keepdim=True), neg / 2)
     d = xm - m
     if int8_scale is not None:
-        d = torch.clamp(torch.round(true_div(d, int8_scale)), -127, 0) \
-            * int8_scale
+        d = torch.clamp(torch.round(d * snap_reciprocal(int8_scale)),
+                        -127, 0) * int8_scale
     k = torch.clamp(torch.round(-d * INV_LN2_SHIFT_APPROX), 0,
                     2 ** exp_bits - 1).to(torch.int32)
     p = exp2_int(-k)
@@ -84,13 +86,13 @@ def _launch(x, mask, *, exp_bits, int8_scale) -> torch.Tensor:
     vec = int(c % n == 0 and x.data_ptr() % 16 == 0
               and (mask is None or mask.data_ptr() % n == 0))
     lib = build.load("e2softmax")
-    fn = build.declare(lib, "e2softmax", 3, 6, 1)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
-                out.data_ptr(), rows, c, exp_bits, int(int8_scale is not None),
-                _TYPE_CODES[x.dtype], vec, ctypes.c_float(int8_scale or 0.0),
-                ctypes.c_void_p(stream))
+    fn = build.declare(lib, "e2softmax", 3, 6, 2)
+    snap = int8_scale is not None
+    rc = build.launch(
+        x.device, fn, x.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), rows, c, exp_bits, int(snap), _TYPE_CODES[x.dtype], vec,
+        ctypes.c_float(int8_scale if snap else 0.0),
+        ctypes.c_float(snap_reciprocal(int8_scale) if snap else 0.0))
     build.check(lib, rc, "e2softmax launch")
     e2softmax.launches += 1
     return out

@@ -1,5 +1,8 @@
 """Paged Flash-E2Softmax attention: the Hopper kernel
-(``csrc/paged_e2softmax.cu``), its wrappers and its plain torch version.
+(``csrc/paged_e2softmax.cu``: one CTA per sequence, KV head and tile of
+query rows serving the whole GQA group, bf16 on the tensor cores, float32
+on the CUDA cores, :func:`paged_variant`), its wrappers and its plain
+torch version.
 
 Counterpart of ``repro/kernels/flash_e2softmax.py``'s paged entry points
 (``_paged_kernel`` via ``flash_e2softmax_paged`` /
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +41,7 @@ from repro_torch.kernels import build
 NEG = -1e30
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 256
+MAX_HEADS = 512             # query heads the paged kernel scans per CTA
 
 
 def exp2_int(e: torch.Tensor) -> torch.Tensor:
@@ -64,9 +69,37 @@ def snap_reciprocal(int8_scale: float) -> float:
     return float(one / torch.tensor(int8_scale, dtype=torch.float32))
 
 
+@functools.lru_cache(maxsize=None)
 def default_kv_head_map(h: int, kvh: int, device) -> torch.Tensor:
-    """Contiguous GQA grouping ``h // (H // KV)``."""
+    """Contiguous GQA grouping ``h // (H // KV)`` (made once per device;
+    callers do not write to it)."""
     return torch.arange(h, dtype=torch.int32, device=device) // max(h // kvh, 1)
+
+
+PAGE = 16                   # tokens per page of the tensor-core kernel
+
+
+def _pow2(x: float) -> bool:
+    return math.frexp(float(torch.tensor(x, dtype=torch.float32)))[0] == 0.5
+
+
+def paged_variant(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
+                  bs: int, kv_scale: Optional[float] = None,
+                  aligned: bool = True) -> str:
+    """The paged kernel's instantiation for these arguments, as
+    ``csrc/paged_e2softmax.cu``'s ``mma_variant`` picks it: bf16 q over bf16
+    or int8 pools of 16-token pages, with ``d^-1/2`` (and an int8 pool's
+    ``kv_scale``) a power of two and ``d`` a multiple of 16 up to 64 (16 or
+    64), runs on the tensor cores (decode steps, C = 1, split each chunk's
+    pages over the warps); everything else on the CUDA cores."""
+    int8 = pool_dtype == torch.int8
+    if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
+            and bs == PAGE and d % 16 == 0 and d <= 64
+            and _pow2(d ** -0.5)
+            and (not int8 or (kv_scale is not None and _pow2(kv_scale)))
+            and aligned):
+        return "bf16 mma.sync tensor cores"
+    return "CUDA cores"
 
 
 def flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta, kv_head_map,
@@ -179,23 +212,23 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
             f"shape mismatch: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}"
             f"/{tuple(v_pool.shape)}, tables {tuple(tables.shape)}, meta "
             f"{tuple(meta.shape)}, kv_head_map {tuple(kv_head_map.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
+    if d > MAX_HEAD_DIM or h > MAX_HEADS:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} or {h} > "
+                         f"{MAX_HEADS} query heads")
     out = torch.empty((b, h, c, d), dtype=torch.float32, device=dev)
     lib = build.load("paged_e2softmax")
-    fn = build.declare(lib, "paged_e2softmax", 7, 14, 4)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                tables.data_ptr(), meta.data_ptr(), kv_head_map.data_ptr(),
-                out.data_ptr(), b, h, c, d, bs, kvh, nb, int(causal),
-                int(sole), exp_bits, int(int8_scale is not None),
-                _TYPE_CODES[q.dtype], _TYPE_CODES[pool_dtype], int(quant_pv),
-                ctypes.c_float(int8_scale or 0.0),
-                ctypes.c_float(snap_reciprocal(int8_scale) if int8_scale
-                               is not None else 0.0),
-                ctypes.c_float(d ** -0.5), ctypes.c_float(kv_scale or 0.0),
-                ctypes.c_void_p(stream))
+    fn = build.declare(lib, "paged_e2softmax", 7, 15, 4)
+    vec = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
+    rc = build.launch(
+        dev, fn, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), meta.data_ptr(), kv_head_map.data_ptr(),
+        out.data_ptr(), b, h, c, d, bs, kvh, nb, int(causal), int(sole),
+        exp_bits, int(int8_scale is not None), _TYPE_CODES[q.dtype],
+        _TYPE_CODES[pool_dtype], int(quant_pv), int(vec),
+        ctypes.c_float(int8_scale or 0.0),
+        ctypes.c_float(snap_reciprocal(int8_scale) if int8_scale
+                       is not None else 0.0),
+        ctypes.c_float(d ** -0.5), ctypes.c_float(kv_scale or 0.0))
     build.check(lib, rc, "paged_e2softmax launch")
     flash_e2softmax_paged.launches += 1
     return out
@@ -349,15 +382,14 @@ def _launch_dense(q, k, v, *, causal, sole, exp_bits, int8_scale, bq, bk,
         return out
     lib = build.load("flash_e2softmax")
     fn = build.declare(lib, "flash_e2softmax", 4, 12, 3)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     snap = int8_scale is not None
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, s, t, d, bq, bk, int(causal), int(sole), exp_bits,
-                int(snap), int(exact_corr), _TYPE_CODES[q.dtype],
-                ctypes.c_float(int8_scale if snap else 0.0),
-                ctypes.c_float(snap_reciprocal(int8_scale) if snap else 0.0),
-                ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+    rc = build.launch(
+        dev, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+        s, t, d, bq, bk, int(causal), int(sole), exp_bits, int(snap),
+        int(exact_corr), _TYPE_CODES[q.dtype],
+        ctypes.c_float(int8_scale if snap else 0.0),
+        ctypes.c_float(snap_reciprocal(int8_scale) if snap else 0.0),
+        ctypes.c_float(d ** -0.5))
     build.check(lib, rc, "flash_e2softmax launch")
     flash_e2softmax.launches += 1
     return out

@@ -132,11 +132,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ws, tickets = _workspace(x.device, plan)
     lib = build.load("int8_matmul")
     fn = build.declare(lib, "int8_matmul", 5, 6)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                tickets.data_ptr(), m, n, k, vec, plan.tile, plan.splits,
-                stream)
+    rc = build.launch(x.device, fn, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      ws.data_ptr(), tickets.data_ptr(), m, n, k, vec,
+                      plan.tile, plan.splits)
     build.check(lib, rc, "int8_matmul launch")
     int8_matmul.launches += 1
     return out

@@ -3,9 +3,8 @@ unless ``--device cpu`` is given.
 
 The port's counterpart of ``examples/quickstart.py``: the same steps, at
 the same shapes, on the same numpy inputs. On the card the op calls go
-through the hand-written kernels (E2Softmax, the AILayerNorm
-quantize+norm, the dense Flash-E2Softmax); on the CPU through their plain
-versions::
+through the hand-written kernels (E2Softmax, the calibrating AILayerNorm,
+the dense Flash-E2Softmax); on the CPU through their plain versions::
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart
   PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu

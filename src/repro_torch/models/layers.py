@@ -63,11 +63,14 @@ def _norm_mode(cfg: ArchConfig, phase: str) -> str:
 
 
 def apply_norm(x, p, cfg: ArchConfig, phase: str) -> torch.Tensor:
+    """The norm in the model dtype; ``out_dtype`` lets a kernel write it
+    directly (the other backends' float32 output is cast here)."""
     mode = _norm_mode(cfg, phase)
+    kw = dict(out_dtype=torch_dtype(cfg.dtype))
     if cfg.norm_kind == "layernorm":
-        out = ops.layernorm_fn(mode, x.device)(x, p["g"], p["b"])
+        out = ops.layernorm_fn(mode, x.device)(x, p["g"], p["b"], **kw)
     else:
-        out = ops.rmsnorm_fn(mode, x.device)(x, p["g"])
+        out = ops.rmsnorm_fn(mode, x.device)(x, p["g"], **kw)
     return cast(out, cfg)
 
 
@@ -75,8 +78,8 @@ def apply_residual_norm(x, r, p, cfg: ArchConfig, phase: str,
                         quant_out: bool = False):
     """``x + r`` followed by the norm: returns (new residual stream,
     normalized output), both in the model dtype. In SOLE mode on CUDA
-    the add and calibration are torch ops and the quantize + statistics
-    + affine is one kernel pass.
+    the add, the calibration and the quantize + statistics + affine are
+    one kernel launch, which writes the output in the model dtype.
 
     With ``quant_out`` (and w8a8 active) the ``residual_*_q`` op runs
     instead: the normalized output leaves as an ``(int8 codes, per-row
@@ -90,10 +93,11 @@ def apply_residual_norm(x, r, p, cfg: ArchConfig, phase: str,
             s, out = fn(x, r, p["g"])
         return cast(s, cfg), out
     fn = ops.residual_norm_fn(cfg.norm_kind, mode, x.device)
+    kw = dict(out_dtype=torch_dtype(cfg.dtype))
     if cfg.norm_kind == "layernorm":
-        s, out = fn(x, r, p["g"], p["b"])
+        s, out = fn(x, r, p["g"], p["b"], **kw)
     else:
-        s, out = fn(x, r, p["g"])
+        s, out = fn(x, r, p["g"], **kw)
     return cast(s, cfg), cast(out, cfg)
 
 

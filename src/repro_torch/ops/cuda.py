@@ -46,41 +46,46 @@ def _static(params) -> Optional[PTFQuantParams]:
 
 
 @registry.register("layernorm", "sole", "cuda")
-def sole_layernorm_cuda(x, gamma, beta, *, params=None, **kw):
-    """The quantize+norm kernel with the caller's static PTF ``params``,
-    or calibrated on the fly."""
-    return K_norm.ailayernorm(x, gamma, beta, params=_static(params))
+def sole_layernorm_cuda(x, gamma, beta, *, params=None, out_dtype=None, **kw):
+    """The quantize+norm kernel with the caller's static PTF ``params``;
+    without them the calibrating norm kernel (calibration over the whole
+    tensor and the norm in one launch). ``out_dtype`` (float32 by default,
+    or x's dtype) is the type the kernel writes the output in."""
+    return K_norm.ailayernorm(x, gamma, beta, params=_static(params),
+                              out_dtype=out_dtype)
 
 
 @registry.register("rmsnorm", "sole", "cuda")
-def sole_rmsnorm_cuda(x, gamma, *, params=None, **kw):
-    return K_norm.airmsnorm(x, gamma, params=_static(params))
+def sole_rmsnorm_cuda(x, gamma, *, params=None, out_dtype=None, **kw):
+    return K_norm.airmsnorm(x, gamma, params=_static(params),
+                            out_dtype=out_dtype)
 
 
 @registry.register("residual_layernorm", "sole", "cuda")
 def sole_residual_layernorm_cuda(x, r, gamma, beta=None, *, params=None,
-                                 **kw):
+                                 out_dtype=None, **kw):
     """Static ``params``: the fused add+norm kernel (``_fused_kernel``);
-    without them the add and calibration as torch ops, then the
-    quantize+norm kernel."""
+    without them the calibrating norm kernel: the add, the calibration and
+    the quantize+norm in one launch."""
     return K_norm.fused_add_norm(x, r, gamma, beta, params=_static(params),
-                                 rms=False)
+                                 rms=False, out_dtype=out_dtype)
 
 
 @registry.register("residual_rmsnorm", "sole", "cuda")
 def sole_residual_rmsnorm_cuda(x, r, gamma, beta=None, *, params=None,
-                               **kw):
+                               out_dtype=None, **kw):
     return K_norm.fused_add_norm(x, r, gamma, None, params=_static(params),
-                                 rms=True)
+                                 rms=True, out_dtype=out_dtype)
 
 
 def _residual_norm_q(rms: bool):
     def fn(x, r, gamma, beta=None, *, params=None, **kw):
         """``(x + r, (int8 codes, per-row scale))``. Static ``params``:
         the fused add+norm+quantize-out kernel (``_fused_q_kernel``);
-        without them the reference's ``params=None`` branch: the add and
-        calibration as torch ops, the quantize+norm kernel, then
-        ``quantize_act`` of its float32 output."""
+        without them the calibrating norm kernel with its quantize-out:
+        the reference's ``params=None`` branch (the add, the calibration,
+        the quantize+norm and ``quantize_act`` of its float32 output) in
+        one launch."""
         return K_norm.fused_add_norm_quant(
             x, r, gamma, None if rms else beta, params=_static(params),
             rms=rms)

@@ -94,12 +94,14 @@ def exact_rmsnorm(x, gamma, *, eps=1e-6, **kw):
 
 
 @registry.register("layernorm", "sole", "reference")
-def sole_layernorm(x, gamma, beta, **kw):
+def sole_layernorm(x, gamma, beta, *, out_dtype=None, **kw):
+    """float32 out; ``out_dtype`` (the type a kernel may write directly) is
+    left to the caller's cast here, as in the other modes."""
     return ailayernorm(x, gamma, beta, **kw)
 
 
 @registry.register("rmsnorm", "sole", "reference")
-def sole_rmsnorm(x, gamma, **kw):
+def sole_rmsnorm(x, gamma, *, out_dtype=None, **kw):
     return airmsnorm(x, gamma, **kw)
 
 

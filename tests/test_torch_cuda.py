@@ -215,8 +215,9 @@ def test_calibration_on_card_equals_cpu(cuda_device):
 @pytest.mark.parametrize("mode", ["exact", "sole"])
 def test_engine_on_card_matches_cpu(cuda_device, mode):
     """The smoke engine through the kernels (card) and through the plain
-    versions (CPU): both kernels launch, refcounts hold, and at least 95%
-    of greedy tokens agree."""
+    versions (CPU): the paged attention and (SOLE) the calibrating norm
+    kernels launch and the static-params quantize+norm does not, refcounts
+    hold, and at least 95% of greedy tokens agree."""
     cfg = get_config("qwen2_0_5b").smoke()
     if mode == "exact":
         cfg = dataclasses.replace(cfg, softmax_mode="exact",
@@ -231,12 +232,14 @@ def test_engine_on_card_matches_cpu(cuda_device, mode):
         eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
                           max_seq_len=64, decode_batch=4, prefill_chunk=8,
                           device=dev)
-        attn0, norm0 = KA.flash_e2softmax_paged.launches, KN.qnorm.launches
+        attn0 = KA.flash_e2softmax_paged.launches
+        norm0, qnorm0 = KN.calibrated_norm.launches, KN.qnorm.launches
         outs.append(eng.generate(reqs))
         eng.cache.check_refcounts()
         if dev == cuda_device:
             assert KA.flash_e2softmax_paged.launches > attn0
-            assert (KN.qnorm.launches > norm0) == (mode == "sole")
+            assert (KN.calibrated_norm.launches > norm0) == (mode == "sole")
+            assert KN.qnorm.launches == qnorm0
     pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
     assert all(len(o) == 8 for o in outs[1])
     assert sum(a == b for a, b in pairs) / len(pairs) >= 0.95
@@ -433,8 +436,8 @@ def test_e2softmax_build_failure_raises(cuda_device, tmp_path, monkeypatch):
 def test_dense_engine_on_card_matches_cpu(cuda_device, mode):
     """The smoke dense-slot engine through the kernels (card) and the plain
     versions (CPU). SOLE mode: per prefill or decode call the E2Softmax
-    kernel launches once per layer and the norm kernel 2 * layers + 1
-    times, and at least 95% of greedy tokens agree. w8a8 in exact mode
+    kernel launches once per layer and the calibrating norm kernel
+    2 * layers + 1 times, and at least 95% of greedy tokens agree. w8a8 in exact mode
     with an int8 cache: 7 * layers + 1 GEMM launches per call and equal
     tokens."""
     cfg = get_config("qwen2_0_5b").smoke()
@@ -450,15 +453,15 @@ def test_dense_engine_on_card_matches_cpu(cuda_device, mode):
     outs = []
     for dev in ("cpu", cuda_device):
         eng = Engine(cfg, params, batch_size=4, max_len=64, device=dev)
-        sm0, norm0, mm0 = (KE.e2softmax.launches, KN.qnorm.launches,
+        sm0, norm0, mm0 = (KE.e2softmax.launches, KN.calibrated_norm.launches,
                            KM.int8_matmul.launches)
         outs.append(eng.generate(reqs))
         calls = eng.prefill_calls + eng.decode_calls
         if dev == cuda_device:
             if mode == "sole":
                 assert KE.e2softmax.launches - sm0 == cfg.n_layers * calls
-                assert KN.qnorm.launches - norm0 == (2 * cfg.n_layers + 1) \
-                    * calls
+                assert KN.calibrated_norm.launches - norm0 == \
+                    (2 * cfg.n_layers + 1) * calls
             else:
                 assert KM.int8_matmul.launches - mm0 == (7 * cfg.n_layers + 1) \
                     * calls
@@ -681,10 +684,242 @@ def test_codes_kernel_matches_plain(cuda_device):
 
 def test_quickstart_runs_through_the_kernels(cuda_device, capsys):
     """The port's quickstart on the card launches the E2Softmax, the
-    quantize+norm and the dense Flash-E2Softmax kernels."""
+    calibrating norm and the dense Flash-E2Softmax kernels."""
     from repro_torch.launch import quickstart
-    counters = (KE.e2softmax, KN.qnorm, KA.flash_e2softmax)
+    counters = (KE.e2softmax, KN.calibrated_norm, KA.flash_e2softmax)
     before = [f.launches for f in counters]
     assert quickstart.main([]) == 0
     assert all(f.launches > b for f, b in zip(counters, before))
     assert "done." in capsys.readouterr().out
+
+
+# -- the paged kernel's KV-group tiling ----------------------------------------
+
+PAGED_GROUP_CASES = {
+    # a permuted, non-contiguous map of 14 q heads onto 2 KV heads (the
+    # groups 5 and 9 heads), a decode batch with null lanes
+    "permuted_map": dict(b=4, c=1, nb=32, q_start=[0] * 4,
+                         kv_len=[300, 1, 77, 16]),
+    # 4096 keys: 256 pages, 32 chunks of the tensor-core kernel
+    "kv4096": dict(b=2, c=1, nb=256, q_start=[0, 0], kv_len=[4096, 4001]),
+    # a causal chunk of 100 rows (700 group rows: not a multiple of the
+    # 64-row tile) at q_start 37
+    "ragged_chunk": dict(b=1, c=100, nb=16, q_start=[37], kv_len=[137]),
+}
+PERMUTED_MAP = [1, 0, 0, 1, 1, 0, 1, 1, 0, 1, 0, 1, 1, 1]
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int8-qpv"])
+@pytest.mark.parametrize("case", list(PAGED_GROUP_CASES))
+def test_paged_kernel_group_tiling_matches_plain(cuda_device, case, pool, mode):
+    """The tensor-core kernel (bf16 q, one CTA per sequence, KV head and
+    64-row tile) against its plain version on exact-logit inputs, at
+    qwen2_0_5b's widths: an explicit permuted map, more pages than one
+    chunk, and a prefill chunk whose rows do not fill the last tile; bf16
+    pools and int8 pools with ``quant_pv`` off and on."""
+    cfg = get_config("qwen2_0_5b")
+    spec = PAGED_GROUP_CASES[case]
+    rng = np.random.default_rng(len(case) + len(pool))
+    q, k, v, tables, meta = _paged_inputs(
+        rng, h=cfg.n_heads, kvh=cfg.n_kv_heads, d=cfg.head_dim, bs=16,
+        **spec)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kw = dict(causal=spec["c"] > 1, sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool == "bf16":
+        kt, vt = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in (k, v))
+    else:
+        v = rng.integers(-127, 128, v.shape)
+        kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                              torch.int8)
+                  for a in (k, v))
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=pool == "int8-qpv")
+    assert KA.paged_variant(qt.dtype, kt.dtype, cfg.head_dim, 16,
+                            kw.get("kv_scale")).startswith("bf16 mma")
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kvmap = (torch.tensor(PERMUTED_MAP, dtype=torch.int32, device=cuda_device)
+             if case == "permuted_map" else
+             KA.default_kv_head_map(cfg.n_heads, cfg.n_kv_heads, cuda_device))
+    out = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta,
+                                   kv_head_map=kvmap, **kw)
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, vt, tables, meta, kvmap,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("dtype,pool,bs", [
+    ("float32", "float32", 16), ("bfloat16", "bfloat16", 8),
+    ("bfloat16", "int8", 8)], ids=["f32", "bf16-8tok", "int8-8tok"])
+def test_paged_kernel_cuda_cores_permuted_map(cuda_device, mode, dtype, pool,
+                                              bs):
+    """The CUDA-core kernel (float32 q, or pages of other than 16 tokens)
+    with the same KV-group tiling: a permuted map and a ragged causal
+    chunk, over float32, bf16 and int8 pools."""
+    cfg = get_config("qwen2_0_5b")
+    spec = dict(PAGED_GROUP_CASES["ragged_chunk"])
+    spec["nb"] = 16 * 16 // bs
+    rng = np.random.default_rng(4)
+    arrays = _paged_inputs(rng, h=cfg.n_heads, kvh=cfg.n_kv_heads,
+                           d=cfg.head_dim, bs=bs, **spec)
+    q = torch.from_numpy(arrays[0]).to(cuda_device, getattr(torch, dtype))
+    kw = dict(causal=True, sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool == "int8":
+        v = rng.integers(-127, 128, arrays[2].shape)
+        k, v = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                            torch.int8)
+                for a in (arrays[1], v))
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=False)
+    else:
+        k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, pool))
+                for a in arrays[1:3])
+    tables, meta = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    assert KA.paged_variant(q.dtype, k.dtype, cfg.head_dim, bs,
+                            kw.get("kv_scale")) == "CUDA cores"
+    kvmap = torch.tensor(PERMUTED_MAP, dtype=torch.int32, device=cuda_device)
+    out = KA.flash_e2softmax_paged(q, k, v, tables, meta, kv_head_map=kvmap,
+                                   **kw)
+    ref = KA.flash_e2softmax_paged_plain(q, k, v, tables, meta, kvmap, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- the calibrating norm -------------------------------------------------------
+
+
+def _calib_case(rng, rows, c, dtype, device):
+    x = rng.standard_normal((rows, c)).astype(np.float32) * 2
+    x *= 2.0 ** rng.integers(0, 4, size=c)             # every PTF alpha
+    r = rng.standard_normal((rows, c)).astype(np.float32)
+    gamma = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    xt, rt = (torch.from_numpy(a).to(device, dtype) for a in (x, r))
+    return xt, rt, torch.from_numpy(gamma).to(device), \
+        torch.from_numpy(beta).to(device)
+
+
+def _check_calib(x, r, gamma, beta, rms):
+    """The kernel against its plain version (the torch chain on the card),
+    norm and quantize-out, twice each: ``h``, ``alpha``, ``scale``, the
+    output in the model dtype, the codes and row scales bitwise."""
+    b = None if rms else beta
+    want = KN.calibrated_norm_plain(x, r, gamma, beta, rms=rms,
+                                    out_dtype=x.dtype)
+    want_q = KN.calibrated_norm_plain(x, r, gamma, beta, rms=rms,
+                                      quant_out=True)
+    before = KN.calibrated_norm.launches
+    for _ in range(2):
+        h, out, alpha, scale = KN.calibrated_norm(x, r, gamma, b, rms=rms,
+                                                  out_dtype=x.dtype)
+        hq, (codes, qs), alpha_q, scale_q = KN.calibrated_norm(
+            x, r, gamma, b, rms=rms, quant_out=True)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want[0]) and torch.equal(hq, want[0])
+        for a in (alpha, alpha_q):
+            assert torch.equal(a, want[2])
+        for s in (scale, scale_q):
+            assert torch.equal(s, want[3])
+        assert out.dtype == x.dtype and torch.equal(out, want[1])
+        assert torch.equal(codes, want_q[1][0]) and torch.equal(qs, want_q[1][1])
+    assert KN.calibrated_norm.launches == before + 4
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c,rms", [(896, True), (2048, False)])
+@pytest.mark.parametrize("rows", [1, 8, 128, 2400])
+def test_calibrated_norm_bitwise_equals_plain(cuda_device, rows, c, rms, dtype):
+    """The decode (8), paged prefill (128) and dense prefill (8 x 300)
+    row counts, and one row, at qwen2's (RMS) and stablelm's (LN) widths:
+    the residual add, calibration over all rows and norm in one cluster
+    launch equal the torch chain bit for bit, with and without ``r``."""
+    rng = np.random.default_rng(rows + c)
+    x, r, gamma, beta = _calib_case(rng, rows, c, getattr(torch, dtype),
+                                    cuda_device)
+    _check_calib(x, r, gamma, beta, rms)
+    _check_calib(x, None, gamma, beta, rms)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_calibrated_norm_power_of_two_ratios(cuda_device, dtype):
+    """Many random batches whose channels' ``ideal / scale`` ratios are
+    exact powers of two (the case calibrate_ptf's ``- 1e-6`` exists for):
+    alpha, scale and the outputs stay bitwise equal to the torch chain."""
+    rng = np.random.default_rng(17)
+    dt = getattr(torch, dtype)
+    for trial in range(40):
+        rows, c = int(rng.choice([1, 8, 128])), int(rng.choice([64, 896]))
+        x = rng.standard_normal((rows, c)).astype(np.float32)
+        top = float(2.0 ** rng.integers(-3, 6)) * 1.5
+        peak = np.clip(np.abs(x).max(0), None, top / 16)
+        x = np.sign(x) * np.minimum(np.abs(x), peak)
+        k = rng.integers(0, 5, size=c)              # ratio 8 / 2^k exactly
+        row = rng.integers(0, rows, size=c)
+        x[row, np.arange(c)] = top / 2.0 ** k * rng.choice([-1, 1], size=c)
+        xt = torch.from_numpy(x).to(cuda_device, dt)
+        assert (xt.float().abs().amax(0) == torch.from_numpy(
+            top / 2.0 ** k).float().to(cuda_device)).all()
+        gamma = torch.ones(c, device=cuda_device)
+        beta = torch.zeros(c, device=cuda_device)
+        _check_calib(xt, torch.zeros_like(xt), gamma, beta, trial % 2 == 0)
+
+
+def test_model_norms_launch_only_the_calibrating_kernel(cuda_device):
+    """The op calls a model's SOLE norms make (``out_dtype`` the model
+    dtype): one calibrating-norm launch each and nothing of the
+    static-params kernels; outputs equal the torch chain."""
+    rng = np.random.default_rng(2)
+    x, r, gamma, _ = _calib_case(rng, 8, 896, torch.bfloat16, cuda_device)
+    counters = (KN.calibrated_norm, KN.qnorm, KN.add_norm, KN.add_norm_quant)
+    before = [f.launches for f in counters]
+    h, out = ops.residual_norm_fn("rmsnorm", "sole", cuda_device)(
+        x, r, gamma, out_dtype=torch.bfloat16)
+    hq, (codes, scale) = ops.residual_norm_q_fn("rmsnorm", "sole",
+                                                cuda_device)(x, r, gamma)
+    n = ops.rmsnorm_fn("sole", cuda_device)(x, gamma, out_dtype=torch.bfloat16)
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 0, 0, 0]
+    want = KN.calibrated_norm_plain(x, r, gamma, None, rms=True,
+                                    out_dtype=torch.bfloat16)
+    assert torch.equal(h, want[0]) and torch.equal(out, want[1])
+    assert out.dtype == torch.bfloat16 and torch.equal(hq, h)
+    assert torch.equal(n, KN.calibrated_norm_plain(
+        x, None, gamma, None, rms=True, out_dtype=torch.bfloat16)[1])
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("c", [1, 40], ids=["decode", "prefill"])
+def test_paged_kernel_head_dim_16(cuda_device, c, pool):
+    """Head dim 16 (d^-1/2 = 1/4) runs the tensor-core kernels with the
+    head dim zero-padded to 64 columns: decode and a causal chunk, over
+    bf16 and int8 pools, against the plain version."""
+    rng = np.random.default_rng(c)
+    spec = (dict(b=3, c=1, nb=24, q_start=[0] * 3, kv_len=[300, 1, 33])
+            if c == 1 else dict(b=1, c=40, nb=8, q_start=[60], kv_len=[100]))
+    q, k, v, tables, meta = _paged_inputs(rng, h=4, kvh=2, d=16, bs=16,
+                                          **spec)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kw = dict(causal=c > 1, sole=True, exp_bits=4, int8_scale=LOGIT_INT8_SCALE)
+    if pool == "bf16":
+        kt, vt = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in (k, v))
+    else:
+        v = rng.integers(-127, 128, v.shape)
+        kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                              torch.int8)
+                  for a in (k, v))
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+    assert KA.paged_variant(qt.dtype, kt.dtype, 16, 16,
+                            kw.get("kv_scale")).startswith("bf16 mma")
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kvmap = KA.default_kv_head_map(4, 2, cuda_device)
+    out = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta, **kw)
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, vt, tables, meta, kvmap,
+                                         **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)

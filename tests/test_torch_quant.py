@@ -364,3 +364,16 @@ def test_split_partials_sum_bitwise(m, k, n):
     for s in rng.permutation(plan.splits):
         got += parts[s]
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_inv_127_scalar_equals_tensor_form():
+    """``quantize_act`` multiplies by ``INV_127``, a Python float, where it
+    used to copy a float32 tensor to the device on every call: the value is
+    ``float32(1/127)``, the jitted reference's constant, and products with
+    it equal those with the float32 tensor bit for bit."""
+    assert TQ.INV_127 == float(np.float32(1) / np.float32(127))
+    rng = np.random.default_rng(0)
+    amax = (rng.random(100_000) * 10.0 ** rng.uniform(-6, 6, 100_000))
+    t = torch.from_numpy(amax.astype(np.float32))
+    assert torch.equal(t * TQ.INV_127,
+                       t * torch.tensor(1.0 / 127.0, dtype=torch.float32))

@@ -1,5 +1,6 @@
-"""The paged Flash-E2Softmax's int8 snap against the jitted JAX paged
-kernel, on logits placed on the snap's rounding ties.
+"""The int8 snap of the paged Flash-E2Softmax and of the E2Softmax kernel
+against the jitted JAX kernels, on logits placed on the snap's rounding
+ties.
 
 Inside ``jit`` XLA rewrites ``dm / int8_scale`` (a static scale) into a
 multiply by ``float32(1 / s)``. The two forms round differently only where
@@ -26,7 +27,9 @@ import pytest
 import torch
 
 from repro import ops as jops
+from repro.kernels import e2softmax as JE  # repro: noqa RPR001
 from repro_torch import ops as tops
+from repro_torch.kernels import e2softmax as KE
 from repro_torch.kernels import flash_e2softmax as KA
 from repro_torch.models.layers import LOGIT_INT8_SCALE
 
@@ -125,3 +128,49 @@ def test_paged_plain_equals_jitted_pallas_on_snap_ties(quant):
     assert got.shape == want.shape == (1, 1, 2, D)
     assert (want[..., 1:] > 0).sum() >= 8
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+# -- the E2Softmax kernel's own int8_scale ------------------------------------
+
+
+def _e2_tie_rows():
+    """Rows ``[0, dm, 0, ...]`` of width 8, one per tie: the row max is 0,
+    so ``x - max`` at column 1 is the tie ``dm`` itself."""
+    ties = np.array([t for t, _ in snap_ties(LOGIT_INT8_SCALE)], np.float32)
+    x = np.zeros((len(ties), 8), np.float32)
+    x[:, 1] = ties
+    mask = np.ones_like(x, dtype=bool)
+    mask[:, 5:] = False
+    return x, mask
+
+
+def test_jitted_e2softmax_snap_has_no_divide():
+    """The compiled E2Softmax Pallas call with a static ``int8_scale``
+    multiplies by ``float32(1 / s)`` in both variants: no ``divide``."""
+    x, mask = _e2_tie_rows()
+    inv = np.float32(KA.snap_reciprocal(LOGIT_INT8_SCALE))
+    for has_mask, m in ((False, jnp.zeros((), jnp.int32)),
+                        (True, jnp.asarray(mask))):
+        hlo = JE._e2softmax_call.lower(
+            jnp.asarray(x), m, 4, LOGIT_INT8_SCALE, has_mask, 256,
+            True).compile().as_text()
+        assert not re.search(r"\bdivide\(", hlo)
+        assert f"constant({inv:.8g}" in hlo or f"constant({inv:.7g}" in hlo
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_e2softmax_equals_jitted_pallas_on_snap_ties(masked):
+    """``e2softmax(int8_scale=s)`` on CPU tensors (the kernel's plain
+    version) against the jitted Pallas kernel on tie rows, where a true
+    division moves codes. The codes must be equal: a flipped code halves or
+    doubles an output, and the rest is XLA's inexact CPU ``exp2`` of
+    integers (up to 5.4e-7 relative), so 2e-6 relative and 0 absolute, as
+    ``tests/test_torch_e2softmax.py`` holds them."""
+    x, mask = _e2_tie_rows()
+    jm = jnp.asarray(mask) if masked else None
+    want = np.asarray(JE.e2softmax_pallas(
+        jnp.asarray(x), int8_scale=LOGIT_INT8_SCALE, mask=jm,
+        interpret=None))
+    got = KE.e2softmax(torch.from_numpy(x), int8_scale=LOGIT_INT8_SCALE,
+                       mask=torch.from_numpy(mask) if masked else None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=0)
