@@ -26,7 +26,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    (the split's tickets reset themselves), with at least 132 CTAs at
    every path shape, and the E2Softmax kernel at the dense-slot path's decode and
    prefill shapes (masked), at two unmasked shapes, with ``int8_scale``
-   and with fully masked rows; and the op layer's kernels: the dense
+   and with fully masked rows, and the path's whole ``_sole_probs`` stage
+   (one ``softmax`` op call on raw logits with the path's broadcast or
+   concatenated mask, the int8 snap in the kernel, bf16 out) bitwise
+   equal to the chain it replaced, with one launch and exactly one
+   device kernel per call under ``torch.profiler``; and the op layer's kernels: the dense
    Flash-E2Softmax in four modes at qwen2_0_5b's attention (2048 tokens,
    causal), a ragged non-causal case, stablelm_1_6b's MHA, a causal case
    whose last k-block is not a multiple of 16, one shorter than 16 rows,
@@ -65,9 +69,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    (on K/V gathered beforehand) ``scaled_dot_product_attention``
    (yardsticks the port never calls); the calibrating norm as the whole
    norm stage (the ``residual_*`` op call a model makes) by events and by
-   the host's clock per call, beside the torch chain it replaces;
+   the host's clock per call, beside the torch chain it replaces, and the
+   dense path's ``_sole_probs`` stage likewise, with device kernels per
+   call;
 6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
-   of the dense-slot engine (bf16): the device-busy share of the wall time,
+   of the dense-slot engine (bf16 and w8a8): the device-busy share of the wall time,
    kernels per forward and the kernels with the most device time.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
@@ -92,6 +98,7 @@ INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 QNORM_OPS_PER_ELEMENT = 16         # divide, round, clip, square, shifts, sums, affine
 E2_OPS_PER_ELEMENT = 16            # max, subtract, snap, multiply, round, clip, 2^-k, sum, scale
 DENSE_MAX_LEN = 384                # the dense-slot engine's cache columns
+PREFILL_ROWS = 300                 # the dense path's checked prefill length
 PREFILL_CHUNK = 128
 DECODE_BATCH = 8
 BLOCK_SIZE = 16
@@ -558,21 +565,10 @@ def check_e2softmax(torch, cfg):
         return ops.snap_logits(raw - torch.clamp_min(m, -1e30),
                                LOGIT_INT8_SCALE)
 
-    # decode: lane b sees its cache columns up to a per-lane length, never
-    # the write slot, plus the current token (column T)
-    lens = torch.tensor([49, 300, 117, 1, 256, 83, 160, 1], device=dev)
-    cols = torch.arange(t + 1, device=dev)
-    dmask = (cols[None] < lens[:, None]) | (cols[None] == t)
-    dmask = dmask[:, None].expand(8, h, t + 1).reshape(8 * h, t + 1)
-    # prefill: causal over 300 columns with per-lane left padding
-    s = 300
-    n_pad = torch.tensor([252, 0, 180, 100, 196, 136, 220, 50], device=dev)
-    pos = torch.arange(s, device=dev)
-    local = pos[None] - n_pad[:, None]
-    kpos = torch.where(local < 0, 2 ** 30, local)
-    qpos = torch.clamp_min(local, 0)
-    pmask = (kpos[:, None, :] < 2 ** 29) & (qpos[:, :, None] >= kpos[:, None])
-    pmask = pmask[:, None].expand(8, h, s, s).reshape(8 * h * s, s)
+    stage = dense_stage_inputs(torch, cfg, gen)
+    dmask = stage["decode"]["mask"].reshape(8 * h, t + 1)
+    s = PREFILL_ROWS
+    pmask = stage["prefill"]["mask"].reshape(8 * h * s, s)
     full = dmask.clone()
     full[:5] = False
     cases = {
@@ -605,7 +601,120 @@ def check_e2softmax(torch, cfg):
             f"{'masked' if mask is not None else 'unmasked'}"
             f"{' int8_scale' if snap else ''}: max|err| {err:.3e}, "
             f"rows that differ {off:.5f}")
+    results["stage"] = check_sole_probs(torch, cfg, stage)
+    results["stage_inputs"] = stage
     return results
+
+
+def dense_stage_inputs(torch, cfg, gen):
+    """The dense-slot path's ``_sole_probs`` inputs at qwen2_0_5b's width:
+    raw float32 logits and the mask as the path hands it over. Decode: 8
+    lanes, the (B, KV, g, T+1) logits against the 384-column cache plus
+    the current token, the mask concatenated (a lane sees its columns up
+    to a per-lane length, never the write slot); prefill: 8 lanes of 300
+    tokens with per-lane left padding, the (B, 1, S, S) causal mask
+    broadcast over the 14 heads (stride 0)."""
+    dev = gen.device
+    b, h, kvh, t = DECODE_BATCH, cfg.n_heads, cfg.n_kv_heads, DENSE_MAX_LEN
+    lens = torch.tensor([49, 300, 117, 1, 256, 83, 160, 1], device=dev)
+    cols = torch.arange(t, device=dev)
+    valid = (cols[None] < lens[:, None]) & (cols[None] != 48)
+    dmask = torch.cat(
+        [torch.broadcast_to(valid[:, None, None, :], (b, kvh, h // kvh, t)),
+         torch.ones((b, kvh, h // kvh, 1), dtype=torch.bool, device=dev)], -1)
+    s = PREFILL_ROWS
+    n_pad = torch.tensor([252, 0, 180, 100, 196, 136, 220, 50], device=dev)
+    pos = torch.arange(s, device=dev)
+    local = pos[None] - n_pad[:, None]
+    kpos = torch.where(local < 0, 2 ** 30, local)
+    qpos = torch.clamp_min(local, 0)
+    pmask = (kpos[:, None, :] < 2 ** 29) & (qpos[:, :, None] >= kpos[:, None])
+    pmask = torch.broadcast_to(pmask[:, None], (b, h, s, s))
+    return {name: dict(logits=torch.randn(mask.shape, generator=gen,
+                                          device=dev) * 4, mask=mask)
+            for name, mask in (("decode", dmask), ("prefill", pmask))}
+
+
+def sole_probs_chain(torch, cfg, logits, mask, e2):
+    """The dense path's SOLE probabilities as the chain the one op call
+    replaced: the masked max, subtract, ``snap_logits``, E2Softmax ``e2``
+    (the plain version or the kernel) on the mask made contiguous at the
+    logits' shape, then the cast to bf16."""
+    from repro_torch import ops
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    d = ops.snap_logits(logits - torch.clamp_min(m, -1e30),
+                        LOGIT_INT8_SCALE if cfg.logit_int8 else None)
+    full = torch.broadcast_to(mask, logits.shape).contiguous()
+    return e2(d, mask=full, exp_bits=cfg.exp_bits).to(torch.bfloat16)
+
+
+def device_kernels(torch, fn, reps=5):
+    """The device kernels (and copies) one call of ``fn`` issues: torch's
+    by ``torch.profiler`` over ``reps`` calls between two marker kernels
+    (``torch.cuda._sleep``, not counted), the E2Softmax kernel by its
+    launch counter (the profiler can drop a record of a kernel launched
+    through ctypes: it kept 4 of 5 in one window). Returns (kernels per
+    call, the other kernels' names, E2Softmax records the profiler kept)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import e2softmax as KE
+    fn()
+    torch.cuda.synchronize()
+    n0 = KE.e2softmax.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    launched = KE.e2softmax.launches - n0
+    rows = [(e.key, e.count) for e in prof.key_averages()
+            if _device_us(e) > 0 and "spin_kernel" not in e.key]
+    seen = sum(n for k, n in rows if is_dense_e2(k))
+    other = [(k, n) for k, n in rows if not is_dense_e2(k)]
+    return ((sum(n for _, n in other) + launched) / reps,
+            [k[:80] for k, _ in other], seen)
+
+
+def check_sole_probs(torch, cfg, stage):
+    """Phase 3, the dense path's SOLE probabilities: ``layers._sole_probs``
+    (one ``softmax`` ``sole`` op call with ``int8_scale`` and bf16 out) at
+    the decode and prefill inputs, bitwise equal to the chain it replaced
+    on its plain pieces, one ``e2softmax`` launch and exactly one device
+    kernel per call (``torch.profiler``)."""
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.models import layers as L
+    out = {}
+    for name, inp in stage.items():
+        logits, mask = inp["logits"], inp["mask"]
+        before = KE.e2softmax.launches
+        probs = L._sole_probs(logits, mask, cfg, torch.bfloat16)
+        if KE.e2softmax.launches != before + 1:
+            raise AssertionError(f"_sole_probs {name}: "
+                                 f"{KE.e2softmax.launches - before} launches")
+        want = sole_probs_chain(torch, cfg, logits, mask, KE.e2softmax_plain)
+        torch.cuda.synchronize()
+        if probs.dtype != torch.bfloat16 or not torch.equal(probs, want):
+            raise AssertionError(f"_sole_probs {name}: differs from the chain")
+        kw = dict(mask=mask, exp_bits=cfg.exp_bits, out_dtype=torch.bfloat16,
+                  int8_scale=L.LOGIT_INT8_SCALE)
+        if not torch.equal(KE.e2softmax(logits, **kw),
+                           KE.e2softmax_plain(logits, **kw)):
+            raise AssertionError(f"e2softmax {name}: the strided mask and "
+                                 "bf16 out differ from the plain version")
+        n, others, seen = device_kernels(
+            torch, lambda: L._sole_probs(logits, mask, cfg, torch.bfloat16))
+        if n != 1 or others or not seen:
+            raise AssertionError(f"_sole_probs {name}: {n} device kernels "
+                                 f"per call, others {others}, {seen} "
+                                 "E2Softmax records")
+        out[name] = dict(device_kernels=n)
+        log(f"_sole_probs {name} logits {tuple(logits.shape)} mask strides "
+            f"{mask.stride()}: bitwise equal to the chain (and the kernel, "
+            f"bf16 out, to its plain version), one launch, {n:.0f} device "
+            f"kernel per call (the profiler kept {seen} of its 5 records and "
+            "saw no other kernel)")
+    return out
 
 
 OPS_KERNELS = ("flash_e2softmax", "ailayernorm_add_norm",
@@ -1061,18 +1170,38 @@ def time_calib_norm(torch, calib, launches):
     return e
 
 
+def distinct_bytes(t) -> int:
+    """Bytes of the distinct elements of ``t`` (a broadcast view counts
+    its stride-0 dims once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
 def time_e2softmax(torch, e2, launches, launches8):
     """Phase 5 for the E2Softmax kernel: CUDA-event and profiler times at
-    the path's decode and prefill shapes and the two benchmark shapes,
-    the plain version's time, and the bound: the logits and mask read
-    once and the float32 output written once at the card's memory rate
-    (the ~16 operations per element are far below its peak)."""
+    the path's decode and prefill shapes and the two benchmark shapes on
+    snapped float32 logits with a contiguous mask and float32 out (the
+    kernel alone, as the chain called it), the plain version's time, and the bound: the logits and
+    mask read once and the output written once at the card's memory rate
+    (the ~16 operations per element are far below its peak). Then the
+    dense path's whole ``_sole_probs`` stage at decode and prefill (raw
+    logits, the path's mask, bf16 out): the one launch against the chain
+    it replaced (the torch ops around this kernel), each by events,
+    host wall per call and device kernels per call; bound: the logits,
+    the distinct mask bytes and the bf16 output once."""
     from repro_torch.kernels import e2softmax as KE
+    from repro_torch.models import layers as L
+    from repro_torch.configs.base import get_config
+    cfg = get_config("qwen2_0_5b")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     entry = dict(name="e2softmax", route="cuda",
                  source="src/repro_torch/kernels/csrc/e2softmax.cu",
-                 replaces="src/repro/kernels/e2softmax.py:48", shapes={})
+                 replaces="src/repro/kernels/e2softmax.py:48", shapes={},
+                 stage={})
     for name in ("decode", "prefill", "bench_785", "bench_8192"):
         res = e2[name]
         x, kw = res["x"], res["kw"]
@@ -1087,26 +1216,60 @@ def time_e2softmax(torch, e2, launches, launches8):
             shape=f"rows {x.shape[0]} C {x.shape[1]} "
                   f"{'masked' if mask is not None else 'unmasked'}",
             ms=time_ms(torch, run, flush),
-            kernel_ms=profiled_kernel_ms(torch, run, flush,
-                                         "e2softmax_kernel"),
+            kernel_ms=profiled_kernel_ms(torch, run, flush, "e2softmax"),
             plain_ms=time_ms(torch, lambda: KE.e2softmax_plain(x, **kw),
                              flush, reps=10),
             bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
             rows_off=res["rows_off"], bytes=nbytes)
+    for name, inp in e2["stage_inputs"].items():
+        logits, mask = inp["logits"], inp["mask"]
+
+        def one():
+            return L._sole_probs(logits, mask, cfg, torch.bfloat16)
+
+        def chain():
+            return sole_probs_chain(torch, cfg, logits, mask, KE.e2softmax)
+        nbytes = (logits.numel() * 4 + distinct_bytes(mask)
+                  + logits.numel() * 2)
+        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
+                           FP32_FLOPS)
+        entry["stage"][name] = dict(
+            shape=f"logits {tuple(logits.shape)} f32, mask strides "
+                  f"{tuple(mask.stride())}, bf16 out",
+            ms=time_ms(torch, one, flush),
+            kernel_ms=profiled_kernel_ms(torch, one, flush, "e2softmax"),
+            wall_ms=wall_ms(torch, one),
+            kernels_per_call=device_kernels(torch, one)[0],
+            chain_ms=time_ms(torch, chain, flush),
+            chain_wall_ms=wall_ms(torch, chain),
+            chain_kernels_per_call=device_kernels(torch, chain)[0],
+            bound_ms=bms, bound_by=by, bytes=nbytes)
     top = entry["shapes"]["decode"]            # the most-launched shape
     entry.update(launches=launches["e2softmax"],
                  launches_w8a8=launches8["e2softmax"],
-                 max_abs_err=max(v["max_abs_err"] for v in e2.values()),
+                 max_abs_err=max(v["max_abs_err"] for k, v in e2.items()
+                                 if k in entry["shapes"]),
                  ms=top["ms"], plain_ms=top["plain_ms"],
                  bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                  library_ms=None, main_shape="decode")
     for sname, v in entry["shapes"].items():
         k = v["kernel_ms"]
-        log(f"e2softmax {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+        log(f"e2softmax {sname} [{v['shape']}]: {v['ms'] * 1e3:.2f} us "
             f"(profiler: kernel "
-            f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+            f"{'not measured' if k is None else f'{k * 1e3:.2f} us'}; "
             f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
-            f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+            f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']})")
+    for sname, v in entry["stage"].items():
+        k = v["kernel_ms"]
+        log(f"_sole_probs stage {sname} [{v['shape']}]: one launch "
+            f"{v['ms'] * 1e3:.2f} us events (profiler: kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.2f} us'}), "
+            f"host wall {v['wall_ms'] * 1e3:.1f} us, "
+            f"{v['kernels_per_call']} device kernel(s); chain "
+            f"{v['chain_ms'] * 1e3:.2f} us events, host wall "
+            f"{v['chain_wall_ms'] * 1e3:.1f} us, "
+            f"{v['chain_kernels_per_call']} device kernels; bound "
+            f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']}")
     return [entry]
 
 
@@ -1570,7 +1733,7 @@ def time_ops_kernels(torch, res, launches):
         for e, fn, plain, out_bytes, kname in (
                 (add, KN.add_norm, KN.add_norm_plain, 8, "add_norm_kernel"),
                 (addq, KN.add_norm_quant, KN.add_norm_quant_plain, 5,
-                 "add_norm_quant_kernel")):
+                 "add_norm_quant")):
             nbytes = rows * c * (8 + out_bytes) + 16 * c \
                 + (4 * rows if e is addq else 0)
             bms, by = bound_ms(nbytes, (QNORM_OPS_PER_ELEMENT + 4) * rows * c,
@@ -1586,6 +1749,10 @@ def time_ops_kernels(torch, res, launches):
                     *args, rms=rms), flush, reps=10),
                 bound_ms=bms, bound_by=by, library_ms=None,
                 max_abs_err=r["max_abs_err"], bytes=nbytes)
+            if e is addq:     # the bytes' floor here: x + r alone, in torch
+                h = torch.empty_like(args[0])
+                e["shapes"][name]["add_only_ms"] = time_ms(
+                    torch, lambda: torch.add(args[0], args[1], out=h), flush)
     codes = dict(name="ailayernorm_codes", route="cuda",
                  source="src/repro_torch/kernels/csrc/ailayernorm.cu",
                  replaces="src/repro/kernels/ailayernorm.py:53", shapes={})
@@ -1614,13 +1781,23 @@ def time_ops_kernels(torch, res, launches):
         table.append(e)
         for sname, v in e["shapes"].items():
             k, lib = v["kernel_ms"], v["library_ms"]
+            add = v.get("add_only_ms")
             log(f"{e['name']} {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
                 f"(profiler: kernel "
                 f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
                 f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
                 f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']}"
-                + ("" if lib is None else f"; SDPA {lib * 1e3:.1f} us") + ")")
+                + ("" if lib is None else f"; SDPA {lib * 1e3:.1f} us")
+                + ("" if add is None else f"; torch x + r alone "
+                   f"{add * 1e3:.1f} us") + ")")
     return table
+
+
+def is_dense_e2(key: str) -> bool:
+    """A profiler key of the E2Softmax kernel (either body), not of the
+    paged or dense flash kernels."""
+    return ("e2softmax_" in key and "paged_e2softmax" not in key
+            and "flash_e2softmax" not in key)
 
 
 def profile_engine(torch, cfg, params, label, dense=False):
@@ -1660,7 +1837,7 @@ def profile_engine(torch, cfg, params, label, dense=False):
     # dense engine's E2Softmax); kernels per forward: every device kernel
     kernels = sum(n for _, n, _ in rows)
     attn = sum(n for _, n, key in rows
-               if ("e2softmax_kernel" if dense else "paged_e2softmax") in key)
+               if (is_dense_e2(key) if dense else "paged_e2softmax" in key))
     forwards = attn / cfg.n_layers
     per_fwd = kernels / forwards if forwards else float("nan")
     log(f"[{label}] profiled wave: wall {wall:.3f} s, device busy "
@@ -1754,6 +1931,8 @@ def main() -> int:
                                            dense=True)
         del params
         trace8["profile"] = profile_engine(torch, cfg8, params8, "w8a8")
+        dtrace8["profile"] = profile_engine(torch, cfg8, params8,
+                                            "dense w8a8", dense=True)
         log(json.dumps({"trace": trace, "trace_w8a8": trace8,
                         "trace_dense": dtrace, "trace_dense_w8a8": dtrace8}))
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")

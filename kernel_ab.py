@@ -4,7 +4,7 @@
 one card. Run from the root of a checkout, with another checkout of the
 repository at ``BASE``::
 
-    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,wave]
+    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,wave]
 
 Each turn is a fresh process that puts ``<checkout>/src`` first on the
 path, builds that checkout's kernels there (``kernels/build.py``) and
@@ -28,10 +28,21 @@ times, with CUDA events and the L2 cache flushed before each launch:
 * ``gemm``: the int8 GEMM at every (M, K, N) of the w8a8 path (M = 8 and
   128), beside ``torch._int_mm`` (at M = 8 on the activation zero-padded
   to 24 rows: it refuses M <= 16);
-* ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` at
-  qwen2_0_5b's full width, in bf16 and at w8a8 with int8 pages (the
-  end-to-end effect of the kernels and the host work around them), and
-  the device kernels per forward of the same wave under the profiler.
+* ``e2``: the E2Softmax kernel alone at the dense path's decode (112 x
+  385) and prefill (33,600 x 300) rows, on snapped float32 logits with a
+  contiguous mask and float32 out (both checkouts' wrappers take these),
+  and the path's whole SOLE-probability stage ``layers._sole_probs`` on
+  raw logits with the path's mask, bf16 out (for a checkout whose
+  ``_sole_probs`` returns float32, followed by the cast the path made),
+  each by CUDA events and by host wall per call;
+* ``qnorm``: the static-PTF add+norm+quantize-out kernel
+  (``add_norm_quant``) at 8, 128 and 2048 rows of 896 (RMS) and 128 and
+  2048 rows of 2048 (LayerNorm);
+* ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` and
+  of the dense-slot ``Engine`` at qwen2_0_5b's full width, in bf16 and at
+  w8a8 with int8 pages or cache (the end-to-end effect of the kernels and
+  the host work around them), and the device kernels per forward of the
+  same wave under the profiler.
 
 Inputs come from fixed seeds, alike in every turn. Prints one line per
 shape (the mean of each checkout's two turns, and their ratio), the
@@ -54,7 +65,7 @@ FLASH = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
          ("ragged_noncausal", "sole"), ("stablelm_mha", "sole"))
 
 
-KINDS = ("paged", "sweep", "norm", "flash", "gemm", "wave")
+KINDS = ("paged", "sweep", "norm", "flash", "gemm", "e2", "qnorm", "wave")
 # kv lengths of the decode sweep: one to sixteen 128-key chunks
 SWEEP_KV = (16, 128, 300, 1024, 2048)
 
@@ -78,13 +89,15 @@ def worker(src: str, kinds) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     names = {"paged": "paged_e2softmax", "sweep": "paged_e2softmax",
              "norm": "ailayernorm", "flash": "flash_e2softmax",
-             "gemm": "int8_matmul"}
+             "gemm": "int8_matmul", "e2": "e2softmax",
+             "qnorm": "ailayernorm"}
     # a wave runs every kernel of the serve paths
     build.build_all(None if "wave" in kinds else [names[k] for k in kinds])
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
     gen = torch.Generator(device="cuda").manual_seed(15)
     out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
-           "gemm": {}, "sdpa": {}, "int_mm": {}, "wave": {}}
+           "gemm": {}, "sdpa": {}, "int_mm": {}, "e2": {}, "e2_wall": {},
+           "qnorm": {}, "wave": {}}
     cfg = get_config("qwen2_0_5b")
     if "paged" in kinds:
         shapes = {"decode": dict(b=DECODE_BATCH, c=1,
@@ -138,6 +151,26 @@ def worker(src: str, kinds) -> dict:
             name = f"rows{rows}"
             out["norm"][name] = time_ms(torch, run, flush)
             out["norm_wall"][name] = wall_ms(torch, run, reps=300)
+    if "e2" in kinds:
+        e2_stage(torch, cfg, gen, flush, out)
+    if "qnorm" in kinds:
+        from chip_smoke import NORM_CASES
+        from repro_torch.core.sole.quant import calibrate_ptf
+        from repro_torch.kernels import ailayernorm as KN
+        for rows, c, rms in NORM_CASES:
+            def acts():
+                x = torch.randn((rows, c), generator=gen, device="cuda") * 2
+                x[:, ::7] *= 8
+                return x
+            x, r = acts(), torch.randn((rows, c), generator=gen,
+                                       device="cuda")
+            p = calibrate_ptf(acts(), unsigned=not rms)
+            gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            beta = (0 if rms else 0.1) * torch.randn((c,), generator=gen,
+                                                     device="cuda")
+            args = (x, r, p.denom().contiguous(), p.alpha, gamma, beta)
+            out["qnorm"][f"{'rms' if rms else 'ln'}_{rows}x{c}"] = time_ms(
+                torch, lambda: KN.add_norm_quant(*args, rms=rms), flush)
     if "wave" in kinds:
         out["wave"] = waves(torch, cfg)
     for case, mode in FLASH if "flash" in kinds else ():
@@ -180,6 +213,37 @@ def worker(src: str, kinds) -> dict:
     return out
 
 
+def e2_stage(torch, cfg, gen, flush, out) -> None:
+    """The ``e2`` kind: the kernel alone and the ``_sole_probs`` stage at
+    the dense path's decode and prefill inputs (``chip_smoke``'s), by
+    events into ``out["e2"]`` and by host wall into ``out["e2_wall"]``."""
+    import inspect
+    from chip_smoke import dense_stage_inputs, time_ms, wall_ms
+    from repro_torch import ops
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.models import layers as L
+    bf = torch.bfloat16
+    folded = "out_dtype" in inspect.signature(L._sole_probs).parameters
+    for name, inp in dense_stage_inputs(torch, cfg, gen).items():
+        logits, mask = inp["logits"], inp["mask"]
+        c = logits.shape[-1]
+        m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+        x = ops.snap_logits(logits - torch.clamp_min(m, -1e30),
+                            L.LOGIT_INT8_SCALE).reshape(-1, c)
+        full = torch.broadcast_to(mask, logits.shape).reshape(-1, c)
+
+        def kernel():
+            return KE.e2softmax(x, exp_bits=cfg.exp_bits, mask=full)
+
+        def stage():
+            if folded:
+                return L._sole_probs(logits, mask, cfg, bf)
+            return L._sole_probs(logits, mask, cfg).to(bf)
+        for label, fn in (("kernel", kernel), ("stage", stage)):
+            out["e2"][f"{label}_{name}"] = time_ms(torch, fn, flush)
+            out["e2_wall"][f"{label}_{name}"] = wall_ms(torch, fn, reps=300)
+
+
 def waves(torch, cfg) -> dict:
     """Host wall seconds of one decode-heavy wave (8 requests of 128-token
     prompts, 32 new tokens each, as ``chip_smoke.py`` profiles it) through
@@ -187,24 +251,30 @@ def waves(torch, cfg) -> dict:
     int8 pages, after a warm-up request."""
     import dataclasses
     import numpy as np
-    from chip_smoke import (BLOCK_SIZE, DECODE_BATCH, MAX_SEQ_LEN, NEW_TOKENS,
-                            PREFILL_CHUNK, _device_us)
+    from chip_smoke import (BLOCK_SIZE, DECODE_BATCH, DENSE_MAX_LEN,
+                            MAX_SEQ_LEN, NEW_TOKENS, PREFILL_CHUNK,
+                            _device_us, is_dense_e2)
     from repro_torch.configs.base import QuantConfig
     from repro_torch.models import api
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import PagedEngine, Request
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
     res = {}
-    for label, c in (("paged_bf16", cfg),
-                     ("paged_w8a8", dataclasses.replace(
-                         cfg, quant=QuantConfig("w8a8"),
-                         kv_cache_dtype="int8"))):
+    cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
+                               kv_cache_dtype="int8")
+    for label, c in (("paged_bf16", cfg), ("paged_w8a8", cfg8),
+                     ("dense_bf16", cfg), ("dense_w8a8", cfg8)):
         params = api.init_params(0, c, "cuda")
-        eng = PagedEngine(c, params,
-                          num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
-                          block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
-                          max_running=8, decode_batch=DECODE_BATCH,
-                          prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
-                          device="cuda")
+        dense = label.startswith("dense")
+        if dense:
+            eng = Engine(c, params, batch_size=DECODE_BATCH,
+                         max_len=DENSE_MAX_LEN, device="cuda")
+        else:
+            eng = PagedEngine(c, params,
+                              num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                              block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                              max_running=8, decode_batch=DECODE_BATCH,
+                              prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                              device="cuda")
         rng = np.random.default_rng(2)
         reqs = [Request(prompt=rng.integers(0, c.vocab_size, 128)
                         .astype(np.int32), max_new_tokens=NEW_TOKENS)
@@ -217,15 +287,17 @@ def waves(torch, cfg) -> dict:
         res[label] = time.perf_counter() - t0
         if sum(len(o) for o in outs) != DECODE_BATCH * NEW_TOKENS:
             raise AssertionError(f"{label}: token counts")
-        # device kernels per forward (one paged attention launch per
-        # layer), from the same wave under the profiler
+        # device kernels per forward (one attention launch per layer: the
+        # paged kernel, or the dense engine's E2Softmax), from the same
+        # wave under the profiler
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng.generate(reqs)
             torch.cuda.synchronize()
         events = [(e.key, e.count) for e in prof.key_averages()
                   if _device_us(e) > 0]
-        forwards = sum(n for k, n in events if "paged_e2softmax" in k) \
-            / c.n_layers
+        forwards = sum(n for k, n in events
+                       if (is_dense_e2(k) if dense
+                           else "paged_e2softmax" in k)) / c.n_layers
         res[f"{label}_kernels_per_forward"] = \
             sum(n for _, n in events) / forwards
         del eng, params
@@ -271,7 +343,7 @@ def main() -> int:
         print(f"turn {len(turns)} ({label}): {time.time() - t0:.1f} s",
               flush=True)
     for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
-                 "wave"):
+                 "e2", "e2_wall", "qnorm", "wave"):
         for name in turns[0][1][kind]:
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}

@@ -50,16 +50,20 @@ def aldivision(k_y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.exp2(-(k_y + k_s + 1).float()) * factor
 
 
+def snap_input(x: torch.Tensor, input_scale: float) -> torch.Tensor:
+    """float32 ``x`` on the int8 grid of ``input_scale``:
+    ``clip(round(x / s), -128, 127) * s`` (a true division)."""
+    return torch.clamp(torch.round(true_div(x.float(), input_scale)),
+                       -128, 127) * input_scale
+
+
 def e2softmax(x: torch.Tensor, *, axis: int = -1, exp_bits: int = 4,
               mask: Optional[torch.Tensor] = None,
               input_scale: Optional[float] = None) -> torch.Tensor:
     """Two-pass E2Softmax over ``axis``; ``mask`` True = keep.
     ``input_scale`` first snaps the logits to the int8 grid of that scale
     (``clip(round(x / s), -128, 127) * s``, a true division)."""
-    x = x.float()
-    if input_scale is not None:
-        x = torch.clamp(torch.round(true_div(x, input_scale)), -128, 127) \
-            * input_scale
+    x = x.float() if input_scale is None else snap_input(x, input_scale)
     neg = torch.finfo(torch.float32).min
     xm = x if mask is None else torch.where(mask, x, neg)
     m = torch.clamp_min(xm.amax(axis, keepdim=True), neg / 2)

@@ -14,7 +14,8 @@ entry points:
 * :func:`add_norm_quant` (``_fused_q_kernel``): the above plus per-row
   symmetric int8 of the normalized row — :func:`fused_add_norm_quant` with
   static params. Its codes and scale equal ``quantize_act`` of
-  :func:`add_norm`'s output bit for bit.
+  :func:`add_norm`'s output bit for bit. Its own row body runs a team of
+  warps per row with the channel parameters loaded once per CTA.
 * :func:`codes_norm` (``_kernel``, ``ailayernorm_pallas_codes``): the
   statistics and LayerNorm affine on centred int32 codes —
   :func:`ailayernorm_codes`.
@@ -232,9 +233,12 @@ def add_norm_quant(x, r, denom, alpha, gamma, beta, *, rms: bool):
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows == 0:
         return h, codes, scale
-    _launch("ailayernorm_add_norm_quant", 9, 3, x,
+    vec = int(c % 4 == 0 and codes.data_ptr() % 4 == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (x, r, h, denom, alpha, gamma, beta)))
+    _launch("ailayernorm_add_norm_quant", 9, 4, x,
             (x, r, denom, alpha, gamma, beta, h, codes, scale),
-            (rows, c, int(rms)))
+            (rows, c, int(rms), vec))
     add_norm_quant.launches += 1
     return h, codes, scale
 

@@ -8,7 +8,10 @@ snap of ``x - max``, 4-bit log2 codes ``k``, ``S = sum 2^-k``, ALDivision
 as the jitted Pallas call does (XLA rewrites its division by the static
 scale); with a mask (True = keep) masked entries
 give exactly 0 and a fully masked row gives a row of zeros. Logits are
-float32 or bf16 with any leading dims; the output is float32.
+float32 or bf16 with any leading dims; the output is float32 or bf16
+(``out_dtype``, the float32 result rounded once). The kernel reads the
+logits and the mask as strided views, so a mask broadcast over heads or
+lanes is never copied.
 
 :func:`e2softmax` given CPU tensors computes the plain version; given CUDA
 tensors it launches the kernel or raises.
@@ -16,6 +19,7 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,14 +31,17 @@ from repro_torch.kernels.flash_e2softmax import (MAX_EXP_BITS, exp2_int,
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}     # elements per 16-byte load
+_LEAD_DIMS = 4                                   # leading dims the kernel indexes
 
 
 def e2softmax_plain(x, *, exp_bits: int = 4,
                     int8_scale: Optional[float] = None,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's arithmetic in plain torch, in the same order, on any
-    device: ``x`` (..., C) -> (..., C) float32; ``mask`` (..., C) bool or
-    uint8 (non-zero = keep)."""
+    device: ``x`` (..., C) -> (..., C) in ``out_dtype`` (the float32 result
+    rounded once); ``mask`` broadcastable to ``x``, bool or uint8
+    (non-zero = keep)."""
     x = x.float()
     neg = torch.finfo(torch.float32).min
     if mask is None:
@@ -60,37 +67,97 @@ def e2softmax_plain(x, *, exp_bits: int = 4,
     out = exp2_int(-(k + expo)) * factor
     if mask is not None:
         out = torch.where(keep, out, 0.0)
-    return out
+    return out.to(out_dtype)
 
 
-def _launch(x, mask, *, exp_bits, int8_scale) -> torch.Tensor:
+def row_view(x: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The kernel's view of ``x`` (..., C) and of ``mask`` (x's shape, any
+    strides): ``(sizes, x_strides, mask_strides)``, each of four leading
+    dims (outermost first; element strides, 0 where the mask broadcasts),
+    after dropping size-1 dims and merging neighbours both views walk
+    evenly. None when the views need more than four leading dims or a
+    column stride other than 1."""
+    return _row_view(tuple(x.shape), x.stride(),
+                     None if mask is None else mask.stride())
+
+
+@functools.lru_cache(maxsize=1024)
+def _row_view(shape, xs, ms):
+    c = shape[-1]
+    if c > 1 and (xs[-1] != 1 or (ms is not None and ms[-1] != 1)):
+        return None
+    ms = ms or (0,) * len(shape)
+    dims = []
+    for n, a, b in zip(shape[:-1], xs[:-1], ms[:-1]):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == a * n and dims[-1][2] == b * n:
+            dims[-1] = (dims[-1][0] * n, a, b)
+        else:
+            dims.append((n, a, b))
+    if len(dims) > _LEAD_DIMS:
+        return None
+    dims = [(1, 0, 0)] * (_LEAD_DIMS - len(dims)) + dims
+    return tuple(tuple(d[i] for d in dims) for i in range(3))
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_ints(shape, xs, ms, n: int):
+    """The launcher's view arguments ``(n1, n2, n3, x strides, mask
+    strides)`` and whether every stride is a multiple of the vector
+    width ``n``; None where :func:`_row_view` has no view."""
+    view = _row_view(shape, xs, ms)
+    if view is None:
+        return None
+    sizes, xst, mst = view
+    if any(abs(v) >= 2 ** 31 for v in xst + mst):
+        raise ValueError(f"strides {xst} / {mst}: the kernel takes fewer "
+                         "than 2^31")
+    return sizes[1:] + xst + mst, all(v % n == 0 for v in xst + mst)
+
+
+def _launch(x, mask, *, exp_bits, int8_scale, out_dtype) -> torch.Tensor:
     if x.dtype not in _TYPE_CODES:
         raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
                         "bfloat16")
-    c = x.shape[-1]
-    rows = x.numel() // max(c, 1)
+    if out_dtype not in _TYPE_CODES:
+        raise TypeError(f"out_dtype {out_dtype}: the kernel writes float32 "
+                        "or bfloat16")
     if mask is not None:
-        if mask.device != x.device:
+        if mask.get_device() != x.get_device():
             raise ValueError(f"mask is on {mask.device}, x on {x.device}")
         if mask.dtype not in (torch.bool, torch.uint8):
             raise TypeError(f"mask dtype {mask.dtype}: need bool or uint8")
-        if tuple(mask.shape) != tuple(x.shape) or not mask.is_contiguous():
-            raise ValueError(f"mask must be contiguous with x's shape "
-                             f"{tuple(x.shape)}, got {tuple(mask.shape)}")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    n = _VEC[x.dtype]
+    shape = tuple(x.shape)
+    ms = None if mask is None else mask.stride()
+    view = _launch_ints(shape, x.stride(), ms, n)
+    if view is None and _row_view(shape, x.stride(), None) is None:
+        x = x.contiguous()            # x alone is no view: its rows packed
+        view = _launch_ints(shape, x.stride(), ms, n)
+    if view is None:
+        raise ValueError(
+            f"mask of shape {tuple(mask.shape)} and strides {mask.stride()} "
+            f"over x {shape} {x.stride()}: the kernel reads views of at most "
+            f"{_LEAD_DIMS} leading dims with unit column stride")
+    ints, strides_vec = view
+    c = shape[-1]
+    rows = x.numel() // max(c, 1)
+    out = torch.empty(shape, dtype=out_dtype, device=x.device)
     if rows == 0 or c == 0:
         return out
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows: the kernel takes fewer than 2^31")
-    n = _VEC[x.dtype]
-    vec = int(c % n == 0 and x.data_ptr() % 16 == 0
+    vec = int(strides_vec and c % n == 0 and x.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0
               and (mask is None or mask.data_ptr() % n == 0))
     lib = build.load("e2softmax")
-    fn = build.declare(lib, "e2softmax", 3, 6, 2)
+    fn = build.declare(lib, "e2softmax", 3, 18, 2)
     snap = int8_scale is not None
     rc = build.launch(
         x.device, fn, x.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), rows, c, exp_bits, int(snap), _TYPE_CODES[x.dtype], vec,
+        out.data_ptr(), rows, c, exp_bits, int(snap), _TYPE_CODES[x.dtype],
+        _TYPE_CODES[out_dtype], vec, *ints,
         ctypes.c_float(int8_scale if snap else 0.0),
         ctypes.c_float(snap_reciprocal(int8_scale) if snap else 0.0))
     build.check(lib, rc, "e2softmax launch")
@@ -100,24 +167,25 @@ def _launch(x, mask, *, exp_bits, int8_scale) -> torch.Tensor:
 
 def e2softmax(x: torch.Tensor, *, exp_bits: int = 4,
               int8_scale: Optional[float] = None,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """E2Softmax over the last axis of ``x`` (any leading dims); ``mask``
-    (broadcastable to ``x``, True = keep) selects the masked variant, and
-    is materialized at ``x``'s shape for the kernel. ``int8_scale`` snaps
-    ``x - max`` to the int8 grid ``clip(round(d / s), -127, 0) * s``."""
+    (broadcastable to ``x``, True = keep) selects the masked variant and
+    is read in place through its strides (a mask the kernel's view cannot
+    express raises). ``int8_scale`` snaps ``x - max`` to the int8 grid
+    ``clip(round(d / s), -127, 0) * s``; ``out_dtype`` (float32 or bf16)
+    is the type the output is written in."""
     if not 0 <= exp_bits <= MAX_EXP_BITS:
         raise ValueError(f"exp_bits {exp_bits} outside [0, {MAX_EXP_BITS}]")
-    if mask is not None:
+    if mask is not None and mask.shape != x.shape:
         mask = torch.broadcast_to(mask, x.shape)
     if x.device.type == "cpu":
         return e2softmax_plain(x, exp_bits=exp_bits, int8_scale=int8_scale,
-                               mask=mask)
+                               mask=mask, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no e2softmax kernel for device {x.device}")
-    if mask is not None:
-        mask = mask.contiguous()
-    return _launch(x.contiguous(), mask, exp_bits=exp_bits,
-                   int8_scale=int8_scale)
+    return _launch(x, mask, exp_bits=exp_bits, int8_scale=int8_scale,
+                   out_dtype=out_dtype)
 
 
 e2softmax.launches = 0

@@ -238,12 +238,6 @@ def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
 # -- dense attention (the dense-slot engine) ------------------------------------
 
 
-def _snap_logits(d: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """int8-grid snap of post-max logits (paper: 8-bit softmax inputs), in
-    the form the jitted reference computes (see ``ops.snap_logits``)."""
-    return ops.snap_logits(d, LOGIT_INT8_SCALE if cfg.logit_int8 else None)
-
-
 def _mask(q_pos, k_pos, cfg: ArchConfig, causal: bool) -> torch.Tensor:
     """(..., S_q, S_k) boolean mask from positions; padded keys carry
     position 2**30."""
@@ -256,14 +250,15 @@ def _mask(q_pos, k_pos, cfg: ArchConfig, causal: bool) -> torch.Tensor:
     return m
 
 
-def _sole_probs(logits, mask, cfg: ArchConfig) -> torch.Tensor:
-    """SOLE attention probabilities: the masked row max (floored at -1e30
-    for fully masked rows), the int8 snap of ``logits - max``, then the
-    E2Softmax op (the kernel on CUDA)."""
-    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
-    m = torch.clamp_min(m, -1e30)
+def _sole_probs(logits, mask, cfg: ArchConfig, out_dtype) -> torch.Tensor:
+    """SOLE attention probabilities in ``out_dtype``, one op call (one
+    kernel launch on CUDA): the masked row max (floored for fully masked
+    rows), the int8 snap of ``logits - max`` (``int8_scale``) and
+    E2Softmax, the reference's max, subtract, snap, op and cast."""
     return ops.softmax_fn("sole", logits.device)(
-        _snap_logits(logits - m, cfg), mask=mask, exp_bits=cfg.exp_bits)
+        logits, mask=mask, exp_bits=cfg.exp_bits,
+        int8_scale=LOGIT_INT8_SCALE if cfg.logit_int8 else None,
+        out_dtype=out_dtype)
 
 
 def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
@@ -282,10 +277,9 @@ def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
     mask = torch.broadcast_to(mask, logits.shape)
     mode = _softmax_mode(cfg, phase)
     if mode == "sole":
-        probs = _sole_probs(logits, mask, cfg)
+        probs = _sole_probs(logits, mask, cfg, q.dtype)
     else:
-        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask)
-    probs = probs.to(q.dtype)
+        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
@@ -356,10 +350,9 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
         [torch.broadcast_to(valid[:, None, None, :], (b, kvh, g, t)),
          torch.ones((b, kvh, g, 1), dtype=torch.bool, device=q.device)], -1)
     if mode == "sole":
-        probs = _sole_probs(logits, mask, cfg)
+        probs = _sole_probs(logits, mask, cfg, q.dtype)
     else:
-        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask)
-    probs = probs.to(q.dtype)
+        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask).to(q.dtype)
     ctx = torch.einsum("bkgt,bktd->bkgd", probs[..., :t], vl)
     ctx = ctx + probs[..., t:] * vc
     out = _wo_proj(ctx.reshape(b, 1, h, hd), p, cfg)

@@ -25,17 +25,24 @@ from repro_torch.ops.reference import (repeat_kv, fold_heads, paged_meta,
 
 @registry.register("softmax", "sole", "cuda")
 def sole_softmax_cuda(x, *, axis: int = -1, mask=None, exp_bits: int = 4,
-                      input_scale: Optional[float] = None, **kw):
+                      input_scale: Optional[float] = None,
+                      int8_scale: Optional[float] = None, out_dtype=None,
+                      **kw):
     """The E2Softmax kernel over the last axis; masked entries give exact
     0. ``input_scale`` snaps the logits to its int8 grid before the kernel,
-    in their own dtype, as the reference's Pallas adapter does."""
+    in their own dtype, as the reference's Pallas adapter does;
+    ``int8_scale`` is the kernel's own snap of ``x - max`` (the masked max)
+    and ``out_dtype`` (float32 by default, or bf16) the type it writes:
+    with both, one launch computes what the dense path's max, subtract,
+    snap, E2Softmax and cast computed."""
     if axis not in (-1, x.ndim - 1):
         raise ValueError("the e2softmax kernel normalizes the last axis only")
     if input_scale is not None:
         scale = torch.full_like(x, input_scale)
         x = torch.clamp(torch.round(true_div(x, input_scale)), -128, 127) \
             * scale
-    return e2softmax(x, exp_bits=exp_bits, mask=mask)
+    return e2softmax(x, exp_bits=exp_bits, mask=mask, int8_scale=int8_scale,
+                     out_dtype=out_dtype or torch.float32)
 
 
 def _static(params) -> Optional[PTFQuantParams]:

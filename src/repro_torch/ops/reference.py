@@ -29,7 +29,7 @@ import torch
 from repro_torch.core.baselines.ibert import i_layernorm, i_softmax
 from repro_torch.core.baselines.softermax import softermax
 from repro_torch.core.sole.ailayernorm import ailayernorm, airmsnorm
-from repro_torch.core.sole.e2softmax import e2softmax
+from repro_torch.core.sole.e2softmax import e2softmax, snap_input
 from repro_torch.core.sole.quant import quantize_act
 from repro_torch.kernels.flash_e2softmax import (default_kv_head_map,
                                                  flash_e2softmax_paged_plain,
@@ -54,9 +54,23 @@ def exact_softmax(x, *, axis=-1, mask=None, **kw):
 
 @registry.register("softmax", "sole", "reference")
 def sole_softmax(x, *, axis=-1, mask=None, exp_bits: int = 4,
-                 input_scale=None, **kw):
-    return e2softmax(x, axis=axis, exp_bits=exp_bits, mask=mask,
-                     input_scale=input_scale)
+                 input_scale=None, int8_scale: Optional[float] = None,
+                 out_dtype=None, **kw):
+    """Two-pass E2Softmax. ``int8_scale`` first snaps ``x`` minus its
+    masked row max (floored at -1e30 for fully masked rows) to the int8
+    grid (:func:`snap_logits`), the chain the dense path ran before the
+    op; ``out_dtype`` casts the float32 result."""
+    if int8_scale is not None:
+        if input_scale is not None:
+            x = snap_input(x, input_scale)
+            input_scale = None
+        x = x.float()
+        xm = x if mask is None else torch.where(mask, x, -torch.inf)
+        m = torch.clamp_min(xm.amax(axis, keepdim=True), -1e30)
+        x = snap_logits(x - m, int8_scale)
+    out = e2softmax(x, axis=axis, exp_bits=exp_bits, mask=mask,
+                    input_scale=input_scale)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 registry.register("softmax", "softermax", "reference")(softermax)

@@ -419,6 +419,174 @@ def test_e2softmax_kernel_long_rows_and_exp_bits_6(cuda_device):
         _assert_e2_matches(out, ref, c if exp_bits == 4 else 513)
 
 
+def _dense_path_masks(device, b=8, h=14, kvh=2, s=300, t=384):
+    """The dense path's masks as it hands them to the op, at qwen2_0_5b's
+    widths, each with logits of its shape: prefill's shared causal (s, s)
+    mask and its per-lane left-padded (b, 1, s, s) mask, both broadcast
+    over heads (stride 0, never copied), and decode's concatenated
+    (b, kvh, g, t + 1) mask."""
+    pos = torch.arange(s, device=device)
+    shared = pos[None, :] <= pos[:, None]
+    n_pad = torch.tensor([252, 0, 180, 100, 196, 136, 220, 50], device=device)
+    local = pos[None] - n_pad[:, None]
+    kpos = torch.where(local < 0, 2 ** 30, local)
+    qpos = torch.clamp_min(local, 0)
+    lanes = (kpos[:, None, :] < 2 ** 29) & (qpos[:, :, None] >= kpos[:, None])
+    lens = torch.tensor([49, 300, 117, 1, 256, 83, 160, 1], device=device)
+    cols = torch.arange(t, device=device)
+    valid = (cols[None] < lens[:, None]) & (cols[None] != 7)
+    g = h // kvh
+    dec = torch.cat([torch.broadcast_to(valid[:, None, None, :], (b, kvh, g, t)),
+                     torch.ones((b, kvh, g, 1), dtype=torch.bool, device=device)],
+                    -1)
+    return {"prefill_shared": torch.broadcast_to(shared, (b, h, s, s)),
+            "prefill_lanes": torch.broadcast_to(lanes[:, None], (b, h, s, s)),
+            "decode_cat": dec}
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["prefill_shared", "prefill_lanes",
+                                  "decode_cat"])
+def test_e2softmax_strided_masks_bitwise(cuda_device, form, out_dtype):
+    """The warp-per-row body reads the dense path's masks in place (stride
+    0 over heads, or the decode concatenation) and writes float32 or bf16:
+    bitwise equal to the plain version on the materialized mask, with the
+    path's int8 snap."""
+    mask = _dense_path_masks(cuda_device)[form]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(mask.shape, generator=gen, device=cuda_device) * 4
+    dt = getattr(torch, out_dtype)
+    kw = dict(exp_bits=4, int8_scale=LOGIT_INT8_SCALE, out_dtype=dt)
+    if form.startswith("prefill"):
+        assert mask.stride(1) == 0
+    before = KE.e2softmax.launches
+    out = KE.e2softmax(x, mask=mask, **kw)
+    assert KE.e2softmax.launches == before + 1
+    ref = KE.e2softmax_plain(x, mask=mask.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.is_contiguous()
+    assert torch.equal(out, ref)
+    assert (out[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["decode_385", "prefill_300"])
+def test_e2softmax_unaligned_and_bf16_out(cuda_device, name):
+    """C = 385 (no 16-byte vectors) and C = 300 from a base pointer one
+    element off 16 bytes (scalar loads), float32 and bf16 logits and
+    outputs: bitwise."""
+    rows, c = {"decode_385": (8 * 14, 385), "prefill_300": (8 * 14 * 300, 300)}[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = (torch.randn(rows * c + 1, generator=gen, device=cuda_device)
+               * 4).to(dtype)
+        x = buf[1:].view(rows, c)
+        assert x.data_ptr() % 16 != 0
+        n = torch.randint(1, c + 1, (rows, 1), generator=gen, device=cuda_device)
+        mbuf = torch.zeros(rows * c + 1, dtype=torch.bool, device=cuda_device)
+        mask = mbuf[1:].view(rows, c)
+        mask.copy_(torch.arange(c, device=cuda_device)[None] < n)
+        mask[:3] = False
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(exp_bits=4, int8_scale=LOGIT_INT8_SCALE, mask=mask,
+                      out_dtype=out_dtype)
+            out = KE.e2softmax(x, **kw)
+            ref = KE.e2softmax_plain(x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref) and (out[:3] == 0).all()
+
+
+def test_e2softmax_long_row_block_body(cuda_device):
+    """C = 4096 takes the block-per-row body (rows staged in shared
+    memory), with a broadcast mask and bf16 out; C = 1024 is the warp
+    body's widest row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4096)
+    for c in (4096, 1024):
+        x = torch.randn((3, 5, c), generator=gen, device=cuda_device) * 4
+        row = torch.arange(c, device=cuda_device) % 7 != 3
+        mask = torch.broadcast_to(row, x.shape)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(exp_bits=4, mask=mask, out_dtype=out_dtype)
+            out = KE.e2softmax(x, **kw)
+            ref = KE.e2softmax_plain(x, **kw)
+            torch.cuda.synchronize()
+            _assert_e2_matches(out.float().reshape(-1, c),
+                               ref.float().reshape(-1, c), c)
+
+
+def test_e2softmax_mask_without_unit_column_stride_raises(cuda_device):
+    """A mask the kernel's view cannot express (here broadcast along the
+    columns) raises; it is not copied."""
+    x = torch.randn((4, 64), device=cuda_device)
+    col = torch.ones((4, 1), dtype=torch.bool, device=cuda_device)
+    before = KE.e2softmax.launches
+    with pytest.raises(ValueError, match="unit column stride"):
+        KE.e2softmax(x, mask=col)
+    assert KE.e2softmax.launches == before
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_sole_probs_one_launch_equals_chain(cuda_device, phase):
+    """The dense path's SOLE probabilities are one ``e2softmax`` launch per
+    call, bitwise equal to the chain it replaced (masked max, subtract,
+    ``snap_logits``, E2Softmax, cast to bf16) on the card."""
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2_0_5b")
+    mask = _dense_path_masks(cuda_device)[
+        "prefill_lanes" if phase == "prefill" else "decode_cat"]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    logits = torch.randn(mask.shape, generator=gen, device=cuda_device) * 4
+    before = KE.e2softmax.launches
+    probs = L._sole_probs(logits, mask, cfg, torch.bfloat16)
+    assert KE.e2softmax.launches == before + 1
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    d = ops.snap_logits(logits - torch.clamp_min(m, -1e30), LOGIT_INT8_SCALE)
+    want = KE.e2softmax_plain(d, mask=mask).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert probs.dtype == torch.bfloat16 and torch.equal(probs, want)
+
+
+@pytest.mark.parametrize("rms", [True, False], ids=["rms", "ln"])
+@pytest.mark.parametrize("c", [896, 898, 900, 2048])
+@pytest.mark.parametrize("rows", [1, 8, 127, 2048, 3001])
+def test_add_norm_quant_team_kernel_bitwise(cuda_device, rows, c, rms):
+    """The quantize-out entry's team-per-row body: ``h`` bitwise equal to
+    the plain ``x + r``, codes and scale bitwise equal to ``quantize_act``
+    of the add+norm kernel's output (``norm_row``) on the same inputs, at
+    decode to past-prefill rows (3001 rows walk the row loop), C = 898
+    with scalar accesses, and RMS and LN."""
+    rng = np.random.default_rng(rows * 7 + c)
+    x, r, calib, gamma, beta = _norm_case(rng, rows, c, cuda_device)
+    p = calibrate_ptf(calib, unsigned=not rms)
+    args = (x, r, p.denom(), p.alpha, gamma,
+            torch.zeros_like(beta) if rms else beta)
+    q0 = KN.add_norm_quant.launches
+    h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
+    assert KN.add_norm_quant.launches == q0 + 1
+    h, out = KN.add_norm(*args, rms=rms)
+    h_ref = KN.add_norm_plain(*args, rms=rms)[0]
+    torch.cuda.synchronize()
+    want_codes, want_scale = quantize_act(out)
+    assert torch.equal(h8, h_ref) and torch.equal(h, h_ref)
+    assert codes.dtype == torch.int8 and scale.shape == (rows, 1)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
+@pytest.mark.parametrize("c", [1030, 5000])
+def test_add_norm_quant_wide_rows_take_norm_row(cuda_device, c):
+    """Rows wider than a team's registers (1030 scalar channels, 5000 in
+    vectors) take the one-block-per-row body, with the same results."""
+    rng = np.random.default_rng(c)
+    x, r, calib, gamma, beta = _norm_case(rng, 64, c, cuda_device)
+    p = calibrate_ptf(calib, unsigned=True)
+    args = (x, r, p.denom(), p.alpha, gamma, beta)
+    h8, codes, scale = KN.add_norm_quant(*args, rms=False)
+    h, out = KN.add_norm(*args, rms=False)
+    torch.cuda.synchronize()
+    want_codes, want_scale = quantize_act(out)
+    assert torch.equal(h8, h)
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
 def test_e2softmax_build_failure_raises(cuda_device, tmp_path, monkeypatch):
     """A source that does not compile raises from the wrapper; nothing
     falls back to the plain version and no launch is counted."""
