@@ -16,8 +16,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
    decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
    (``quant_pv`` on and off, SOLE and exact; bf16 q runs the tensor-core
-   kernel, one CTA per sequence and KV head), the quantize+norm at those
-   rows (C=896, RMS) and at C=2048 (LayerNorm, stablelm's width), the
+   kernel, one CTA per sequence and KV head), the static-params
+   quantize+norm at those rows (C=896, RMS) and at C=2048 (LayerNorm,
+   stablelm's width) bitwise on bf16 rows and their float32 view, the
    calibrating norm (residual add, calibration over all rows and norm in
    one cluster launch) bitwise against the torch chain it replaces at the
    decode, prefill and dense-prefill (2400) rows and at C=2048, and the
@@ -36,8 +37,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    whose last k-block is not a multiple of 16, one shorter than 16 rows,
    one at head dim 128 (held to a share of rows) and qwen2's case in
    float32 (the CUDA-core instantiation; bf16 runs on the tensor cores),
-   the static-PTF fused add+norm and add+norm+quantize-out at qwen2's and
-   stablelm's widths, and the LayerNorm of int32 codes;
+   the static-PTF quantize+norm, fused add+norm and add+norm+quantize-out
+   at qwen2's and stablelm's widths, each bitwise equal to its plain
+   version on float32 rows and on bf16 rows (bf16 out), and the LayerNorm
+   of int32 codes;
 4. serve greedy requests through ``PagedEngine`` at the full width of
    qwen2_0_5b (24 layers, bf16, SOLE, random weights from a seed), twice:
    first in bf16 (bf16 weights and pages), then at w8a8 with int8 KV
@@ -55,8 +58,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    calibrating norm, at w8a8 169 GEMM), and the smoke dense engine on the card
    against the CPU (SOLE, and w8a8 exact with an int8 cache); then the
    op layer's path: flash attention, the static-params SOLE norms, their
-   residual and quantize-out twins and the codes norm through
-   ``repro_torch.ops`` on CUDA tensors, and the port's quickstart
+   residual and quantize-out twins (float32 and bf16 rows) and the codes
+   norm through ``repro_torch.ops`` on CUDA tensors, and the port's
+   quickstart
    ``main()``, with the counts read around them (every op-layer kernel,
    E2Softmax, the quantize+norm and, in the quickstart, the calibrating
    norm must launch; the model paths above
@@ -71,7 +75,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    norm stage (the ``residual_*`` op call a model makes) by events and by
    the host's clock per call, beside the torch chain it replaces, and the
    dense path's ``_sole_probs`` stage likewise, with device kernels per
-   call;
+   call; the static-params norm kernels at every op-layer norm shape
+   beside torch moving the same rows (``out.copy_(x)``, ``torch.add(x,
+   r, out=h)``) as the bytes' floor; every static-params norm op (six
+   ops, float32 and bf16 rows) as exactly one device kernel per call
+   under the profiler, bitwise equal to its plain version, and the bf16
+   op stage by events, host wall and device kernels per call;
 6. profile one decode-heavy wave of the paged engine (bf16 and w8a8) and
    of the dense-slot engine (bf16 and w8a8): the device-busy share of the wall time,
    kernels per forward and the kernels with the most device time.
@@ -339,7 +348,6 @@ def check_kernels(torch, cfg):
             f"{res['max_abs_err']:.3e}, random {res['max_abs_err_random']:.3e}"
             f" ({res['rows_off_random']:.4f} of rows > 1e-3)")
 
-    norm = {}
     for name, rows, c, rms in (("prefill", PREFILL_CHUNK, cfg.d_model, True),
                                ("decode", DECODE_BATCH, cfg.d_model, True),
                                ("layernorm_2048", PREFILL_CHUNK, 2048, False)):
@@ -349,22 +357,23 @@ def check_kernels(torch, cfg):
         gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
         beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
         p = calibrate_ptf(x, unsigned=not rms)
-        args = (x.float().contiguous(), p.denom().contiguous(),
-                p.alpha.contiguous(), gamma,
-                torch.zeros_like(beta) if rms else beta)
-        out = KN.qnorm(*args, rms=rms)
-        ref = KN.qnorm_plain(*args, rms=rms)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        chan = (p.scale, p.alpha, gamma, None if rms else beta)
         # integer codes and sums are exact and the epilogue rounds like
-        # the plain ops, so the two agree to fp32 rounding (1e-6 rel.).
-        tol = 1e-6 * max(ref.abs().max().item(), 1.0)
-        if not torch.isfinite(out).all() or err > tol:
-            raise AssertionError(f"ailayernorm {name}: max |err| {err} > {tol}")
-        norm[name] = dict(max_abs_err=err, args=args, rms=rms)
+        # the plain ops: bitwise, on the bf16 rows as they are (bf16 out
+        # too) and on their float32 view
+        ref = KN.qnorm_plain(x.float(), *chan, rms=rms)
+        for rows_in, od in ((x.float(), torch.float32), (x, torch.float32),
+                            (x, torch.bfloat16)):
+            out = KN.qnorm(rows_in, *chan, rms=rms, out_dtype=od)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref.to(od)):
+                raise AssertionError(f"ailayernorm_qnorm {name} "
+                                     f"{rows_in.dtype} -> {od}: differs "
+                                     "from the plain version")
         log(f"ailayernorm_qnorm {name} rows={rows} C={c} "
-            f"{'rms' if rms else 'ln'}: max|err| {err:.3e}")
-    return results, norm
+            f"{'rms' if rms else 'ln'}: bitwise equal to the plain version "
+            "(float32 rows; bf16 rows, float32 and bf16 out)")
+    return results
 
 
 # (rows, C, rms) of the calibrating norm at the main paths' shapes: a decode
@@ -649,29 +658,33 @@ def sole_probs_chain(torch, cfg, logits, mask, e2):
     return e2(d, mask=full, exp_bits=cfg.exp_bits).to(torch.bfloat16)
 
 
-def device_kernels(torch, fn, reps=5):
+def device_kernels(torch, fn, reps=5, wrappers=None, ours=None):
     """The device kernels (and copies) one call of ``fn`` issues: torch's
     by ``torch.profiler`` over ``reps`` calls between two marker kernels
-    (``torch.cuda._sleep``, not counted), the E2Softmax kernel by its
-    launch counter (the profiler can drop a record of a kernel launched
-    through ctypes: it kept 4 of 5 in one window). Returns (kernels per
-    call, the other kernels' names, E2Softmax records the profiler kept)."""
+    (``torch.cuda._sleep``, not counted), the port's kernels (``ours``: a
+    test of a profiler key; the E2Softmax kernel by default) by their
+    wrappers' launch counters (the profiler can drop a record of a kernel
+    launched through ctypes: it kept 4 of 5 in one window). Returns
+    (kernels per call, the other kernels' names, records of ours the
+    profiler kept)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import e2softmax as KE
+    wrappers = wrappers or (KE.e2softmax,)
+    ours = ours or is_dense_e2
     fn()
     torch.cuda.synchronize()
-    n0 = KE.e2softmax.launches
+    n0 = sum(w.launches for w in wrappers)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    launched = KE.e2softmax.launches - n0
+    launched = sum(w.launches for w in wrappers) - n0
     rows = [(e.key, e.count) for e in prof.key_averages()
             if _device_us(e) > 0 and "spin_kernel" not in e.key]
-    seen = sum(n for k, n in rows if is_dense_e2(k))
-    other = [(k, n) for k, n in rows if not is_dense_e2(k)]
+    seen = sum(n for k, n in rows if ours(k))
+    other = [(k, n) for k, n in rows if not ours(k)]
     return ((sum(n for _, n in other) + launched) / reps,
             [k[:80] for k, _ in other], seen)
 
@@ -1005,10 +1018,9 @@ def check_agreement(outs, label, bar):
         raise AssertionError(f"smoke parity {label}: {agree} < {bar}")
 
 
-def time_kernels(torch, attn, norm, launches, cfg):
-    """Phase 5: CUDA-event times of each kernel and its plain version,
-    and the kernel's own device time from ``torch.profiler``."""
-    from repro_torch.kernels import ailayernorm as KN
+def time_kernels(torch, attn, launches, cfg):
+    """Phase 5: CUDA-event times of the paged kernel and its plain
+    version, and the kernel's own device time from ``torch.profiler``."""
     from repro_torch.kernels import flash_e2softmax as KA
     from repro_torch.models.layers import LOGIT_INT8_SCALE
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -1020,11 +1032,7 @@ def time_kernels(torch, attn, norm, launches, cfg):
     entry = {"paged_e2softmax": dict(
         name="paged_e2softmax", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_e2softmax.cu",
-        replaces="src/repro/kernels/flash_e2softmax.py:186", shapes={}),
-        "ailayernorm_qnorm": dict(
-        name="ailayernorm_qnorm", route="cuda",
-        source="src/repro_torch/kernels/csrc/ailayernorm.cu",
-        replaces="src/repro/kernels/ailayernorm.py:133", shapes={})}
+        replaces="src/repro/kernels/flash_e2softmax.py:186", shapes={})}
     for name, res in attn.items():
         case, causal = res["case"], res["causal"]
 
@@ -1047,22 +1055,6 @@ def time_kernels(torch, attn, norm, launches, cfg):
     dec["exact_ms"], dec["library_ms"] = paged_exact_vs_sdpa(
         torch, attn["decode"]["case"], kvmap, flush)
     dec["library"] = "scaled_dot_product_attention (exact, K/V gathered)"
-    for name, res in norm.items():
-        args, rms = res["args"], res["rms"]
-
-        def run():
-            return KN.qnorm(*args, rms=rms)
-        ms = time_ms(torch, run, flush)
-        kernel_ms = profiled_kernel_ms(torch, run, flush, "qnorm_kernel")
-        plain = time_ms(torch, lambda: KN.qnorm_plain(*args, rms=rms), flush)
-        rows, c = args[0].shape
-        nbytes = 2 * rows * c * 4 + 4 * c * 4
-        bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
-                           FP32_FLOPS)
-        entry["ailayernorm_qnorm"]["shapes"][name] = dict(
-            shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}", ms=ms,
-            kernel_ms=kernel_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-            max_abs_err=res["max_abs_err"], bytes=nbytes)
     for key, e in entry.items():
         main = e["shapes"]["decode"]            # the most-launched shape
         e.update(launches=launches[key], max_abs_err=max(
@@ -1479,11 +1471,13 @@ def _flash_kw(mode, causal):
                 block_k=FLASH_BLOCK)
 
 
-def norm_args(case):
+def norm_args(case, dtype=None):
+    """x, r and the static params' channel arguments of a norm case, the
+    rows in ``dtype`` (as made, float32, by default)."""
     p = case["params"]
-    beta = case["beta"] * 0 if case["rms"] else case["beta"]
-    return (case["x"], case["r"], p.denom().contiguous(), p.alpha,
-            case["gamma"], beta)
+    x, r = (case[k] if dtype is None else case[k].to(dtype) for k in "xr")
+    return (x, r, p.scale, p.alpha, case["gamma"],
+            None if case["rms"] else case["beta"])
 
 
 def check_ops_kernels(torch, inp):
@@ -1546,31 +1540,58 @@ def check_ops_kernels(torch, inp):
         log(f"flash_e2softmax {name} {mode} q {tuple(case['q'].shape)} "
             f"kv {tuple(case['k'].shape)} [{variant}]: max|err| "
             f"{err.max().item():.3e}")
+    bf = torch.bfloat16
     for name, case in inp["norms"].items():
         args, rms = norm_args(case), case["rms"]
+        x, r, chan = args[0], args[1], args[2:]
+        out_q = KN.qnorm(x, *chan, rms=rms)
         h, out = KN.add_norm(*args, rms=rms)
         h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
-        h_ref, out_ref = KN.add_norm_plain(*args, rms=rms)
-        _, codes_ref, scale_ref = KN.add_norm_quant_plain(*args, rms=rms)
+        # bf16 rows read as they are (bf16 out for the norms)
+        bargs = norm_args(case, bf)
+        xb, rb = bargs[:2]
+        bout_q = KN.qnorm(xb, *chan, rms=rms, out_dtype=bf)
+        bh, bout = KN.add_norm(*bargs, rms=rms, out_dtype=bf)
+        bh8, bcodes, bscale = KN.add_norm_quant(*bargs, rms=rms)
+        want = dict(
+            out_q=KN.qnorm_plain(x, *chan, rms=rms),
+            add_norm=KN.add_norm_plain(*args, rms=rms),
+            add_norm_quant=KN.add_norm_quant_plain(*args, rms=rms),
+            bf16_out_q=KN.qnorm_plain(xb.float(), *chan, rms=rms).to(bf),
+            bf16_add_norm=KN.add_norm_plain(xb.float(), rb.float(), *chan,
+                                            rms=rms),
+            bf16_add_norm_quant=KN.add_norm_quant_plain(
+                xb.float(), rb.float(), *chan, rms=rms))
+        want["bf16_add_norm"] = (want["bf16_add_norm"][0],
+                                 want["bf16_add_norm"][1].to(bf))
+        got = dict(out_q=out_q, add_norm=(h, out),
+                   add_norm_quant=(h8, codes, scale), bf16_out_q=bout_q,
+                   bf16_add_norm=(bh, bout),
+                   bf16_add_norm_quant=(bh8, bcodes, bscale))
         torch.cuda.synchronize()
-        err = (out - out_ref).abs().max().item()
-        tol = 1e-6 * max(out_ref.abs().max().item(), 1.0)
-        want_codes, want_scale = quantize_act(out)
-        if not (torch.equal(h, h_ref) and torch.equal(h8, h_ref)):
-            raise AssertionError(f"fused norm {name}: h is not bitwise x + r")
-        if not torch.isfinite(out).all() or err > tol:
-            raise AssertionError(f"add_norm {name}: max |err| {err} > {tol}")
-        if not (torch.equal(codes, want_codes)
-                and torch.equal(scale, want_scale)):
+        # every output bitwise equal to its plain version on the float32
+        # view of the same rows (then cast to bf16 where it is written so)
+        for key, g in got.items():
+            g = g if isinstance(g, tuple) else (g,)
+            w = want[key] if isinstance(want[key], tuple) else (want[key],)
+            if not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(g, w)):
+                raise AssertionError(f"static-params norm {name} {key}: "
+                                     "differs from the plain version")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"add_norm {name}: non-finite output")
+        if not all(torch.equal(a, b) for a, b in zip((codes, scale),
+                                                     quantize_act(out))):
             raise AssertionError(f"add_norm_quant {name}: codes or scale "
                                  "differ from quantize_act of add_norm")
-        agree = (codes == codes_ref).float().mean().item()
-        res["norms"][name] = dict(max_abs_err=err, codes_vs_plain=agree,
-                                  args=args, rms=rms, h=h, out=out,
-                                  codes=codes, scale=scale)
-        log(f"ailayernorm fused {name}: h bitwise, norm max|err| {err:.3e}, "
-            f"quant-out codes/scale bitwise = quantize_act(add_norm), codes "
-            f"equal to the plain version's: {agree:.6f}")
+        res["norms"][name] = dict(
+            max_abs_err=0.0, args=args, bargs=bargs, rms=rms, out_q=out_q,
+            h=h, out=out, codes=codes, scale=scale, bout_q=bout_q, bh=bh,
+            bout=bout, bh8=bh8, bcodes=bcodes, bscale=bscale)
+        log(f"ailayernorm static {name}: qnorm, add_norm (h and out) and "
+            "add_norm_quant (h, codes, scale) bitwise equal to the plain "
+            "versions on float32 rows and on bf16 rows (bf16 out), the "
+            "codes = quantize_act(add_norm)")
     cd = inp["codes"]
     cargs = (cd["xi"], cd["alpha"], cd["gamma"], cd["beta"])
     out = KN.codes_norm(*cargs)
@@ -1620,12 +1641,17 @@ def serve_ops_path(torch, inp, res):
         kind = "rmsnorm" if case["rms"] else "layernorm"
         extra = () if case["rms"] else (case["beta"],)
         p = case["params"]
-        outs[f"norm_{name}"] = getattr(ops, f"{kind}_fn")("sole", dev)(
-            case["x"], case["gamma"], *extra, params=p)
-        outs[f"res_{name}"] = ops.residual_norm_fn(kind, "sole", dev)(
-            case["x"], case["r"], case["gamma"], *extra, params=p)
-        outs[f"resq_{name}"] = ops.residual_norm_q_fn(kind, "sole", dev)(
-            case["x"], case["r"], case["gamma"], *extra, params=p)
+        # float32 rows, float32 out; then bf16 rows, bf16 out
+        for tag, (x, r) in (("", (case["x"], case["r"])),
+                            ("b", res["norms"][name]["bargs"][:2])):
+            od = {} if not tag else dict(out_dtype=x.dtype)
+            outs[f"{tag}norm_{name}"] = getattr(ops, f"{kind}_fn")(
+                "sole", dev)(x, case["gamma"], *extra, params=p, **od)
+            outs[f"{tag}res_{name}"] = ops.residual_norm_fn(
+                kind, "sole", dev)(x, r, case["gamma"], *extra, params=p,
+                                   **od)
+            outs[f"{tag}resq_{name}"] = ops.residual_norm_q_fn(
+                kind, "sole", dev)(x, r, case["gamma"], *extra, params=p)
     cd = inp["codes"]
     outs["codes"] = KN.ailayernorm_codes(cd["xi"], cd["alpha"], cd["gamma"],
                                          cd["beta"])
@@ -1651,14 +1677,18 @@ def serve_ops_path(torch, inp, res):
             raise AssertionError(f"flash op {key}: output differs from the "
                                  "kernel's")
     for name, r in res["norms"].items():
-        h, out = outs[f"res_{name}"]
-        hq, (codes, scale) = outs[f"resq_{name}"]
-        if not (torch.equal(h, r["h"]) and torch.equal(out, r["out"])
-                and torch.equal(hq, r["h"]) and torch.equal(codes, r["codes"])
-                and torch.equal(scale, r["scale"])
-                and torch.isfinite(outs[f"norm_{name}"]).all()):
-            raise AssertionError(f"static-params norm ops {name} differ from "
-                                 "the kernels'")
+        for tag, pre in (("", ""), ("b", "b")):
+            h, out = outs[f"{tag}res_{name}"]
+            hq, (codes, scale) = outs[f"{tag}resq_{name}"]
+            want = (r[pre + "out_q"], r[pre + "h"], r[pre + "out"],
+                    r["bh8" if tag else "h"], r[pre + "codes"],
+                    r[pre + "scale"])
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (outs[f"{tag}norm_{name}"], h, out, hq, codes, scale),
+                    want)):
+                raise AssertionError(f"static-params norm ops {name} "
+                                     f"{'bf16' if tag else 'float32'} "
+                                     "differ from the kernels'")
     if not torch.equal(outs["codes"], res["codes"]["out"]):
         raise AssertionError("codes norm op differs from the kernel's")
     log(f"op path: {len(outs)} op calls and the quickstart in {wall:.2f} s; "
@@ -1721,6 +1751,9 @@ def time_ops_kernels(torch, res, launches):
             library="torch.nn.functional.scaled_dot_product_attention"
             if lib is not None else None,
             max_abs_err=r["max_abs_err"], bytes=nbytes, flops=flops)
+    qn = dict(name="ailayernorm_qnorm", route="cuda",
+              source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+              replaces="src/repro/kernels/ailayernorm.py:133", shapes={})
     add = dict(name="ailayernorm_add_norm", route="cuda",
                source="src/repro_torch/kernels/csrc/ailayernorm.cu",
                replaces="src/repro/kernels/ailayernorm.py:205", shapes={})
@@ -1729,30 +1762,40 @@ def time_ops_kernels(torch, res, launches):
                 replaces="src/repro/kernels/ailayernorm.py:257", shapes={})
     for name, r in res["norms"].items():
         args, rms = r["args"], r["rms"]
-        rows, c = args[0].shape
-        for e, fn, plain, out_bytes, kname in (
-                (add, KN.add_norm, KN.add_norm_plain, 8, "add_norm_kernel"),
-                (addq, KN.add_norm_quant, KN.add_norm_quant_plain, 5,
-                 "add_norm_quant")):
-            nbytes = rows * c * (8 + out_bytes) + 16 * c \
+        x, xr = args[0], args[1]
+        rows, c = x.shape
+        # the bytes' floor under the same flush, in the same call: torch
+        # moving the rows alone (a yardstick, not the same function)
+        dst = torch.empty_like(x)
+        floors = {
+            "out.copy_(x)": time_ms(torch, lambda: dst.copy_(x), flush),
+            "torch.add(x, r, out=h)": time_ms(
+                torch, lambda: torch.add(x, xr, out=dst), flush)}
+        # alpha, gamma (and beta) and the scale, read once
+        chan_bytes = c * (8 if rms else 12) + 4
+        for e, fn, plain, fargs, row_bytes, extra_ops, kname, floor in (
+                (qn, KN.qnorm, KN.qnorm_plain, (x,) + args[2:], 8, 0,
+                 "qnorm_kernel", "out.copy_(x)"),
+                (add, KN.add_norm, KN.add_norm_plain, args, 16, 4,
+                 "add_norm_kernel", "torch.add(x, r, out=h)"),
+                (addq, KN.add_norm_quant, KN.add_norm_quant_plain, args, 13,
+                 4, "add_norm_quant", "torch.add(x, r, out=h)")):
+            nbytes = rows * c * row_bytes + chan_bytes \
                 + (4 * rows if e is addq else 0)
-            bms, by = bound_ms(nbytes, (QNORM_OPS_PER_ELEMENT + 4) * rows * c,
-                               FP32_FLOPS)
+            bms, by = bound_ms(nbytes, (QNORM_OPS_PER_ELEMENT + extra_ops)
+                               * rows * c, FP32_FLOPS)
 
-            def run(fn=fn):
-                return fn(*args, rms=rms)
+            def run(fn=fn, fargs=fargs):
+                return fn(*fargs, rms=rms)
             e["shapes"][name] = dict(
-                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}",
+                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} float32",
                 ms=time_ms(torch, run, flush),
                 kernel_ms=profiled_kernel_ms(torch, run, flush, kname),
-                plain_ms=time_ms(torch, lambda plain=plain: plain(
-                    *args, rms=rms), flush, reps=10),
+                plain_ms=time_ms(torch, lambda plain=plain, fargs=fargs:
+                                 plain(*fargs, rms=rms), flush, reps=10),
                 bound_ms=bms, bound_by=by, library_ms=None,
-                max_abs_err=r["max_abs_err"], bytes=nbytes)
-            if e is addq:     # the bytes' floor here: x + r alone, in torch
-                h = torch.empty_like(args[0])
-                e["shapes"][name]["add_only_ms"] = time_ms(
-                    torch, lambda: torch.add(args[0], args[1], out=h), flush)
+                max_abs_err=r["max_abs_err"], bytes=nbytes,
+                floor=floor, floor_ms=floors[floor])
     codes = dict(name="ailayernorm_codes", route="cuda",
                  source="src/repro_torch/kernels/csrc/ailayernorm.cu",
                  replaces="src/repro/kernels/ailayernorm.py:53", shapes={})
@@ -1770,8 +1813,9 @@ def time_ops_kernels(torch, res, launches):
         bound_ms=bms, bound_by=by, library_ms=None,
         max_abs_err=res["codes"]["max_abs_err"], bytes=nbytes)
     table = []
-    for e, main in ((flash, "qwen2_causal_sole"), (add, "rms_2048x896"),
-                    (addq, "rms_2048x896"), (codes, "codes")):
+    for e, main in ((flash, "qwen2_causal_sole"), (qn, "rms_2048x896"),
+                    (add, "rms_2048x896"), (addq, "rms_2048x896"),
+                    (codes, "codes")):
         top = e["shapes"][main]
         e.update(launches=launches[e["name"]], max_abs_err=max(
             v["max_abs_err"] for v in e["shapes"].values()),
@@ -1781,16 +1825,135 @@ def time_ops_kernels(torch, res, launches):
         table.append(e)
         for sname, v in e["shapes"].items():
             k, lib = v["kernel_ms"], v["library_ms"]
-            add = v.get("add_only_ms")
-            log(f"{e['name']} {sname} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+            floor = v.get("floor_ms")
+            log(f"{e['name']} {sname} [{v['shape']}]: {v['ms'] * 1e3:.2f} us "
                 f"(profiler: kernel "
-                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"{'not measured' if k is None else f'{k * 1e3:.2f} us'}; "
                 f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
-                f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']}"
+                f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']}"
                 + ("" if lib is None else f"; SDPA {lib * 1e3:.1f} us")
-                + ("" if add is None else f"; torch x + r alone "
-                   f"{add * 1e3:.1f} us") + ")")
+                + ("" if floor is None else f"; {v['floor']} alone "
+                   f"{floor * 1e3:.2f} us") + ")")
     return table
+
+
+# the static-params SOLE norm ops: (op, rows, C) of the bf16 op stage,
+# at decode and prefill-chunk rows of qwen2_0_5b's RMS width and
+# stablelm_1_6b's LayerNorm width
+STATIC_STAGE = (("rmsnorm", 8, 896), ("rmsnorm", 128, 896),
+                ("residual_rmsnorm", 8, 896), ("residual_rmsnorm", 128, 896),
+                ("residual_layernorm", 8, 2048),
+                ("residual_layernorm", 128, 2048))
+STATIC_OPS = ("layernorm", "rmsnorm", "residual_layernorm",
+              "residual_rmsnorm", "residual_layernorm_q", "residual_rmsnorm_q")
+
+
+def is_static_norm(key: str) -> bool:
+    """A profiler key of a static-params norm kernel (either body)."""
+    return any(k in key for k in ("qnorm_kernel", "add_norm_kernel",
+                                  "add_norm_quant", "norm_row_kernel"))
+
+
+def static_op_stage(torch):
+    """The static-params norm ops as op-layer users call them: every
+    ``layernorm``/``rmsnorm``/``residual_*``/``residual_*_q`` ``sole`` op
+    with ``params=`` on float32 and on bf16 rows (output in the rows'
+    dtype) is one device kernel per call under the profiler and equal bit
+    for bit to its plain version on the float32 view of the rows; then
+    the bf16 stage (``STATIC_STAGE``, bf16 out) by CUDA events (L2
+    flushed), host wall per call and the kernel alone (profiler); bound:
+    the bf16 rows read and the output (and float32 h) written once.
+    Params calibrated on a held-out bf16 batch (a bf16 scale)."""
+    from repro_torch import ops
+    from repro_torch.core.sole.quant import calibrate_ptf
+    from repro_torch.kernels import ailayernorm as KN
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    wrappers = (KN.qnorm, KN.add_norm, KN.add_norm_quant)
+
+    def case(op, rows, c, dtype):
+        def acts():
+            x = torch.randn((rows, c), generator=gen, device="cuda") * 2
+            x[:, ::7] *= 8
+            return x.to(dtype)
+        rms = "rmsnorm" in op
+        x, held_out = acts(), acts()
+        r = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        p = calibrate_ptf(held_out, unsigned=not rms)
+        fn = ops.resolve(op, "sole", "cuda")
+        extra = () if rms else (beta,)
+        head = (x,) if not op.startswith("residual_") else (x, r)
+        kw = dict(params=p) if op.endswith("_q") else dict(params=p,
+                                                           out_dtype=dtype)
+        chan = (p.scale, p.alpha, gamma, None if rms else beta)
+        xf, rf = x.float(), r.float()
+        if op.endswith("_q"):
+            h, codes, qs = KN.add_norm_quant_plain(xf, rf, *chan, rms=rms)
+            want = (h, codes, qs)
+        elif op.startswith("residual_"):
+            h, out = KN.add_norm_plain(xf, rf, *chan, rms=rms)
+            want = (h, out.to(dtype))
+        else:
+            want = (KN.qnorm_plain(xf, *chan, rms=rms).to(dtype),)
+        return (lambda: fn(*head, gamma, *extra, **kw)), want
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return (out,)
+        return tuple(t for o in out for t in flat(o))
+
+    checked = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for op in STATIC_OPS:
+            c = 896 if "rmsnorm" in op else 2048
+            call, want = case(op, 8, c, dtype)
+            got = flat(call())
+            torch.cuda.synchronize()
+            if not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"static-params op {op} {dtype}: "
+                                     "differs from the plain version")
+            n, other, seen = device_kernels(torch, call, wrappers=wrappers,
+                                            ours=is_static_norm)
+            if n != 1 or other:
+                raise AssertionError(f"static-params op {op} {dtype}: {n} "
+                                     f"device kernels per call, others "
+                                     f"{other}")
+            checked[f"{op}_{str(dtype)[6:]}"] = dict(device_kernels=n,
+                                                      records_kept=seen)
+    log("static-params norm ops (6 ops, float32 and bf16 rows, 8 rows): "
+        "bitwise equal to the plain versions, 1 device kernel per call "
+        "each (profiler records kept of 5: "
+        + json.dumps({k: v["records_kept"] for k, v in checked.items()})
+        + ")")
+    stage = {}
+    for op, rows, c in STATIC_STAGE:
+        call, _ = case(op, rows, c, torch.bfloat16)
+        kname = "add_norm_kernel" if op.startswith("residual_") \
+            else "qnorm_kernel"
+        nbytes = rows * c * (2 + 2 + (6 if op.startswith("residual_")
+                                      else 0)) \
+            + c * (8 if "rmsnorm" in op else 12) + 2
+        bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
+                           FP32_FLOPS)
+        v = stage[f"{op}_{rows}x{c}"] = dict(
+            shape=f"{op} rows {rows} C {c} bf16 in, bf16 out",
+            ms=time_ms(torch, call, flush),
+            kernel_ms=profiled_kernel_ms(torch, call, flush, kname),
+            wall_ms=wall_ms(torch, call),
+            kernels_per_call=device_kernels(torch, call, wrappers=wrappers,
+                                            ours=is_static_norm)[0],
+            bound_ms=bms, bound_by=by, bytes=nbytes)
+        k = v["kernel_ms"]
+        log(f"static op stage {op} {rows}x{c} bf16: {v['ms'] * 1e3:.2f} us "
+            f"events (profiler: kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.2f} us'}), host "
+            f"wall {v['wall_ms'] * 1e3:.1f} us, {v['kernels_per_call']} "
+            f"device kernel(s) per call; bound {v['bound_ms'] * 1e3:.3f} us "
+            f"by {v['bound_by']}")
+    return dict(checked=checked, stage=stage)
 
 
 def is_dense_e2(key: str) -> bool:
@@ -1897,7 +2060,7 @@ def main() -> int:
         cfg = get_config("qwen2_0_5b")
         cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                    kv_cache_dtype="int8")
-        attn, norm = check_kernels(torch, cfg)
+        attn = check_kernels(torch, cfg)
         calib = check_calib_norm(torch)
         attn8 = check_int8_paged(torch, cfg)
         gemm = check_int8_gemm(torch)
@@ -1912,16 +2075,23 @@ def main() -> int:
                                                      "dense w8a8")
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
         small_engine_parity(torch)
-        table = time_kernels(torch, attn, norm, launches, cfg)
+        table = time_kernels(torch, attn, launches, cfg)
         table.append(time_calib_norm(torch, calib, launches))
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
         table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
         table += time_ops_kernels(torch, ops_res, olaunches)
+        static = static_op_stage(torch)
         for e in table:
+            if e["name"] == "ailayernorm_qnorm":
+                e["launches_paged"] = launches[e["name"]]
             if e["name"] in ("ailayernorm_qnorm", "ailayernorm_calib"):
                 e["launches_w8a8"] = launches8[e["name"]]
                 e["launches_dense"] = dlaunches[e["name"]]
                 e["launches_ops"] = olaunches[e["name"]]
+            if e["name"] in ("ailayernorm_qnorm", "ailayernorm_add_norm"):
+                e["op_stage"] = {k: v for k, v in static["stage"].items()
+                                 if k.startswith("residual_")
+                                 == (e["name"] == "ailayernorm_add_norm")}
             if e["name"] == "e2softmax":
                 e["launches_ops"] = olaunches["e2softmax"]
             if e["name"] == "int8_matmul":
@@ -1934,7 +2104,8 @@ def main() -> int:
         dtrace8["profile"] = profile_engine(torch, cfg8, params8,
                                             "dense w8a8", dense=True)
         log(json.dumps({"trace": trace, "trace_w8a8": trace8,
-                        "trace_dense": dtrace, "trace_dense_w8a8": dtrace8}))
+                        "trace_dense": dtrace, "trace_dense_w8a8": dtrace8,
+                        "static_ops": static["checked"]}))
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()

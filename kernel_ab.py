@@ -35,9 +35,15 @@ times, with CUDA events and the L2 cache flushed before each launch:
   raw logits with the path's mask, bf16 out (for a checkout whose
   ``_sole_probs`` returns float32, followed by the cast the path made),
   each by CUDA events and by host wall per call;
-* ``qnorm``: the static-PTF add+norm+quantize-out kernel
-  (``add_norm_quant``) at 8, 128 and 2048 rows of 896 (RMS) and 128 and
-  2048 rows of 2048 (LayerNorm);
+* ``qnorm``: the three static-PTF kernels (``add_norm_quant``, ``qnorm``,
+  ``add_norm``) on float32 rows at ``chip_smoke.NORM_CASES`` (8, 128 and
+  2048 rows of 896, RMS; 128 and 2048 rows of 2048, LayerNorm), each
+  checkout's wrappers given the channel arguments they take (the
+  per-channel divisor ``denom``, or the PTF scale), and the bf16
+  static-params op calls of ``chip_smoke.STATIC_STAGE`` (``rmsnorm``,
+  ``residual_rmsnorm``, ``residual_layernorm`` with ``params=`` and
+  ``out_dtype=torch.bfloat16`` at 8 and 128 rows) by CUDA events and by
+  host wall per call, whatever each checkout launches for them;
 * ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` and
   of the dense-slot ``Engine`` at qwen2_0_5b's full width, in bf16 and at
   w8a8 with int8 pages or cache (the end-to-end effect of the kernels and
@@ -97,7 +103,7 @@ def worker(src: str, kinds) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(15)
     out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
            "gemm": {}, "sdpa": {}, "int_mm": {}, "e2": {}, "e2_wall": {},
-           "qnorm": {}, "wave": {}}
+           "qnorm": {}, "static_ops": {}, "static_ops_wall": {}, "wave": {}}
     cfg = get_config("qwen2_0_5b")
     if "paged" in kinds:
         shapes = {"decode": dict(b=DECODE_BATCH, c=1,
@@ -154,23 +160,7 @@ def worker(src: str, kinds) -> dict:
     if "e2" in kinds:
         e2_stage(torch, cfg, gen, flush, out)
     if "qnorm" in kinds:
-        from chip_smoke import NORM_CASES
-        from repro_torch.core.sole.quant import calibrate_ptf
-        from repro_torch.kernels import ailayernorm as KN
-        for rows, c, rms in NORM_CASES:
-            def acts():
-                x = torch.randn((rows, c), generator=gen, device="cuda") * 2
-                x[:, ::7] *= 8
-                return x
-            x, r = acts(), torch.randn((rows, c), generator=gen,
-                                       device="cuda")
-            p = calibrate_ptf(acts(), unsigned=not rms)
-            gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
-            beta = (0 if rms else 0.1) * torch.randn((c,), generator=gen,
-                                                     device="cuda")
-            args = (x, r, p.denom().contiguous(), p.alpha, gamma, beta)
-            out["qnorm"][f"{'rms' if rms else 'ln'}_{rows}x{c}"] = time_ms(
-                torch, lambda: KN.add_norm_quant(*args, rms=rms), flush)
+        static_norms(torch, gen, flush, out)
     if "wave" in kinds:
         out["wave"] = waves(torch, cfg)
     for case, mode in FLASH if "flash" in kinds else ():
@@ -211,6 +201,58 @@ def worker(src: str, kinds) -> dict:
             out["int_mm"][name] = time_ms(
                 torch, lambda: torch._int_mm(xp, w), flush)
     return out
+
+
+def static_norms(torch, gen, flush, out) -> None:
+    """The ``qnorm`` kind: the static-params kernels on float32 rows by
+    events into ``out["qnorm"]``, the bf16 op calls by events into
+    ``out["static_ops"]`` and by host wall into ``out["static_ops_wall"]``."""
+    import inspect
+    from chip_smoke import NORM_CASES, STATIC_STAGE, time_ms, wall_ms
+    from repro_torch import ops
+    from repro_torch.core.sole.quant import calibrate_ptf
+    from repro_torch.kernels import ailayernorm as KN
+    takes_denom = "denom" in inspect.signature(KN.qnorm).parameters
+
+    def case(rows, c, rms, dtype):
+        def acts():
+            x = torch.randn((rows, c), generator=gen, device="cuda") * 2
+            x[:, ::7] *= 8
+            return x.to(dtype)
+        x = acts()
+        r = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+        p = calibrate_ptf(acts(), unsigned=not rms)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        return x, r, p, gamma, beta
+
+    for rows, c, rms in NORM_CASES:
+        x, r, p, gamma, beta = case(rows, c, rms, torch.float32)
+        if takes_denom:
+            chan = (p.denom().contiguous(), p.alpha, gamma,
+                    torch.zeros_like(gamma) if rms else beta)
+        else:
+            chan = (p.scale, p.alpha, gamma, None if rms else beta)
+        tag = f"{'rms' if rms else 'ln'}_{rows}x{c}"
+        for name, fn, fargs in (("add_norm_quant", KN.add_norm_quant,
+                                 (x, r) + chan),
+                                ("qnorm", KN.qnorm, (x,) + chan),
+                                ("add_norm", KN.add_norm, (x, r) + chan)):
+            out["qnorm"][f"{name}_{tag}"] = time_ms(
+                torch, lambda: fn(*fargs, rms=rms), flush)
+    bf = torch.bfloat16
+    for op, rows, c in STATIC_STAGE:
+        rms = "rmsnorm" in op
+        x, r, p, gamma, beta = case(rows, c, rms, bf)
+        fn = ops.resolve(op, "sole", "cuda")
+        head = (x, r) if op.startswith("residual_") else (x,)
+        extra = () if rms else (beta,)
+
+        def call():
+            return fn(*head, gamma, *extra, params=p, out_dtype=bf)
+        name = f"{op}_{rows}x{c}"
+        out["static_ops"][name] = time_ms(torch, call, flush)
+        out["static_ops_wall"][name] = wall_ms(torch, call, reps=300)
 
 
 def e2_stage(torch, cfg, gen, flush, out) -> None:
@@ -343,7 +385,8 @@ def main() -> int:
         print(f"turn {len(turns)} ({label}): {time.time() - t0:.1f} s",
               flush=True)
     for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
-                 "e2", "e2_wall", "qnorm", "wave"):
+                 "e2", "e2_wall", "qnorm", "static_ops", "static_ops_wall",
+                 "wave"):
         for name in turns[0][1][kind]:
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}

@@ -77,6 +77,12 @@ def fake_quant_int8(x: torch.Tensor, *, symmetric: bool = True
     return p.dequantize(p.quantize(x))
 
 
+def ptf_denom(scale: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Per-channel PTF divisor ``scale * 2^alpha`` in float32 (exact: a
+    power-of-two multiple of the promoted scale)."""
+    return scale.float() * torch.exp2(alpha.float())
+
+
 @dataclasses.dataclass(frozen=True)
 class PTFQuantParams:
     scale: torch.Tensor       # 0-dim, the calibrated activation's dtype
@@ -85,9 +91,9 @@ class PTFQuantParams:
     unsigned: bool = True
 
     def denom(self) -> torch.Tensor:
-        """Per-channel divisor ``s * 2^alpha`` in float32 (exact: a
-        power-of-two multiple of the promoted scale)."""
-        return self.scale.float() * torch.exp2(self.alpha.float())
+        """Per-channel divisor ``s * 2^alpha`` in float32
+        (:func:`ptf_denom`)."""
+        return ptf_denom(self.scale, self.alpha)
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = (0, 255) if self.unsigned else (-128, 127)

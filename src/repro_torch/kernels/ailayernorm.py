@@ -1,21 +1,21 @@
 """AILayerNorm / AIRMSNorm: the Hopper kernels (``csrc/ailayernorm.cu``),
 their wrappers and their plain torch versions.
 
-Counterpart of ``repro/kernels/ailayernorm.py``, one row body with four
-entry points:
+Counterpart of ``repro/kernels/ailayernorm.py``. The three static-params
+entries are one team-per-row kernel template; each takes the PTF params'
+``scale`` (one element, float32 or bf16) and per-channel ``alpha``, forms
+``denom = scale * 2^alpha`` itself, and reads float32 or bf16 rows:
 
 * :func:`qnorm` (``_qnorm_kernel``): PTF quantize + integer statistics +
-  affine of each row, given per-channel ``denom = s * 2^alpha`` and
-  ``alpha``. :func:`ailayernorm`/:func:`airmsnorm` reach it with the
-  caller's static params.
-* :func:`add_norm` (``_fused_kernel``): ``h = x + r`` written out, then the
-  same body on ``h`` in one pass — :func:`fused_add_norm` with static
-  params.
+  affine of each row. :func:`ailayernorm`/:func:`airmsnorm` reach it with
+  the caller's static params.
+* :func:`add_norm` (``_fused_kernel``): ``h = x + r`` written out in
+  float32, then the same body on ``h`` in one pass —
+  :func:`fused_add_norm` with static params.
 * :func:`add_norm_quant` (``_fused_q_kernel``): the above plus per-row
-  symmetric int8 of the normalized row — :func:`fused_add_norm_quant` with
-  static params. Its codes and scale equal ``quantize_act`` of
-  :func:`add_norm`'s output bit for bit. Its own row body runs a team of
-  warps per row with the channel parameters loaded once per CTA.
+  symmetric int8 of the normalized row — :func:`fused_add_norm_quant`
+  with static params. Its codes and scale equal ``quantize_act`` of
+  :func:`add_norm`'s output bit for bit.
 * :func:`codes_norm` (``_kernel``, ``ailayernorm_pallas_codes``): the
   statistics and LayerNorm affine on centred int32 codes —
   :func:`ailayernorm_codes`.
@@ -27,7 +27,10 @@ entry points:
   :func:`fused_add_norm_quant` without params reach it.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
-tensors it launches its kernel or raises.
+tensors it launches its kernel or raises. A static-params op call on
+contiguous float32 or bf16 activations on the card is one kernel launch:
+no cast of the rows, no ``denom()``, no zero beta and no cast of the
+output, which the kernel writes in float32 or the activations' type.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import torch
 from repro_torch.core.sole.ailayernorm import (compressed_square, inv_sqrt,
                                                ptf_shift)
 from repro_torch.core.sole.quant import (PTFQuantParams, calibrate_ptf,
-                                         quantize_act)
+                                         ptf_denom, quantize_act)
 from repro_torch.kernels import build
 
 # shared memory holds one row of int32 codes (48 KB without opt-in)
@@ -100,11 +103,14 @@ def row_stats(xi, alpha, *, rms: bool):
 def _norm_codes_plain(xi, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
     """The row body from int32 codes on, in the kernel's order. The
     LayerNorm affine is one fused multiply-add, as LLVM contracts the
-    compiled reference's ``(gamma * rs) * (xs - mu) + beta``."""
+    compiled reference's ``(gamma * rs) * (xs - mu) + beta``; a None
+    ``beta`` is a zero shift."""
     xs, mu, var = row_stats(xi, alpha, rms=rms)
     rs = inv_sqrt(var)
     if rms:
         return gamma * xs.float() * rs
+    if beta is None:
+        beta = torch.zeros_like(gamma)
     return fma32(gamma * rs, xs.float() - mu, beta)
 
 
@@ -114,30 +120,42 @@ def ptf_codes(x, denom) -> torch.Tensor:
     return torch.clamp(torch.round(x / denom), -128, 127).to(torch.int32)
 
 
-def qnorm_plain(x, denom, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
-    """The kernel's arithmetic in plain torch, in the same order:
-    (rows, C) float32 -> (rows, C) float32."""
-    return _norm_codes_plain(ptf_codes(x, denom), alpha, gamma, beta, rms=rms)
+def qnorm_plain(x, scale, alpha, gamma, beta=None, *, rms: bool,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, in the same order: (rows,
+    C) activations, read as float32, with the PTF ``scale`` and ``alpha``
+    (C,) -> (rows, C) in ``out_dtype``. ``denom`` is ``ptf_denom``'s, which
+    the kernels' multiply by the exact ``2^alpha`` equals bit for bit."""
+    out = _norm_codes_plain(ptf_codes(x.float(), ptf_denom(scale, alpha)),
+                            alpha, gamma, beta, rms=rms)
+    return out.to(out_dtype)
 
 
-def add_norm_plain(x, r, denom, alpha, gamma, beta, *,
-                   rms: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def add_norm_plain(x, r, scale, alpha, gamma, beta=None, *, rms: bool,
+                   out_dtype=torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(h, qnorm(h))`` with ``h = x + r`` in float32."""
-    h = x + r
-    return h, qnorm_plain(h, denom, alpha, gamma, beta, rms=rms)
+    h = x.float() + r.float()
+    return h, qnorm_plain(h, scale, alpha, gamma, beta, rms=rms,
+                          out_dtype=out_dtype)
 
 
-def add_norm_quant_plain(x, r, denom, alpha, gamma, beta, *, rms: bool):
+def add_norm_quant_plain(x, r, scale, alpha, gamma, beta=None, *,
+                         rms: bool):
     """``(h, int8 codes, (rows, 1) scale)``: :func:`add_norm_plain`, then
     ``quantize_act`` of the norm."""
-    h, out = add_norm_plain(x, r, denom, alpha, gamma, beta, rms=rms)
-    codes, scale = quantize_act(out)
-    return h, codes, scale
+    h, out = add_norm_plain(x, r, scale, alpha, gamma, beta, rms=rms)
+    codes, qscale = quantize_act(out)
+    return h, codes, qscale
 
 
 def codes_norm_plain(xi, alpha, gamma, beta) -> torch.Tensor:
     """LayerNorm of centred int32 codes (rows, C) -> float32."""
     return _norm_codes_plain(xi, alpha, gamma, beta, rms=False)
+
+
+# activation types the kernels read (and write)
+_ACT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_row_args(rows_in, c: int, **args) -> None:
@@ -159,88 +177,110 @@ def _check_row_args(rows_in, c: int, **args) -> None:
                              f"expected {shape}")
 
 
-def _chan(denom, alpha, gamma, beta, c: int) -> dict:
+def _chan(alpha, gamma, beta, c: int) -> dict:
     f32 = torch.float32
-    out = dict(alpha=(alpha, torch.int32, (c,)), gamma=(gamma, f32, (c,)),
-               beta=(beta, f32, (c,)))
-    if denom is not None:
-        out["denom"] = (denom, f32, (c,))
+    out = dict(alpha=(alpha, torch.int32, (c,)), gamma=(gamma, f32, (c,)))
+    if beta is not None:
+        out["beta"] = (beta, f32, (c,))
     return out
 
 
-def _launch(fn_name: str, n_ptrs: int, n_ints: int, x, args, ints) -> None:
-    lib = build.load("ailayernorm")
-    fn = build.declare(lib, fn_name, n_ptrs, n_ints)
-    rc = build.launch(x.device, fn, *(t.data_ptr() for t in args), *ints)
-    build.check(lib, rc, f"{fn_name} launch")
-
-
-def qnorm(x, denom, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
-    """PTF quantize + integer statistics + affine of each row of ``x``
-    (rows, C) float32, with per-channel ``denom`` (C,) float32, ``alpha``
-    (C,) int32, ``gamma``/``beta`` (C,) float32."""
-    if x.device.type == "cpu":
-        return qnorm_plain(x, denom, alpha, gamma, beta, rms=rms)
+def _static_launch(wrapper, x, r, scale, alpha, gamma, beta, *, rms: bool,
+                   out_dtype=None, quant: bool = False):
+    """Check the arguments of a static-params entry, launch it and count
+    the launch on ``wrapper``: ``x`` (rows, C) float32 or bf16, ``r``
+    alike or None, ``scale`` one element (float32 or bf16 read as it is,
+    another type cast), ``alpha`` (C,) int32, ``gamma``/``beta`` (C,)
+    float32 (``beta`` None: a zero shift). Returns ``(h or None, out)``,
+    ``out`` in ``out_dtype`` (float32 or bf16), or ``(h, (codes, (rows, 1)
+    scale))`` with ``quant``."""
+    if x.device.type == "cuda" and x.dtype not in _ACT_TYPES:
+        raise TypeError(f"x dtype {x.dtype}: the kernel reads float32 or "
+                        "bfloat16 rows")
     rows, c = x.shape[0], x.shape[-1]
-    _check_row_args(x, c, x=(x, torch.float32, (rows, c)),
-                    **_chan(denom, alpha, gamma, beta, c))
-    out = torch.empty_like(x)
+    args = dict(x=(x, x.dtype, (rows, c)), **_chan(alpha, gamma, beta, c))
+    if r is not None:
+        args["r"] = (r, x.dtype, (rows, c))
+    _check_row_args(x, c, **args)
+    if scale.numel() != 1 or scale.device != x.device:
+        raise ValueError(f"scale: need one element on {x.device}, got "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    if scale.dtype not in _ACT_TYPES:
+        scale = scale.float()        # as PTFQuantParams.denom() rounds it
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype}: float32 or bfloat16")
+    dev = x.device
+    h = None if r is None else torch.empty((rows, c), dtype=torch.float32,
+                                           device=dev)
+    out = codes = qscale = None
+    if quant:
+        codes = torch.empty((rows, c), dtype=torch.int8, device=dev)
+        qscale = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+        res = (codes, qscale)
+    else:
+        res = out = torch.empty((rows, c), dtype=out_dtype or torch.float32,
+                                device=dev)
     if rows == 0:
-        return out
-    _launch("ailayernorm_qnorm", 6, 3, x,
-            (x, denom, alpha, gamma, beta, out), (rows, c, int(rms)))
-    qnorm.launches += 1
-    return out
+        return h, res
+    # 4-channel units: C a multiple of 4 and every row or channel array
+    # aligned to 4 elements (16 bytes of float32, 8 of bf16, 4 of int8)
+    vec = int(c % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0
+        for t in (x, r, alpha, gamma, beta, h, out, codes) if t is not None))
+    lib = build.load("ailayernorm")
+    fn = build.declare(lib, "ailayernorm_static", 10, 8)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (x, r, scale, alpha, gamma, beta, h, out, codes, qscale)]
+    rc = build.launch(dev, fn, *ptrs, rows, c, int(rms), _ACT_TYPES[x.dtype],
+                      _ACT_TYPES[scale.dtype],
+                      int(out is not None and out.dtype == torch.bfloat16),
+                      int(quant), vec)
+    build.check(lib, rc, "ailayernorm_static launch")
+    wrapper.launches += 1
+    return h, res
+
+
+def qnorm(x, scale, alpha, gamma, beta=None, *, rms: bool,
+          out_dtype=torch.float32) -> torch.Tensor:
+    """PTF quantize + integer statistics + affine of each row of ``x``
+    (rows, C) float32 or bf16, with the PTF ``scale`` (one element),
+    ``alpha`` (C,) int32, ``gamma``/``beta`` (C,) float32 (``beta`` None:
+    a zero shift); the output in ``out_dtype``, float32 or bf16."""
+    if x.device.type == "cpu":
+        return qnorm_plain(x, scale, alpha, gamma, beta, rms=rms,
+                           out_dtype=out_dtype)
+    return _static_launch(qnorm, x, None, scale, alpha, gamma, beta,
+                          rms=rms, out_dtype=out_dtype)[1]
 
 
 qnorm.launches = 0
 
 
-def add_norm(x, r, denom, alpha, gamma, beta, *,
-             rms: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def add_norm(x, r, scale, alpha, gamma, beta=None, *, rms: bool,
+             out_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """``h = x + r`` and the quantize+norm of ``h`` in one pass: x, r
-    (rows, C) float32 -> (h, out), both (rows, C) float32."""
+    (rows, C) float32 or bf16 (one dtype) -> (h float32, out in
+    ``out_dtype``), both (rows, C); the channel arguments as
+    :func:`qnorm`'s."""
     if x.device.type == "cpu":
-        return add_norm_plain(x, r, denom, alpha, gamma, beta, rms=rms)
-    rows, c = x.shape[0], x.shape[-1]
-    _check_row_args(x, c, x=(x, torch.float32, (rows, c)),
-                    r=(r, torch.float32, (rows, c)),
-                    **_chan(denom, alpha, gamma, beta, c))
-    h, out = torch.empty_like(x), torch.empty_like(x)
-    if rows == 0:
-        return h, out
-    _launch("ailayernorm_add_norm", 8, 3, x,
-            (x, r, denom, alpha, gamma, beta, h, out), (rows, c, int(rms)))
-    add_norm.launches += 1
-    return h, out
+        return add_norm_plain(x, r, scale, alpha, gamma, beta, rms=rms,
+                              out_dtype=out_dtype)
+    return _static_launch(add_norm, x, r, scale, alpha, gamma, beta,
+                          rms=rms, out_dtype=out_dtype)
 
 
 add_norm.launches = 0
 
 
-def add_norm_quant(x, r, denom, alpha, gamma, beta, *, rms: bool):
+def add_norm_quant(x, r, scale, alpha, gamma, beta=None, *, rms: bool):
     """:func:`add_norm` with the norm leaving as per-row int8: x, r (rows,
-    C) float32 -> (h float32, codes int8 (rows, C), scale float32
+    C) float32 or bf16 -> (h float32, codes int8 (rows, C), scale float32
     (rows, 1))."""
     if x.device.type == "cpu":
-        return add_norm_quant_plain(x, r, denom, alpha, gamma, beta, rms=rms)
-    rows, c = x.shape[0], x.shape[-1]
-    _check_row_args(x, c, x=(x, torch.float32, (rows, c)),
-                    r=(r, torch.float32, (rows, c)),
-                    **_chan(denom, alpha, gamma, beta, c))
-    h = torch.empty_like(x)
-    codes = torch.empty((rows, c), dtype=torch.int8, device=x.device)
-    scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return h, codes, scale
-    vec = int(c % 4 == 0 and codes.data_ptr() % 4 == 0
-              and all(t.data_ptr() % 16 == 0
-                      for t in (x, r, h, denom, alpha, gamma, beta)))
-    _launch("ailayernorm_add_norm_quant", 9, 4, x,
-            (x, r, denom, alpha, gamma, beta, h, codes, scale),
-            (rows, c, int(rms), vec))
-    add_norm_quant.launches += 1
-    return h, codes, scale
+        return add_norm_quant_plain(x, r, scale, alpha, gamma, beta, rms=rms)
+    h, (codes, qscale) = _static_launch(add_norm_quant, x, r, scale, alpha,
+                                        gamma, beta, rms=rms, quant=True)
+    return h, codes, qscale
 
 
 add_norm_quant.launches = 0
@@ -253,12 +293,16 @@ def codes_norm(xi, alpha, gamma, beta) -> torch.Tensor:
         return codes_norm_plain(xi, alpha, gamma, beta)
     rows, c = xi.shape[0], xi.shape[-1]
     _check_row_args(xi, c, xi=(xi, torch.int32, (rows, c)),
-                    **_chan(None, alpha, gamma, beta, c))
+                    **_chan(alpha, gamma, beta, c))
     out = torch.empty((rows, c), dtype=torch.float32, device=xi.device)
     if rows == 0:
         return out
-    _launch("ailayernorm_codes", 5, 2, xi, (xi, alpha, gamma, beta, out),
-            (rows, c))
+    lib = build.load("ailayernorm")
+    fn = build.declare(lib, "ailayernorm_codes", 5, 2)
+    rc = build.launch(xi.device, fn, *(t.data_ptr() for t in
+                                       (xi, alpha, gamma, beta, out)),
+                      rows, c)
+    build.check(lib, rc, "ailayernorm_codes launch")
     codes_norm.launches += 1
     return out
 
@@ -267,9 +311,6 @@ codes_norm.launches = 0
 
 
 # -- the calibrating norm ------------------------------------------------------
-
-_CAL_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 @functools.lru_cache(maxsize=None)
 def _fill_eps(dtype: torch.dtype) -> Tuple[float, float]:
@@ -289,8 +330,7 @@ def calibrated_norm_plain(x, r, gamma, beta, *, rms: bool,
     float32 tensor."""
     h = x if r is None else x + r
     params = calibrate_ptf(h, unsigned=not rms)
-    out = qnorm_plain(h.float(), params.denom(), params.alpha, gamma, beta,
-                      rms=rms)
+    out = qnorm_plain(h, params.scale, params.alpha, gamma, beta, rms=rms)
     res = quantize_act(out) if quant_out else out.to(out_dtype)
     return h, res, params.alpha, params.scale.float().reshape(1)
 
@@ -313,7 +353,7 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                                      out_dtype=out_dtype, quant_out=quant_out)
     if x.device.type != "cuda":
         raise ValueError(f"no ailayernorm kernel for device {x.device}")
-    if x.dtype not in _CAL_TYPES:
+    if x.dtype not in _ACT_TYPES:
         raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
                         "bfloat16")
     if out_dtype not in (torch.float32, x.dtype):
@@ -363,7 +403,7 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
     lib = build.load("ailayernorm")
     fn = build.declare(lib, "ailayernorm_calib", 10, 7, 2)
     eps, eps6 = _fill_eps(x.dtype)
-    rc = build.launch(dev, fn, *ptrs, rows, c, int(rms), _CAL_TYPES[x.dtype],
+    rc = build.launch(dev, fn, *ptrs, rows, c, int(rms), _ACT_TYPES[x.dtype],
                       int(out_dtype != torch.float32), int(quant_out), vec,
                       ctypes.c_float(eps), ctypes.c_float(eps6))
     build.check(lib, rc, "ailayernorm_calib launch")
@@ -377,18 +417,41 @@ calibrated_norm.launches = 0
 # -- entry points in the reference's signatures -------------------------------
 
 
-def _rows(x) -> torch.Tensor:
-    return x.reshape(-1, x.shape[-1]).float().contiguous()
+def _static_rows(*acts):
+    """(rows, C) activations for the static-params kernels: views of
+    ``acts`` where they are float32 or bf16 of one dtype (the kernel reads
+    them as they are), float32 copies otherwise, made contiguous. On CPU
+    tensors the plain versions read them as float32 themselves."""
+    c = acts[0].shape[-1]
+    rows = [t.reshape(-1, c) for t in acts]
+    if rows[0].device.type != "cpu" and (
+            rows[0].dtype not in _ACT_TYPES
+            or any(t.dtype != rows[0].dtype for t in rows)):
+        rows = [t.float() for t in rows]
+    return [t.contiguous() for t in rows]
+
+
+def _written(out_dtype):
+    """The output type a static-params kernel writes for ``out_dtype``:
+    itself where it is float32 or bf16, else float32, cast after."""
+    od = out_dtype or torch.float32
+    return od if od in _ACT_TYPES else torch.float32
 
 
 def _chan_args(params: PTFQuantParams, gamma, beta):
-    return (params.denom().contiguous(), params.alpha.contiguous(),
-            gamma.float().contiguous(), beta.float().contiguous())
+    """The kernels' channel arguments: the PTF scale as it is, alpha,
+    gamma and beta (None for a zero shift), with no copy where they
+    already have the kernel's types."""
+    return (params.scale, params.alpha.to(torch.int32).contiguous(),
+            gamma.float().contiguous(),
+            None if beta is None else beta.float().contiguous())
 
 
 def _norm_call(x, params: PTFQuantParams, gamma, beta, rms: bool, out_dtype):
     """Flatten to rows, run :func:`qnorm`, restore the shape."""
-    out = qnorm(_rows(x), *_chan_args(params, gamma, beta), rms=rms)
+    (rows,) = _static_rows(x)
+    out = qnorm(rows, *_chan_args(params, gamma, beta), rms=rms,
+                out_dtype=_written(out_dtype))
     return out.reshape(x.shape).to(out_dtype or torch.float32)
 
 
@@ -411,7 +474,8 @@ def ailayernorm(x, gamma, beta, *, params: Optional[PTFQuantParams] = None,
                 out_dtype=None) -> torch.Tensor:
     """AILayerNorm (unsigned codes) with the caller's static PTF params,
     or calibrated on the fly over the whole tensor (:func:`calibrated_norm`).
-    The output is float32 unless ``out_dtype`` names x's dtype."""
+    The output is float32 unless ``out_dtype`` names another type (the
+    kernels write float32 or bf16; another type is cast after)."""
     if params is None:
         return _calibrated(x, None, gamma, beta, False, out_dtype)[1]
     return _norm_call(x, params, gamma, beta, False, out_dtype)
@@ -422,8 +486,7 @@ def airmsnorm(x, gamma, *, params: Optional[PTFQuantParams] = None,
     """AIRMSNorm (symmetric codes), params as :func:`ailayernorm`."""
     if params is None:
         return _calibrated(x, None, gamma, None, True, out_dtype)[1]
-    return _norm_call(x, params, gamma, torch.zeros_like(gamma), True,
-                      out_dtype)
+    return _norm_call(x, params, gamma, None, True, out_dtype)
 
 
 def fused_add_norm(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
@@ -432,17 +495,17 @@ def fused_add_norm(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
                    out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(h, norm(h))`` with ``h = x + r``: the residual carry and the norm
     (float32, or ``out_dtype``). With static ``params`` the add, quantize,
-    statistics and affine are one kernel on float32 rows and ``h`` comes
-    back float32; without them :func:`calibrated_norm` adds in the inputs'
-    dtype and calibrates on ``h`` in the same launch."""
+    statistics and affine are one kernel on the rows as they are, and
+    ``h`` comes back float32; without them :func:`calibrated_norm` adds
+    in the inputs' dtype and calibrates on ``h`` in the same launch."""
     if params is None:
         return _calibrated(x, r, gamma, beta, rms, out_dtype)
-    if beta is None:
-        beta = torch.zeros_like(gamma)
-    h, out = add_norm(_rows(x), _rows(r), *_chan_args(params, gamma, beta),
-                      rms=rms)
-    return h.reshape(x.shape), out.reshape(x.shape).to(out_dtype
-                                                       or torch.float32)
+    x2, r2 = _static_rows(x, r)
+    h, out = add_norm(x2, r2, *_chan_args(params, gamma,
+                                          None if rms else beta),
+                      rms=rms, out_dtype=_written(out_dtype))
+    return (h.reshape(x.shape),
+            out.reshape(x.shape).to(out_dtype or torch.float32))
 
 
 def fused_add_norm_quant(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
@@ -453,11 +516,9 @@ def fused_add_norm_quant(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
     the static-params one, or :func:`calibrated_norm` with quant-out."""
     if params is None:
         return _calibrated(x, r, gamma, beta, rms, quant_out=True)
-    if beta is None:
-        beta = torch.zeros_like(gamma)
-    h, codes, scale = add_norm_quant(_rows(x), _rows(r),
-                                     *_chan_args(params, gamma, beta),
-                                     rms=rms)
+    x2, r2 = _static_rows(x, r)
+    h, codes, scale = add_norm_quant(
+        x2, r2, *_chan_args(params, gamma, None if rms else beta), rms=rms)
     return (h.reshape(x.shape),
             (codes.reshape(x.shape), scale.reshape(x.shape[:-1] + (1,))))
 

@@ -54,7 +54,8 @@ def _static(params) -> Optional[PTFQuantParams]:
 
 @registry.register("layernorm", "sole", "cuda")
 def sole_layernorm_cuda(x, gamma, beta, *, params=None, out_dtype=None, **kw):
-    """The quantize+norm kernel with the caller's static PTF ``params``;
+    """The quantize+norm kernel with the caller's static PTF ``params``
+    (one launch on contiguous float32 or bf16 rows, read as they are);
     without them the calibrating norm kernel (calibration over the whole
     tensor and the norm in one launch). ``out_dtype`` (float32 by default,
     or x's dtype) is the type the kernel writes the output in."""
@@ -71,9 +72,10 @@ def sole_rmsnorm_cuda(x, gamma, *, params=None, out_dtype=None, **kw):
 @registry.register("residual_layernorm", "sole", "cuda")
 def sole_residual_layernorm_cuda(x, r, gamma, beta=None, *, params=None,
                                  out_dtype=None, **kw):
-    """Static ``params``: the fused add+norm kernel (``_fused_kernel``);
-    without them the calibrating norm kernel: the add, the calibration and
-    the quantize+norm in one launch."""
+    """Static ``params``: the fused add+norm kernel (``_fused_kernel``),
+    one launch on float32 or bf16 rows, ``h`` in float32; without them
+    the calibrating norm kernel: the add, the calibration and the
+    quantize+norm in one launch."""
     return K_norm.fused_add_norm(x, r, gamma, beta, params=_static(params),
                                  rms=False, out_dtype=out_dtype)
 

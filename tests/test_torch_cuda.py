@@ -13,8 +13,10 @@ Tolerances, and why:
 * paged attention on exact-logit inputs (q, k small integers, so every q.k
   partial sum is exact in fp32): identical codes, only the P.V sum order
   differs: 1e-5.
-* quantize+norm: codes and int32 sums are exact and the epilogue rounds
-  like the plain ops: 1e-6.
+* static-params quantize+norm: codes and int32 sums are exact and the
+  epilogue rounds like the plain ops: bitwise equal to the plain version
+  on the float32 view of the rows (float32 or bf16), a bf16 output to the
+  plain output's ``.to(bfloat16)``.
 * int8 GEMM: integer sums are exact in any order, split over K or not:
   bitwise equal, on two calls in a row (the split's self-resetting
   tickets leave nothing behind).
@@ -47,8 +49,10 @@ Tolerances, and why:
   Otherwise the dot order may move a logit across a rounding boundary
   and flip one code: at most 1% of rows off by more than 1e-3.
 * fused add+norm: ``h`` is one float32 add, bitwise; the norm as the
-  quantize+norm kernel, 1e-6. Quantize-out: codes and scale bitwise equal
-  to ``quantize_act`` of the add+norm kernel's output on the same inputs.
+  quantize+norm kernel, bitwise. Quantize-out: codes and scale bitwise
+  equal to ``quantize_act`` of the add+norm kernel's output on the same
+  inputs. A static-params op call is one device kernel under the
+  profiler.
 * codes entry: integer sums exact, epilogue as the quantize+norm: 1e-6.
 """
 import dataclasses
@@ -185,15 +189,15 @@ def test_qnorm_kernel_matches_plain_full_width(cuda_device, c, rms, rows):
     xt = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
     p = calibrate_ptf(xt, unsigned=not rms)
     assert p.scale.dtype == torch.bfloat16
-    args = (xt.float().contiguous(), p.denom(), p.alpha,
+    args = (xt.float().contiguous(), p.scale, p.alpha,
             torch.from_numpy(gamma).to(cuda_device),
-            torch.from_numpy(0 * beta if rms else beta).to(cuda_device))
+            None if rms else torch.from_numpy(beta).to(cuda_device))
     before = KN.qnorm.launches
     out = KN.qnorm(*args, rms=rms)
     assert KN.qnorm.launches == before + 1
     ref = KN.qnorm_plain(*args, rms=rms)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, ref)
 
 
 def test_calibration_on_card_equals_cpu(cuda_device):
@@ -557,8 +561,7 @@ def test_add_norm_quant_team_kernel_bitwise(cuda_device, rows, c, rms):
     rng = np.random.default_rng(rows * 7 + c)
     x, r, calib, gamma, beta = _norm_case(rng, rows, c, cuda_device)
     p = calibrate_ptf(calib, unsigned=not rms)
-    args = (x, r, p.denom(), p.alpha, gamma,
-            torch.zeros_like(beta) if rms else beta)
+    args = (x, r, p.scale, p.alpha, gamma, None if rms else beta)
     q0 = KN.add_norm_quant.launches
     h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
     assert KN.add_norm_quant.launches == q0 + 1
@@ -578,13 +581,195 @@ def test_add_norm_quant_wide_rows_take_norm_row(cuda_device, c):
     rng = np.random.default_rng(c)
     x, r, calib, gamma, beta = _norm_case(rng, 64, c, cuda_device)
     p = calibrate_ptf(calib, unsigned=True)
-    args = (x, r, p.denom(), p.alpha, gamma, beta)
+    args = (x, r, p.scale, p.alpha, gamma, beta)
     h8, codes, scale = KN.add_norm_quant(*args, rms=False)
     h, out = KN.add_norm(*args, rms=False)
     torch.cuda.synchronize()
     want_codes, want_scale = quantize_act(out)
     assert torch.equal(h8, h)
     assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
+# -- the static-params norms on the team-per-row body -------------------------
+
+STATIC_TYPES = [("float32", "float32"), ("float32", "bfloat16"),
+                ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+
+def _static_case(rng, rows, c, rms, x_dtype, device):
+    """Rows in ``x_dtype`` and static params calibrated on a held-out
+    batch of that dtype (a bf16 scale for bf16 rows): (x, r, channel
+    arguments as the wrappers take them)."""
+    x, r, calib, gamma, beta = _norm_case(rng, rows, c, device)
+    dt = getattr(torch, x_dtype)
+    p = calibrate_ptf(calib.to(dt), unsigned=not rms)
+    return x.to(dt), r.to(dt), (p.scale, p.alpha, gamma,
+                                None if rms else beta)
+
+
+def _check_static_entries(x, r, chan, rms, od):
+    """qnorm, add_norm and add_norm_quant on ``x``/``r`` bitwise equal to
+    their plain versions on the float32 view of the same rows, the
+    outputs then cast to ``od``."""
+    counters = (KN.qnorm, KN.add_norm, KN.add_norm_quant)
+    before = [f.launches for f in counters]
+    out = KN.qnorm(x, *chan, rms=rms, out_dtype=od)
+    h, out2 = KN.add_norm(x, r, *chan, rms=rms, out_dtype=od)
+    h8, codes, scale = KN.add_norm_quant(x, r, *chan, rms=rms)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    want = KN.qnorm_plain(x.float(), *chan, rms=rms).to(od)
+    h_ref, want2 = KN.add_norm_plain(x.float(), r.float(), *chan, rms=rms)
+    _, want_codes, want_scale = KN.add_norm_quant_plain(
+        x.float(), r.float(), *chan, rms=rms)
+    torch.cuda.synchronize()
+    assert out.dtype == od and torch.equal(out, want)
+    assert h.dtype == torch.float32 and torch.equal(h, h_ref)
+    assert torch.equal(h8, h_ref)
+    assert out2.dtype == od and torch.equal(out2, want2.to(od))
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", STATIC_TYPES,
+                         ids=[f"{a}-{b}" for a, b in STATIC_TYPES])
+@pytest.mark.parametrize("rms", [True, False], ids=["rms", "ln"])
+@pytest.mark.parametrize("c", [896, 898, 900, 2048])
+@pytest.mark.parametrize("rows", [1, 8, 127, 2048, 3001])
+def test_static_norm_team_kernels_bitwise(cuda_device, rows, c, rms, x_dtype,
+                                          out_dtype):
+    """``qnorm`` and ``add_norm`` (and ``add_norm_quant``) on the
+    team-per-row body, float32 or bf16 rows read as they are, float32 or
+    bf16 out written by the kernel: every output bitwise equal to the
+    plain version on the float32 view of the same rows, at decode to
+    past-prefill rows (3001 rows walk the persistent row loop), C = 898
+    (scalar accesses) and 900, RMS and LN."""
+    rng = np.random.default_rng(rows * 13 + c)
+    x, r, chan = _static_case(rng, rows, c, rms, x_dtype, cuda_device)
+    _check_static_entries(x, r, chan, rms, getattr(torch, out_dtype))
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", STATIC_TYPES,
+                         ids=[f"{a}-{b}" for a, b in STATIC_TYPES])
+@pytest.mark.parametrize("c", [4099, 5000])
+def test_static_norm_wide_rows_take_norm_row(cuda_device, c, x_dtype,
+                                             out_dtype):
+    """Rows wider than a team's registers (4099 scalar channels, 5000 in
+    units of 4) take the one-block-per-row body, with the same results."""
+    rng = np.random.default_rng(c + len(x_dtype + out_dtype))
+    x, r, chan = _static_case(rng, 64, c, False, x_dtype, cuda_device)
+    _check_static_entries(x, r, chan, False, getattr(torch, out_dtype))
+
+
+@pytest.mark.parametrize("c", [896, 5000])
+@pytest.mark.parametrize("scale", [2.0 ** 100, 2.0 ** -130],
+                         ids=["2^100", "subnormal"])
+def test_static_norm_extreme_scales(cuda_device, scale, c):
+    """PTF scales no calibration gives, 2^100 and a subnormal one: the
+    kernels' ``denom = scale * 2^alpha`` (one multiply by the exact power
+    of two, in the team body and in ``norm_row``) keeps every output
+    bitwise equal to the plain versions."""
+    rng = np.random.default_rng(c)
+    x, r, calib, gamma, beta = _norm_case(rng, 16, c, cuda_device)
+    p = calibrate_ptf(calib, unsigned=True)
+    s = torch.tensor(scale, dtype=torch.float32, device=cuda_device)
+    f = s / p.scale.float()                # rows on the new scale's grid
+    _check_static_entries(x * f, r * f, (s, p.alpha, gamma, beta), False,
+                          torch.float32)
+
+
+def _profiled_kernels(fn, counters, reps=5):
+    """Device kernels per call of ``fn`` under ``torch.profiler`` (between
+    two ``torch.cuda._sleep`` markers, not counted), the static-params
+    norm kernels by their launch counters (the profiler can drop a record
+    of a kernel launched through ctypes). Returns (kernels per call, the
+    names of every other kernel seen)."""
+    from torch.profiler import ProfilerActivity, profile
+    ours = ("qnorm_kernel", "add_norm_kernel", "add_norm_quant",
+            "norm_row_kernel")
+    fn()
+    torch.cuda.synchronize()
+    before = sum(f.launches for f in counters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    launched = sum(f.launches for f in counters) - before
+    other = [(e.key, e.count) for e in prof.key_averages()
+             if max(getattr(e, k, 0) for k in ("device_time_total",
+                                               "cuda_time_total")) > 0
+             and "spin_kernel" not in e.key
+             and not any(k in e.key for k in ours)]
+    return (launched + sum(n for _, n in other)) / reps, [k for k, _ in other]
+
+
+STATIC_OPS = ["layernorm", "rmsnorm", "residual_layernorm", "residual_rmsnorm",
+              "residual_layernorm_q", "residual_rmsnorm_q"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", STATIC_OPS)
+def test_static_params_op_call_is_one_kernel(cuda_device, op, dtype):
+    """A static-params SOLE norm op call on contiguous float32 or bf16
+    activations is one device kernel (no cast of the rows, no
+    ``denom()``, no zero beta, the output written by the kernel in the
+    activations' dtype), equal bit for bit to the plain version on the
+    float32 view of the same rows."""
+    rms = "rmsnorm" in op
+    rng = np.random.default_rng(len(op) + len(dtype))
+    x, r, calib, gamma, beta = _norm_case(rng, 8, 896, cuda_device)
+    dt = getattr(torch, dtype)
+    x, r = x.to(dt).reshape(2, 4, 896), r.to(dt).reshape(2, 4, 896)
+    p = calibrate_ptf(calib.to(dt), unsigned=not rms)
+    extra = () if rms else (beta,)
+    fn = ops.resolve(op, "sole", "cuda")
+    od = x.dtype
+    if op.endswith("_q"):
+        def call():
+            return fn(x, r, gamma, *extra, params=p)
+    elif op.startswith("residual_"):
+        def call():
+            return fn(x, r, gamma, *extra, params=p, out_dtype=od)
+    else:
+        def call():
+            return fn(x, gamma, *extra, params=p, out_dtype=od)
+    got = call()
+    chan = (p.scale, p.alpha, gamma, None if rms else beta)
+    x2, r2 = x.reshape(8, 896).float(), r.reshape(8, 896).float()
+    if op.endswith("_q"):
+        h_ref, codes, scale_ref = KN.add_norm_quant_plain(x2, r2, *chan,
+                                                          rms=rms)
+        want = (h_ref.reshape(x.shape), (codes.reshape(x.shape),
+                                         scale_ref.reshape(2, 4, 1)))
+        flat = [got[0], *got[1]], [want[0], *want[1]]
+    elif op.startswith("residual_"):
+        h_ref, out = KN.add_norm_plain(x2, r2, *chan, rms=rms)
+        flat = list(got), [h_ref.reshape(x.shape), out.to(od).reshape(x.shape)]
+    else:
+        flat = [got], [KN.qnorm_plain(x2, *chan, rms=rms).to(od)
+                       .reshape(x.shape)]
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*flat))
+    n, other = _profiled_kernels(call, (KN.qnorm, KN.add_norm,
+                                        KN.add_norm_quant))
+    assert n == 1 and not other, (n, other)
+
+
+def test_ailayernorm_build_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A norm source that does not compile raises from the wrapper; nothing
+    falls back to the plain version and no launch is counted."""
+    (tmp_path / "ailayernorm.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(build._LIBS, "ailayernorm", raising=False)
+    x = torch.zeros((2, 8), device=cuda_device)
+    chan = (torch.ones((), device=cuda_device),
+            torch.zeros(8, dtype=torch.int32, device=cuda_device),
+            torch.ones(8, device=cuda_device), None)
+    before = KN.qnorm.launches
+    with pytest.raises(RuntimeError, match="nvcc failed on ailayernorm.cu"):
+        KN.qnorm(x, *chan, rms=True)
+    assert KN.qnorm.launches == before
 
 
 def test_e2softmax_build_failure_raises(cuda_device, tmp_path, monkeypatch):
@@ -785,8 +970,7 @@ def test_fused_norm_kernels_match_plain(cuda_device, rows, c, rms):
     rng = np.random.default_rng(rows + c)
     x, r, calib, gamma, beta = _norm_case(rng, rows, c, cuda_device)
     p = calibrate_ptf(calib, unsigned=not rms)
-    args = (x, r, p.denom(), p.alpha, gamma,
-            torch.zeros_like(beta) if rms else beta)
+    args = (x, r, p.scale, p.alpha, gamma, None if rms else beta)
     n0, q0 = KN.add_norm.launches, KN.add_norm_quant.launches
     h, out = KN.add_norm(*args, rms=rms)
     h8, codes, scale = KN.add_norm_quant(*args, rms=rms)
@@ -795,7 +979,7 @@ def test_fused_norm_kernels_match_plain(cuda_device, rows, c, rms):
     h_ref, out_ref = KN.add_norm_plain(*args, rms=rms)
     torch.cuda.synchronize()
     assert torch.equal(h, h_ref) and torch.equal(h8, h_ref)
-    torch.testing.assert_close(out, out_ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, out_ref)
     want_codes, want_scale = quantize_act(out)
     assert codes.dtype == torch.int8 and scale.shape == (rows, 1)
     assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)

@@ -81,7 +81,7 @@ def test_sole_norm_cuda_adapter_honours_static_params(kind):
     extra = (beta,) if kind == "layernorm" else ()
     args = [torch.from_numpy(a) for a in (x, gamma) + extra]
     got = tops.resolve(kind, "sole", "cuda")(*args, params=tp)
-    want = KN.qnorm_plain(args[0], tp.denom(), tp.alpha, args[1],
+    want = KN.qnorm_plain(args[0], tp.scale, tp.alpha, args[1],
                           args[2] if extra else torch.zeros_like(args[1]),
                           rms=kind == "rmsnorm")
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -103,16 +103,17 @@ def test_plain_differs_from_compiled_only_by_rsqrt(entry, rms, c):
     denom = np.array(JK._ptf_denom(params), np.float32)
     alpha = np.array(params.alpha, np.int32)
     t = torch.from_numpy
+    scale = t(np.array(params.scale, np.float32))
     xi = KN.ptf_codes(t(h), t(denom))
     if entry == "qnorm":
         want = JK._qnorm_call(jnp.asarray(x), denom, alpha, gamma, beta, rms,
                               256, True)
-        got = KN.qnorm_plain(t(x), t(denom), t(alpha), t(gamma), t(beta),
+        got = KN.qnorm_plain(t(x), scale, t(alpha), t(gamma), t(beta),
                              rms=rms)
     elif entry == "add_norm":
         want_h, want = JK._fused_call(jnp.asarray(x), jnp.asarray(r), denom,
                                       alpha, gamma, beta, rms, 256, True)
-        got_h, got = KN.add_norm_plain(t(x), t(r), t(denom), t(alpha),
+        got_h, got = KN.add_norm_plain(t(x), t(r), scale, t(alpha),
                                        t(gamma), t(beta), rms=rms)
         np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
     else:
