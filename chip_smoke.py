@@ -85,6 +85,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    of the dense-slot engine (bf16 and w8a8): the device-busy share of the wall time,
    kernels per forward and the kernels with the most device time.
 
+The relu2 + LayerNorm configs join phases 3-6: the paged kernel at
+minitron_8b's attention (head dim 128, 32 heads over 8 KV heads; the
+CUDA-core route, SOLE held to a share of rows) over bf16 and int8 pools,
+the calibrating norm at LayerNorm widths 4,096 and 6,144, the int8 GEMM at
+minitron_8b's shapes (K 16,384, the 256,000-entry head) and the dense
+path's ``_sole_probs`` at its heads; then minitron_8b at full width (32
+layers) through ``PagedEngine`` in bf16 and at w8a8 with int8 KV, through
+the dense-slot ``Engine`` in bf16, three stochastic replays (exact mode;
+cold, warm prefix cache, forced preemption; the device draws against the
+host ``Sampler``), an 8,192-token prefill on the blocked attention against
+the dense one, a profiled wave; and nemotron_4_15b (48 heads, 6,144
+wide) through ``PagedEngine`` in bf16, each model freed before the next.
+
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is available or the port is not beside this file.
@@ -118,7 +131,22 @@ NEW_TOKENS = 32
 GEMM_KN = (("wq_wo", 896, 896), ("wk_wv", 896, 128),
            ("gate_up", 896, 4864), ("down", 4864, 896),
            ("head", 896, 151936))
-GEMM_PER_FORWARD = 24 * 7 + 1
+# the relu2 + LayerNorm configs at full width: minitron_8b's GEMMs (4096
+# wide; up/down 16,384; the 256,000-entry LM head) and the LayerNorm
+# widths of minitron_8b and nemotron_4_15b
+MINITRON_GEMM_KN = (("wq_wo", 4096, 4096), ("wk_wv", 4096, 1024),
+                    ("up", 4096, 16384), ("down", 16384, 4096),
+                    ("head", 4096, 256000))
+BLOCKED_PROMPT = 8192              # attn_impl "auto" takes the blocked path
+STOCHASTIC = dict(temperature=0.8, top_k=40)
+PREEMPT_BLOCKS = 40                # pages that force recompute-preemption
+
+
+def gemm_per_forward(cfg) -> int:
+    """int8 GEMM launches of one w8a8 forward: q, k, v, o and the MLP's
+    projections (three gated, two otherwise) per layer, and the head."""
+    mlp = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    return cfg.n_layers * (4 + mlp) + 1
 
 
 def log(msg: str) -> None:
@@ -384,6 +412,12 @@ CALIB_CASES = {"decode": (DECODE_BATCH, 896, True),
                "prefill": (PREFILL_CHUNK, 896, True),
                "dense_prefill": (DECODE_BATCH * 300, 896, True),
                "layernorm_2048": (PREFILL_CHUNK, 2048, False)}
+# LayerNorm at minitron_8b's 4,096 and nemotron_4_15b's 6,144 channels, at
+# the same three row counts
+CALIB_CASES.update({f"ln{c}_{name}": (rows, c, False) for c in (4096, 6144)
+                    for name, rows in (("decode", DECODE_BATCH),
+                                       ("prefill", PREFILL_CHUNK),
+                                       ("dense_prefill", DECODE_BATCH * 300))})
 
 
 def check_calib_norm(torch):
@@ -489,8 +523,9 @@ def check_int8_gemm(torch):
     least one CTA per SM."""
     from repro_torch.kernels import int8_matmul as KM
     gen = torch.Generator(device="cuda").manual_seed(2)
-    shapes = [(f"{nm}_m{m}", m, k, n) for m in (DECODE_BATCH, PREFILL_CHUNK)
-              for nm, k, n in GEMM_KN]
+    shapes = [(f"{pre}{nm}_m{m}", m, k, n)
+              for pre, kn in (("", GEMM_KN), ("minitron_", MINITRON_GEMM_KN))
+              for m in (DECODE_BATCH, PREFILL_CHUNK) for nm, k, n in kn]
     n_path = len(shapes)
     shapes += [("ragged_7x130x33", 7, 130, 33),
                ("ragged_64x256x128", 64, 256, 128),
@@ -786,9 +821,9 @@ def eos_outcome(o, eos):
 
 def serve_full_width(torch, cfg, label):
     """Phase 4: one main path at full width, counts from this run only.
-    At w8a8 also checks 169 int8 GEMM launches per forward (24 paged
-    attention launches mark one forward) and int8 page pools, and reports
-    the peak device memory of the trace."""
+    At w8a8 also checks ``gemm_per_forward`` int8 GEMM launches per
+    forward (one paged attention launch per layer marks a forward) and
+    int8 page pools, and reports the peak device memory of the trace."""
     from repro_torch.models import api
     from repro_torch.serve.engine import PagedEngine, Request
 
@@ -861,10 +896,10 @@ def serve_full_width(torch, cfg, label):
         raise AssertionError("the paged path launched the static-params "
                              "quantize+norm")
     if w8a8:
-        if launches["int8_matmul"] != GEMM_PER_FORWARD * forwards:
+        if launches["int8_matmul"] != gemm_per_forward(cfg) * forwards:
             raise AssertionError(
                 f"{launches['int8_matmul']} int8 GEMM launches over "
-                f"{forwards} forwards, not {GEMM_PER_FORWARD} each")
+                f"{forwards} forwards, not {gemm_per_forward(cfg)} each")
         dtypes = {str(p.dtype) for p in eng.cache.pools.values()}
         if dtypes != {"torch.int8"}:
             raise AssertionError(f"w8a8 trace pools are {dtypes}, not int8")
@@ -938,7 +973,7 @@ def serve_dense_full_width(torch, cfg, params, label):
     want_launches = {"e2softmax": cfg.n_layers * calls,
                      "ailayernorm_calib": (2 * cfg.n_layers + 1) * calls,
                      "ailayernorm_qnorm": 0,
-                     "int8_matmul": (GEMM_PER_FORWARD * calls
+                     "int8_matmul": (gemm_per_forward(cfg) * calls
                                      if cfg.quant.acts else 0),
                      "paged_e2softmax": 0, **{k: 0 for k in OPS_KERNELS}}
     if launches != want_launches:
@@ -1018,15 +1053,20 @@ def check_agreement(outs, label, bar):
         raise AssertionError(f"smoke parity {label}: {agree} < {bar}")
 
 
+def case_dims(case):
+    """(H, KV, d) of a paged case: q (B, H, C, d), pools (N, bs, KV, d)."""
+    return case[0].shape[1], case[1].shape[2], case[0].shape[3]
+
+
 def time_kernels(torch, attn, launches, cfg):
     """Phase 5: CUDA-event times of the paged kernel and its plain
-    version, and the kernel's own device time from ``torch.profiler``."""
+    version, and the kernel's own device time from ``torch.profiler``, at
+    each checked shape (its heads and head dim from the case); every
+    shape also in exact mode beside ``scaled_dot_product_attention``."""
     from repro_torch.kernels import flash_e2softmax as KA
     from repro_torch.models.layers import LOGIT_INT8_SCALE
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
-    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
     kw = dict(sole=True, exp_bits=cfg.exp_bits, int8_scale=LOGIT_INT8_SCALE)
     table = []
     entry = {"paged_e2softmax": dict(
@@ -1035,6 +1075,8 @@ def time_kernels(torch, attn, launches, cfg):
         replaces="src/repro/kernels/flash_e2softmax.py:186", shapes={})}
     for name, res in attn.items():
         case, causal = res["case"], res["causal"]
+        h, kvh, d = case_dims(case)
+        kvmap = KA.default_kv_head_map(h, kvh, "cuda")
 
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
@@ -1044,17 +1086,20 @@ def time_kernels(torch, attn, launches, cfg):
             *case, kvmap, causal=causal, **kw), flush, reps=5)
         nbytes, flops = attention_work(case, causal, h, kvh, d)
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
+                                                causal)
         entry["paged_e2softmax"]["shapes"][name] = dict(
-            shape=f"q {tuple(case[0].shape)} kv_len {case[4][:, 1].tolist()}",
+            shape=f"q {tuple(case[0].shape)} KV {kvh} kv_len "
+                  f"{case[4][:, 1].tolist()}",
+            variant=KA.paged_variant(case[0].dtype, case[1].dtype, d,
+                                     case[1].shape[1]),
             ms=ms, kernel_ms=kernel_ms, plain_ms=plain, bound_ms=bms,
             bound_by=by,
             max_abs_err=res["max_abs_err"],
             max_abs_err_random=res["max_abs_err_random"],
+            exact_ms=exact_ms, library_ms=sdpa_ms,
+            library="scaled_dot_product_attention (exact, K/V gathered)",
             bytes=nbytes, flops=flops)
-    dec = entry["paged_e2softmax"]["shapes"]["decode"]
-    dec["exact_ms"], dec["library_ms"] = paged_exact_vs_sdpa(
-        torch, attn["decode"]["case"], kvmap, flush)
-    dec["library"] = "scaled_dot_product_attention (exact, K/V gathered)"
     for key, e in entry.items():
         main = e["shapes"]["decode"]            # the most-launched shape
         e.update(launches=launches[key], max_abs_err=max(
@@ -1066,39 +1111,43 @@ def time_kernels(torch, attn, launches, cfg):
     for e in table:
         for s, v in e["shapes"].items():
             k = v["kernel_ms"]
-            log(f"{e['name']} {s} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
-                f"(profiler: kernel "
+            log(f"{e['name']} {s} [{v['shape']}; {v['variant']}]: "
+                f"{v['ms'] * 1e3:.1f} us (profiler: kernel "
                 f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
                 f"plain {v['plain_ms'] * 1e3:.1f} us, bound "
                 f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})"
-                + ("" if "exact_ms" not in v else
-                   f"; exact mode {v['exact_ms'] * 1e3:.1f} us, "
-                   f"{v['library']} {v['library_ms'] * 1e3:.1f} us"))
+                f"; exact mode {v['exact_ms'] * 1e3:.1f} us, "
+                f"{v['library']} {v['library_ms'] * 1e3:.1f} us")
     return table
 
 
-def paged_exact_vs_sdpa(torch, case, kvmap, flush):
-    """The paged kernel in exact mode on a decode case, and
+def paged_exact_vs_sdpa(torch, case, kvmap, flush, causal=False):
+    """The paged kernel in exact mode on a case, and
     ``scaled_dot_product_attention`` on the same K/V gathered contiguous
-    beforehand (the gather is not timed; padded to the longest sequence
-    with a key mask): a yardstick the port never calls."""
+    beforehand (the gather is not timed; padded to the longest sequence,
+    with a key mask that is also causal for a prefill chunk): a
+    yardstick the port never calls."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_e2softmax as KA
     q, k_pool, v_pool, tables, meta = case
-    b, h, _, d = q.shape
+    b, h, c, d = q.shape
     kv_lens = meta[:, 1].tolist()
     t = max(kv_lens)
     pages = tables[:, :-(-t // BLOCK_SIZE)].long()
     rows = kvmap.long()
+    dt = torch.bfloat16
 
     def gather(pool):                       # (B, H, T, d) per query head
         g = pool[pages].flatten(1, 2)[:, :t]            # (B, T, KV, d)
-        return g[:, :, rows].transpose(1, 2).contiguous()
+        return g[:, :, rows].transpose(1, 2).to(dt).contiguous()
     k4, v4 = gather(k_pool), gather(v_pool)
-    mask = (torch.arange(t, device=q.device)[None, :]
-            < meta[:, 1:2].long())[:, None, None, :]
+    cols = torch.arange(t, device=q.device)
+    mask = (cols[None, :] < meta[:, 1:2].long())[:, None, None, :]
+    if causal:
+        qpos = meta[:, :1].long() + torch.arange(c, device=q.device)
+        mask = mask & (cols[None, None, :] <= qpos[:, :, None])[:, None]
     exact = time_ms(torch, lambda: KA.flash_e2softmax_paged(
-        *case, causal=False, sole=False, exp_bits=4), flush)
+        *case, causal=causal, sole=False, exp_bits=4), flush)
     sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k4, v4, attn_mask=mask), flush)
     return exact, sdpa
@@ -1300,8 +1349,6 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
     from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
-    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
     kw = dict(sole=True, exp_bits=cfg.exp_bits, int8_scale=LOGIT_INT8_SCALE,
               kv_scale=KV_INT8_SCALE, quant_pv=True)
     paged = dict(name="paged_e2softmax_int8kv", route="cuda",
@@ -1310,14 +1357,18 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
                  shapes={})
     for name, res in attn8.items():
         case, causal = res["case"], res["causal"]
+        h, kvh, d = case_dims(case)
+        kvmap = KA.default_kv_head_map(h, kvh, "cuda")
 
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
         nbytes, flops = attention_work(case, causal, h, kvh, d)
         bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
         paged["shapes"][name] = dict(
-            shape=f"q {tuple(case[0].shape)} int8 pools kv_len "
+            shape=f"q {tuple(case[0].shape)} KV {kvh} int8 pools kv_len "
                   f"{case[4][:, 1].tolist()}",
+            variant=KA.paged_variant(case[0].dtype, case[1].dtype, d,
+                                     case[1].shape[1], KV_INT8_SCALE),
             ms=time_ms(torch, run, flush),
             kernel_ms=profiled_kernel_ms(torch, run, flush, "paged_e2softmax"),
             plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
@@ -2015,6 +2066,336 @@ def profile_engine(torch, cfg, params, label, dense=False):
                     for us, n, key in rows[:12]]}
 
 
+# -- the relu2 + LayerNorm configs (minitron_8b, nemotron_4_15b) -------------
+
+
+def check_paged_d128(torch, cfg):
+    """Phase 3 at minitron_8b's attention (head dim 128, 32 heads over 8
+    KV heads): the paged kernel (the CUDA-core route: ``d^-1/2 =
+    2^-3.5`` is no power of two) against its plain version at the decode
+    and prefill-chunk shapes, over bf16 pools and int8 pools (``quant_pv``
+    on and off). The scaled q (plain) and the scaled logits (kernel)
+    round apart, so exact mode is held to 1e-4 of the output scale and a
+    SOLE output, whose codes can flip at a tie, to at most 1% of rows off
+    by more than 1e-3. Returns (bf16 results, int8 results) keyed
+    ``minitron_decode``/``minitron_prefill``."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+    shapes = {
+        "prefill": dict(b=1, c=PREFILL_CHUNK, q_start=[PREFILL_CHUNK],
+                        kv_lens=[2 * PREFILL_CHUNK]),
+        "decode": dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+                       kv_lens=[49, 300, 117, 1, 256, 83, 160, 1]),
+    }
+    out16, out8 = {}, {}
+    for name, sh in shapes.items():
+        causal = name == "prefill"
+        for int8, store in ((False, out16), (True, out8)):
+            case = paged_case(torch, gen, h=h, kvh=kvh, d=d, grid=False,
+                              int8=int8, **sh)
+            variant = KA.paged_variant(case[0].dtype, case[1].dtype, d,
+                                       case[1].shape[1], KV_INT8_SCALE)
+            if variant != "CUDA cores":
+                raise AssertionError(f"paged d={d}: {variant}")
+            errs, offs = {}, {}
+            for mode in ("sole", "exact"):
+                for quant_pv in ((True, False) if int8 else (False,)):
+                    kw = dict(sole=mode == "sole", exp_bits=cfg.exp_bits,
+                              int8_scale=(LOGIT_INT8_SCALE if mode == "sole"
+                                          else None))
+                    if int8:
+                        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=quant_pv)
+                    out = KA.flash_e2softmax_paged(*case, causal=causal,
+                                                   **kw)
+                    ref = KA.flash_e2softmax_paged_plain(
+                        *case, kvmap, causal=causal, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(out).all():
+                        raise AssertionError(f"paged d={d} {name}: "
+                                             "non-finite")
+                    err = (out - ref).abs()
+                    scale = max(ref.abs().max().item(), 1.0)
+                    key = f"{mode}{'_pv' if quant_pv else ''}"
+                    errs[key] = err.max().item()
+                    if mode == "exact":
+                        if errs[key] > 1e-4 * scale:
+                            raise AssertionError(
+                                f"paged d={d} {name} int8={int8} {key}: max "
+                                f"|err| {errs[key]} > {1e-4 * scale}")
+                        continue
+                    offs[key] = (err.amax(-1) > 1e-3 * scale).float().mean(
+                        ).item()
+                    if offs[key] > 0.01:
+                        raise AssertionError(
+                            f"paged d={d} {name} int8={int8} {key}: "
+                            f"{offs[key]} of rows off by > 1e-3")
+            store[f"minitron_{name}"] = dict(
+                case=case, causal=causal, errs=errs, rows_off=offs,
+                max_abs_err=max(errs.values()),
+                max_abs_err_random=max(errs.values()))
+            log(f"paged_e2softmax d={d} H {h}/KV {kvh} {name} "
+                f"{'int8' if int8 else 'bf16'} pools [{variant}]: max|err| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + "; SOLE rows off by > 1e-3: "
+                + ", ".join(f"{k} {v:.5f}" for k, v in offs.items()))
+    return out16, out8
+
+
+def check_new_e2_stage(torch, cfg, e2):
+    """Phase 3: the dense path's ``_sole_probs`` stage at ``cfg``'s
+    attention (32 heads in groups of 4), bitwise equal to the chain, one
+    launch per call; merged into ``e2`` for the timing."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    stage = dense_stage_inputs(torch, cfg, gen)
+    checked = check_sole_probs(torch, cfg, stage)
+    for k in stage:
+        e2["stage"][f"minitron_{k}"] = checked[k]
+        e2["stage_inputs"][f"minitron_{k}"] = stage[k]
+
+
+class SampleRecorder:
+    """Wraps the paged horizon's ``sample_tokens`` and keeps its stochastic
+    calls' logits (on the host), stream parameters and tokens until they
+    hold ``keep`` live-lane draws, so the host ``Sampler`` can redraw
+    them."""
+
+    def __init__(self, keep=24):
+        from repro_torch.models import transformer as T
+        self.module, self.orig = T, T.sample_tokens
+        self.keep, self.calls, self.draws = keep, [], 0
+
+    def __enter__(self):
+        def wrapped(logits, temperature, top_k, seed, counter, vocab_size,
+                    **kw):
+            toks = self.orig(logits, temperature, top_k, seed, counter,
+                             vocab_size, **kw)
+            if kw.get("stochastic") and self.draws < self.keep:
+                self.calls.append(tuple(
+                    t.cpu().numpy() for t in (logits, temperature, top_k,
+                                              seed, counter, toks)))
+                self.draws += int((temperature > 0).sum())
+            return toks
+        self.module.sample_tokens = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.sample_tokens = self.orig
+
+
+def stochastic_replay(torch, cfg, params):
+    """Phase 4: one stochastic trace (temperature 0.8, top-k 40, a seed per
+    request) through ``PagedEngine`` three times: cold, again on the warm
+    prefix cache, and cold in a pool of ``PREEMPT_BLOCKS`` pages that
+    forces recompute-preemption. In exact mode: a SOLE norm calibrates
+    over the whole batch, so its tokens depend on which lanes and chunks
+    share a step, which the three runs change by design.
+
+    The warm run must give the cold run's tokens, and the device
+    sampler's tokens must equal the host ``Sampler``'s for the same
+    (seed, counter) on the logits that produced them. A preempted
+    sequence recomputes its kept tokens' K/V through prefill chunks,
+    whose GEMMs (128 rows) round apart from the decode steps' (8 rows):
+    the preempted run must give the cold run's tokens for every request
+    up to the first token drawn after such a recompute; where it
+    diverges later is reported."""
+    from repro_torch.serve.engine import PagedEngine, Request
+    from repro_torch.serve.sampling import Sampler
+    cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    prompts, _ = trace_prompts(cfg)
+    reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS, seed=1000 + i,
+                    **STOCHASTIC) for i, p in enumerate(prompts)]
+
+    def engine(blocks):
+        return PagedEngine(cfg, params, num_blocks=blocks,
+                           block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                           max_running=8, decode_batch=DECODE_BATCH,
+                           prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                           device="cuda")
+    eng = engine(8 * MAX_SEQ_LEN // BLOCK_SIZE + 1)
+    runs, walls = {}, {}
+    with SampleRecorder() as rec:
+        t0 = time.time()
+        runs["cold"] = eng.generate(reqs)
+        walls["cold"] = time.time() - t0
+    t0 = time.time()
+    runs["warm"] = eng.generate(reqs)
+    walls["warm"] = time.time() - t0
+    warm_hits = eng.stats()["prefix_hit_tokens"]
+    tight = engine(PREEMPT_BLOCKS)
+    # tokens each request had kept at each preemption: its replay
+    # recomputes the K/V of out[:-1], which decode steps wrote, once that
+    # count is 2 or more
+    kept_at_preempt = {}
+    preempt = tight.sched.preempt
+
+    def recording_preempt(seq):
+        kept_at_preempt.setdefault(seq.seq_id, []).append(len(seq.out))
+        return preempt(seq)
+    tight.sched.preempt = recording_preempt
+    t0 = time.time()
+    runs["preempted"] = tight.generate(reqs)
+    walls["preempted"] = time.time() - t0
+    pre = tight.stats()["preemptions"]
+    for e in (eng, tight):
+        e.cache.check_refcounts()
+    if warm_hits <= 0 or pre <= 0:
+        raise AssertionError(f"warm prefix hits {warm_hits}, preemptions "
+                             f"{pre}: the replays did not exercise them")
+    if runs["cold"] != runs["warm"]:
+        raise AssertionError("stochastic warm replay differs from cold")
+    if any(len(o) != NEW_TOKENS for r in runs.values() for o in r):
+        raise AssertionError("stochastic trace: token counts")
+    if len({t for o in runs["cold"] for t in o}) < NEW_TOKENS:
+        raise AssertionError("stochastic trace: too few distinct tokens")
+    diverged = {}
+    for i, (a, b) in enumerate(zip(runs["cold"], runs["preempted"])):
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        if first is None:
+            continue
+        # seq ids follow submission order on a fresh engine
+        recomputed = [n for n in kept_at_preempt.get(i, []) if n >= 2]
+        if first < min(recomputed, default=NEW_TOKENS):
+            raise AssertionError(
+                f"preempted replay of request {i} differs at token {first},"
+                f" before any recomputed decode K/V (tokens kept at its "
+                f"preemptions: {kept_at_preempt.get(i)})")
+        diverged[i] = first
+    checked = 0
+    for logits, temp, top_k, seed, ctr, toks in rec.calls:
+        for i in range(len(toks)):
+            if temp[i] <= 0:
+                continue                     # a null lane
+            host = Sampler(temperature=float(temp[i]), top_k=int(top_k[i]),
+                           seed=int(seed[i]), vocab_size=cfg.vocab_size)
+            want = host.draw(logits[i], int(ctr[i]))
+            if want != int(toks[i]):
+                raise AssertionError(
+                    f"device draw {int(toks[i])} != host Sampler {want} at "
+                    f"seed {int(seed[i])} counter {int(ctr[i])}")
+            checked += 1
+    if not checked:
+        raise AssertionError("no stochastic device draw was recorded")
+    log(f"[{cfg.name} stochastic, exact mode] cold {walls['cold']:.3f} s, "
+        f"warm {walls['warm']:.3f} s ({warm_hits} prefix-hit tokens): "
+        f"identical tokens; preempted {walls['preempted']:.3f} s ({pre} "
+        f"preemptions in {PREEMPT_BLOCKS} pages; tokens kept at each "
+        f"request's preemptions {kept_at_preempt}): identical up to "
+        f"every recompute of decode K/V, diverging after it in requests "
+        f"(request: first differing token) {diverged}; {checked} device "
+        f"draws equal to the host Sampler's; request 0: {runs['cold'][0]}")
+    return {"walls_s": walls, "prefix_hit_tokens": warm_hits,
+            "preemptions": pre, "kept_at_preemption": kept_at_preempt,
+            "diverged_after_recompute": diverged,
+            "host_checked_draws": checked}
+
+
+def blocked_prefill(torch, cfg, params):
+    """Phase 4: one ``BLOCKED_PROMPT``-token prompt through ``api.prefill``
+    at full width, which takes the blocked (online-normalized) attention,
+    against ``attn_impl="dense"`` on the same inputs, in exact mode:
+    prints the largest logit difference and whether the argmax agrees;
+    then once in SOLE mode (finite logits)."""
+    import numpy as np
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, BLOCKED_PROMPT)).astype(np.int32)).cuda()
+    exact = dataclasses.replace(cfg, softmax_mode="exact",
+                                norm_mode="exact", logit_int8=False)
+    calls = {"blocked": 0}
+    orig = L.attend_blocked
+
+    def counted(*a, **k):
+        calls["blocked"] += 1
+        return orig(*a, **k)
+    out = {}
+    L.attend_blocked = counted
+    try:
+        for label, c in (("blocked", exact),
+                         ("dense", dataclasses.replace(exact,
+                                                       attn_impl="dense")),
+                         ("blocked_sole", cfg)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            logits, _ = api.prefill(params, tokens, c, BLOCKED_PROMPT)
+            torch.cuda.synchronize()
+            out[label] = dict(logits=logits[0, -1].float(),
+                              wall_s=time.time() - t0,
+                              peak_gib=torch.cuda.max_memory_allocated()
+                              / 2 ** 30)
+    finally:
+        L.attend_blocked = orig
+    if calls["blocked"] != 2 * cfg.n_layers:
+        raise AssertionError(f"{calls['blocked']} blocked attention calls, "
+                             f"not {2 * cfg.n_layers}")
+    b, d = out["blocked"]["logits"], out["dense"]["logits"]
+    for k, v in out.items():
+        if not torch.isfinite(v["logits"]).all():
+            raise AssertionError(f"blocked prefill {k}: non-finite logits")
+    diff = (b - d).abs().max().item()
+    rng = (d.max() - d.min()).item()
+    agree = int(b.argmax()) == int(d.argmax())
+    # bf16 activations: the two attentions round their outputs apart and
+    # 32 layers carry it; a wrong blocked path moves logits by their range
+    if diff > 0.1 * rng:
+        raise AssertionError(f"blocked vs dense prefill: max |diff| {diff} "
+                             f"> 0.1 of the logit range {rng}")
+    log(f"[{cfg.name} blocked prefill] {BLOCKED_PROMPT} tokens, exact mode: "
+        f"blocked {out['blocked']['wall_s']:.3f} s (peak "
+        f"{out['blocked']['peak_gib']:.2f} GiB), dense "
+        f"{out['dense']['wall_s']:.3f} s (peak "
+        f"{out['dense']['peak_gib']:.2f} GiB); last-position logits max "
+        f"|blocked - dense| {diff:.4e} (logit range {rng:.3f}), argmax "
+        f"agrees: {agree}; SOLE blocked {out['blocked_sole']['wall_s']:.3f} "
+        "s, finite")
+    return {"max_abs_diff": diff, "logit_range": rng, "argmax_agrees": agree,
+            **{f"{k}_wall_s": v["wall_s"] for k, v in out.items()},
+            **{f"{k}_peak_gib": v["peak_gib"] for k, v in out.items()}}
+
+
+def serve_new_configs(torch):
+    """Phase 4 for the relu2 + LayerNorm configs at full width (32 layers,
+    random weights from a seed): minitron_8b through ``PagedEngine`` in
+    bf16, through the dense-slot ``Engine`` in bf16, the stochastic
+    replays and the blocked prefill on the same weights, the profiled
+    paged wave; then at w8a8 with int8 KV pages; then nemotron_4_15b
+    through ``PagedEngine`` in bf16 (at w8a8 its float32 masters, 62 GB,
+    and codes, 15.6 GB, would not fit in 80 GB beside the run). Each
+    model is freed before the next. Returns the launches and traces."""
+    from repro_torch.configs.base import QuantConfig, get_config
+    mini = get_config("minitron_8b")
+    out = {}
+    launches, trace, params = serve_full_width(torch, mini, "minitron bf16")
+    out["minitron_bf16"] = (launches, trace)
+    out["minitron_dense_bf16"] = serve_dense_full_width(
+        torch, mini, params, "minitron dense bf16")
+    trace["stochastic"] = stochastic_replay(torch, mini, params)
+    trace["blocked_prefill"] = blocked_prefill(torch, mini, params)
+    trace["profile"] = profile_engine(torch, mini, params, "minitron bf16")
+    del params
+    torch.cuda.empty_cache()
+    mini8 = dataclasses.replace(mini, quant=QuantConfig("w8a8"),
+                                kv_cache_dtype="int8")
+    launches8, trace8, params8 = serve_full_width(torch, mini8,
+                                                  "minitron w8a8")
+    out["minitron_w8a8"] = (launches8, trace8)
+    del params8
+    torch.cuda.empty_cache()
+    nemo = get_config("nemotron_4_15b")
+    launches_n, trace_n, params_n = serve_full_width(torch, nemo,
+                                                     "nemotron bf16")
+    out["nemotron_bf16"] = (launches_n, trace_n)
+    del params_n
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -2063,8 +2444,13 @@ def main() -> int:
         attn = check_kernels(torch, cfg)
         calib = check_calib_norm(torch)
         attn8 = check_int8_paged(torch, cfg)
+        mini = get_config("minitron_8b")
+        attn16_d128, attn8_d128 = check_paged_d128(torch, mini)
+        attn.update(attn16_d128)
+        attn8.update(attn8_d128)
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
+        check_new_e2_stage(torch, mini, e2)
         ops_inp = ops_inputs(torch)
         ops_res = check_ops_kernels(torch, ops_inp)
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
@@ -2074,6 +2460,7 @@ def main() -> int:
         dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
                                                      "dense w8a8")
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
+        new = serve_new_configs(torch)
         small_engine_parity(torch)
         table = time_kernels(torch, attn, launches, cfg)
         table.append(time_calib_norm(torch, calib, launches))
@@ -2096,6 +2483,11 @@ def main() -> int:
                 e["launches_ops"] = olaunches["e2softmax"]
             if e["name"] == "int8_matmul":
                 e["launches_dense_w8a8"] = dlaunches8["int8_matmul"]
+            key = ("paged_e2softmax" if e["name"] == "paged_e2softmax_int8kv"
+                   else e["name"])
+            e["launches_new_paths"] = {
+                path: res[0][key] for path, res in new.items()
+                if key in res[0]}
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")
         dtrace["profile"] = profile_engine(torch, cfg, params, "dense bf16",
                                            dense=True)
@@ -2105,7 +2497,8 @@ def main() -> int:
                                             "dense w8a8", dense=True)
         log(json.dumps({"trace": trace, "trace_w8a8": trace8,
                         "trace_dense": dtrace, "trace_dense_w8a8": dtrace8,
-                        "static_ops": static["checked"]}))
+                        "static_ops": static["checked"],
+                        **{f"trace_{k}": v[1] for k, v in new.items()}}))
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()

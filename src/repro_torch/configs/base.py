@@ -135,7 +135,7 @@ class ArchConfig:
         )
 
 
-ARCH_NAMES = ("qwen2_0_5b", "stablelm_1_6b")
+ARCH_NAMES = ("qwen2_0_5b", "stablelm_1_6b", "nemotron_4_15b", "minitron_8b")
 
 _REGISTRY = {}
 
@@ -145,7 +145,7 @@ def get_config(name: str) -> ArchConfig:
     if key not in ARCH_NAMES:
         raise ValueError(
             f"architecture {name!r} is not ported yet (ported: "
-            f"{ARCH_NAMES}; see ROADMAP.md queue 1 item 9)")
+            f"{ARCH_NAMES}; see ROADMAP.md queue 1 item 7)")
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG

@@ -35,7 +35,7 @@ def log2exp(x: torch.Tensor, *, exp_bits: int = 4) -> torch.Tensor:
     return torch.clamp(k, 0.0, float(2 ** exp_bits - 1)).to(torch.int32)
 
 
-def _split_sum(s: torch.Tensor):
+def split_sum(s: torch.Tensor):
     """S = 2^k_s (1 + frac) -> (k_s, q) with q the bit below the leading
     one (frexp's mantissa lies in [0.5, 1))."""
     mant, expo = torch.frexp(torch.clamp_min(s, 1e-38))
@@ -44,7 +44,7 @@ def _split_sum(s: torch.Tensor):
 
 def aldivision(k_y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Approximate log-based division 2^-k_y / S (paper Eq. 13/17)."""
-    k_s, q = _split_sum(s)
+    k_s, q = split_sum(s)
     factor = torch.where(q, torch.full_like(s, ALDIV_BIAS - 0.5),
                          torch.full_like(s, ALDIV_BIAS))
     return torch.exp2(-(k_y + k_s + 1).float()) * factor

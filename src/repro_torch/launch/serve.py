@@ -1,5 +1,6 @@
-"""Serving launcher: batched greedy generation with SOLE active, on the
-card unless ``--device cpu`` is given.
+"""Serving launcher: batched generation with SOLE active, greedy or
+sampled (``--temperature``/``--top-k``), on the card unless ``--device
+cpu`` is given.
 
 The port's counterpart of ``repro/launch/serve.py``, with the flags the
 port supports; ``--engine dense`` (the dense-slot ``Engine``) is the
@@ -10,11 +11,14 @@ default, as in the reference. Examples::
       --engine paged --quantize w8a8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron_8b \
+      --smoke --device cpu --temperature 0.7 --top-k 5
 
-Not ported yet (ROADMAP.md queue 1 item 11): ``--temperature``,
-``--top-k``, ``--sample-seed``, ``--open-loop``, ``--stream``,
-``--watermark``, ``--spec-decode``, ``--spec-k``, ``--mesh``,
-``--replicas``, ``--ops-backend``.
+``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
+``minitron_8b``, ``nemotron_4_15b``). Not ported yet (ROADMAP.md queue 1
+item 6): ``--open-loop``, ``--stream``, ``--watermark``,
+``--spec-decode``, ``--spec-k``, ``--mesh``, ``--replicas``,
+``--ops-backend``.
 """
 from __future__ import annotations
 
@@ -26,14 +30,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import QuantConfig, get_config
+from repro_torch.configs.base import ARCH_NAMES, QuantConfig, get_config
 from repro_torch.models import api
 from repro_torch.serve.engine import Engine, PagedEngine, Request
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a ported config: " + ", ".join(ARCH_NAMES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -50,6 +55,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "(paged engine; default: on for the dense family)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="KV pool pages (0 = sized from the request set)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k highest logits "
+                         "(0 = full vocab)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base seed for per-request sampling streams")
     ap.add_argument("--eos-ids", default="",
                     help="comma-separated token ids that end a request "
                          "early (finish reason 'eos')")
@@ -78,8 +90,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     eos_ids = tuple(int(t) for t in args.eos_ids.split(",") if t.strip())
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
                                         size=args.prompt_len).astype(np.int32),
-                    max_new_tokens=args.new_tokens, eos_ids=eos_ids)
-            for _ in range(args.requests)]
+                    max_new_tokens=args.new_tokens,
+                    temperature=args.temperature, top_k=args.top_k,
+                    seed=args.sample_seed + i, eos_ids=eos_ids)
+            for i in range(args.requests)]
     max_len = args.prompt_len + args.new_tokens
     if args.engine == "paged":
         blocks = args.num_blocks or max(
@@ -101,7 +115,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     print(f"arch={cfg.name} engine={args.engine} device={device} "
           f"requests={len(reqs)} generated={total} tokens in {dt:.2f}s "
           f"({total / dt:.1f} tok/s, softmax={cfg.softmax_mode}, "
-          f"norm={cfg.norm_mode}, quant={cfg.quant.mode})")
+          f"norm={cfg.norm_mode}, quant={cfg.quant.mode}, "
+          f"temperature={args.temperature}, top_k={args.top_k})")
     if args.engine == "paged":
         print("stats:", eng.stats())
     else:

@@ -21,7 +21,7 @@ def get_model(cfg: ArchConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
+            "item 7)")
     return transformer
 
 
@@ -78,12 +78,14 @@ def decode_step_paged(params, token, pos, refs, state, cfg: ArchConfig):
     return logits, dict(state, **pools)
 
 
-def decode_horizon_paged(params, token, pos, refs, state, eos_ids,
-                         cfg: ArchConfig, *, num_steps: int,
-                         use_eos: bool = True):
-    """``num_steps`` fused greedy decode steps. Returns
+def decode_horizon_paged(params, token, pos, refs, state, temperature,
+                         top_k, seed, counter, eos_ids, cfg: ArchConfig, *,
+                         num_steps: int, use_top_k: bool = True,
+                         stochastic: bool = True, use_eos: bool = True):
+    """``num_steps`` fused decode+sample steps. Returns
     (tokens (B, num_steps), done (B, num_steps), state)."""
     toks, done, pools = get_model(cfg).decode_horizon_paged(
-        params, state, token, pos, refs["tables"], eos_ids, cfg,
-        num_steps=num_steps, use_eos=use_eos)
+        params, state, token, pos, refs["tables"], temperature, top_k, seed,
+        counter, eos_ids, cfg, num_steps=num_steps, use_top_k=use_top_k,
+        stochastic=stochastic, use_eos=use_eos)
     return toks, done, dict(state, **pools)

@@ -1,7 +1,8 @@
 """Shared model components of the serve paths: embeddings, RoPE, norms,
-the SwiGLU MLP, QKV/output projections, paged attention and the dense
-(materialized-logits) attention of the dense-slot engine, with the SOLE
-technique as the softmax/norm implementation.
+the MLPs (SwiGLU, GeGLU, GELU, squared ReLU), QKV/output projections,
+paged attention, the dense (materialized-logits) attention of the
+dense-slot engine and the blocked (online-normalized) attention of long
+sequences, with the SOLE technique as the softmax/norm implementation.
 
 Plain functions on tensors, in the JAX package's layouts. Parameters are
 stored once in their serving dtype (``cfg.dtype`` for projections,
@@ -20,7 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sole.e2softmax import ALDIV_BIAS, log2exp, split_sum
 from repro_torch.core.sole.quant import is_qtensor, quantize_act, true_div
+from repro_torch.kernels.flash_e2softmax import exp2_int
 from repro_torch.ops.reference import repeat_kv
 
 # int8 logit grid for E2Softmax inputs: exp(-12) is below the 4-bit log2
@@ -137,20 +140,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # -- MLP ----------------------------------------------------------------------
 
+# feed-forward kinds of the dense family; the gated ones carry a "gate"
+# projection beside "up" and "down"
+MLP_KINDS = ("swiglu", "geglu", "gelu", "relu2")
+GATED_MLP_KINDS = ("swiglu", "geglu")
+
 
 def apply_mlp(x, p, cfg: ArchConfig) -> torch.Tensor:
-    """SwiGLU; ``x`` may be an ``(int8 codes, scale)`` pair at w8a8."""
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp_kind {cfg.mlp_kind!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 4)")
+    """The feed-forward block of ``cfg.mlp_kind``: ``swiglu`` and
+    ``geglu`` (gate, up, down), ``gelu`` and ``relu2`` (up, down). GELU
+    is the tanh form (``jax.nn.gelu``'s default); ``relu2`` squares in
+    the model dtype. ``x`` may be an ``(int8 codes, scale)`` pair at
+    w8a8; the ``down`` input is then quantized per row on the fly."""
+    kind = cfg.mlp_kind
+    if kind not in MLP_KINDS:
+        raise ValueError(f"unknown mlp_kind {kind!r}")
     if is_qtensor(p["up"]):
         def mm(a, w):
             return cast(qmatmul(a, w, cfg), cfg)
     else:
         def mm(a, w):
             return a @ w
-    h = F.silu(mm(x, p["gate"])) * mm(x, p["up"])
+    if kind == "swiglu":
+        h = F.silu(mm(x, p["gate"])) * mm(x, p["up"])
+    elif kind == "geglu":
+        h = F.gelu(mm(x, p["gate"]), approximate="tanh") * mm(x, p["up"])
+    elif kind == "gelu":
+        h = F.gelu(mm(x, p["up"]), approximate="tanh")
+    else:
+        h = torch.square(F.relu(mm(x, p["up"])))
     return mm(h, p["down"])
 
 
@@ -235,7 +253,10 @@ def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
               quant_pv=bool(cfg.quant.acts and kv_scale is not None))
 
 
-# -- dense attention (the dense-slot engine) ------------------------------------
+# -- dense and blocked attention (whole sequences) ------------------------------
+
+_BLOCK_NEG = -1e30                 # the blocked path's masked logit
+_LN2E = 1.4426950408889634
 
 
 def _mask(q_pos, k_pos, cfg: ArchConfig, causal: bool) -> torch.Tensor:
@@ -283,30 +304,128 @@ def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _online_chunk(qc, qp, kb, vb, pb, cfg: ArchConfig, sole: bool,
+                  causal: bool, out_dtype) -> torch.Tensor:
+    """One q chunk's pass over the k-blocks: qc (b, qblk, h, hd) at
+    positions qp (qblk,); kb/vb (nkb, b, blk, h, hd) at pb (nkb, blk).
+    Returns (b, h, qblk, hd) in ``out_dtype``."""
+    b, qblk, h, hd = qc.shape
+    qs = (qc * (hd ** -0.5)).float()
+    dev = qc.device
+    m_run = torch.full((b, h, qblk), _BLOCK_NEG, device=dev)
+    s_run = torch.zeros((b, h, qblk), device=dev)
+    acc = torch.zeros((b, h, qblk, hd), device=dev)
+    for kc, vc, pc in zip(kb, vb, pb):
+        logits = torch.einsum("bshd,bthd->bhst", qs, kc.float())
+        mask = torch.broadcast_to(_mask(qp, pc, cfg, causal), logits.shape)
+        logits = torch.where(mask, logits, _BLOCK_NEG)
+        m_new = torch.maximum(m_run, logits.amax(-1))
+        if sole:
+            d = ops.snap_logits(logits - m_new[..., None],
+                                LOGIT_INT8_SCALE if cfg.logit_int8 else None)
+            kcode = log2exp(d, exp_bits=cfg.exp_bits)
+            w = torch.where(mask, exp2_int(-kcode), 0.0)
+            sub = log2exp(m_run - m_new, exp_bits=cfg.exp_bits + 2)
+            corr = exp2_int(-sub)
+        else:
+            w = torch.where(mask, torch.exp2((logits - m_new[..., None])
+                                             * _LN2E), 0.0)
+            corr = torch.exp2((m_run - m_new) * _LN2E)
+        s_run = s_run * corr + w.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", w,
+                                                   vc.float())
+        m_run = m_new
+    s_run = torch.clamp_min(s_run, 2.0 ** -30)
+    if sole:
+        # ALDivision with k_y = 0: per row 2^-(k_s + 1) (1.636 - q)
+        k_s, q = split_sum(s_run)
+        scale = exp2_int(-(k_s + 1)) * torch.where(q, ALDIV_BIAS - 0.5,
+                                                   ALDIV_BIAS)
+    else:
+        scale = 1.0 / s_run
+    return (acc * scale[..., None]).to(out_dtype)
+
+
+def attend_blocked(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
+                   causal: bool = True) -> torch.Tensor:
+    """Online-normalized blocked attention (one flash-style pass), tiled
+    over Q and KV in blocks of ``cfg.attn_block``: q (B,S,H,hd), k/v
+    (B,T,KV,hd), shared positions (S,)/(T,). Returns (B,S,H,hd).
+
+    In SOLE mode each k-block's post-max logits are snapped to the int8
+    grid and weighted by their 4-bit codes ``2^-k``; the running sum is
+    rescaled by the quantized correction ``2^-Log2Exp(m_old - m_new)``
+    (``exp_bits + 2`` bits) and ALDivision scales each row once at the
+    end. Powers of two are built from exponent bits. With a sliding
+    window (causal) each q chunk scans only its key band."""
+    b, s, h, hd = q.shape
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    t = k.shape[1]
+    blk = min(cfg.attn_block, t)
+    padk = (-t) % blk
+    if padk:
+        k = F.pad(k, (0, 0, 0, 0, 0, padk))
+        v = F.pad(v, (0, 0, 0, 0, 0, padk))
+        k_pos = F.pad(k_pos, (0, padk), value=2 ** 30)
+    tk = t + padk
+    qblk = min(cfg.attn_block, s)
+    padq = (-s) % qblk
+    if padq:
+        q = F.pad(q, (0, 0, 0, 0, 0, padq))
+        q_pos = F.pad(q_pos, (0, padq))
+    nqb = (s + padq) // qblk
+    sole = _softmax_mode(cfg, phase) == "sole"
+
+    def blocks(kk, vv, pp):
+        n = kk.shape[1] // blk
+        return (kk.reshape(b, n, blk, h, hd).transpose(0, 1),
+                vv.reshape(b, n, blk, h, hd).transpose(0, 1),
+                pp.reshape(n, blk))
+
+    band = cfg.window and causal and tk > cfg.window + blk
+    if band:
+        # a q chunk starting at q0 sees keys in [q0 - window + 1, q0 +
+        # qblk) only: scan that fixed-size band of K/V
+        span = min(-(-(cfg.window + qblk) // blk) * blk, tk)
+    else:
+        kb, vb, pb = blocks(k, v, k_pos)
+    ctx = []
+    for i in range(nqb):
+        if band:
+            start = min(max(i * qblk + qblk - span, 0), tk - span)
+            kb, vb, pb = blocks(k[:, start:start + span],
+                                v[:, start:start + span],
+                                k_pos[start:start + span])
+        ctx.append(_online_chunk(q[:, i * qblk:(i + 1) * qblk],
+                                 q_pos[i * qblk:(i + 1) * qblk], kb, vb, pb,
+                                 cfg, sole, causal, q.dtype))
+    ctx = torch.cat(ctx, 2).transpose(1, 2)          # (b, S + padq, h, hd)
+    return ctx[:, :s]
+
+
 def apply_attention(p, x, positions, cfg: ArchConfig, phase: str,
                     causal: Optional[bool] = None) -> torch.Tensor:
-    """Self-attention over x (B,S,D) at ``positions`` (S,)."""
+    """Self-attention over x (B,S,D) at ``positions`` (S,): dense, or
+    blocked under ``attn_impl="blocked"`` (``auto`` picks it from 8192
+    tokens on)."""
     causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.pos_kind == "rope":
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
-    s = x.shape[1]
-    impl = cfg.attn_impl
-    if impl == "auto":
-        impl = "blocked" if s >= 8192 else "dense"
-    _check_attn_impl(impl)
-    ctx = attend_dense(q, k, v, positions, positions, cfg, phase,
-                       causal=causal)
+    attend = (attend_blocked if attn_impl(cfg, x.shape[1]) == "blocked"
+              else attend_dense)
+    ctx = attend(q, k, v, positions, positions, cfg, phase, causal=causal)
     return _wo_proj(ctx, p, cfg)
 
 
-def _check_attn_impl(impl: str) -> None:
-    if impl == "blocked":
-        raise NotImplementedError(
-            "blocked (online-normalized) attention is not ported yet "
-            "(ROADMAP.md queue 1 item 4); sequences of 8192 tokens or more "
-            "select it under attn_impl='auto'")
+def attn_impl(cfg: ArchConfig, s: int) -> str:
+    """``cfg.attn_impl`` for a sequence of ``s`` tokens: ``auto`` is
+    blocked from 8192 tokens on, dense below."""
+    if cfg.attn_impl == "auto":
+        return "blocked" if s >= 8192 else "dense"
+    return cfg.attn_impl
 
 
 def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,

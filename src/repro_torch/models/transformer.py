@@ -2,7 +2,7 @@
 full-sequence forward, the dense-slot serve path (whole-prompt prefill
 into stacked dot-layout caches, one-token decode steps) and the paged
 serve path (the paged forward, chunked prefill, decode steps and fused
-greedy decode horizons).
+decode horizons that sample on the device).
 """
 from __future__ import annotations
 
@@ -15,12 +15,13 @@ from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import layers as L
 from repro_torch.models.state import SequenceStateSpec
 from repro_torch.serve.kv_cache import slots_for_positions, write_tokens
-from repro_torch.serve.sampling import eos_hits, greedy_tokens
+from repro_torch.serve.sampling import eos_hits, sample_tokens
 
 
 def _normal(gen, shape, scale, dtype, device):
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    # scaled in place: one float32 draw of nemotron_4_15b's MLP is 19 GB
+    return w.mul_(scale).to(dtype)
 
 
 def _norm(cfg: ArchConfig, lead, device):
@@ -38,8 +39,6 @@ def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
     leaves carry the stacked leading ``layers`` axis. Under
     ``cfg.quant.weights`` the matmul weights stay float32 masters, as in
     the reference, so the engine packs its int8 codes from float32."""
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} is not ported")
     dt = L.torch_dtype(cfg.dtype)
     master = torch.float32 if cfg.quant.weights else dt
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -59,14 +58,18 @@ def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
         attn["bq"] = torch.zeros((n, h, hd), dtype=dt, device=device)
         attn["bk"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
         attn["bv"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
+    if cfg.mlp_kind not in L.MLP_KINDS:
+        raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
+    mlp = {"up": mw((n, d, f)), "down": mw((n, f, d))}
+    if cfg.mlp_kind in L.GATED_MLP_KINDS:
+        mlp = {"gate": mw((n, d, f)), **mlp}
     return {
         "embed": {"table": w((v, d)), "head": mw((d, v), d ** -0.5)},
         "layers": {
             "ln1": _norm(cfg, (n,), device),
             "attn": attn,
             "ln2": _norm(cfg, (n,), device),
-            "mlp": {"gate": mw((n, d, f)), "up": mw((n, d, f)),
-                    "down": mw((n, f, d))},
+            "mlp": mlp,
         },
         "final_norm": _norm(cfg, (), device),
     }
@@ -139,12 +142,10 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
         k_pos = torch.where(local < 0, 2 ** 30, local)  # pads: masked keys
         q_pos = rope_pos = torch.clamp_min(local, 0)
     t = min(cache_len, cfg.window) if cfg.window else cache_len
-    impl = cfg.attn_impl
-    if impl == "auto":
-        impl = "blocked" if s >= 8192 else "dense"
-    if impl == "blocked" and n_pad is not None:
-        impl = "dense"          # the blocked path is shared-positions only
-    L._check_attn_impl(impl)
+    # the blocked path takes shared positions only: left-padded lanes
+    # attend dense
+    blocked = n_pad is None and L.attn_impl(cfg, s) == "blocked"
+    attend = L.attend_blocked if blocked else L.attend_dense
     lay = params["layers"]
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -154,8 +155,7 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
         if cfg.pos_kind == "rope":
             q = L.apply_rope(q, rope_pos, cfg)
             k = L.apply_rope(k, rope_pos, cfg)
-        ctx = L.attend_dense(q, k, v, q_pos, k_pos, cfg, "serve",
-                             causal=cfg.causal)
+        ctx = attend(q, k, v, q_pos, k_pos, cfg, "serve", causal=cfg.causal)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
         x = x + L.apply_mlp(h, lp["mlp"], cfg)
@@ -289,12 +289,20 @@ def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig):
     return logits[:, 0], pools
 
 
-def decode_horizon_paged(params, pools, token, pos, tables, eos_ids,
-                         cfg: ArchConfig, *, num_steps: int,
-                         use_eos: bool = True):
-    """``num_steps`` greedy decode steps, each feeding its argmax token
-    to the next, with no host round trip in between. The page tables
-    must already cover positions ``pos .. pos + num_steps - 1``.
+def decode_horizon_paged(params, pools, token, pos, tables, temperature,
+                         top_k, seed, counter, eos_ids, cfg: ArchConfig, *,
+                         num_steps: int, use_top_k: bool = True,
+                         stochastic: bool = True, use_eos: bool = True):
+    """``num_steps`` decode steps, each sampling its token on the device
+    and feeding it to the next, with no host round trip in between. The
+    page tables must already cover positions ``pos .. pos + num_steps -
+    1``.
+
+    temperature/top_k/seed/counter (B,) are each lane's sampling stream
+    (serve/sampling.py): step ``i`` draws with ``counter + i``.
+    ``use_top_k``/``stochastic`` skip the rank sort / the Gumbel rows
+    when no lane needs them, so an all-greedy batch samples with one
+    argmax (and its sampling tensors may be None).
 
     eos_ids (B, E) is each lane's ``-1``-padded terminator table; a lane
     that samples an eos keeps decoding self-absorbing garbage for the
@@ -303,10 +311,13 @@ def decode_horizon_paged(params, pools, token, pos, tables, eos_ids,
     (B, num_steps) int32, eos (B, num_steps) bool, pools), on the device.
     """
     toks, done = [], []
-    for _ in range(num_steps):
+    for i in range(num_steps):
         logits, pools = decode_step_paged(params, pools, token, pos, tables,
                                           cfg)
-        token = greedy_tokens(logits, cfg.vocab_size)
+        token = sample_tokens(logits, temperature, top_k, seed,
+                              counter + i if stochastic else counter,
+                              cfg.vocab_size, use_top_k=use_top_k,
+                              stochastic=stochastic)
         toks.append(token)
         done.append(eos_hits(token, eos_ids) if use_eos
                     else torch.zeros_like(token, dtype=torch.bool))

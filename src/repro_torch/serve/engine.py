@@ -34,8 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
 from repro_torch.serve.kv_cache import PagedKVCache, copy_pages
-from repro_torch.serve.sampling import (apply_finish, eos_table,
-                                        greedy_tokens, sampler_for)
+from repro_torch.serve.sampling import (Sampler, apply_finish, eos_table,
+                                        sample_tokens, sampler_for)
 from repro_torch.serve.scheduler import Scheduler, Sequence
 from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
 
@@ -44,9 +44,9 @@ from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
 class Request:
     prompt: np.ndarray           # (prompt_len,) int32
     max_new_tokens: int = 16
-    temperature: float = 0.0     # 0 = greedy argmax (the only mode ported)
-    top_k: int = 0
-    seed: int = 0
+    temperature: float = 0.0     # 0 = greedy argmax
+    top_k: int = 0               # 0 = full vocab
+    seed: int = 0                # per-request sampling stream
     # finish events: sampling any of eos_ids ends the request ("eos");
     # stop holds multi-token sequences matched over the generated tokens
     # ("stop"). The finishing token / sequence is kept in the output.
@@ -81,6 +81,17 @@ def _resolve_device(device, engine: str) -> torch.device:
     return device
 
 
+def _sampling_tensors(streams, use_top_k: bool, stochastic: bool, tensor):
+    """Per-lane (temperature, top_k, seed, counter) rows -> the four device
+    tensors ``sample_tokens`` takes (float32, int64 x 3), or Nones where a
+    batch with no top-k and no temperature reads none of them."""
+    if not (use_top_k or stochastic):
+        return None, None, None, None
+    cols = np.array(streams, np.float64).T      # exact for uint32 seeds
+    return (tensor(cols[0].astype(np.float32)),
+            *(tensor(c.astype(np.int64)) for c in cols[1:]))
+
+
 def _serving_params(cfg: ArchConfig, params, device):
     """The engine's parameter tree on ``device``: under ``cfg.quant.weights``
     every matmul weight packed to int8 + per-channel scales, as the
@@ -98,16 +109,17 @@ class PagedEngine:
     Each step admits waiting requests, runs one prefill chunk of one
     sequence (B=1, C=``prefill_chunk``; the final chunk padded with
     token 0, its tail written to the null page) and one **decode
-    horizon** for up to ``decode_batch`` sequences: H fused greedy
-    decode steps on the device (short batches padded with null lanes:
-    token 0, position 0, all-null table), with only the (B, H) sampled
-    ids copied to the host. The padding matters in SOLE mode: PTF
+    horizon** for up to ``decode_batch`` sequences: H fused decode
+    steps on the device (short batches padded with null lanes:
+    token 0, position 0, all-null table), each step sampling its token on
+    the device from the lane's counter-keyed stream, with only the (B, H)
+    sampled ids copied to the host. The padding matters in SOLE mode: PTF
     calibration reduces over the whole batch, so padded rows take part
     in every norm exactly as in the reference engine.
 
     Features the port does not have yet raise here rather than being
-    silently downgraded: other families, speculative decoding, mesh
-    rules (and temperature > 0 at submit).
+    silently downgraded: other families, speculative decoding and mesh
+    rules.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -124,15 +136,15 @@ class PagedEngine:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 9)")
+                "queue 1 item 7)")
         if spec_config is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP.md queue 1 "
-                "item 8)")
+                "item 5)")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
-                "item 12)")
+                "item 9)")
         state_spec = api.sequence_state_spec(cfg)
         if cfg.window and max_seq_len > cfg.window:
             raise ValueError(
@@ -253,10 +265,24 @@ class PagedEngine:
         if use_eos:
             eos = np.full((d, widest), -1, np.int32)
             eos[:len(lanes)] = eos_table([s.sampler for s in lanes], widest)
+        # the sampling fast paths: skipping the rank sort / the Gumbel rows
+        # is an identity for lanes that use no top-k / temperature, so the
+        # flags come from the live batch (an all-greedy batch ships no
+        # sampling tensors at all)
+        use_top_k = any(s.sampler.top_k > 0 for s in lanes)
+        stochastic = any(not s.sampler.greedy for s in lanes)
+        # token n of a sequence draws with counter n: the host sampler
+        # spent counter 0 on the prefill-logits token, so the device stream
+        # continues where it left off; null lanes are greedy
+        streams = [(s.sampler.temperature, s.sampler.top_k, s.sampler.seed,
+                    len(s.out)) for s in lanes]
+        streams += [(0.0, 0, 0, 0)] * (d - len(lanes))
         toks, done, state = api.decode_horizon_paged(
             self.params, self._tensor(token), self._tensor(pos),
-            self._refs(seqs), self.cache.pools, self._tensor(eos), self.cfg,
-            num_steps=h, use_eos=use_eos)
+            self._refs(seqs), self.cache.pools,
+            *_sampling_tensors(streams, use_top_k, stochastic, self._tensor),
+            self._tensor(eos), self.cfg, num_steps=h, use_top_k=use_top_k,
+            stochastic=stochastic, use_eos=use_eos)
         self.cache.pools = state
         # the one device-to-host copy of the horizon
         host = torch.cat([toks, done.to(torch.int32)], 1).cpu().numpy()
@@ -266,6 +292,7 @@ class PagedEngine:
             # never entered the stream.
             kept, reason = apply_finish(seq.sampler, seq.out, rows[i],
                                         eos_row=done_rows[i])
+            seq.sampler.skip(kept)       # the host stream stays aligned
             seq.prefilled = int(pos[i]) + kept
             self.decode_tokens += kept
             self.truncated_tokens += h - kept
@@ -362,11 +389,13 @@ class Engine:
     in SOLE mode those lanes and the pad rows take part in every norm's
     batch-global calibration, exactly as in the reference. Finished lanes
     feed token 0 and are never sampled again; when every real lane has
-    finished the decode loop exits. Sampling is greedy on the device
-    (first index on ties); only the (B,) ids come to the host.
+    finished the decode loop exits. Each lane samples on the device from
+    its counter-keyed stream (:func:`sample_tokens`, the draw the
+    reference's host ``Sampler`` makes); only the (B,) ids come to the
+    host.
 
     Dense family only; moe, ssm and hybrid raise (ROADMAP.md queue 1
-    item 9), as do mesh rules and temperature > 0.
+    item 7), as do mesh rules (item 9).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
@@ -377,11 +406,11 @@ class Engine:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 9)")
+                "queue 1 item 7)")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
-                "item 12)")
+                "item 9)")
         self.cfg = cfg
         self.device = device
         self.params = _serving_params(cfg, params, device)
@@ -396,8 +425,24 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _greedy(self, logits: torch.Tensor) -> np.ndarray:
-        return greedy_tokens(logits, self.cfg.vocab_size).cpu().numpy()
+    def _sample(self, logits: torch.Tensor, samplers: List[Sampler],
+                live: List[bool]) -> np.ndarray:
+        """(B,) ids drawn on the device from (B, padded_vocab) logits, each
+        live lane at its sampler's next counter, which then advances as
+        the host ``Sampler`` call would (greedy lanes consume no draw)."""
+        lanes = [s for s, on in zip(samplers, live) if on]
+        use_top_k = any(s.top_k > 0 for s in lanes)
+        stochastic = any(not s.greedy for s in lanes)
+        streams = [(s.temperature, s.top_k, s.seed, s.draws)
+                   for s in samplers]
+        toks = sample_tokens(
+            logits, *_sampling_tensors(streams, use_top_k, stochastic,
+                                       self._tensor),
+            self.cfg.vocab_size, use_top_k=use_top_k, stochastic=stochastic)
+        for s, on in zip(samplers, live):
+            if on and not s.greedy:
+                s.skip(1)
+        return toks.cpu().numpy()
 
     def generate(self, requests: List[Request]) -> List[List[int]]:
         """Serve all requests, ``batch_size`` at a time; outputs in request
@@ -428,7 +473,8 @@ class Engine:
                                     self.cfg, self.max_len,
                                     n_pad=self._tensor(n_pad))
         self.prefill_calls += 1
-        first = self._greedy(logits[:, -1])
+        first = self._sample(logits[:, -1], samplers,
+                             [j < real for j in range(b)])
         results: List[List[int]] = [[] for _ in range(b)]
         reasons: List[Optional[str]] = [None] * b
         for j in range(real):
@@ -450,7 +496,7 @@ class Engine:
                 self._tensor((pos - n_pad).astype(np.int32)), self.cfg,
                 write_pos=pos)
             self.decode_calls += 1
-            drawn = self._greedy(logits)
+            drawn = self._sample(logits, samplers, [live(j) for j in range(b)])
             token = np.zeros((b,), np.int32)
             for j in range(b):
                 if live(j):

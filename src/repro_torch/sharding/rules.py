@@ -1,7 +1,7 @@
 """Weight packing for quantized serving: the port's copy of the JAX
 package's ``sharding.rules`` W8A8 helpers (``QUANT_WEIGHT_SPEC``,
 ``quantize_params``, ``param_bytes``). Mesh rules are not ported yet
-(ROADMAP.md queue 1 item 12).
+(ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 

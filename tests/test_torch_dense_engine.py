@@ -53,24 +53,36 @@ NEW_TOKENS = 8
 PROMPT_LENS = (5, 20, 11, 3, 16, 9)
 SOLE_LOGIT_ATOL = 1e-4
 SOLE_CALL_AGREEMENT = 0.95          # share of calls within SOLE_LOGIT_ATOL
-NAMES = ("qwen2_0_5b", "stablelm_1_6b")
+# qwen2 and stablelm (SwiGLU), minitron and nemotron (squared ReLU,
+# LayerNorm), and minitron's smoke variant at head dim 128, where d^-1/2
+# is no power of two
+NAMES = ("qwen2_0_5b", "stablelm_1_6b", "minitron_8b", "nemotron_4_15b",
+         "minitron_8b-hd128")
+
+
+def _smoke_configs(name):
+    """(JAX, port) smoke configs of ``name`` (``<arch>-hd128``: at head
+    dim 128)."""
+    arch, _, variant = name.partition("-")
+    kw = dict(head_dim=128) if variant == "hd128" else {}
+    return (dataclasses.replace(jax_config(arch).smoke(), **kw),
+            dataclasses.replace(get_config(arch).smoke(), **kw))
 
 
 def _configs(name, mode, quant="off", kv="auto"):
     kw = dict(kv_cache_dtype=kv)
     if mode == "exact":
         kw.update(softmax_mode="exact", norm_mode="exact", logit_int8=False)
-    jcfg = dataclasses.replace(jax_config(name).smoke(), ops_backend="pallas",
+    jcfg, tcfg = _smoke_configs(name)
+    jcfg = dataclasses.replace(jcfg, ops_backend="pallas",
                                quant=JaxQuantConfig(quant), **kw)
-    tcfg = dataclasses.replace(get_config(name).smoke(),
-                               quant=QuantConfig(quant), **kw)
+    tcfg = dataclasses.replace(tcfg, quant=QuantConfig(quant), **kw)
     return jcfg, tcfg
 
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return {name: japi.init_params(0, jax_config(name).smoke())[0]
-            for name in NAMES}
+    return {name: japi.init_params(0, _smoke_configs(name)[0])[0] for name in NAMES}
 
 
 def _prompts(vocab, seed):
@@ -245,9 +257,9 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(family="moe"), NotImplementedError, "queue 1 item 9"),
-    (dict(family="ssm"), NotImplementedError, "queue 1 item 9"),
-    (dict(family="hybrid"), NotImplementedError, "queue 1 item 9"),
+    (dict(family="moe"), NotImplementedError, "queue 1 item 7"),
+    (dict(family="ssm"), NotImplementedError, "queue 1 item 7"),
+    (dict(family="hybrid"), NotImplementedError, "queue 1 item 7"),
     (dict(family="encdec"), ValueError, "LM families")])
 def test_engine_raises_for_unported_families(change, err, match):
     cfg, params = _smoke()
@@ -257,19 +269,5 @@ def test_engine_raises_for_unported_families(change, err, match):
 
 def test_engine_raises_for_rules_and_sampling():
     cfg, params = _smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         Engine(cfg, params, device="cpu", rules=object())
-    eng = Engine(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.generate([Request(prompt=np.arange(4, dtype=np.int32),
-                              temperature=0.7)])
-
-
-def test_blocked_attention_raises():
-    cfg, params = _smoke()
-    cfg = dataclasses.replace(cfg, attn_impl="blocked")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        api.forward(params, {"tokens": tokens}, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        api.prefill(params, tokens, cfg, 8)

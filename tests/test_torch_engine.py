@@ -5,8 +5,10 @@ the same weights (converted through numpy by ``params_from_jax``).
 Each trace runs two waves through both engines: five greedy prompts
 (one longer than two prefill chunks, two sharing a 16-token prefix,
 8 new tokens, decode horizon 4), then a repeat of a wave-1 prompt (a
-prefix hit) with an eos id taken from the JAX engine's wave-1 output
-(an eos finish) and a new prompt on the shared prefix. ``check_refcounts``
+prefix hit) with an eos id taken from the JAX engine's own output for
+it (an eos finish) and a new prompt on the shared prefix. The configs:
+qwen2 and stablelm, minitron and nemotron (squared ReLU, LayerNorm), and
+minitron at head dim 128 (``d^-1/2`` no power of two). ``check_refcounts``
 runs after each wave.
 
 * exact mode: greedy tokens equal; on the host-side traces (COW fork,
@@ -43,10 +45,24 @@ ENGINE_KW = dict(num_blocks=40, block_size=8, max_seq_len=64, max_running=4,
                  decode_batch=4, prefill_chunk=8, decode_horizon=4)
 SOLE_LOGIT_ATOL = 1e-4
 SOLE_CALL_AGREEMENT = 0.95          # share of calls within SOLE_LOGIT_ATOL
+# the engines' configs: qwen2 and stablelm (SwiGLU), minitron and nemotron
+# (squared ReLU, LayerNorm), and minitron's smoke variant at head dim 128,
+# where d^-1/2 is no power of two
+NAMES = ("qwen2_0_5b", "stablelm_1_6b", "minitron_8b", "nemotron_4_15b",
+         "minitron_8b-hd128")
+
+
+def _smoke_configs(name):
+    """(JAX, port) smoke configs of ``name`` (``<arch>-hd128``: at head
+    dim 128)."""
+    arch, _, variant = name.partition("-")
+    kw = dict(head_dim=128) if variant == "hd128" else {}
+    return (dataclasses.replace(jax_config(arch).smoke(), **kw),
+            dataclasses.replace(get_config(arch).smoke(), **kw))
 
 
 def _configs(name, mode):
-    jcfg, tcfg = jax_config(name).smoke(), get_config(name).smoke()
+    jcfg, tcfg = _smoke_configs(name)
     if mode == "exact":
         kw = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
         jcfg, tcfg = (dataclasses.replace(jcfg, **kw),
@@ -56,8 +72,7 @@ def _configs(name, mode):
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return {name: japi.init_params(0, jax_config(name).smoke())[0]
-            for name in ("qwen2_0_5b", "stablelm_1_6b")}
+    return {name: japi.init_params(0, _smoke_configs(name)[0])[0] for name in NAMES}
 
 
 def _waves(vocab, seed):
@@ -80,6 +95,23 @@ def _serve(engine, request_cls, prompts, tail, eos):
         request_cls(prompt=prompts[1], max_new_tokens=8, eos_ids=(eos,)),
         request_cls(prompt=tail, max_new_tokens=8)])
     return outs, engine.stats()["finish_reasons"]
+
+
+def _wave2_eos(jcfg, params, prompts, tail, jw1):
+    """The eos id of wave 2's repeated request: the third token the JAX
+    engine draws for it there. In exact mode that is its wave-1 token; in
+    SOLE mode a norm calibrates over the whole chunk or batch, and the
+    prefix hit changes both, so a first JAX pass of the same steps (wave
+    1 twice, then wave 2 with no eos) picks it."""
+    if jcfg.softmax_mode == "exact" and jcfg.norm_mode == "exact":
+        return int(jw1[1][2])
+    dry = JaxEngine(jcfg, params, backend="pallas", **ENGINE_KW)
+    for _ in range(2):
+        dry.generate([JaxRequest(prompt=p, max_new_tokens=8)
+                      for p in prompts])
+    out = dry.generate([JaxRequest(prompt=prompts[1], max_new_tokens=8),
+                        JaxRequest(prompt=tail, max_new_tokens=8)])
+    return int(out[0][2])
 
 
 def _record_calls(monkeypatch):
@@ -135,7 +167,7 @@ def _replay_on_jax(calls, jcfg, params):
 
 
 @pytest.mark.parametrize("mode", ["exact", "sole"])
-@pytest.mark.parametrize("name", ["qwen2_0_5b", "stablelm_1_6b"])
+@pytest.mark.parametrize("name", NAMES)
 def test_engine_matches_jax_engine(name, mode, jax_params, monkeypatch):
     jcfg, tcfg = _configs(name, mode)
     params = jax_params[name]
@@ -148,7 +180,7 @@ def test_engine_matches_jax_engine(name, mode, jax_params, monkeypatch):
     jw1, _ = _serve(jeng, JaxRequest, prompts, tail, None)
     tw1, _ = _serve(teng, Request, prompts, tail, None)
     teng.cache.check_refcounts()
-    eos = int(jw1[1][2])
+    eos = _wave2_eos(jcfg, params, prompts, tail, jw1)
     jout, jreasons = _serve(jeng, JaxRequest, prompts, tail, eos)
     tout, treasons = _serve(teng, Request, prompts, tail, eos)
     teng.cache.check_refcounts()
