@@ -98,6 +98,24 @@ host ``Sampler``), an 8,192-token prefill on the blocked attention against
 the dense one, a profiled wave; and nemotron_4_15b (48 heads, 6,144
 wide) through ``PagedEngine`` in bf16, each model freed before the next.
 
+Speculative decoding and the streaming front end join phases 3-5: the
+paged kernel at the verify dispatch's shapes (8 lanes x C = 2, 3, 5, 9
+causal rows, a q_start per lane, ragged n_valid, null lanes; bf16 and
+int8 pages; qwen2_0_5b's head dim 64 and minitron_8b's 128) against its
+plain version, its C > 1 route against its C = 1 route on the same query
+rows (bitwise share printed), the calibrating norm at 40 rows of 896 and
+4,096 and the int8 GEMM at M = 40; then qwen2_0_5b at full width through
+``PagedEngine`` with speculation beside the plain run in the same call
+(exact mode: an oracle, an anti-oracle and the n-gram drafter in bf16,
+the oracle and n-gram at w8a8 + int8 KV; SOLE bf16 n-gram), every
+divergence from plain decode held to a logit margin inside the measured
+verify/decode row difference, the launches of each verify dispatch
+checked, a profiled spec trace and the first op where a verify slot and
+a decode step part; an open-loop Poisson trace through ``AsyncEngine``
+with two cancellations and then two replicas on the card; nemotron_4_15b
+with a minitron_8b draft model; and the smoke spec engine and
+``AsyncEngine`` on the card against the CPU.
+
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is available or the port is not beside this file.
@@ -418,6 +436,10 @@ CALIB_CASES.update({f"ln{c}_{name}": (rows, c, False) for c in (4096, 6144)
                     for name, rows in (("decode", DECODE_BATCH),
                                        ("prefill", PREFILL_CHUNK),
                                        ("dense_prefill", DECODE_BATCH * 300))})
+# a speculative verify dispatch's rows (8 lanes x C = 5) at qwen2_0_5b's
+# width and at minitron_8b's
+CALIB_CASES.update({"verify": (DECODE_BATCH * 5, 896, True),
+                    "ln4096_verify": (DECODE_BATCH * 5, 4096, False)})
 
 
 def check_calib_norm(torch):
@@ -526,6 +548,9 @@ def check_int8_gemm(torch):
     shapes = [(f"{pre}{nm}_m{m}", m, k, n)
               for pre, kn in (("", GEMM_KN), ("minitron_", MINITRON_GEMM_KN))
               for m in (DECODE_BATCH, PREFILL_CHUNK) for nm, k, n in kn]
+    # a speculative verify dispatch's rows: 8 lanes x C = 5
+    shapes += [(f"{nm}_m{DECODE_BATCH * 5}", DECODE_BATCH * 5, k, n)
+               for nm, k, n in GEMM_KN]
     n_path = len(shapes)
     shapes += [("ragged_7x130x33", 7, 130, 33),
                ("ragged_64x256x128", 64, 256, 128),
@@ -2396,6 +2421,889 @@ def serve_new_configs(torch):
     return out
 
 
+# -- speculative decoding, the streaming loop, cancellation -------------------
+
+VERIFY_K = 4                       # the spec traces' max_k: C = K + 1 = 5
+VERIFY_CS = (2, 3, 5, 9)           # verify widths checked (K 1, 2, 4, 8)
+VERIFY_ROWS = DECODE_BATCH * (VERIFY_K + 1)   # 40 rows per verify dispatch
+VERIFY_Q_START = (48, 299, 117, 0, 255, 83, 160, 0)
+SPEC_NEW_TOKENS = 16               # the draft-model pair's budget
+OPEN_LOOP_RATE = 0.5               # requests per engine step
+
+
+def verify_lanes(c):
+    """Per-lane (q_start, kv_len) of a verify batch of ``DECODE_BATCH``
+    lanes at width ``c``: ragged n_valid (c, c - 1, 1, c // 2 ...; rows
+    past it attend every valid key) and two null lanes (q_start 0, kv_len
+    1, page 0)."""
+    n_valid = (c, max(1, c - 1), 1, 1, c, max(1, c // 2), c, 1)
+    kv = [q + n for q, n in zip(VERIFY_Q_START, n_valid)]
+    return list(VERIFY_Q_START), kv
+
+
+def check_verify_kernels(torch, cfg, mini):
+    """Phase 3 at the verify dispatch's shapes: the paged kernel at
+    ``DECODE_BATCH`` lanes x C in ``VERIFY_CS`` rows, causal, a q_start
+    per lane, n_valid < C and null lanes, against its plain version. At
+    qwen2_0_5b's attention (tensor cores) on bf16 pools: exact-logit
+    inputs to 1e-5 of the output scale in SOLE and exact mode, random ones
+    with at most 1% of rows off by more than 1e-3 (SOLE); on int8 pools
+    with ``quant_pv``, exact-logit inputs to 1e-5. At minitron_8b's head
+    dim 128 (CUDA cores) on bf16 and int8 pools: exact mode to 1e-4 of the
+    output scale, SOLE at most 1% of rows off by more than 1e-3. Returns
+    the C = K + 1 cases for the timings: (bf16 results, int8 results)."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out16, out8 = {}, {}
+    for model, name in ((cfg, "verify"), (mini, "minitron_verify")):
+        h, kvh, d = model.n_heads, model.n_kv_heads, model.head_dim
+        kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+        wide = d != 64                      # the CUDA-core route's bars
+        # (int8 pools, exact-logit grid) of each case
+        combos = (((False, False), (True, False)) if wide else
+                  ((False, True), (False, False), (True, True)))
+        for c in VERIFY_CS:
+            q_start, kv = verify_lanes(c)
+            errs, offs, cases = {}, {}, {}
+            for int8, grid in combos:
+                case = paged_case(torch, gen, b=DECODE_BATCH, c=c,
+                                  q_start=q_start, kv_lens=kv, h=h, kvh=kvh,
+                                  d=d, grid=grid, int8=int8)
+                cases[int8] = case
+                for mode in ("sole", "exact"):
+                    kw = dict(sole=mode == "sole", exp_bits=cfg.exp_bits,
+                              int8_scale=(LOGIT_INT8_SCALE if mode == "sole"
+                                          else None))
+                    if int8:
+                        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                    out = KA.flash_e2softmax_paged(*case, causal=True, **kw)
+                    ref = KA.flash_e2softmax_paged_plain(
+                        *case, kvmap, causal=True, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(out).all():
+                        raise AssertionError(f"paged {name} C={c}: "
+                                             "non-finite")
+                    err = (out - ref).abs()
+                    scale = max(ref.abs().max().item(), 1.0)
+                    key = (f"{'int8' if int8 else 'bf16'}_"
+                           f"{'grid' if grid else 'random'}_{mode}")
+                    errs[key] = err.max().item()
+                    if grid or (wide and mode == "exact"):
+                        tol = (1e-4 if wide else 1e-5) * scale
+                        if errs[key] > tol:
+                            raise AssertionError(
+                                f"paged {name} C={c} {key}: max |err| "
+                                f"{errs[key]} > {tol}")
+                    elif mode == "sole":
+                        offs[key] = (err.amax(-1) > 1e-3 * scale).float(
+                            ).mean().item()
+                        if offs[key] > 0.01:
+                            raise AssertionError(
+                                f"paged {name} C={c} {key}: {offs[key]} of "
+                                "rows off by > 1e-3")
+            variant = KA.paged_variant(torch.bfloat16, torch.bfloat16, d,
+                                       BLOCK_SIZE)
+            log(f"paged_e2softmax {name} B={DECODE_BATCH} C={c} H {h}/KV "
+                f"{kvh} d {d} [{variant}] q_start {q_start} kv_len {kv}: "
+                "max|err| " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in errs.items())
+                + "; SOLE rows off by > 1e-3: " + ", ".join(
+                    f"{k} {v:.5f}" for k, v in offs.items()))
+            if c != VERIFY_K + 1:
+                continue
+            held = [v for k, v in errs.items() if k.startswith("bf16") and
+                    ("grid" in k or wide)]
+            out16[name] = dict(case=cases[False], causal=True,
+                               max_abs_err=max(held),
+                               max_abs_err_random=max(
+                                   v for k, v in errs.items()
+                                   if k.startswith("bf16_random")))
+            out8[name] = dict(case=cases[True], causal=True,
+                              max_abs_err=max(v for k, v in errs.items()
+                                              if k.startswith("int8")))
+    return out16, out8
+
+
+def compare_verify_decode_routes(torch, cfg):
+    """Phase 3: the paged kernel's C > 1 route (one causal call over the
+    verify rows; the tensor-core kernel at qwen2_0_5b's head dim) against
+    its C = 1 route (the decode kernel, pages split over warps; one call
+    per slot at kv_len = position + 1) for the same query rows, pools and
+    pages, in exact and SOLE mode over bf16 and int8 pages, on exact-logit
+    and random inputs. Prints the share of rows that are bitwise equal and
+    the largest difference; holds them to the plain version's bar (1e-5
+    of the output scale on exact-logit inputs). Returns the summary."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    summary = {}
+    for c in (VERIFY_K + 1, 9):
+        q_start, kv = verify_lanes(c)
+        n_valid = [k - q for k, q in zip(kv, q_start)]
+        live = [i for i, q in enumerate(q_start) if q > 0]
+        for int8 in (False, True):
+            for grid in (True, False):
+                case = paged_case(torch, gen, b=DECODE_BATCH, c=c,
+                                  q_start=q_start, kv_lens=kv, h=h, kvh=kvh,
+                                  d=d, grid=grid, int8=int8)
+                q, pk, pv, tables, meta = case
+                for mode in ("exact", "sole"):
+                    kw = dict(sole=mode == "sole", exp_bits=cfg.exp_bits,
+                              int8_scale=(LOGIT_INT8_SCALE if mode == "sole"
+                                          else None))
+                    if int8:
+                        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                    wide = KA.flash_e2softmax_paged(*case, causal=True, **kw)
+                    same = total = 0
+                    worst = 0.0
+                    for i in range(c):
+                        m = meta.clone()
+                        m[:, 0] += i
+                        m[:, 1] = m[:, 0] + 1
+                        narrow = KA.flash_e2softmax_paged(
+                            q[:, :, i:i + 1].contiguous(), pk, pv, tables, m,
+                            causal=False, **kw)
+                        for lane in live:
+                            if i >= n_valid[lane]:
+                                continue
+                            a = wide[lane, :, i]
+                            b_ = narrow[lane, :, 0]
+                            same += int((a == b_).all(-1).sum())
+                            total += a.shape[0]
+                            worst = max(worst, (a - b_).abs().max().item())
+                    torch.cuda.synchronize()
+                    scale = max(wide.abs().max().item(), 1.0)
+                    key = (f"C{c}_{'int8' if int8 else 'bf16'}_"
+                           f"{'grid' if grid else 'random'}_{mode}")
+                    summary[key] = dict(rows=total, bitwise_rows=same,
+                                        bitwise_share=same / total,
+                                        max_abs_diff=worst)
+                    if grid and worst > 1e-5 * scale:
+                        raise AssertionError(
+                            f"verify vs decode route {key}: max |diff| "
+                            f"{worst} > {1e-5 * scale}")
+    for key, v in summary.items():
+        log(f"paged route C>1 vs C=1 {key}: {v['bitwise_rows']}/{v['rows']} "
+            f"rows bitwise equal ({v['bitwise_share']:.4f}), max |diff| "
+            f"{v['max_abs_diff']:.3e}")
+    return summary
+
+
+def trace_requests(cfg, new_tokens=NEW_TOKENS):
+    """The trace's ten prompts as one closed batch: wave 1's eight, a
+    repeat of request 0 (a prefix hit) and the second system-prompt
+    request, greedy, ``new_tokens`` each."""
+    from repro_torch.serve.engine import Request
+    prompts, tail = trace_prompts(cfg)
+    return [Request(prompt=p, max_new_tokens=new_tokens)
+            for p in prompts + [prompts[0], tail]]
+
+
+class OracleDrafter:
+    """Proposes a plain run's tokens (by sequence id): all accepted while
+    the spec run follows the plain one."""
+
+    def __init__(self, outs):
+        self.outs = outs
+
+    def propose(self, lanes, ks):
+        return [self.outs[s.seq_id][len(s.out):len(s.out) + k]
+                for s, k in zip(lanes, ks)]
+
+
+class AntiOracleDrafter(OracleDrafter):
+    """The plain run's next tokens shifted by one: all rejected."""
+
+    def __init__(self, outs, vocab_size):
+        super().__init__(outs)
+        self.vocab_size = vocab_size
+
+    def propose(self, lanes, ks):
+        return [[(t + 1) % self.vocab_size for t in d]
+                for d in super().propose(lanes, ks)]
+
+
+class RowRecorder:
+    """Records the logits row of every live lane of a paged engine's
+    decode steps and verify dispatches (the same model calls the engine
+    makes), keyed by (sequence id, position of the fed token): with
+    ``against=None`` it keeps the rows on the device; otherwise it keeps,
+    per key present there, the largest |difference| from that row and
+    which dispatch made it (the last one at a key wins: it saw the kept
+    prefix)."""
+
+    def __init__(self, torch, eng, against=None):
+        from repro_torch.models import transformer as T
+        self.torch, self.eng, self.T = torch, eng, T
+        self.against, self.rows, self.lanes = against, {}, []
+        self.vocab = eng.cfg.vocab_size
+
+    def _keep(self, seq, pos, row, source):
+        key = (seq.seq_id, pos)
+        row = row[:self.vocab].float()
+        if self.against is None:
+            self.rows[key] = row.clone()
+        elif key in self.against:
+            diff = (row - self.against[key]).abs().max().item()
+            self.rows[key] = (diff, source, int(row.argmax()))
+
+    def __enter__(self):
+        T, eng = self.T, self.eng
+        self.orig = (T.decode_step_paged, T.prefill_paged, eng._refs)
+
+        def refs(seqs):
+            self.lanes = list(seqs)
+            return self.orig[2](seqs)
+
+        def decode(params, pools, token, pos, tables, cfg):
+            logits, pools = self.orig[0](params, pools, token, pos, tables,
+                                         cfg)
+            for i, p in enumerate(pos.tolist()):
+                if self.lanes[i] is not None:
+                    self._keep(self.lanes[i], p, logits[i], "decode")
+            return logits, pools
+
+        def prefill(params, tokens, q_start, n_valid, tables, pools, cfg):
+            logits, pools = self.orig[1](params, tokens, q_start, n_valid,
+                                         tables, pools, cfg)
+            if tokens.shape[0] == eng.decode_batch and tokens.shape[1] > 1:
+                for i, (q0, n) in enumerate(zip(q_start.tolist(),
+                                                n_valid.tolist())):
+                    if self.lanes[i] is None:
+                        continue
+                    for j in range(n):
+                        self._keep(self.lanes[i], q0 + j, logits[i, j],
+                                   "verify")
+            return logits, pools
+
+        T.decode_step_paged, T.prefill_paged = decode, prefill
+        eng._refs = refs
+        return self
+
+    def __exit__(self, *exc):
+        self.T.decode_step_paged, self.T.prefill_paged = self.orig[:2]
+        del self.eng._refs
+
+
+def spec_engine(cfg, params, spec=None, blocks=None):
+    from repro_torch.serve.engine import PagedEngine
+    return PagedEngine(cfg, params,
+                       num_blocks=blocks or 8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                       block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                       max_running=8, decode_batch=DECODE_BATCH,
+                       prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                       device="cuda", spec_config=spec)
+
+
+def run_spec_trace(torch, cfg, params, reqs, drafter=None, *,
+                   max_k=VERIFY_K, record=None):
+    """One closed batch through ``PagedEngine`` (speculative when
+    ``drafter`` is given): launch counts set to 0 just before and read
+    just after, the launches of each verify dispatch, the drafter's host
+    time and the wall. ``record``: None, or the plain run's rows to hold
+    the verify rows against (``{}`` records a plain run's rows)."""
+    from repro_torch.models import api
+    from repro_torch.serve.spec import SpecConfig
+    spec = None if drafter is None else SpecConfig(drafter, max_k=max_k)
+    eng = spec_engine(cfg, params, spec)
+    wrappers = kernel_wrappers()
+    per_verify, draft_s = [], [0.0]
+    real_verify = api.verify_paged
+
+    def counted(*a, **kw):
+        before = read_launches()
+        out = real_verify(*a, **kw)
+        after = read_launches()
+        per_verify.append({k: after[k] - before[k] for k in wrappers})
+        return out
+    if drafter is not None:
+        real_propose = drafter.propose
+
+        def timed(lanes, ks):
+            t0 = time.perf_counter()
+            out = real_propose(lanes, ks)
+            draft_s[0] += time.perf_counter() - t0
+            return out
+        drafter.propose = timed
+    api.verify_paged = counted
+    rec = None
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if record is None:
+            outs = eng.generate(reqs)
+        else:
+            with RowRecorder(torch, eng, against=record or None) as rec:
+                outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        api.verify_paged = real_verify
+        if drafter is not None:
+            drafter.propose = real_propose
+    eng.cache.check_refcounts()
+    stats = eng.stats()
+    if stats["blocks_in_use"]:
+        raise AssertionError(f"{stats['blocks_in_use']} pages in use after "
+                             "the trace")
+    return dict(outs=outs, stats=stats, wall_s=wall, launches=launches,
+                per_verify=per_verify, draft_host_s=draft_s[0],
+                rows=None if rec is None else rec.rows)
+
+
+def first_divergence(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def divergence_report(torch, reqs, plain, spec_outs, plain_rows, rows):
+    """Each request's first token where a spec run leaves the plain run,
+    with the plain decode row's top-2 margin there and the largest
+    |difference| of the spec run's row at that position (verify or
+    decode) from it, both from recorded replays (``RowRecorder``)."""
+    out = {}
+    for i, (p, s) in enumerate(zip(plain, spec_outs)):
+        j = first_divergence(p, s)
+        if j is None:
+            continue
+        key = (i, len(reqs[i].prompt) + j - 1)
+        margin, diff = None, rows.get(key)
+        if key in plain_rows:
+            top = torch.topk(plain_rows[key], 2).values
+            margin = (top[0] - top[1]).item()
+        out[i] = dict(token=j, plain=p[j], spec=s[j],
+                      plain_top2_margin=margin,
+                      spec_vs_plain_max_abs_logit_diff=(
+                          None if diff is None else diff[0]),
+                      spec_row_from=None if diff is None else diff[1])
+    return out
+
+
+def prefix_row_diffs(plain, spec_outs, reqs, rows):
+    """Over every recorded spec-run row whose fed prefix equals the plain
+    run's (positions up to each request's first divergence): rows, rows
+    bitwise equal to the plain decode row, the largest |difference|, by
+    dispatch kind."""
+    res = {}
+    for (sid, pos), (diff, src, _) in rows.items():
+        j = pos + 1 - len(reqs[sid].prompt)
+        first = first_divergence(plain[sid], spec_outs[sid])
+        if first is not None and j > first:
+            continue
+        r = res.setdefault(src, dict(rows=0, bitwise=0, max_abs_diff=0.0))
+        r["rows"] += 1
+        r["bitwise"] += int(diff == 0.0)
+        r["max_abs_diff"] = max(r["max_abs_diff"], diff)
+    return res
+
+
+def check_per_verify(label, per_verify, cfg, sole, w8a8):
+    """Each verify dispatch launches the paged attention once per layer,
+    the calibrating norm 2L + 1 times in SOLE mode, the int8 GEMM once per
+    projection and the head at w8a8, and no static-params norm."""
+    want = {"paged_e2softmax": cfg.n_layers,
+            "ailayernorm_calib": 2 * cfg.n_layers + 1 if sole else 0,
+            "int8_matmul": gemm_per_forward(cfg) if w8a8 else 0,
+            "ailayernorm_qnorm": 0}
+    for n, got in enumerate(per_verify):
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"[{label}] verify dispatch {n}: launches "
+                                 f"{got}, expected {want}")
+    return want
+
+
+def spec_summary(label, run, plain_wall=None):
+    st = run["stats"]
+    keys = ("spec_dispatches", "spec_proposed_tokens", "spec_accepted_tokens",
+            "spec_fallback_steps", "acceptance_rate",
+            "accepted_tokens_per_target_dispatch", "decode_dispatches",
+            "decode_tokens", "steps", "truncated_tokens", "reclaimed_pages")
+    out = {k: st[k] for k in keys if k in st}
+    out.update(wall_s=run["wall_s"], draft_host_s=run["draft_host_s"],
+               verify_dispatches=len(run["per_verify"]))
+    log(f"[{label}] wall {run['wall_s']:.3f} s"
+        + ("" if plain_wall is None else
+           f" (plain {plain_wall:.3f} s in this call)")
+        + f", drafter host {run['draft_host_s']:.3f} s; "
+        + json.dumps({k: v for k, v in out.items()
+                      if k not in ("wall_s", "draft_host_s")}))
+    return out
+
+
+def spec_traces(torch, cfg, params, label, *, w8a8_routes_differ=False):
+    """Phase 4: the ten trace requests, ``NEW_TOKENS`` each, through
+    ``PagedEngine`` with speculative decoding (``max_k`` 4, decode batch
+    8), beside the plain run in the same call, in exact mode. bf16: an
+    oracle drafter (the plain run's tokens), an anti-oracle (acceptance 0
+    and the controller back on the horizon) and the n-gram drafter; every
+    request equals the plain run up to its first divergence, and each
+    divergence is reported with the plain run's top-2 margin and the
+    verify-vs-decode |logit difference| there (recorded replays). At w8a8
+    (int8 pages) the oracle and n-gram traces must equal the plain run
+    unless the paged kernel's two routes were shown to differ on int8
+    pages in exact mode. Each verify dispatch's launches are checked."""
+    from repro_torch.serve.spec import NGramDrafter
+    cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    w8a8 = cfg.quant.acts
+    reqs = trace_requests(cfg)
+    plain = run_spec_trace(torch, cfg, params, reqs)
+    outs = plain["outs"]
+    if any(len(o) != NEW_TOKENS for o in outs):
+        raise AssertionError(f"[{label}] plain trace token counts")
+    log(f"[{label} exact plain] wall {plain['wall_s']:.3f} s, "
+        f"{plain['stats']['decode_dispatches']} decode dispatches, "
+        f"{plain['stats']['tokens_per_dispatch']} tokens per dispatch")
+    oracle = {i: list(o) for i, o in enumerate(outs)}
+    drafters = {"oracle": lambda: OracleDrafter(oracle),
+                "ngram": NGramDrafter}
+    if not w8a8:
+        drafters["anti-oracle"] = lambda: AntiOracleDrafter(
+            oracle, cfg.vocab_size)
+    plain_rec = None
+    res = {"plain_wall_s": plain["wall_s"],
+           "plain_stats": {k: plain["stats"][k] for k in (
+               "decode_dispatches", "decode_tokens", "steps",
+               "tokens_per_dispatch")}}
+    for name, make in drafters.items():
+        run = run_spec_trace(torch, cfg, params, reqs, make())
+        tag = f"{label} exact {name}"
+        if any(len(o) != NEW_TOKENS for o in run["outs"]):
+            raise AssertionError(f"[{tag}] token counts")
+        if not run["per_verify"] and name != "ngram":
+            raise AssertionError(f"[{tag}] no verify dispatch")
+        want = check_per_verify(tag, run["per_verify"], cfg, False, w8a8)
+        summ = spec_summary(tag, run, plain["wall_s"])
+        summ["launches_per_verify"] = want
+        summ["launches"] = run["launches"]
+        st = run["stats"]
+        if name == "anti-oracle" and (st["spec_accepted_tokens"]
+                                      or not st["spec_fallback_steps"]):
+            raise AssertionError(f"[{tag}] accepted "
+                                 f"{st['spec_accepted_tokens']}, fallback "
+                                 f"steps {st['spec_fallback_steps']}")
+        diverged = run["outs"] != outs
+        divs, replay_same = {}, None
+        if diverged or name == "oracle":
+            # recorded replays: the traces are deterministic, so the
+            # replays' rows are the runs' (their tokens are checked)
+            if plain_rec is None:
+                plain_rec = run_spec_trace(torch, cfg, params, reqs,
+                                           record={})
+            rec = run_spec_trace(torch, cfg, params, reqs, make(),
+                                 record=plain_rec["rows"])
+            replay_same = (plain_rec["outs"] == outs
+                           and rec["outs"] == run["outs"])
+            divs = divergence_report(torch, reqs, outs, run["outs"],
+                                     plain_rec["rows"], rec["rows"])
+            summ["verify_vs_decode_rows"] = prefix_row_diffs(
+                outs, rec["outs"], reqs, rec["rows"])
+            log(f"[{tag}] logits rows against the plain run's decode rows "
+                "at the same positions and prefixes: "
+                + json.dumps(summ["verify_vs_decode_rows"]))
+        if w8a8 and divs and not w8a8_routes_differ:
+            raise AssertionError(f"[{tag}] differs from the plain run where "
+                                 f"every projection is exact: {divs}")
+        # each divergence must sit on a near-tie of the plain logits no
+        # wider than the measured difference of the two runs' rows there
+        if diverged and not replay_same:
+            raise AssertionError(f"[{tag}] the recorded replays do not "
+                                 "reproduce the runs")
+        for i, v in divs.items():
+            if (v["plain_top2_margin"] is None
+                    or v["spec_vs_plain_max_abs_logit_diff"] is None
+                    or v["plain_top2_margin"]
+                    > v["spec_vs_plain_max_abs_logit_diff"]):
+                raise AssertionError(f"[{tag}] request {i}'s divergence is "
+                                     f"not accounted for: {v}")
+        summ["divergences"] = {str(k): v for k, v in divs.items()}
+        summ["replays_reproduce_runs"] = replay_same
+        log(f"[{tag}] requests equal to the plain run: "
+            f"{sum(o == p for o, p in zip(run['outs'], outs))}/{len(outs)}; "
+            f"divergences (request: first token, tokens, plain top-2 "
+            f"margin, |logit diff| there) {json.dumps(summ['divergences'])}")
+        res[name] = summ
+    return res
+
+
+# the model-layer functions a paged forward calls, in its order
+FORWARD_OPS = ("apply_norm", "quantize_act", "qmatmul", "_project_qkv",
+               "apply_rope", "kv_quant", "paged_attend", "_wo_proj",
+               "apply_residual_norm", "apply_mlp", "lm_logits")
+
+
+class OpRecorder:
+    """Records the output of every ``FORWARD_OPS`` call of the model layer
+    (``repro_torch.models.layers``), in call order."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+        self.L, self.calls = L, []
+        self.orig = {n: getattr(L, n) for n in FORWARD_OPS}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def recorded(*a, **kw):
+                out = fn(*a, **kw)
+                self.calls.append((name, out))
+                return out
+            return recorded
+        for n, fn in self.orig.items():
+            setattr(self.L, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.L, n, fn)
+
+
+def _lane0_rows(torch, out, b, c, slot):
+    """Lane 0's row at ``slot`` of each tensor in a recorded output, nested
+    tuples included ((B, C, ...) or (B * C, ...) rows)."""
+    if isinstance(out, tuple):
+        return [r for t in out for r in _lane0_rows(torch, t, b, c, slot)]
+    if not torch.is_tensor(out) or out.ndim == 0:
+        return []
+    if out.ndim >= 2 and out.shape[0] == b and out.shape[1] == c:
+        return [out[0, slot].float()]
+    if out.shape[0] == b * c:
+        return [out[slot].float()]
+    return []
+
+
+def verify_decode_ops(torch, cfg, params, label):
+    """Where a verify slot and the decode step at the same position and
+    prefix first part, op by op: one request's state after a few decode
+    steps; five decode steps from position p (8 lanes, 7 null, as the
+    engine pads them) against one verify dispatch of the same five fed
+    tokens (8 lanes x C 5) on a copy of the same pools, every model-layer
+    op recorded; for each slot, the first op (and layer) whose output row
+    differs, its largest |difference|, and the logits' (exact mode)."""
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request
+    cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    eng = spec_engine(cfg, params)
+    prompts, _ = trace_prompts(cfg)
+    seq = eng.submit(Request(prompt=prompts[0], max_new_tokens=NEW_TOKENS))
+    while len(seq.out) < 3:
+        eng.step()
+    c = VERIFY_K + 1
+    pos = seq.prompt_len + len(seq.out) - 1
+    eng._apply_copies(eng.sched.ensure_tokens(seq, pos, pos + c))
+    refs = eng._refs([seq] + [None] * (DECODE_BATCH - 1))
+    pools0 = {k: v.clone() for k, v in eng.cache.pools.items()}
+    pools = {k: v.clone() for k, v in eng.cache.pools.items()}
+    dev = eng.device
+
+    def lanes(v, fill):
+        return torch.tensor([v] + [fill] * (DECODE_BATCH - 1),
+                            dtype=torch.int32, device=dev)
+    fed, steps = [seq.out[-1]], []
+    for i in range(c):
+        with OpRecorder() as rec:
+            logits, pools = api.decode_step_paged(
+                eng.params, lanes(fed[-1], 0), lanes(pos + i, 0), refs, pools,
+                cfg)
+        steps.append(rec.calls)
+        fed.append(int(logits[0, :cfg.vocab_size].argmax()))
+    tokens = torch.zeros((DECODE_BATCH, c), dtype=torch.int32, device=dev)
+    tokens[0] = torch.tensor(fed[:c], dtype=torch.int32)
+    with OpRecorder() as vrec:
+        api.prefill_paged(eng.params, tokens, lanes(pos, 0), lanes(c, 1),
+                          refs, pools0, cfg)
+    torch.cuda.synchronize()
+    res = {}
+    for i, calls in enumerate(steps):
+        if len(calls) != len(vrec.calls):
+            raise AssertionError(f"[{label}] {len(calls)} decode ops, "
+                                 f"{len(vrec.calls)} verify ops")
+        attended, first, logits_diff = 0, None, None
+        for (name, dout), (vname, vout) in zip(calls, vrec.calls):
+            if name != vname:
+                raise AssertionError(f"[{label}] op order {name}/{vname}")
+            drows = _lane0_rows(torch, dout, DECODE_BATCH, 1, 0)
+            vrows = _lane0_rows(torch, vout, DECODE_BATCH, c, i)
+            diff = max(((a - b).abs().max().item()
+                        for a, b in zip(drows, vrows)), default=0.0)
+            if name == "lm_logits":
+                logits_diff = diff
+            if first is None and diff > 0:
+                first = dict(op=name, attention_calls_before=attended,
+                             max_abs_diff=diff)
+            attended += name == "paged_attend"
+        res[f"slot{i}"] = dict(first_difference=first,
+                               logits_max_abs_diff=logits_diff)
+    log(f"[{label} exact] verify slot vs decode step, first differing op "
+        "(after how many attention calls): " + json.dumps(res))
+    eng.cancel(seq)
+    eng.cache.check_refcounts()
+    return res
+
+
+def sole_ngram_trace(torch, cfg, params):
+    """Phase 4: SOLE mode (bf16) with the n-gram drafter runs to the end:
+    every request its budget, finish reasons, no page in use; each verify
+    dispatch launches 24 attention and 49 calibrating norms. SOLE tokens
+    differ from plain decode by design (a norm calibrates over the whole
+    dispatch)."""
+    from repro_torch.serve.spec import NGramDrafter
+    reqs = trace_requests(cfg)
+    plain = run_spec_trace(torch, cfg, params, reqs)
+    run = run_spec_trace(torch, cfg, params, reqs, NGramDrafter())
+    if any(len(o) != NEW_TOKENS for o in run["outs"]):
+        raise AssertionError("[sole ngram] token counts")
+    if run["stats"]["finish_reasons"] != {"length": len(reqs)}:
+        raise AssertionError(f"[sole ngram] finish reasons "
+                             f"{run['stats']['finish_reasons']}")
+    if not run["per_verify"]:
+        raise AssertionError("[sole ngram] no verify dispatch")
+    want = check_per_verify("sole ngram", run["per_verify"], cfg, True,
+                            False)
+    summ = spec_summary("bf16 sole ngram", run, plain["wall_s"])
+    agree = sum(a == b for x, y in zip(plain["outs"], run["outs"])
+                for a, b in zip(x, y)) / (len(reqs) * NEW_TOKENS)
+    summ.update(launches_per_verify=want, launches=run["launches"],
+                token_agreement_with_plain=agree,
+                plain_wall_s=plain["wall_s"])
+    log(f"[bf16 sole ngram] tokens equal to plain SOLE decode: {agree:.3f} "
+        "(not a bar: calibration spans the dispatch)")
+    return summ
+
+
+def profile_spec(torch, cfg, params):
+    """Where the time goes in a speculative trace: the oracle trace (bf16,
+    exact mode) under torch.profiler; device-busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    reqs = trace_requests(cfg)
+    plain = run_spec_trace(torch, cfg, params, reqs)
+    oracle = {i: list(o) for i, o in enumerate(plain["outs"])}
+    res = {}
+    for name, drafter in (("plain", None), ("oracle", OracleDrafter(oracle))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run = run_spec_trace(torch, cfg, params, reqs, drafter)
+        busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+        res[name] = dict(wall_s=run["wall_s"], device_busy_s=busy,
+                         busy_share=busy / run["wall_s"],
+                         kernels=sum(e.count for e in prof.key_averages()
+                                     if _device_us(e) > 0),
+                         draft_host_s=run["draft_host_s"])
+        log(f"[bf16 exact {name}, profiled] wall {run['wall_s']:.3f} s, "
+            f"device busy {busy:.3f} s ({busy / run['wall_s']:.3f} of wall), "
+            f"{res[name]['kernels']} device kernels")
+    return res
+
+
+def draft_model_pair(torch):
+    """Phase 4: nemotron_4_15b (bf16, exact mode) served with
+    ``--spec-decode draft:minitron_8b`` (the SOLE draft model's weights
+    from seed 1): both at full width, peak device memory printed. With
+    random weights acceptance is near 0: the phase checks the draft
+    path's kernels (each draft forward launches E2Softmax once per layer
+    and 2L + 1 calibrating norms) and memory, not speed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.spec import spec_config_from_flag
+    target = dataclasses.replace(get_config("nemotron_4_15b"),
+                                 softmax_mode="exact", norm_mode="exact",
+                                 logit_int8=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init_params(0, target, "cuda")
+    spec = spec_config_from_flag("draft:minitron_8b", target,
+                                 max_k=VERIFY_K, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    drafter = spec.drafter
+    dcfg = drafter.cfg
+    reqs = trace_requests(target, SPEC_NEW_TOKENS)[:DECODE_BATCH]
+    draft_launches = []
+    real_propose = drafter.propose
+
+    def counted(lanes, ks):
+        before = read_launches()
+        f0 = drafter.forwards
+        out = real_propose(lanes, ks)
+        after = read_launches()
+        draft_launches.append(({k: after[k] - before[k] for k in after},
+                               drafter.forwards - f0))
+        return out
+    drafter.propose = counted
+    try:
+        run = run_spec_trace(torch, target, params, reqs, drafter)
+    finally:
+        drafter.propose = real_propose
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(len(o) != SPEC_NEW_TOKENS for o in run["outs"]):
+        raise AssertionError("[draft pair] token counts")
+    check_per_verify("draft pair", run["per_verify"], target, False, False)
+    fwd = sum(f for _, f in draft_launches)
+    tot = {k: sum(d[k] for d, _ in draft_launches)
+           for k in draft_launches[0][0]} if draft_launches else {}
+    want = {"e2softmax": dcfg.n_layers * fwd,
+            "ailayernorm_calib": (2 * dcfg.n_layers + 1) * fwd}
+    if not fwd or any(tot.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"[draft pair] draft forwards {fwd}, launches "
+                             f"{tot}, expected {want}")
+    summ = spec_summary("nemotron_4_15b + draft:minitron_8b", run)
+    summ.update(init_s=init_s, resident_gib=resident, peak_gib=peak,
+                draft_forwards=fwd, draft_launches=tot,
+                launches=run["launches"],
+                target=target.name, draft=dcfg.name)
+    log(f"[draft pair] nemotron_4_15b target (exact, bf16) with a "
+        f"minitron_8b draft ({dcfg.softmax_mode} softmax): init {init_s:.2f}"
+        f" s, {resident:.2f} GiB resident, peak device memory {peak:.3f} "
+        f"GiB; {fwd} draft forwards launched {json.dumps(tot)}")
+    del params, spec, drafter
+    torch.cuda.empty_cache()
+    return summ
+
+
+def open_loop_trace(torch, cfg, params):
+    """Phase 4, the streaming front end at full width (bf16, exact mode):
+    the ten trace requests arrive as a Poisson process (``OPEN_LOOP_RATE``
+    requests per engine step, seed 0) through ``AsyncEngine``; one is
+    cancelled after its first token surfaces, one while still queued.
+    Prints TTFT and ITL in steps and wall ms (p50/p99), checks the pages
+    are released and the other requests' tokens equal the closed batch's;
+    then the same trace, without cancellations, through two replicas on
+    this card (``ReplicatedAsyncEngine``, one shared parameter tree): each
+    request's tokens equal the closed batch's."""
+    import numpy as np
+    from repro_torch.serve.loop import AsyncEngine, ReplicatedAsyncEngine
+    cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    reqs = trace_requests(cfg)
+    closed = run_spec_trace(torch, cfg, params, reqs)["outs"]
+    arrivals = np.cumsum(np.random.default_rng(0).exponential(
+        1.0 / OPEN_LOOP_RATE, len(reqs))).astype(int).tolist()
+    cancel_live, cancel_queued = 1, len(reqs) - 1
+    loop = AsyncEngine(spec_engine(cfg, params))
+    reset_launches()
+    t0 = time.perf_counter()
+    hs = [loop.add_request(r, arrival=a) for r, a in zip(reqs, arrivals)]
+    hs[cancel_queued].cancel()
+    while loop.has_work:
+        loop.step()
+        h = hs[cancel_live]
+        if h.tokens and not h.finished:
+            h.cancel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    eng = loop.engine
+    eng.cache.check_refcounts()
+    st = loop.stats()
+    if eng.cache.blocks_in_use:
+        raise AssertionError(f"[open loop] {eng.cache.blocks_in_use} pages "
+                             "in use")
+    want_reasons = {"cancelled": 2, "length": len(reqs) - 2}
+    if st["finish_reasons"] != want_reasons:
+        raise AssertionError(f"[open loop] finish reasons "
+                             f"{st['finish_reasons']}")
+    if hs[cancel_queued].tokens or not hs[cancel_live].tokens:
+        raise AssertionError("[open loop] the cancellations did not land")
+    for i, h in enumerate(hs):
+        if i in (cancel_live, cancel_queued):
+            if h.tokens != closed[i][:len(h.tokens)]:
+                raise AssertionError(f"[open loop] cancelled request {i}")
+        elif h.tokens != closed[i]:
+            raise AssertionError(f"[open loop] request {i} differs from the "
+                                 "closed batch")
+    if launches["paged_e2softmax"] <= 0:
+        raise AssertionError("[open loop] no paged attention launch")
+    log(f"[open loop] rate {OPEN_LOOP_RATE}/step, arrivals {arrivals}: wall "
+        f"{wall:.3f} s, {eng.steps} engine steps; TTFT steps "
+        f"{st['ttft_steps']}, ms {st['ttft_ms']}; ITL steps "
+        f"{st['itl_steps']}, ms {st['itl_ms']}; finish reasons "
+        f"{st['finish_reasons']}; request {cancel_live} cancelled after "
+        f"{len(hs[cancel_live].tokens)} tokens, request {cancel_queued} while "
+        f"queued; launches {json.dumps(launches)}")
+    out = dict(arrivals=arrivals, wall_s=wall, steps=eng.steps,
+               ttft_steps=st["ttft_steps"], itl_steps=st["itl_steps"],
+               ttft_ms=st["ttft_ms"], itl_ms=st["itl_ms"],
+               finish_reasons=st["finish_reasons"], launches=launches)
+    first = spec_engine(cfg, params)
+    rep = ReplicatedAsyncEngine([first, spec_engine(cfg, first.params)])
+    t0 = time.perf_counter()
+    hs = [rep.add_request(r, arrival=a) for r, a in zip(reqs, arrivals)]
+    rep.run()
+    torch.cuda.synchronize()
+    rwall = time.perf_counter() - t0
+    for r in rep.replicas:
+        r.engine.cache.check_refcounts()
+        if r.engine.cache.blocks_in_use:
+            raise AssertionError("[replicas] pages in use")
+    if [h.tokens for h in hs] != closed:
+        raise AssertionError("[replicas] tokens differ from one engine's")
+    rst = rep.stats()
+    per = [dict(completed=s["completed"], ttft_steps=s["ttft_steps"],
+                itl_steps=s["itl_steps"], ttft_ms=s["ttft_ms"],
+                itl_ms=s["itl_ms"]) for s in rst["per_replica"]]
+    log(f"[replicas] 2 engines on one card: wall {rwall:.3f} s, tokens equal "
+        f"to one engine's closed batch; routed {rst['routed_by_prefix']} by "
+        f"prefix, {rst['routed_by_load']} by load; per replica "
+        + json.dumps(per))
+    out["replicas"] = dict(wall_s=rwall, routed_by_prefix=rst[
+        "routed_by_prefix"], routed_by_load=rst["routed_by_load"],
+        per_replica=per, steps=rst["steps"])
+    return out
+
+
+def small_spec_parity(torch):
+    """Phase 4, smoke size: the spec engine (n-gram drafter; a 32-token
+    vocabulary and prompts covering it, so every lane drafts) in exact and
+    SOLE mode, and ``AsyncEngine`` (exact mode, staggered arrivals), on the
+    card against the same on the CPU, under the smoke engines' bar (95% of
+    greedy tokens equal)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import PagedEngine, Request
+    from repro_torch.serve.loop import AsyncEngine
+    from repro_torch.serve.spec import NGramDrafter, SpecConfig
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    kw = dict(num_blocks=32, block_size=8, max_seq_len=64, decode_batch=4,
+              prefill_chunk=8)
+    for mode, change in (("exact", exact), ("sole", {})):
+        cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(),
+                                  vocab_size=32, **change)
+        params = api.init_params(0, cfg, "cpu")
+        rng = np.random.default_rng(44)
+        reqs = [Request(prompt=rng.permutation(32).astype(np.int32),
+                        max_new_tokens=8) for _ in range(5)]
+        outs = []
+        for dev in ("cpu", "cuda"):
+            eng = PagedEngine(cfg, params, device=dev, spec_config=SpecConfig(
+                NGramDrafter(), max_k=4), **kw)
+            outs.append(eng.generate(reqs))
+            eng.cache.check_refcounts()
+            if not eng.stats()["spec_dispatches"]:
+                raise AssertionError(f"smoke spec {mode}: no verify")
+        check_agreement(outs, f"paged spec ngram {mode}", 0.95)
+    cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(), **exact)
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=8)
+            for n in (5, 20, 12, 30, 9)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        loop = AsyncEngine(PagedEngine(cfg, params, device=dev, **kw))
+        hs = [loop.add_request(r, arrival=2 * i) for i, r in enumerate(reqs)]
+        loop.run()
+        loop.engine.cache.check_refcounts()
+        outs.append([h.tokens for h in hs])
+    check_agreement(outs, "async exact", 0.95)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -2448,26 +3356,51 @@ def main() -> int:
         attn16_d128, attn8_d128 = check_paged_d128(torch, mini)
         attn.update(attn16_d128)
         attn8.update(attn8_d128)
+        verify16, verify8 = check_verify_kernels(torch, cfg, mini)
+        attn.update(verify16)
+        attn8.update(verify8)
+        routes = compare_verify_decode_routes(torch, cfg)
+        int8_routes_differ = any(
+            v["bitwise_share"] < 1 for k, v in routes.items()
+            if "int8" in k and k.endswith("exact"))
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
         check_new_e2_stage(torch, mini, e2)
         ops_inp = ops_inputs(torch)
         ops_res = check_ops_kernels(torch, ops_inp)
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
+        spec = spec_traces(torch, cfg, params, "bf16")
+        spec["ops"] = verify_decode_ops(torch, cfg, params, "bf16")
+        spec["sole_ngram"] = sole_ngram_trace(torch, cfg, params)
+        spec["profiled"] = profile_spec(torch, cfg, params)
+        open_loop = open_loop_trace(torch, cfg, params)
         launches8, trace8, params8 = serve_full_width(torch, cfg8, "w8a8")
+        spec8 = spec_traces(torch, cfg8, params8, "w8a8",
+                            w8a8_routes_differ=int8_routes_differ)
+        spec8["ops"] = verify_decode_ops(torch, cfg8, params8, "w8a8")
         dlaunches, dtrace = serve_dense_full_width(torch, cfg, params,
                                                    "dense bf16")
         dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
                                                      "dense w8a8")
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
         new = serve_new_configs(torch)
+        pair = draft_model_pair(torch)
         small_engine_parity(torch)
+        small_spec_parity(torch)
         table = time_kernels(torch, attn, launches, cfg)
         table.append(time_calib_norm(torch, calib, launches))
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
         table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
         table += time_ops_kernels(torch, ops_res, olaunches)
         static = static_op_stage(torch)
+        spec_launches = {
+            **{f"bf16 exact {k}": spec[k]["launches"]
+               for k in ("oracle", "anti-oracle", "ngram")},
+            "bf16 sole ngram": spec["sole_ngram"]["launches"],
+            **{f"w8a8 exact {k}": spec8[k]["launches"]
+               for k in ("oracle", "ngram")},
+            "open loop": open_loop["launches"],
+            "nemotron + draft:minitron_8b": pair["launches"]}
         for e in table:
             if e["name"] == "ailayernorm_qnorm":
                 e["launches_paged"] = launches[e["name"]]
@@ -2488,6 +3421,9 @@ def main() -> int:
             e["launches_new_paths"] = {
                 path: res[0][key] for path, res in new.items()
                 if key in res[0]}
+            e["launches_spec_traces"] = {
+                label: counts[key] for label, counts in spec_launches.items()
+                if key in counts}
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")
         dtrace["profile"] = profile_engine(torch, cfg, params, "dense bf16",
                                            dense=True)
@@ -2498,6 +3434,9 @@ def main() -> int:
         log(json.dumps({"trace": trace, "trace_w8a8": trace8,
                         "trace_dense": dtrace, "trace_dense_w8a8": dtrace8,
                         "static_ops": static["checked"],
+                        "verify_decode_routes": routes, "spec_bf16": spec,
+                        "spec_w8a8": spec8, "open_loop": open_loop,
+                        "draft_pair": pair,
                         **{f"trace_{k}": v[1] for k, v in new.items()}}))
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:

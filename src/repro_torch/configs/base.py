@@ -82,8 +82,9 @@ class ArchConfig:
     train_norm_mode: str = "exact"
     logit_int8: bool = True           # int8-snap attention logits (paper)
     exp_bits: int = 4                 # E2Softmax log2-quant width
-    # Kept for field equality with the reference; the port's backend
-    # follows the tensors' device instead (see ops/registry.py).
+    # auto = the hand-written kernels on CUDA tensors, plain torch on the
+    # CPU; reference = plain torch everywhere; cuda = auto, refusing CPU
+    # tensors (ops/registry.py). Mode semantics never change with it.
     ops_backend: str = "auto"
     quant: QuantConfig = QuantConfig()
 

@@ -4,7 +4,12 @@ cpu`` is given.
 
 The port's counterpart of ``repro/launch/serve.py``, with the flags the
 port supports; ``--engine dense`` (the dense-slot ``Engine``) is the
-default, as in the reference. Examples::
+default, as in the reference. The paged engine also serves speculatively
+(``--spec-decode ngram|draft|draft:<arch>``, ``--spec-k``) and open-loop
+(``--open-loop RATE``: Poisson arrivals from ``--seed`` through
+``AsyncEngine``, ``--stream`` prints tokens as they surface,
+``--replicas N`` puts N engines on one card behind the prefix router).
+Examples::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
@@ -13,12 +18,12 @@ default, as in the reference. Examples::
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron_8b \
       --smoke --device cpu --temperature 0.7 --top-k 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --engine paged --spec-decode ngram --open-loop 0.5 --stream
 
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
 ``minitron_8b``, ``nemotron_4_15b``). Not ported yet (ROADMAP.md queue 1
-item 6): ``--open-loop``, ``--stream``, ``--watermark``,
-``--spec-decode``, ``--spec-k``, ``--mesh``, ``--replicas``,
-``--ops-backend``.
+item 9): ``--mesh``.
 """
 from __future__ import annotations
 
@@ -32,7 +37,10 @@ import torch
 
 from repro_torch.configs.base import ARCH_NAMES, QuantConfig, get_config
 from repro_torch.models import api
+from repro_torch.ops import CHOICES
 from repro_torch.serve.engine import Engine, PagedEngine, Request
+from repro_torch.serve.loop import AsyncEngine, ReplicatedAsyncEngine
+from repro_torch.serve.spec import spec_config_from_flag
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -53,6 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     default=None,
                     help="share identical block-aligned prompt prefixes "
                          "(paged engine; default: on for the dense family)")
+    ap.add_argument("--watermark", type=int, default=1,
+                    help="free pages held back at admission; higher = "
+                         "fewer preemptions, lower = denser packing")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="KV pool pages (0 = sized from the request set)")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -65,6 +76,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--eos-ids", default="",
                     help="comma-separated token ids that end a request "
                          "early (finish reason 'eos')")
+    ap.add_argument("--open-loop", type=float, default=0.0, metavar="RATE",
+                    help="serve through the AsyncEngine loop with Poisson "
+                         "arrivals at RATE requests per engine step (paged "
+                         "engine; 0 = closed batch)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they surface (open-loop mode)")
+    ap.add_argument("--spec-decode", default="", metavar="MODE",
+                    help="speculative decoding (paged engine): 'ngram' = "
+                         "prompt-lookup drafting, 'draft:<arch>' = a draft "
+                         "model sharing the target's vocab, 'draft' = "
+                         "self-draft with the target's architecture")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per lane per verify dispatch")
+    ap.add_argument("--ops-backend", choices=CHOICES, default="auto",
+                    help="op backend: auto = the kernels on a CUDA device "
+                         "and plain torch on the CPU; reference = plain "
+                         "torch everywhere; cuda = the kernels, refusing "
+                         "the CPU")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="PagedEngine replicas on the device behind one "
+                         "prefix-routed front door (paged open-loop only; "
+                         "params are shared)")
     ap.add_argument("--quantize", choices=("off", "w8a16", "w8a8"),
                     default="off",
                     help="w8a16: int8 projection weights; w8a8: also int8 "
@@ -82,8 +115,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    cfg = dataclasses.replace(cfg, ops_backend=args.ops_backend)
     if args.quantize != "off":
         cfg = dataclasses.replace(cfg, quant=QuantConfig(mode=args.quantize))
+    paged = args.engine == "paged"
+    if args.replicas > 1 and not (paged and args.open_loop > 0):
+        raise SystemExit("--replicas requires --engine paged --open-loop")
+    if (args.spec_decode or args.open_loop > 0) and not paged:
+        raise SystemExit("--spec-decode and --open-loop require "
+                         "--engine paged")
     device = torch.device(args.device)
     params = api.init_params(args.seed, cfg, device)
     rng = np.random.default_rng(args.seed)
@@ -95,17 +135,35 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
                     seed=args.sample_seed + i, eos_ids=eos_ids)
             for i in range(args.requests)]
     max_len = args.prompt_len + args.new_tokens
-    if args.engine == "paged":
+    if paged:
         blocks = args.num_blocks or max(
             args.requests * ((max_len + 15) // 16 + 1), 16)
-        eng = PagedEngine(cfg, params, num_blocks=blocks, block_size=16,
-                          max_seq_len=max_len, max_running=args.batch,
-                          decode_batch=args.batch,
-                          decode_horizon=args.decode_horizon,
-                          prefix_cache=args.prefix_cache, device=device)
+        spec = spec_config_from_flag(args.spec_decode, cfg,
+                                     max_k=args.spec_k, seed=args.seed,
+                                     smoke=args.smoke, device=device)
+
+        def make_engine(p):
+            return PagedEngine(cfg, p, num_blocks=blocks, block_size=16,
+                               max_seq_len=max_len, max_running=args.batch,
+                               decode_batch=args.batch,
+                               decode_horizon=args.decode_horizon,
+                               prefix_cache=args.prefix_cache,
+                               watermark=args.watermark, spec_config=spec,
+                               device=device)
+        eng = make_engine(params)
+        # replicas share the engine's device-resident parameter tree; each
+        # owns its KV pool, scheduler and prefix cache
+        engines = [eng] + [make_engine(eng.params)
+                           for _ in range(args.replicas - 1)]
     else:
         eng = Engine(cfg, params, batch_size=args.batch, max_len=max_len,
                      device=device)
+    mode = (f"softmax={cfg.softmax_mode}, norm={cfg.norm_mode}, "
+            f"quant={cfg.quant.mode}, ops_backend={cfg.ops_backend}, "
+            f"temperature={args.temperature}, top_k={args.top_k}, "
+            f"spec={args.spec_decode or 'off'}")
+    if args.open_loop > 0:
+        return _open_loop(args, engines, reqs, rng, device, cfg, mode)
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     if device.type == "cuda":
@@ -114,15 +172,57 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     total = sum(len(o) for o in outs)
     print(f"arch={cfg.name} engine={args.engine} device={device} "
           f"requests={len(reqs)} generated={total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, softmax={cfg.softmax_mode}, "
-          f"norm={cfg.norm_mode}, quant={cfg.quant.mode}, "
-          f"temperature={args.temperature}, top_k={args.top_k})")
-    if args.engine == "paged":
+          f"({total / dt:.1f} tok/s, {mode})")
+    if paged:
         print("stats:", eng.stats())
     else:
         print("finish_reasons:", eng.finish_reasons)
     for o in outs[:2]:
         print("sample:", o)
+    return outs
+
+
+def _open_loop(args, engines, reqs, rng, device, cfg,
+               mode) -> List[List[int]]:
+    """Serve ``reqs`` through ``AsyncEngine`` (or ``ReplicatedAsyncEngine``
+    over ``engines``) with Poisson arrivals at ``--open-loop`` requests per
+    engine step; print latency percentiles and return the tokens in
+    request order."""
+    loop = (ReplicatedAsyncEngine(engines) if len(engines) > 1
+            else AsyncEngine(engines[0]))
+    arrivals = np.cumsum(
+        rng.exponential(1.0 / args.open_loop, len(reqs))).astype(int)
+    on_token = None
+    if args.stream:
+        def on_token(h, tok):
+            print(f"  req@{h.arrival} -> {tok}")
+    t0 = time.perf_counter()
+    handles = [loop.add_request(r, arrival=int(a), on_token=on_token)
+               for r, a in zip(reqs, arrivals)]
+    loop.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    outs = [h.tokens for h in handles]
+    total = sum(len(o) for o in outs)
+    st = loop.stats()
+    print(f"arch={cfg.name} engine=paged(open-loop) device={device} "
+          f"replicas={len(engines)} requests={len(reqs)} generated={total} "
+          f"tokens in {dt:.2f}s ({total / dt:.1f} tok/s, {mode})")
+    if len(engines) > 1:
+        print(f"routing: {st['routed_by_prefix']} by prefix, "
+              f"{st['routed_by_load']} by load")
+        for i, rep in enumerate(st["per_replica"]):
+            print(f"  replica {i}: completed={rep['completed']} "
+                  f"decode_tokens={rep['engine']['decode_tokens']} "
+                  f"prefix_hit_rate={rep['engine']['prefix_hit_rate']}")
+        return outs
+    print(f"finish_reasons: {st['finish_reasons']}")
+    for key in ("ttft", "itl"):
+        print(f"{key.upper()} steps p50/p99: {st[key + '_steps']['p50']}/"
+              f"{st[key + '_steps']['p99']}  ms: {st[key + '_ms']['p50']}/"
+              f"{st[key + '_ms']['p99']}")
+    print("engine stats:", st["engine"])
     return outs
 
 

@@ -89,3 +89,20 @@ def decode_horizon_paged(params, token, pos, refs, state, temperature,
         counter, eos_ids, cfg, num_steps=num_steps, use_top_k=use_top_k,
         stochastic=stochastic, use_eos=use_eos)
     return toks, done, dict(state, **pools)
+
+
+def verify_paged(params, tokens, q_start, n_valid, refs, state, temperature,
+                 top_k, seed, counter, eos_ids, cfg: ArchConfig, *,
+                 use_top_k: bool = True, stochastic: bool = True,
+                 use_eos: bool = True):
+    """Speculative-verify dispatch (families whose state can rewind
+    rejected drafts). Returns (pinned (B, C), done (B, C), state)."""
+    if not sequence_state_spec(cfg).supports_spec_decode:
+        raise ValueError(
+            f"family {cfg.family!r} does not support speculative decoding "
+            "(its sequence state cannot rewind rejected drafts)")
+    pinned, done, pools = get_model(cfg).verify_paged(
+        params, state, tokens, q_start, n_valid, refs["tables"], temperature,
+        top_k, seed, counter, eos_ids, cfg, use_top_k=use_top_k,
+        stochastic=stochastic, use_eos=use_eos)
+    return pinned, done, dict(state, **pools)

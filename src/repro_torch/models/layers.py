@@ -50,12 +50,15 @@ def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1) -> torch.Tensor:
     scale)`` pair from a ``residual_*_q`` norm, which feeds the w8a8
     matmul directly. Returns float32; call sites cast to the model dtype.
     """
+    b = cfg.ops_backend
     if isinstance(x, tuple):
-        return ops.matmul_fn("w8a8", x[0].device)(x, w, n_contract=n_contract)
+        return ops.matmul_fn("w8a8", x[0].device, b)(x, w,
+                                                     n_contract=n_contract)
     if cfg.quant.acts:
         qx = quantize_act(x.float(), n_contract)
-        return ops.matmul_fn("w8a8", x.device)(qx, w, n_contract=n_contract)
-    return ops.matmul_fn("w8a16", x.device)(x, w, n_contract=n_contract)
+        return ops.matmul_fn("w8a8", x.device, b)(qx, w,
+                                                  n_contract=n_contract)
+    return ops.matmul_fn("w8a16", x.device, b)(x, w, n_contract=n_contract)
 
 
 # -- norms ------------------------------------------------------------------
@@ -71,9 +74,11 @@ def apply_norm(x, p, cfg: ArchConfig, phase: str) -> torch.Tensor:
     mode = _norm_mode(cfg, phase)
     kw = dict(out_dtype=torch_dtype(cfg.dtype))
     if cfg.norm_kind == "layernorm":
-        out = ops.layernorm_fn(mode, x.device)(x, p["g"], p["b"], **kw)
+        out = ops.layernorm_fn(mode, x.device, cfg.ops_backend)(
+            x, p["g"], p["b"], **kw)
     else:
-        out = ops.rmsnorm_fn(mode, x.device)(x, p["g"], **kw)
+        out = ops.rmsnorm_fn(mode, x.device, cfg.ops_backend)(
+            x, p["g"], **kw)
     return cast(out, cfg)
 
 
@@ -89,13 +94,15 @@ def apply_residual_norm(x, r, p, cfg: ArchConfig, phase: str,
     scale)`` pair that the next :func:`qmatmul` consumes directly."""
     mode = _norm_mode(cfg, phase)
     if quant_out and cfg.quant.acts:
-        fn = ops.residual_norm_q_fn(cfg.norm_kind, mode, x.device)
+        fn = ops.residual_norm_q_fn(cfg.norm_kind, mode, x.device,
+                                    cfg.ops_backend)
         if cfg.norm_kind == "layernorm":
             s, out = fn(x, r, p["g"], p["b"])
         else:
             s, out = fn(x, r, p["g"])
         return cast(s, cfg), out
-    fn = ops.residual_norm_fn(cfg.norm_kind, mode, x.device)
+    fn = ops.residual_norm_fn(cfg.norm_kind, mode, x.device,
+                              cfg.ops_backend)
     kw = dict(out_dtype=torch_dtype(cfg.dtype))
     if cfg.norm_kind == "layernorm":
         s, out = fn(x, r, p["g"], p["b"], **kw)
@@ -241,7 +248,7 @@ def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
     """
     mode = _softmax_mode(cfg, phase="serve")
     sole = mode == "sole"
-    fn = ops.paged_attention_fn(mode, q.device)
+    fn = ops.paged_attention_fn(mode, q.device, cfg.ops_backend)
     kv_scale = _paged_kv_scale(cfg)
     return fn(q, pool_k, pool_v, tables, q_start, kv_len, causal=causal,
               exp_bits=cfg.exp_bits,
@@ -276,7 +283,7 @@ def _sole_probs(logits, mask, cfg: ArchConfig, out_dtype) -> torch.Tensor:
     kernel launch on CUDA): the masked row max (floored for fully masked
     rows), the int8 snap of ``logits - max`` (``int8_scale``) and
     E2Softmax, the reference's max, subtract, snap, op and cast."""
-    return ops.softmax_fn("sole", logits.device)(
+    return ops.softmax_fn("sole", logits.device, cfg.ops_backend)(
         logits, mask=mask, exp_bits=cfg.exp_bits,
         int8_scale=LOGIT_INT8_SCALE if cfg.logit_int8 else None,
         out_dtype=out_dtype)
@@ -300,7 +307,8 @@ def attend_dense(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
     if mode == "sole":
         probs = _sole_probs(logits, mask, cfg, q.dtype)
     else:
-        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask).to(q.dtype)
+        probs = ops.softmax_fn(mode, q.device, cfg.ops_backend)(
+            logits, mask=mask).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
@@ -471,7 +479,8 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     if mode == "sole":
         probs = _sole_probs(logits, mask, cfg, q.dtype)
     else:
-        probs = ops.softmax_fn(mode, q.device)(logits, mask=mask).to(q.dtype)
+        probs = ops.softmax_fn(mode, q.device, cfg.ops_backend)(
+            logits, mask=mask).to(q.dtype)
     ctx = torch.einsum("bkgt,bktd->bkgd", probs[..., :t], vl)
     ctx = ctx + probs[..., t:] * vc
     out = _wo_proj(ctx.reshape(b, 1, h, hd), p, cfg)

@@ -78,7 +78,8 @@ def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
 def sequence_state_spec(cfg: ArchConfig) -> SequenceStateSpec:
     """Dense LMs: sequence state is attention KV and nothing else."""
     return SequenceStateSpec(family="dense", kv_layers=cfg.n_layers,
-                             supports_prefix_cache=True)
+                             supports_prefix_cache=True,
+                             supports_spec_decode=True)
 
 
 def _layer(tree, i: int):
@@ -323,3 +324,42 @@ def decode_horizon_paged(params, pools, token, pos, tables, temperature,
                     else torch.zeros_like(token, dtype=torch.bool))
         pos = pos + 1
     return torch.stack(toks, 1), torch.stack(done, 1), pools
+
+
+def verify_paged(params, pools, tokens, q_start, n_valid, tables,
+                 temperature, top_k, seed, counter, eos_ids,
+                 cfg: ArchConfig, *, use_top_k: bool = True,
+                 stochastic: bool = True, use_eos: bool = True):
+    """Speculative verify: score C = K + 1 positions per lane in one
+    forward and draw the pinned counter-keyed sample at every position.
+
+    tokens (B, C) is each lane's last kept token followed by its draft
+    (zeros past ``n_valid``), fed at positions ``q_start .. q_start + C -
+    1`` through the chunked-prefill forward: causal, the draft's K/V
+    written to the lane's pre-extended pages, the padded tail routed to
+    the null page. Slot ``i`` draws with counter ``counter + i``, so it is
+    the token plain decode would emit there given the same prefix (the
+    acceptance rule in serve/spec.py). The sampling tensors follow
+    :func:`decode_horizon_paged` (None for an all-greedy batch).
+
+    Returns (pinned (B, C) int32, done (B, C) bool: each draw's
+    membership in the lane's ``-1``-padded eos table (B, E), pools), on
+    the device; the caller truncates the rejected tails' pages.
+    """
+    logits, pools = prefill_paged(params, tokens, q_start, n_valid, tables,
+                                  pools, cfg)
+    b, c = tokens.shape
+    flat = logits.reshape(b * c, logits.shape[-1])
+
+    def rep(a):                          # (B,) lane values -> (B * C,)
+        return None if a is None else torch.repeat_interleave(a, c)
+    ctr = None
+    if counter is not None:
+        ctr = (counter[:, None]
+               + torch.arange(c, device=counter.device)).reshape(-1)
+    pinned = sample_tokens(flat, rep(temperature), rep(top_k), rep(seed),
+                           ctr, cfg.vocab_size, use_top_k=use_top_k,
+                           stochastic=stochastic).reshape(b, c)
+    done = (eos_hits(pinned, eos_ids[:, None, :]) if use_eos
+            else torch.zeros_like(pinned, dtype=torch.bool))
+    return pinned, done, pools

@@ -3,8 +3,8 @@ op and mode names as the JAX package's registry.
 
 Backends are ``reference`` (plain torch — the CPU path and the oracle
 every kernel is held against) and ``cuda`` (the hand-written Hopper
-kernels). The backend follows the tensors' device, never an autodetect
-of the machine (:func:`backend_for`):
+kernels). Under the default choice ``auto`` the backend follows the
+tensors' device, never an autodetect of the machine (:func:`backend_for`):
 
 * CPU tensors run ``reference``;
 * CUDA tensors run ``cuda`` where a kernel is registered — every pair
@@ -12,6 +12,10 @@ of the machine (:func:`backend_for`):
 * every other pair (no kernel in the reference either, e.g. exact
   norms or the softermax / I-BERT baselines, which are XLA there) runs
   ``reference`` torch ops on the card.
+
+A caller may choose (``ArchConfig.ops_backend``, the launcher's
+``--ops-backend``): ``reference`` runs the plain versions on any device,
+``cuda`` is ``auto`` that refuses tensors off the card.
 
 :func:`resolve` is strict: an unregistered combination raises
 ``NotImplementedError``; unknown names raise ``ValueError``.
@@ -26,6 +30,7 @@ OPS = ("softmax", "layernorm", "rmsnorm", "residual_layernorm",
        "residual_rmsnorm", "flash_attention", "paged_attention",
        "matmul", "residual_layernorm_q", "residual_rmsnorm_q")
 BACKENDS = ("reference", "cuda")
+CHOICES = ("auto",) + BACKENDS
 
 SOFTMAX_MODES = ("exact", "sole", "softermax", "ibert")
 NORM_MODES = ("exact", "sole", "ibert")
@@ -85,10 +90,18 @@ def resolve(op: str, mode: str, backend: str = "reference") -> Callable:
     return _REGISTRY[key]
 
 
-def backend_for(op: str, mode: str, device) -> str:
+def backend_for(op: str, mode: str, device, choice: str = "auto") -> str:
     """The backend for one (op, mode) call on tensors living on
-    ``device`` (see the module docstring)."""
+    ``device`` under the caller's ``choice`` (see the module docstring)."""
     _check_names(op, mode, "reference")
+    if choice not in CHOICES:
+        raise ValueError(f"unknown ops backend {choice!r}; known: {CHOICES}")
+    if choice == "reference":
+        return "reference"
     if torch.device(device).type != "cuda":
+        if choice == "cuda":
+            raise ValueError(
+                f"ops backend 'cuda' needs CUDA tensors, got {device} "
+                f"for op {op!r}")
         return "reference"
     return "cuda" if is_registered(op, mode, "cuda") else "reference"

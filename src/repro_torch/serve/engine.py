@@ -92,6 +92,13 @@ def _sampling_tensors(streams, use_top_k: bool, stochastic: bool, tensor):
             *(tensor(c.astype(np.int64)) for c in cols[1:]))
 
 
+def _to_host(toks: torch.Tensor, done: torch.Tensor):
+    """(B, W) draws and eos mask -> numpy (int32, bool), in one copy."""
+    w = toks.shape[1]
+    host = torch.cat([toks, done.to(torch.int32)], 1).cpu().numpy()
+    return host[:, :w], host[:, w:].astype(bool)
+
+
 def _serving_params(cfg: ArchConfig, params, device):
     """The engine's parameter tree on ``device``: under ``cfg.quant.weights``
     every matmul weight packed to int8 + per-channel scales, as the
@@ -117,9 +124,15 @@ class PagedEngine:
     calibration reduces over the whole batch, so padded rows take part
     in every norm exactly as in the reference engine.
 
+    With ``spec_config`` (serve/spec.py) a step first tries one
+    speculative round: the drafter proposes up to K tokens per lane and
+    one ``verify_paged`` dispatch scores all K + 1 positions and draws the
+    pinned tokens; the longest draft prefix equal to them is kept, the
+    rejected tail's pages are handed back at once. When no lane drafts
+    the step takes the decode horizon.
+
     Features the port does not have yet raise here rather than being
-    silently downgraded: other families, speculative decoding and mesh
-    rules.
+    silently downgraded: other families and mesh rules.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -137,10 +150,6 @@ class PagedEngine:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md "
                 "queue 1 item 7)")
-        if spec_config is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md queue 1 "
-                "item 5)")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
@@ -153,6 +162,18 @@ class PagedEngine:
                 "keep dead KV resident; cap max_seq_len at the window")
         if prefix_cache is None:
             prefix_cache = state_spec.supports_prefix_cache
+        if spec_config is not None:
+            if not state_spec.supports_spec_decode:
+                raise ValueError(
+                    f"family {cfg.family!r} does not support speculative "
+                    "decoding (its sequence state cannot rewind rejected "
+                    "drafts)")
+            # acceptance compares draft ids with draws over cfg.vocab_size
+            dv = getattr(spec_config.drafter, "vocab_size", None)
+            if dv is not None and dv != cfg.vocab_size:
+                raise ValueError(
+                    f"drafter vocab {dv} != target vocab {cfg.vocab_size}: "
+                    "speculation needs a shared tokenizer")
         if decode_horizon < 1:
             raise ValueError(
                 f"decode_horizon must be >= 1, got {decode_horizon}")
@@ -169,13 +190,10 @@ class PagedEngine:
         self.sched = Scheduler(self.cache, max_running=max_running,
                                prefill_chunk=prefill_chunk,
                                watermark=watermark)
-        self.steps = 0
-        self.decode_tokens = 0
-        self.decode_dispatches = 0
-        self.truncated_tokens = 0        # horizon-tail draws discarded
-        self.reclaimed_pages = 0         # pages handed back by truncate
+        self.spec = spec_config
         self.finish_reasons: Dict[str, int] = {}
         self._finished: Dict[int, List[int]] = {}
+        self.reset_stats()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -259,34 +277,13 @@ class PagedEngine:
             token[i] = seq.out[-1]
             pos[i] = seq.prompt_len + len(seq.out) - 1
             seqs[i] = seq
-        widest = max(len(s.sampler.eos_ids) for s in lanes)
-        use_eos = widest > 0
-        eos = np.full((d, 1), -1, np.int32)
-        if use_eos:
-            eos = np.full((d, widest), -1, np.int32)
-            eos[:len(lanes)] = eos_table([s.sampler for s in lanes], widest)
-        # the sampling fast paths: skipping the rank sort / the Gumbel rows
-        # is an identity for lanes that use no top-k / temperature, so the
-        # flags come from the live batch (an all-greedy batch ships no
-        # sampling tensors at all)
-        use_top_k = any(s.sampler.top_k > 0 for s in lanes)
-        stochastic = any(not s.sampler.greedy for s in lanes)
-        # token n of a sequence draws with counter n: the host sampler
-        # spent counter 0 on the prefill-logits token, so the device stream
-        # continues where it left off; null lanes are greedy
-        streams = [(s.sampler.temperature, s.sampler.top_k, s.sampler.seed,
-                    len(s.out)) for s in lanes]
-        streams += [(0.0, 0, 0, 0)] * (d - len(lanes))
+        sampling, flags = self._lane_sampling(lanes)
         toks, done, state = api.decode_horizon_paged(
             self.params, self._tensor(token), self._tensor(pos),
-            self._refs(seqs), self.cache.pools,
-            *_sampling_tensors(streams, use_top_k, stochastic, self._tensor),
-            self._tensor(eos), self.cfg, num_steps=h, use_top_k=use_top_k,
-            stochastic=stochastic, use_eos=use_eos)
+            self._refs(seqs), self.cache.pools, *sampling, self.cfg,
+            num_steps=h, **flags)
         self.cache.pools = state
-        # the one device-to-host copy of the horizon
-        host = torch.cat([toks, done.to(torch.int32)], 1).cpu().numpy()
-        rows, done_rows = host[:, :h], host[:, h:].astype(bool)
+        rows, done_rows = _to_host(toks, done)
         for i, seq in enumerate(lanes):
             # cut the lane at its first finish event; draws after the cut
             # never entered the stream.
@@ -302,6 +299,122 @@ class PagedEngine:
                     seq.seq_id, int(pos[i]) + kept)
         self.decode_dispatches += 1
 
+    def _lane_sampling(self, lanes: List[Sequence]):
+        """The (temperature, top_k, seed, counter, eos table) device
+        tensors of a padded batch whose first lanes are ``lanes``, and the
+        flags of the sampling fast paths. Skipping the rank sort / the
+        Gumbel rows / the eos test is an identity for lanes that use no
+        top-k / temperature / eos ids, so the flags come from the live
+        lanes (an all-greedy batch ships no sampling tensors at all).
+        Token n of a sequence draws with counter n: the host sampler spent
+        counter 0 on the prefill-logits token, so the device stream
+        continues where it left off; null lanes are greedy."""
+        d = self.decode_batch
+        widest = max(len(s.sampler.eos_ids) for s in lanes)
+        use_eos = widest > 0
+        eos = np.full((d, 1), -1, np.int32)
+        if use_eos:
+            eos = np.full((d, widest), -1, np.int32)
+            eos[:len(lanes)] = eos_table([s.sampler for s in lanes], widest)
+        use_top_k = any(s.sampler.top_k > 0 for s in lanes)
+        stochastic = any(not s.sampler.greedy for s in lanes)
+        streams = [(s.sampler.temperature, s.sampler.top_k, s.sampler.seed,
+                    len(s.out)) for s in lanes]
+        streams += [(0.0, 0, 0, 0)] * (d - len(lanes))
+        tensors = (*_sampling_tensors(streams, use_top_k, stochastic,
+                                      self._tensor), self._tensor(eos))
+        return tensors, dict(use_top_k=use_top_k, stochastic=stochastic,
+                             use_eos=use_eos)
+
+    def _spec_step(self) -> bool:
+        """One speculative round: draft K tokens per lane, score all K + 1
+        positions in one ``verify_paged`` dispatch, keep the longest draft
+        prefix equal to the pinned draws.
+
+        Returns False when speculation does not apply this step (no spec
+        config, a pending prefill, every lane's controller at K = 0, or no
+        proposal) and the caller takes the decode horizon. Per lane (draft
+        length k, verify width k + 1): ``acc`` is the accepted prefix; the
+        emitted row is the pinned draws ``rows[:acc + 1]`` (accepted
+        tokens and the correction or bonus), cut by ``apply_finish`` at the
+        first eos/stop event as in the horizon; the host counter advances
+        by the kept count only and ``truncate`` hands back every page past
+        the kept K/V.
+        """
+        if self.spec is None:
+            return False
+        batch = self.sched.decode_batch(self.decode_batch)
+        if not batch or any(s.in_prefill for s in self.sched.running):
+            return False
+        ks = self.sched.spec_ks(batch, self.spec)
+        if max(ks) == 0:
+            self.spec_fallbacks += 1
+            return False
+        drafts = self.spec.drafter.propose(batch, ks)
+        drafts = [[int(t) for t in d[:k]] for d, k in zip(drafts, ks)]
+        if not any(drafts):
+            self.spec_fallbacks += 1
+            return False
+        # verify width C = K + 1 with K a power of two, as the reference
+        # compiles it (a handful of shapes)
+        c = (1 << (max(len(d) for d in drafts) - 1).bit_length()) + 1
+        lanes: List[Tuple[Sequence, List[int]]] = []
+        for seq, draft in zip(batch, drafts):
+            if seq not in self.sched.running:
+                continue                 # preempted by an earlier lane
+            pos = seq.prompt_len + len(seq.out) - 1
+            # pre-extend for the feed token and every draft token
+            copies = self.sched.ensure_tokens(seq, pos, pos + 1 + len(draft))
+            if copies is None:
+                continue
+            self._apply_copies(copies)
+            lanes.append((seq, draft))
+        assert all(s in self.sched.running for s, _ in lanes)
+        if not lanes:
+            return True                  # everything preempted this step
+        d = self.decode_batch
+        tokens = np.zeros((d, c), np.int32)
+        q_start = np.zeros((d,), np.int32)
+        # null lanes write (and read) one token on the null page
+        n_valid = np.ones((d,), np.int32)
+        seqs: List[Optional[Sequence]] = [None] * d
+        for i, (seq, draft) in enumerate(lanes):
+            row = [seq.out[-1]] + draft
+            tokens[i, :len(row)] = row
+            q_start[i] = seq.prompt_len + len(seq.out) - 1
+            n_valid[i] = len(row)
+            seqs[i] = seq
+        sampling, flags = self._lane_sampling([s for s, _ in lanes])
+        pinned, done, state = api.verify_paged(
+            self.params, self._tensor(tokens), self._tensor(q_start),
+            self._tensor(n_valid), self._refs(seqs), self.cache.pools,
+            *sampling, self.cfg, **flags)
+        self.cache.pools = state
+        rows, done_rows = _to_host(pinned, done)
+        for i, (seq, draft) in enumerate(lanes):
+            acc = 0
+            while acc < len(draft) and draft[acc] == rows[i, acc]:
+                acc += 1
+            kept, reason = apply_finish(seq.sampler, seq.out,
+                                        rows[i, :acc + 1],
+                                        eos_row=done_rows[i, :acc + 1])
+            seq.sampler.skip(kept)       # the host stream stays aligned
+            pos = int(q_start[i])
+            seq.prefilled = pos + kept   # valid written K/V only
+            self.decode_tokens += kept
+            self.truncated_tokens += 1 + len(draft) - kept
+            self.spec_proposed += len(draft)
+            self.spec_accepted += acc
+            self.sched.spec_feedback(seq, len(draft), acc, self.spec)
+            if reason is not None:
+                seq.finish_reason = reason
+            # the rejected (and finish) tail's pre-extended pages go back
+            self.reclaimed_pages += self.cache.truncate(seq.seq_id,
+                                                        pos + kept)
+        self.decode_dispatches += 1
+        self.spec_dispatches += 1
+        return True
+
     def _reap_done(self) -> None:
         for seq in list(self.sched.running):
             if seq.done:
@@ -312,14 +425,17 @@ class PagedEngine:
                 self.sched.finish(seq)
 
     def step(self) -> None:
-        """One engine iteration: admit, one prefill chunk, one decode
-        horizon for the running batch, reclaim finished sequences."""
+        """One engine iteration: admit, one prefill chunk, one speculative
+        round or else one decode horizon for the running batch, reclaim
+        finished sequences (also right after the prefill, so their pages
+        fund the decode batch's growth)."""
         self.sched.admit()
         seq = self.sched.next_prefill()
         if seq is not None:
             self._prefill_step(seq)
         self._reap_done()
-        self._decode_step()
+        if not self._spec_step():
+            self._decode_step()
         self._reap_done()
         self.steps += 1
 
@@ -330,6 +446,17 @@ class PagedEngine:
         return self.sched.submit(
             request.prompt, request.max_new_tokens,
             sampler=sampler_for(request, self.cfg.vocab_size))
+
+    def cancel(self, seq: Sequence) -> bool:
+        """Cancel a submitted sequence, a finish event like any other:
+        counted in ``stats()["finish_reasons"]``, its pages released by
+        the scheduler (a running lane is reaped at once, a waiting one
+        leaves the queue). False if it already finished."""
+        if not self.sched.cancel(seq):
+            return False
+        self.finish_reasons["cancelled"] = (
+            self.finish_reasons.get("cancelled", 0) + 1)
+        return True
 
     def generate(self, requests: List[Request]) -> List[List[int]]:
         """Serve all requests to completion; outputs in request order."""
@@ -350,7 +477,7 @@ class PagedEngine:
         c, s = self.cache, self.sched
         per_page = sum(int(np.prod((p.shape[0],) + tuple(p.shape[2:])))
                        * p.element_size() for p in c.pools.values())
-        return {
+        out = {
             "prefix_cache": self.prefix_cache,
             "prefix_hit_rate": round(c.prefix_hit_rate(), 4),
             "prefix_hit_tokens": c.prefix_hit_tokens,
@@ -365,6 +492,7 @@ class PagedEngine:
             "utilization": round(c.utilization(), 4),
             "admitted": s.admitted,
             "finished": s.finished,
+            "cancelled": s.cancelled,
             "finish_reasons": dict(self.finish_reasons),
             "steps": self.steps,
             "decode_tokens": self.decode_tokens,
@@ -375,6 +503,37 @@ class PagedEngine:
             "reclaimed_pages": self.reclaimed_pages,
             "state_footprint_bytes": int(c.blocks_in_use * per_page),
         }
+        if self.spec is not None:
+            # verify dispatches count as decode dispatches and only kept
+            # tokens count, so tokens per target dispatch is
+            # tokens_per_dispatch under speculation
+            out.update({
+                "spec_dispatches": self.spec_dispatches,
+                "spec_proposed_tokens": self.spec_proposed,
+                "spec_accepted_tokens": self.spec_accepted,
+                "spec_fallback_steps": self.spec_fallbacks,
+                "acceptance_rate": round(
+                    self.spec_accepted / max(self.spec_proposed, 1), 4),
+                "accepted_tokens_per_target_dispatch": round(
+                    self.decode_tokens / max(self.decode_dispatches, 1), 3),
+            })
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero the serving counters (cached pages stay resident)."""
+        self.cache.reset_stats()
+        s = self.sched
+        s.preemptions = s.admitted = s.finished = s.cancelled = 0
+        self.steps = 0
+        self.decode_tokens = 0
+        self.decode_dispatches = 0
+        self.truncated_tokens = 0        # horizon/verify-tail draws discarded
+        self.reclaimed_pages = 0         # pages handed back by truncate
+        self.spec_dispatches = 0         # verify dispatches issued
+        self.spec_proposed = 0           # draft tokens sent to verify
+        self.spec_accepted = 0           # draft tokens accepted
+        self.spec_fallbacks = 0          # steps speculation handed back
+        self.finish_reasons = {}
 
 
 class Engine:

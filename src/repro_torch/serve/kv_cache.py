@@ -114,6 +114,14 @@ class PagedKVCache:
     def prefix_hit_rate(self) -> float:
         return self.prefix_hit_tokens / max(self.prefix_query_tokens, 1)
 
+    def reset_stats(self) -> None:
+        """Zero the counters; the peak restarts from the pages in use."""
+        self.evictions = 0
+        self.cow_copies = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_query_tokens = 0
+        self.peak_blocks_in_use = self.blocks_in_use
+
     def check_refcounts(self) -> None:
         """Invariant sweep: refcounts match the page tables and are never
         negative; free/evictable/table sets partition the pages."""

@@ -34,10 +34,18 @@ class Sequence:                        # tracked in running/waiting by object
     prefilled: int = 0                 # replay tokens already written
     out: List[int] = dataclasses.field(default_factory=list)
     restarts: int = 0                  # recompute-preemption count
-    # "eos" | "stop" the moment the event fires; "length" at reap time.
+    # "eos" | "stop" | "cancelled" the moment the event fires (done even
+    # mid-prefill); "length" at reap time.
     finish_reason: Optional[str] = None
     # cache.prefix_keys(prompt), computed once at the first admission try.
     prefix_keys: Optional[List[Tuple[int, bytes]]] = None
+    # speculative decoding (Scheduler.spec_ks/spec_feedback): the lane's
+    # draft length (None before its first round, 0 = back on the plain
+    # decode horizon), its EMA acceptance rate, and rounds spent at K = 0
+    # waiting for the re-probe.
+    spec_k: Optional[int] = None
+    spec_ema: float = 1.0
+    spec_cool: int = 0
     _replay: Optional[np.ndarray] = dataclasses.field(default=None,
                                                       repr=False)
 
@@ -89,6 +97,7 @@ class Scheduler:
         self.admitted = 0
         self.finished = 0
         self.preemptions = 0
+        self.cancelled = 0
 
     # -- intake ---------------------------------------------------------------
 
@@ -210,11 +219,63 @@ class Scheduler:
             h = min(h, s.max_new_tokens - len(s.out))
         return h
 
+    def spec_ks(self, lanes: List[Sequence], spec) -> List[int]:
+        """Per-lane draft lengths for one speculative verify round.
+
+        Each lane runs an EMA acceptance-rate controller
+        (:meth:`spec_feedback`): K starts at ``spec.max_k``, halves when
+        drafts stop paying and doubles back when they do. At K = 0 the
+        lane decodes through the plain horizon; after ``spec.retry_after``
+        rounds there it re-probes with K = 1 and a reset EMA. A verify
+        emits at most K + 1 tokens, so K is clipped to the remaining
+        budget minus one."""
+        ks = []
+        for s in lanes:
+            if s.spec_k is None:
+                s.spec_k = spec.max_k
+            elif s.spec_k == 0:
+                s.spec_cool += 1
+                if s.spec_cool >= spec.retry_after:
+                    s.spec_k, s.spec_ema, s.spec_cool = 1, 1.0, 0
+            ks.append(max(0, min(s.spec_k,
+                                 s.max_new_tokens - len(s.out) - 1)))
+        return ks
+
+    def spec_feedback(self, seq: Sequence, proposed: int, accepted: int,
+                      spec) -> None:
+        """Fold one verify round's acceptance into the lane's EMA and
+        adapt its K; a round with no proposal carries no signal."""
+        if proposed <= 0:
+            return
+        a = spec.ema_alpha
+        seq.spec_ema = (1 - a) * seq.spec_ema + a * (accepted / proposed)
+        if seq.spec_ema < spec.demote_below:
+            seq.spec_k //= 2
+        elif seq.spec_ema > spec.promote_above:
+            seq.spec_k = min(max(2 * seq.spec_k, 1), spec.max_k)
+
     def finish(self, seq: Sequence) -> None:
         """Release page refs; registered prompt pages stay hot."""
         self.running.remove(seq)
         self.cache.release(seq.seq_id)
         self.finished += 1
+
+    def cancel(self, seq: Sequence) -> bool:
+        """Cancellation, a finish event like any other: a running
+        sequence is reaped at once (page refs released, its lane free
+        for the next step), a waiting one leaves the queue. False if the
+        sequence is no longer tracked (already finished)."""
+        if seq in self.running:
+            self.running.remove(seq)
+            self.cache.release(seq.seq_id)
+        else:
+            try:
+                self.waiting.remove(seq)
+            except ValueError:
+                return False
+        seq.finish_reason = "cancelled"
+        self.cancelled += 1
+        return True
 
     @property
     def has_work(self) -> bool:

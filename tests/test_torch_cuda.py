@@ -54,6 +54,12 @@ Tolerances, and why:
   inputs. A static-params op call is one device kernel under the
   profiler.
 * codes entry: integer sums exact, epilogue as the quantize+norm: 1e-6.
+* paged attention at the speculative verify shapes (B lanes x C = K + 1
+  causal rows, ragged n_valid, null lanes): at head dim 64 as above
+  (1e-5); at head dim 128 (the CUDA cores; 2^-3.5 rounds q and the logits
+  apart) exact mode to 1e-4 of the output scale, SOLE at most 1% of rows
+  off by more than 1e-3. The C > 1 route against the C = 1 route on the
+  same rows: the same codes, other sum orders: 1e-5.
 """
 import dataclasses
 
@@ -1275,3 +1281,189 @@ def test_paged_kernel_head_dim_16(cuda_device, c, pool):
                                          **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- speculative verify: the paged kernel at B lanes x C = K + 1 rows ----------
+
+
+def _verify_lanes(b, c, seed):
+    """Per-lane (q_start, kv_len) of a verify batch: ragged n_valid in
+    1..C at positions up to 300, every fourth lane a null lane (q_start 0,
+    kv_len 1, page 0)."""
+    rng = np.random.default_rng(seed)
+    q_start, kv_len = [], []
+    for i in range(b):
+        if i % 4 == 3:
+            q_start.append(0)
+            kv_len.append(1)
+            continue
+        qs = int(rng.integers(1, 300 - c))
+        q_start.append(qs)
+        kv_len.append(qs + int(rng.integers(1, c + 1)))
+    return q_start, kv_len
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("c", [2, 3, 5, 9])
+@pytest.mark.parametrize("b", [1, 8])
+def test_paged_kernel_verify_shapes(cuda_device, b, c, d, pool, mode):
+    """The verify dispatch's attention: B lanes of C = K + 1 causal rows,
+    a different q_start per lane, n_valid < C (rows past it attend every
+    valid key), null lanes; 16-token pages. At head dim 64 (qwen2, 14/2
+    heads; the tensor cores) exact-logit inputs give identical codes: 1e-5.
+    At head dim 128 (minitron, 32/8 heads; the CUDA cores) the scale
+    2^-3.5 rounds q and the logits apart: exact mode to 1e-4 of the
+    output scale, SOLE at most 1% of rows off by more than 1e-3."""
+    h, kvh = (14, 2) if d == 64 else (32, 8)
+    q_start, kv_len = _verify_lanes(b, c, seed=b * 100 + c)
+    rng = np.random.default_rng(d + c)
+    q, k, v, tables, meta = _paged_inputs(
+        rng, b=b, c=c, h=h, kvh=kvh, d=d, bs=16, nb=20, q_start=q_start,
+        kv_len=kv_len)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kw = dict(causal=True, sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool == "bf16":
+        kt, vt = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in (k, v))
+    else:
+        v = rng.integers(-127, 128, v.shape)
+        kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                              torch.int8)
+                  for a in (k, v))
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kvmap = KA.default_kv_head_map(h, kvh, cuda_device)
+    before = KA.flash_e2softmax_paged.launches
+    out = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta, **kw)
+    assert KA.flash_e2softmax_paged.launches == before + 1
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, vt, tables, meta, kvmap,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if d == 64:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        return
+    err = (out - ref).abs()
+    scale = max(ref.abs().max().item(), 1.0)
+    if mode == "exact":
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err.amax(-1) > 1e-3 * scale).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+def test_verify_rows_match_decode_route(cuda_device, mode, pool):
+    """The C > 1 route (one causal call over C rows) against the C = 1
+    route (the decode kernel, one call per row at kv_len = position + 1)
+    for the same query rows, pools and pages: exact-logit inputs give the
+    same codes, so the two differ at most in the sum order, 1e-5."""
+    c, q0 = 5, 117
+    rng = np.random.default_rng(23)
+    q, k, v, tables, meta = _paged_inputs(
+        rng, b=1, c=c, h=14, kvh=2, d=64, bs=16, nb=20, q_start=[q0],
+        kv_len=[q0 + c])
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kw = dict(sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool == "bf16":
+        kt, vt = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in (k, v))
+    else:
+        v = rng.integers(-127, 128, v.shape)
+        kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(cuda_device,
+                                                              torch.int8)
+                  for a in (k, v))
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    wide = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta, causal=True,
+                                    **kw)
+    rows = []
+    for i in range(c):
+        m = torch.tensor([[q0 + i, q0 + i + 1]], dtype=torch.int32,
+                         device=cuda_device)
+        rows.append(KA.flash_e2softmax_paged(
+            qt[:, :, i:i + 1].contiguous(), kt, vt, tables, m, causal=False,
+            **kw))
+    narrow = torch.cat(rows, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wide, narrow, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,n", GEMM_KN, ids=lambda v: str(v))
+def test_int8_gemm_bitwise_at_verify_rows(cuda_device, k, n):
+    """M = 40, the verify dispatch's rows (8 lanes x C = 5), at every w8a8
+    projection of qwen2_0_5b and its head, bitwise on two calls."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randint(-127, 128, (40, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    ref = KM.int8_matmul_plain(x, w)
+    for _ in range(2):
+        out = KM.int8_matmul(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["sole", "w8a8 exact"])
+def test_spec_engine_on_card(cuda_device, mode):
+    """The smoke spec engine (n-gram drafter, 32-token vocabulary so every
+    lane drafts) on the card: one paged-attention launch per layer per
+    verify dispatch, 2L + 1 calibrating norms in SOLE mode, 7L + 1 int8
+    GEMMs at w8a8, no static-params quantize+norm; in exact mode at w8a8
+    its tokens equal the plain engine's on the card and the spec engine's
+    on the CPU."""
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.spec import NGramDrafter, SpecConfig
+    cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(),
+                              vocab_size=32)
+    if mode != "sole":
+        cfg = dataclasses.replace(cfg, softmax_mode="exact",
+                                  norm_mode="exact", logit_int8=False,
+                                  quant=QuantConfig("w8a8"))
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(44)
+    reqs = [Request(prompt=rng.permutation(32).astype(np.int32),
+                    max_new_tokens=8) for _ in range(3)]
+    per_call = []
+    real = E.api.verify_paged
+
+    def counted(*a, **kw):
+        before = (KA.flash_e2softmax_paged.launches,
+                  KN.calibrated_norm.launches, KM.int8_matmul.launches,
+                  KN.qnorm.launches)
+        out = real(*a, **kw)
+        per_call.append(tuple(x - y for x, y in zip(
+            (KA.flash_e2softmax_paged.launches, KN.calibrated_norm.launches,
+             KM.int8_matmul.launches, KN.qnorm.launches), before)))
+        return out
+
+    def engine(dev, spec):
+        return PagedEngine(cfg, params, num_blocks=40, block_size=8,
+                           max_seq_len=64, decode_batch=4, prefill_chunk=8,
+                           device=dev, spec_config=spec)
+    E.api.verify_paged = counted
+    try:
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            per_call.clear()
+            eng = engine(dev, SpecConfig(NGramDrafter(), max_k=4))
+            outs[str(dev)] = eng.generate(reqs)
+            eng.cache.check_refcounts()
+        plain = engine(cuda_device, None).generate(reqs)
+    finally:
+        E.api.verify_paged = real
+    assert eng.stats()["spec_dispatches"] == len(per_call) > 0
+    layers = cfg.n_layers
+    want = (layers, 2 * layers + 1 if mode == "sole" else 0,
+            7 * layers + 1 if mode != "sole" else 0, 0)
+    assert set(per_call) == {want}
+    assert all(len(o) == 8 for o in outs["cuda"])
+    if mode != "sole":
+        assert outs["cuda"] == plain == outs["cpu"]

@@ -221,10 +221,15 @@ def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
         fn(x, x, torch.ones(8), torch.zeros(8), params=object())
 
 
-@pytest.mark.parametrize("kw", [dict(spec_config=object()),
+@pytest.mark.parametrize("kw", [dict(cfg=dict(family="moe")),
                                 dict(rules=object())])
 def test_engine_raises_for_unported_features(kw):
+    """Another family and mesh rules are not ported: they raise, naming
+    the roadmap item (speculative decoding is ported:
+    ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
+    kw = dict(kw)
+    cfg = dataclasses.replace(cfg, **kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PagedEngine(cfg, params, device="cpu", **kw)
 
