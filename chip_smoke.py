@@ -8,7 +8,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together; nine kernels), print
+   ``nvcc`` per source, started together; ten kernels), print
    ``-Xptxas -v`` and count the tensor-core instructions in the dense
    flash and int8 GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash
    kernel must issue bf16 ``HMMA``);
@@ -115,6 +115,27 @@ a decode step part; an open-loop Poisson trace through ``AsyncEngine``
 with two cancellations and then two replicas on the card; nemotron_4_15b
 with a minitron_8b draft model; and the smoke spec engine and
 ``AsyncEngine`` on the card against the CPU.
+
+Row stability of speculative verify against decode (phase 3): the
+model's verify attention (``layers.paged_attend`` with ``rows_as_decode``:
+the B x C rows as single-row decode queries) held bitwise to the decode
+step at each row's position, at head dim 64 and 128, on bf16, int8 and
+int8 + ``quant_pv`` pages, SOLE and exact, and timed beside the old
+chunk route; the exact-mode norm kernel bitwise equal per row at 1, 8,
+40, 128 and 2,400 rows of 896, 4,096 and 6,144 channels (RMS and
+LayerNorm). The exact-mode spec traces then assert plain decode's tokens,
+and every verify slot's ops equal the decode step's bit for bit (qwen2,
+bf16 and w8a8).
+
+The MoE family (phase 4): mixtral_8x7b at full width, 16 of its 32
+layers (bf16, SOLE; the launch checks of every paged trace), through
+``PagedEngine``, the dense-slot ``Engine``, exact-mode oracle and n-gram
+spec traces beside plain (held to the margin rule: cuBLAS picks the
+projections' and experts' GEMMs by M), the first op where a verify slot
+and a decode step part, an open-loop ``AsyncEngine`` trace with cancellations and a
+profiled paged wave with the expert FFN's share; dbrx_132b, 8 of 40
+layers, through ``PagedEngine``; the smoke MoE engines (paged and dense,
+exact and SOLE) on the card against the CPU.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -440,6 +461,12 @@ CALIB_CASES.update({f"ln{c}_{name}": (rows, c, False) for c in (4096, 6144)
 # width and at minitron_8b's
 CALIB_CASES.update({"verify": (DECODE_BATCH * 5, 896, True),
                     "ln4096_verify": (DECODE_BATCH * 5, 4096, False)})
+# RMS at mixtral_8x7b's 4,096 channels (dbrx_132b's LayerNorm at 6,144 is
+# nemotron_4_15b's, above)
+CALIB_CASES.update({f"rms4096_{name}": (rows, 4096, True)
+                    for name, rows in (("decode", DECODE_BATCH),
+                                       ("prefill", PREFILL_CHUNK),
+                                       ("dense_prefill", DECODE_BATCH * 300))})
 
 
 def check_calib_norm(torch):
@@ -806,7 +833,8 @@ def kernel_wrappers():
             "ailayernorm_add_norm": KN.add_norm,
             "ailayernorm_add_norm_quant": KN.add_norm_quant,
             "ailayernorm_codes": KN.codes_norm,
-            "ailayernorm_calib": KN.calibrated_norm}
+            "ailayernorm_calib": KN.calibrated_norm,
+            "ailayernorm_exact": KN.exact_norm}
 
 
 def reset_launches() -> None:
@@ -995,8 +1023,11 @@ def serve_dense_full_width(torch, cfg, params, label):
     if reasons != want:
         raise AssertionError(f"finish reasons {reasons}")
     calls = eng.prefill_calls + eng.decode_calls
+    norms = (2 * cfg.n_layers + 1) * calls
+    exact_norms = cfg.norm_mode == "exact"
     want_launches = {"e2softmax": cfg.n_layers * calls,
-                     "ailayernorm_calib": (2 * cfg.n_layers + 1) * calls,
+                     "ailayernorm_calib": 0 if exact_norms else norms,
+                     "ailayernorm_exact": norms if exact_norms else 0,
                      "ailayernorm_qnorm": 0,
                      "int8_matmul": (gemm_per_forward(cfg) * calls
                                      if cfg.quant.acts else 0),
@@ -2079,14 +2110,19 @@ def profile_engine(torch, cfg, params, label, dense=False):
                if (is_dense_e2(key) if dense else "paged_e2softmax" in key))
     forwards = attn / cfg.n_layers
     per_fwd = kernels / forwards if forwards else float("nan")
+    attn_ms = sum(us for us, _, key in rows
+                  if (is_dense_e2(key) if dense else "paged_e2softmax" in key)
+                  ) / 1e3
     log(f"[{label}] profiled wave: wall {wall:.3f} s, device busy "
         f"{busy:.3f} s ({busy / wall:.3f} of wall), "
         f"{len(reqs) * NEW_TOKENS} new tokens, {kernels} kernels over "
-        f"{forwards:.0f} forwards ({per_fwd:.1f} per forward)")
+        f"{forwards:.0f} forwards ({per_fwd:.1f} per forward); attention "
+        f"kernel {attn_ms:.2f} ms")
     for us, n, key in rows[:12]:
         log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
     return {"wall_s": wall, "device_busy_s": busy, "kernels": kernels,
             "forwards": forwards, "kernels_per_forward": per_fwd,
+            "attention_kernel_ms": attn_ms,
             "top": [{"ms": us / 1e3, "count": n, "kernel": key[:100]}
                     for us, n, key in rows[:12]]}
 
@@ -2526,8 +2562,10 @@ def check_verify_kernels(torch, cfg, mini):
 
 
 def compare_verify_decode_routes(torch, cfg):
-    """Phase 3: the paged kernel's C > 1 route (one causal call over the
-    verify rows; the tensor-core kernel at qwen2_0_5b's head dim) against
+    """Phase 3, the record of the split the verify route no longer takes
+    (prefill chunks still do): the paged kernel's C > 1 route (one causal
+    call over the verify rows; the tensor-core kernel at qwen2_0_5b's head
+    dim) against
     its C = 1 route (the decode kernel, pages split over warps; one call
     per slot at kv_len = position + 1) for the same query rows, pools and
     pages, in exact and SOLE mode over bf16 and int8 pages, on exact-logit
@@ -2657,17 +2695,18 @@ class RowRecorder:
             self.lanes = list(seqs)
             return self.orig[2](seqs)
 
-        def decode(params, pools, token, pos, tables, cfg):
+        def decode(params, pools, token, pos, tables, cfg, **kw):
             logits, pools = self.orig[0](params, pools, token, pos, tables,
-                                         cfg)
+                                         cfg, **kw)
             for i, p in enumerate(pos.tolist()):
                 if self.lanes[i] is not None:
                     self._keep(self.lanes[i], p, logits[i], "decode")
             return logits, pools
 
-        def prefill(params, tokens, q_start, n_valid, tables, pools, cfg):
+        def prefill(params, tokens, q_start, n_valid, tables, pools, cfg,
+                    **kw):
             logits, pools = self.orig[1](params, tokens, q_start, n_valid,
-                                         tables, pools, cfg)
+                                         tables, pools, cfg, **kw)
             if tokens.shape[0] == eng.decode_batch and tokens.shape[1] > 1:
                 for i, (q0, n) in enumerate(zip(q_start.tolist(),
                                                 n_valid.tolist())):
@@ -2802,10 +2841,12 @@ def prefix_row_diffs(plain, spec_outs, reqs, rows):
 
 def check_per_verify(label, per_verify, cfg, sole, w8a8):
     """Each verify dispatch launches the paged attention once per layer,
-    the calibrating norm 2L + 1 times in SOLE mode, the int8 GEMM once per
-    projection and the head at w8a8, and no static-params norm."""
+    the calibrating norm 2L + 1 times in SOLE mode (in exact mode the
+    row-stable exact norm as often), the int8 GEMM once per projection
+    and the head at w8a8, and no static-params norm."""
     want = {"paged_e2softmax": cfg.n_layers,
             "ailayernorm_calib": 2 * cfg.n_layers + 1 if sole else 0,
+            "ailayernorm_exact": 0 if sole else 2 * cfg.n_layers + 1,
             "int8_matmul": gemm_per_forward(cfg) if w8a8 else 0,
             "ailayernorm_qnorm": 0}
     for n, got in enumerate(per_verify):
@@ -2833,18 +2874,21 @@ def spec_summary(label, run, plain_wall=None):
     return out
 
 
-def spec_traces(torch, cfg, params, label, *, w8a8_routes_differ=False):
+def spec_traces(torch, cfg, params, label, *, equal=True, names=None):
     """Phase 4: the ten trace requests, ``NEW_TOKENS`` each, through
     ``PagedEngine`` with speculative decoding (``max_k`` 4, decode batch
     8), beside the plain run in the same call, in exact mode. bf16: an
     oracle drafter (the plain run's tokens), an anti-oracle (acceptance 0
-    and the controller back on the horizon) and the n-gram drafter; every
-    request equals the plain run up to its first divergence, and each
-    divergence is reported with the plain run's top-2 margin and the
-    verify-vs-decode |logit difference| there (recorded replays). At w8a8
-    (int8 pages) the oracle and n-gram traces must equal the plain run
-    unless the paged kernel's two routes were shown to differ on int8
-    pages in exact mode. Each verify dispatch's launches are checked."""
+    and the controller back on the horizon) and the n-gram drafter; at
+    w8a8 (int8 pages) the oracle and n-gram (``names`` picks a subset).
+    ``equal``: every request's tokens equal the plain run's (verify rows
+    are decode rows bit for bit: the paged kernel's decode route and the
+    row-stable exact norm). Otherwise (the MoE experts' cuBLAS products
+    round by M) each divergence must sit on a near-tie: the plain run's
+    top-2 margin no wider than the verify-vs-decode |logit difference|
+    there (recorded replays). The oracle's rows are recorded either way
+    and compared with the plain run's decode rows. Each verify
+    dispatch's launches are checked."""
     from repro_torch.serve.spec import NGramDrafter
     cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
                               logit_int8=False)
@@ -2863,6 +2907,8 @@ def spec_traces(torch, cfg, params, label, *, w8a8_routes_differ=False):
     if not w8a8:
         drafters["anti-oracle"] = lambda: AntiOracleDrafter(
             oracle, cfg.vocab_size)
+    if names is not None:
+        drafters = {k: v for k, v in drafters.items() if k in names}
     plain_rec = None
     res = {"plain_wall_s": plain["wall_s"],
            "plain_stats": {k: plain["stats"][k] for k in (
@@ -2904,9 +2950,8 @@ def spec_traces(torch, cfg, params, label, *, w8a8_routes_differ=False):
             log(f"[{tag}] logits rows against the plain run's decode rows "
                 "at the same positions and prefixes: "
                 + json.dumps(summ["verify_vs_decode_rows"]))
-        if w8a8 and divs and not w8a8_routes_differ:
-            raise AssertionError(f"[{tag}] differs from the plain run where "
-                                 f"every projection is exact: {divs}")
+        if equal and diverged:
+            raise AssertionError(f"[{tag}] differs from plain decode: {divs}")
         # each divergence must sit on a near-tie of the plain logits no
         # wider than the measured difference of the two runs' rows there
         if diverged and not replay_same:
@@ -2937,12 +2982,15 @@ FORWARD_OPS = ("apply_norm", "quantize_act", "qmatmul", "_project_qkv",
 
 class OpRecorder:
     """Records the output of every ``FORWARD_OPS`` call of the model layer
-    (``repro_torch.models.layers``), in call order."""
+    (``repro_torch.models.layers``) and of the MoE FFN
+    (``repro_torch.models.moe.apply_moe_ffn``), in call order."""
 
     def __init__(self):
         from repro_torch.models import layers as L
-        self.L, self.calls = L, []
-        self.orig = {n: getattr(L, n) for n in FORWARD_OPS}
+        from repro_torch.models import moe as M
+        self.calls = []
+        self.orig = [(L, n, getattr(L, n)) for n in FORWARD_OPS]
+        self.orig.append((M, "apply_moe_ffn", M.apply_moe_ffn))
 
     def __enter__(self):
         def wrap(name, fn):
@@ -2951,13 +2999,13 @@ class OpRecorder:
                 self.calls.append((name, out))
                 return out
             return recorded
-        for n, fn in self.orig.items():
-            setattr(self.L, n, wrap(n, fn))
+        for mod, n, fn in self.orig:
+            setattr(mod, n, wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.L, n, fn)
+        for mod, n, fn in self.orig:
+            setattr(mod, n, fn)
 
 
 def _lane0_rows(torch, out, b, c, slot):
@@ -2978,10 +3026,11 @@ def verify_decode_ops(torch, cfg, params, label):
     """Where a verify slot and the decode step at the same position and
     prefix first part, op by op: one request's state after a few decode
     steps; five decode steps from position p (8 lanes, 7 null, as the
-    engine pads them) against one verify dispatch of the same five fed
-    tokens (8 lanes x C 5) on a copy of the same pools, every model-layer
-    op recorded; for each slot, the first op (and layer) whose output row
-    differs, its largest |difference|, and the logits' (exact mode)."""
+    engine pads them) against one ``verify_paged`` dispatch of the same
+    five fed tokens (8 lanes x C 5) on a copy of the same pools, every
+    model-layer op (and the MoE FFN) recorded; for each slot, the first op
+    (and layer) whose output row differs, its largest |difference|, and
+    the logits' (exact mode)."""
     from repro_torch.models import api
     from repro_torch.serve.engine import Request
     cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
@@ -3012,9 +3061,11 @@ def verify_decode_ops(torch, cfg, params, label):
         fed.append(int(logits[0, :cfg.vocab_size].argmax()))
     tokens = torch.zeros((DECODE_BATCH, c), dtype=torch.int32, device=dev)
     tokens[0] = torch.tensor(fed[:c], dtype=torch.int32)
+    no_eos = torch.full((DECODE_BATCH, 1), -1, dtype=torch.int32, device=dev)
     with OpRecorder() as vrec:
-        api.prefill_paged(eng.params, tokens, lanes(pos, 0), lanes(c, 1),
-                          refs, pools0, cfg)
+        api.verify_paged(eng.params, tokens, lanes(pos, 0), lanes(c, 1),
+                         refs, pools0, None, None, None, None, no_eos, cfg,
+                         use_top_k=False, stochastic=False, use_eos=False)
     torch.cuda.synchronize()
     res = {}
     for i, calls in enumerate(steps):
@@ -3039,6 +3090,8 @@ def verify_decode_ops(torch, cfg, params, label):
                                logits_max_abs_diff=logits_diff)
     log(f"[{label} exact] verify slot vs decode step, first differing op "
         "(after how many attention calls): " + json.dumps(res))
+    res["all_slots_bitwise"] = all(v["first_difference"] is None
+                                   for v in res.values())
     eng.cancel(seq)
     eng.cache.check_refcounts()
     return res
@@ -3166,7 +3219,7 @@ def draft_model_pair(torch):
     return summ
 
 
-def open_loop_trace(torch, cfg, params):
+def open_loop_trace(torch, cfg, params, replicas=True):
     """Phase 4, the streaming front end at full width (bf16, exact mode):
     the ten trace requests arrive as a Poisson process (``OPEN_LOOP_RATE``
     requests per engine step, seed 0) through ``AsyncEngine``; one is
@@ -3230,6 +3283,8 @@ def open_loop_trace(torch, cfg, params):
                ttft_steps=st["ttft_steps"], itl_steps=st["itl_steps"],
                ttft_ms=st["ttft_ms"], itl_ms=st["itl_ms"],
                finish_reasons=st["finish_reasons"], launches=launches)
+    if not replicas:
+        return out
     first = spec_engine(cfg, params)
     rep = ReplicatedAsyncEngine([first, spec_engine(cfg, first.params)])
     t0 = time.perf_counter()
@@ -3304,6 +3359,348 @@ def small_spec_parity(torch):
     check_agreement(outs, "async exact", 0.95)
 
 
+# -- row stability: verify rows as decode rows, the exact-mode norms ---------
+
+
+def decode_rows_case(torch, case):
+    """A causal verify case (kernel layout) as the model's verify now
+    attends it (``layers.decode_rows``): each of the B x C query rows a
+    single-row query keyed ``min(q_start + j + 1, kv_len)``, its lane's
+    table repeated, no causal mask."""
+    q, pk, pv, tables, meta = case
+    b, h, c, d = q.shape
+    rows = q.permute(0, 2, 1, 3).reshape(b * c, h, 1, d).contiguous()
+    j = torch.arange(c, device=q.device)
+    lens = torch.minimum(meta[:, :1] + j + 1, meta[:, 1:]).reshape(-1)
+    m = torch.stack([lens - 1, lens], 1).to(torch.int32).contiguous()
+    return rows, pk, pv, tables.repeat_interleave(c, 0).contiguous(), m
+
+
+def verify_rows_as_decode(torch, cfg, mini, attn):
+    """Repair of the verify/decode split, phase 3. (a) ``paged_attend`` as
+    ``verify_paged`` calls it (8 lanes x C = 5 causal rows, ragged
+    n_valid, null lanes; random q) against the decode step at each valid
+    row's position (8 lanes, kv_len = position + 1): asserted bitwise at
+    qwen2_0_5b's head dim 64 (tensor cores) and minitron_8b's 128 (CUDA
+    cores), on bf16 pages, int8 pages and int8 pages at w8a8 (``quant_pv``),
+    in SOLE and exact mode. (b) The decode kernel on the verify timing
+    cases as rows (``decode_rows_case``) against its plain version: exact
+    mode to 1e-4 of the output scale, SOLE at most 1% of rows off by more
+    than 1e-3; returns those cases for the timings beside the chunk
+    route's."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    c = VERIFY_K + 1
+    q_start, kv = verify_lanes(c)
+    n_valid = [k - q for k, q in zip(kv, q_start)]
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    summary = {}
+    for model in (cfg, mini):
+        h, kvh, d = model.n_heads, model.n_kv_heads, model.head_dim
+        for pool in ("bf16", "int8", "int8_qpv"):
+            case = paged_case(torch, gen, b=DECODE_BATCH, c=c,
+                              q_start=q_start, kv_lens=kv, h=h, kvh=kvh, d=d,
+                              grid=False, int8=pool != "bf16")
+            qk, pk, pv, tables, meta = case
+            q = qk.transpose(1, 2).contiguous()            # (B, C, H, d)
+            qs, kl = meta[:, 0], meta[:, 1]
+            for mode in ("exact", "sole"):
+                kw = dict(kv_cache_dtype="auto" if pool == "bf16" else "int8")
+                if pool == "int8_qpv":
+                    kw["quant"] = QuantConfig("w8a8")
+                if mode == "exact":
+                    kw.update(exact)
+                mcfg = dataclasses.replace(model, **kw)
+                rows = L.paged_attend(q, pk, pv, tables, qs, kl, mcfg,
+                                      causal=True, rows_as_decode=True)
+                same = total = 0
+                for j in range(c):
+                    dec = L.paged_attend(q[:, j:j + 1].contiguous(), pk, pv,
+                                         tables, qs + j, qs + j + 1, mcfg,
+                                         causal=False)
+                    for lane in range(DECODE_BATCH):
+                        if j < n_valid[lane]:
+                            same += int(torch.equal(rows[lane, j],
+                                                    dec[lane, 0]))
+                            total += 1
+                torch.cuda.synchronize()
+                key = f"d{d}_{pool}_{mode}"
+                summary[key] = dict(rows=total, bitwise_rows=same)
+                log(f"verify rows as decode rows {key} (H {h}/KV {kvh}): "
+                    f"{same}/{total} valid rows bitwise equal to the decode "
+                    "step's")
+                if same != total:
+                    raise AssertionError(f"verify rows {key}: {same}/{total} "
+                                         "bitwise equal to decode rows")
+    cases = {}
+    for name in ("verify", "minitron_verify"):
+        case = decode_rows_case(torch, attn[name]["case"])
+        h, kvh, d = case_dims(case)
+        kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+        errs = {}
+        for mode in ("exact", "sole"):
+            kw = dict(sole=mode == "sole", exp_bits=cfg.exp_bits,
+                      int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+            out = KA.flash_e2softmax_paged(*case, causal=False, **kw)
+            ref = KA.flash_e2softmax_paged_plain(*case, kvmap, causal=False,
+                                                 **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            scale = max(ref.abs().max().item(), 1.0)
+            errs[mode] = err.max().item()
+            if mode == "exact" and errs[mode] > 1e-4 * scale:
+                raise AssertionError(f"paged {name} rows exact: {errs[mode]}")
+            off = (err.amax(-1) > 1e-3 * scale).float().mean().item()
+            if mode == "sole" and off > 0.01:
+                raise AssertionError(f"paged {name} rows sole: {off} of rows "
+                                     "off by > 1e-3")
+        log(f"paged_e2softmax {name}_rows [{tuple(case[0].shape)}, decode "
+            f"route]: max|err| against the plain version exact "
+            f"{errs['exact']:.3e}, sole {errs['sole']:.3e}")
+        cases[f"{name}_rows"] = dict(case=case, causal=False,
+                                     max_abs_err=errs["exact"],
+                                     max_abs_err_random=errs["sole"])
+    return summary, cases
+
+
+# (C, rms) of the exact-mode norm: qwen2_0_5b's and mixtral_8x7b's RMS,
+# minitron_8b's and dbrx_132b's LayerNorm
+EXACT_NORM_CASES = ((896, True), (4096, True), (4096, False), (6144, False))
+EXACT_NORM_ROWS = (1, 8, 40, 128, 2400)
+
+
+def check_exact_norm(torch):
+    """Repair of the exact-mode norms, phase 3: the exact-norm kernel on
+    2,400 bf16 rows at each ``EXACT_NORM_CASES`` width; the first 1, 8,
+    40 and 128 rows of a call of that many rows, and rows computed alone,
+    bitwise equal to the same rows of the 2,400-row call (float32 out, and
+    bf16 out equal to its cast); against the plain torch ops (another
+    reduction order, torch's approximate rsqrt) to 1e-5 of the scale."""
+    from repro_torch.kernels import ailayernorm as KN
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    res = {}
+    for c, rms in EXACT_NORM_CASES:
+        n = max(EXACT_NORM_ROWS)
+        x = (torch.randn((n, c), generator=gen, device="cuda") * 3
+             + torch.randn((n, 1), generator=gen, device="cuda")).to(
+                 torch.bfloat16)
+        g = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        b = None if rms else 0.1 * torch.randn((c,), generator=gen,
+                                               device="cuda")
+        eps = 1e-6 if rms else 1e-5
+        full = KN.exact_norm(x, g, b, rms=rms, eps=eps)
+        same = total = 0
+        for rows in EXACT_NORM_ROWS[:-1]:
+            same += int(torch.equal(KN.exact_norm(x[:rows], g, b, rms=rms,
+                                                  eps=eps), full[:rows]))
+            total += 1
+        for i in (0, 1, 7, 39, 127, n // 2, n - 1):
+            same += int(torch.equal(KN.exact_norm(x[i:i + 1], g, b, rms=rms,
+                                                  eps=eps)[0], full[i]))
+            total += 1
+        half = KN.exact_norm(x, g, b, rms=rms, eps=eps,
+                             out_dtype=torch.bfloat16)
+        same += int(torch.equal(half, full.to(torch.bfloat16)))
+        total += 1
+        ref = KN.exact_norm_plain(x, g, b, rms=rms, eps=eps)
+        torch.cuda.synchronize()
+        err = (full - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        name = f"{'rms' if rms else 'ln'}{c}"
+        log(f"ailayernorm_exact {name}: {same}/{total} row-count checks "
+            f"bitwise; max |err| against the plain torch ops {err:.3e} "
+            f"(scale {scale:.3g})")
+        if same != total:
+            raise AssertionError(f"exact norm {name}: rows not stable")
+        if err > 1e-5 * scale:
+            raise AssertionError(f"exact norm {name}: {err} > 1e-5 x {scale}")
+        res[name] = dict(x=x, g=g, b=b, rms=rms, eps=eps, max_abs_err=err)
+    return res
+
+
+def time_exact_norm(torch, norms, launches):
+    """Phase 5 for the exact-mode norm kernel: CUDA events (L2 flushed)
+    at a decode step's 8 rows, a verify dispatch's 40 and the dense
+    prefill's 2,400, beside its plain torch ops and one PyTorch call of
+    the same function on a float32 copy of the rows (``rms_norm`` /
+    ``layer_norm``, timed only); bound: the bf16 rows in, float32 out."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ailayernorm as KN
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    e = dict(name="ailayernorm_exact", route="cuda",
+             source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+             replaces="src/repro/ops/reference.py:65 (exact_rmsnorm; with "
+                      "exact_layernorm, :57, XLA's reduction: no pallas_call)",
+             shapes={})
+    for name, res in norms.items():
+        x, g, b, rms, eps = (res[k] for k in ("x", "g", "b", "rms", "eps"))
+        for rows in (DECODE_BATCH, VERIFY_ROWS, DECODE_BATCH * 300):
+            xr = x[:rows].contiguous()
+            xf = xr.float()
+            c = xr.shape[1]
+
+            def run():
+                return KN.exact_norm(xr, g, b, rms=rms, eps=eps)
+
+            def plain():
+                return KN.exact_norm_plain(xr, g, b, rms=rms, eps=eps)
+            if rms:
+                lib = getattr(F, "rms_norm", None)
+                library = None if lib is None else (
+                    lambda: lib(xf, (c,), g, eps))
+            else:
+                library = lambda: F.layer_norm(xf, (c,), g, b, eps)  # noqa
+            nbytes = rows * c * (xr.element_size() + 4) + c * 4 * (1 + (not rms))
+            bms, by = bound_ms(nbytes, 8 * rows * c, FP32_FLOPS)
+            e["shapes"][f"{name}_rows{rows}"] = dict(
+                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16 in, "
+                      "float32 out",
+                ms=time_ms(torch, run, flush),
+                kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                             "exact_norm_kernel"),
+                plain_ms=time_ms(torch, plain, flush, reps=10),
+                library_ms=(None if library is None
+                            else time_ms(torch, library, flush)),
+                bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+                bytes=nbytes)
+    main = e["shapes"][f"rms896_rows{DECODE_BATCH}"]
+    e.update(launches=launches["ailayernorm_exact"],
+             launches_from="bf16 exact oracle spec trace (qwen2_0_5b)",
+             max_abs_err=max(r["max_abs_err"] for r in norms.values()),
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=main["library_ms"],
+             library="torch.nn.functional.rms_norm on a float32 copy")
+    for s_, v in e["shapes"].items():
+        k, lib = v["kernel_ms"], v["library_ms"]
+        log(f"ailayernorm_exact {s_} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+            f"(profiler: kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; plain "
+            f"{v['plain_ms'] * 1e3:.1f} us; library "
+            f"{'none' if lib is None else f'{lib * 1e3:.1f} us'}; bound "
+            f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+    return e
+
+
+# -- the MoE family (mixtral_8x7b, dbrx_132b) -----------------------------------
+
+MIXTRAL_LAYERS = 16                # of 32: 47 GB of bf16 weights fit in 80
+DBRX_LAYERS = 8                    # of 40: 52 GB
+
+
+def profile_moe(torch, cfg, params, label):
+    """``profile_engine``'s paged wave for an MoE model, with the expert
+    FFN's share beside the paged attention's: CUDA events around every
+    ``moe.expert_ffn`` call (the three expert products on the (E,
+    capacity, d) buffer and the SwiGLU; the span may hold idle gaps)."""
+    from repro_torch.models import moe as M
+    spans, real = [], M.expert_ffn
+
+    def timed(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    M.expert_ffn = timed
+    try:
+        prof = profile_engine(torch, cfg, params, label)
+    finally:
+        M.expert_ffn = real
+    torch.cuda.synchronize()
+    # the warm-up request's calls come first; the wave's are the rest
+    n = int(round(prof["forwards"] * cfg.n_layers))
+    ms = sum(s.elapsed_time(e) for s, e in spans[-n:]) if n else 0.0
+    busy = prof["device_busy_s"] * 1e3
+    prof.update(expert_ffn_ms=ms, expert_ffn_calls=n,
+                expert_ffn_share_of_busy=ms / busy,
+                attention_share_of_busy=prof["attention_kernel_ms"] / busy)
+    log(f"[{label}] expert FFN {ms:.2f} ms over {n} calls "
+        f"({ms / busy:.3f} of device busy) against the paged attention's "
+        f"{prof['attention_kernel_ms']:.2f} ms "
+        f"({prof['attention_kernel_ms'] / busy:.3f})")
+    return prof
+
+
+def serve_moe(torch):
+    """Phase 4 for the MoE family at full width, depth cut to fit 80 GB
+    (random weights from a seed, bf16, SOLE): mixtral_8x7b at
+    ``MIXTRAL_LAYERS`` layers through ``PagedEngine`` (the launch checks of
+    every paged trace: attention L, the calibrating norm 2L + 1 per
+    forward, no ``qnorm``; finish reasons, refcounts, peak memory), the
+    dense-slot ``Engine`` (E2Softmax L per call), exact-mode oracle and
+    n-gram spec traces beside plain under the margin rule (cuBLAS picks
+    its GEMMs by M), the first op where a verify slot and a decode step
+    part,
+    one open-loop ``AsyncEngine`` trace with cancellations and one
+    profiled paged wave with the expert FFN's share; then dbrx_132b at
+    ``DBRX_LAYERS`` layers through ``PagedEngine``. Each model is freed
+    before the next. Returns the launches and traces by path."""
+    from repro_torch.configs.base import get_config
+    out = {}
+    mix = dataclasses.replace(get_config("mixtral_8x7b"),
+                              n_layers=MIXTRAL_LAYERS)
+    launches, trace, params = serve_full_width(torch, mix, "mixtral bf16")
+    out["mixtral_bf16"] = (launches, trace)
+    out["mixtral_dense_bf16"] = serve_dense_full_width(
+        torch, mix, params, "mixtral dense bf16")
+    spec = spec_traces(torch, mix, params, "mixtral bf16", equal=False,
+                       names=("oracle", "ngram"))
+    spec["ops"] = verify_decode_ops(torch, mix, params, "mixtral bf16")
+    trace["spec"] = spec
+    ol = open_loop_trace(torch, mix, params, replicas=False)
+    trace["open_loop"] = ol
+    out["mixtral_spec_oracle"] = (spec["oracle"]["launches"], {})
+    out["mixtral_spec_ngram"] = (spec["ngram"]["launches"], {})
+    out["mixtral_open_loop"] = (ol["launches"], {})
+    trace["profile"] = profile_moe(torch, mix, params, "mixtral bf16")
+    del params
+    torch.cuda.empty_cache()
+    dbrx = dataclasses.replace(get_config("dbrx_132b"), n_layers=DBRX_LAYERS)
+    launches_d, trace_d, params_d = serve_full_width(torch, dbrx, "dbrx bf16")
+    out["dbrx_bf16"] = (launches_d, trace_d)
+    del params_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_moe_parity(torch):
+    """Phase 4, smoke size: mixtral_8x7b's and dbrx_132b's smoke configs
+    (float32, 4 experts, top-2) through ``PagedEngine`` and the dense-slot
+    ``Engine`` on the card against the same engines on the CPU: in exact
+    mode the tokens are equal; in SOLE mode the smoke engines' bar (95%
+    of greedy tokens equal)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    for arch in ("mixtral_8x7b", "dbrx_132b"):
+        for mode, change, bar in (("exact", exact, 1.0), ("sole", {}, 0.95)):
+            cfg = dataclasses.replace(get_config(arch).smoke(), **change)
+            params = api.init_params(0, cfg, "cpu")
+            rng = np.random.default_rng(1)
+            reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                            .astype(np.int32), max_new_tokens=8)
+                    for n in (5, 20, 12, 30, 9)]
+            outs, douts = [], []
+            for dev in ("cpu", "cuda"):
+                eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                                  max_seq_len=64, decode_batch=4,
+                                  prefill_chunk=8, device=dev)
+                outs.append(eng.generate(reqs))
+                eng.cache.check_refcounts()
+                douts.append(Engine(cfg, params, batch_size=4, max_len=64,
+                                    device=dev).generate(reqs))
+            check_agreement(outs, f"{arch} paged {mode}", bar)
+            check_agreement(douts, f"{arch} dense {mode}", bar)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -3360,9 +3757,10 @@ def main() -> int:
         attn.update(verify16)
         attn8.update(verify8)
         routes = compare_verify_decode_routes(torch, cfg)
-        int8_routes_differ = any(
-            v["bitwise_share"] < 1 for k, v in routes.items()
-            if "int8" in k and k.endswith("exact"))
+        rows_check, rows_cases = verify_rows_as_decode(torch, cfg, mini,
+                                                       attn)
+        attn.update(rows_cases)
+        norms = check_exact_norm(torch)
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
         check_new_e2_stage(torch, mini, e2)
@@ -3371,27 +3769,36 @@ def main() -> int:
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
         spec = spec_traces(torch, cfg, params, "bf16")
         spec["ops"] = verify_decode_ops(torch, cfg, params, "bf16")
+        if not spec["ops"]["all_slots_bitwise"]:
+            raise AssertionError("bf16 exact: a verify slot parts from its "
+                                 "decode step")
         spec["sole_ngram"] = sole_ngram_trace(torch, cfg, params)
         spec["profiled"] = profile_spec(torch, cfg, params)
         open_loop = open_loop_trace(torch, cfg, params)
         launches8, trace8, params8 = serve_full_width(torch, cfg8, "w8a8")
-        spec8 = spec_traces(torch, cfg8, params8, "w8a8",
-                            w8a8_routes_differ=int8_routes_differ)
+        spec8 = spec_traces(torch, cfg8, params8, "w8a8")
         spec8["ops"] = verify_decode_ops(torch, cfg8, params8, "w8a8")
+        if not spec8["ops"]["all_slots_bitwise"]:
+            raise AssertionError("w8a8 exact: a verify slot parts from its "
+                                 "decode step")
         dlaunches, dtrace = serve_dense_full_width(torch, cfg, params,
                                                    "dense bf16")
         dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
                                                      "dense w8a8")
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
         new = serve_new_configs(torch)
+        new.update(serve_moe(torch))
         pair = draft_model_pair(torch)
         small_engine_parity(torch)
         small_spec_parity(torch)
+        small_moe_parity(torch)
         table = time_kernels(torch, attn, launches, cfg)
         table.append(time_calib_norm(torch, calib, launches))
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
         table += time_e2softmax(torch, e2, dlaunches, dlaunches8)
         table += time_ops_kernels(torch, ops_res, olaunches)
+        table.append(time_exact_norm(torch, norms,
+                                     spec["oracle"]["launches"]))
         static = static_op_stage(torch)
         spec_launches = {
             **{f"bf16 exact {k}": spec[k]["launches"]
@@ -3434,7 +3841,9 @@ def main() -> int:
         log(json.dumps({"trace": trace, "trace_w8a8": trace8,
                         "trace_dense": dtrace, "trace_dense_w8a8": dtrace8,
                         "static_ops": static["checked"],
-                        "verify_decode_routes": routes, "spec_bf16": spec,
+                        "verify_decode_routes": routes,
+                        "verify_rows_as_decode": rows_check,
+                        "spec_bf16": spec,
                         "spec_w8a8": spec8, "open_loop": open_loop,
                         "draft_pair": pair,
                         **{f"trace_{k}": v[1] for k, v in new.items()}}))

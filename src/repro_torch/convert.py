@@ -3,8 +3,9 @@
 :func:`params_from_jax` takes the reference's parameter value tree with
 its leaves already turned into numpy arrays (the stacked ``layers`` axis
 kept) and returns the port's tree on ``device``. Each leaf is stored once
-in its serving dtype — ``cfg.dtype`` for projections, biases and
-embeddings, which is bit-identical to the reference's per-use ``cast``
+in its serving dtype — ``cfg.dtype`` for projections (the MoE experts'
+``(L, E, d, f)`` gate/up/down and ``(L, d, E)`` router included), biases
+and embeddings, which is bit-identical to the reference's per-use ``cast``
 (both round to nearest even), and float32 for norm gains and biases,
 which the reference feeds to its norms uncast.
 

@@ -25,6 +25,11 @@ entries are one team-per-row kernel template; each takes the PTF params'
   int8 — in one launch of one thread-block cluster.
   :func:`ailayernorm`/:func:`airmsnorm`/:func:`fused_add_norm`/
   :func:`fused_add_norm_quant` without params reach it.
+* :func:`exact_norm`: the exact mode's float LayerNorm / RMSNorm (no TPU
+  kernel: XLA's reduction there), a team per row (a warp below 2,048
+  channels, the CTA from there) in a reduction order fixed by C, so a
+  row's bits do not depend on the rows beside it; its plain version is the
+  reference backend's torch ops.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches its kernel or raises. A static-params op call on
@@ -412,6 +417,65 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
 
 
 calibrated_norm.launches = 0
+
+
+# -- the exact mode's float norm ----------------------------------------------
+
+def exact_norm_plain(x, gamma, beta=None, *, rms: bool,
+                     eps: float) -> torch.Tensor:
+    """The exact float32 LayerNorm / RMSNorm in torch ops (the reference
+    backend's ``exact_layernorm``/``exact_rmsnorm``): ``mean``, ``square``
+    and ``rsqrt`` of each row. On the card torch splits these reductions
+    by the number of rows, so a row's bits depend on its batch; the
+    kernel does not."""
+    x = x.float()
+    if rms:
+        ms = torch.square(x).mean(-1, keepdim=True)
+        return x * torch.rsqrt(ms + eps) * gamma
+    mu = x.mean(-1, keepdim=True)
+    var = torch.square(x - mu).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
+               out_dtype=None) -> torch.Tensor:
+    """Exact-mode LayerNorm (``beta`` given) or RMSNorm of ``x`` (..., C):
+    on CUDA tensors one launch of ``exact_norm_kernel`` (a team per row,
+    a reduction order fixed by C, so every row has the same bits whatever
+    the row count), on CPU tensors :func:`exact_norm_plain`. Float32 out,
+    or ``out_dtype`` (float32 or bf16, written by the kernel; another type
+    is cast after)."""
+    if x.device.type == "cpu":
+        out = exact_norm_plain(x, gamma, beta, rms=rms, eps=eps)
+        return out if out_dtype is None else out.to(out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ailayernorm kernel for device {x.device}")
+    if not rms and beta is None:
+        raise ValueError("LayerNorm needs beta")
+    c = x.shape[-1]
+    (rows,) = _static_rows(x)
+    written = _written(out_dtype)
+    chan = [gamma.float().contiguous()]
+    if not rms:
+        chan.append(beta.float().contiguous())
+    if any(t.shape != (c,) or t.device != x.device for t in chan):
+        raise ValueError(f"gamma/beta must be ({c},) on {x.device}, got "
+                         f"{[(tuple(t.shape), str(t.device)) for t in chan]}")
+    out = torch.empty(rows.shape, dtype=written, device=x.device)
+    if rows.shape[0] and c:
+        lib = build.load("ailayernorm")
+        fn = build.declare(lib, "ailayernorm_exact", 4, 5, 1)
+        rc = build.launch(
+            x.device, fn, rows.data_ptr(), chan[0].data_ptr(),
+            None if rms else chan[1].data_ptr(), out.data_ptr(),
+            rows.shape[0], c, int(rms), _ACT_TYPES[rows.dtype],
+            int(written == torch.bfloat16), ctypes.c_float(eps))
+        build.check(lib, rc, "ailayernorm_exact launch")
+        exact_norm.launches += 1
+    return out.reshape(x.shape).to(out_dtype or torch.float32)
+
+
+exact_norm.launches = 0
 
 
 # -- entry points in the reference's signatures -------------------------------

@@ -21,9 +21,14 @@ Examples::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --engine paged --spec-decode ngram --open-loop 0.5 --stream
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \
+      --smoke --device cpu --engine paged --spec-decode ngram
+
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
-``minitron_8b``, ``nemotron_4_15b``). Not ported yet (ROADMAP.md queue 1
-item 9): ``--mesh``.
+``minitron_8b``, ``nemotron_4_15b`` and the MoE ``mixtral_8x7b``,
+``dbrx_132b``; MoE with ``--quantize`` raises, as the reference has no
+quantized MoE path). Not ported yet (ROADMAP.md queue 1 item 9):
+``--mesh``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model API: the only model surface ``serve/`` talks to. Dense family
-only in this slice; other families raise.
+"""Model API: the only model surface ``serve/`` talks to. The dense and
+MoE families are ported; ssm, hybrid, encdec and vlm raise (ROADMAP.md
+queue 1 item 7).
 
 The dense-slot engine calls :func:`prefill` / :func:`decode_step` on
 stacked caches (:func:`init_cache`). The paged calls follow the
@@ -14,15 +15,18 @@ from typing import Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
+
+_FAMILY_MODULES = {"dense": transformer, "moe": moe}
 
 
 def get_model(cfg: ArchConfig):
-    if cfg.family != "dense":
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 7)")
-    return transformer
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{sorted(_FAMILY_MODULES)}; ROADMAP.md queue 1 item 7)")
+    return mod
 
 
 def init_params(seed: Union[int, torch.Generator], cfg: ArchConfig,
@@ -40,8 +44,10 @@ def sequence_state_spec(cfg: ArchConfig):
 
 
 def forward(params, batch, cfg: ArchConfig, phase: str = "serve"):
-    """batch {"tokens": (B, S)} -> logits (B, S, padded_vocab) float32."""
-    return get_model(cfg).forward(params, batch["tokens"], cfg, phase)
+    """batch {"tokens": (B, S)} -> logits (B, S, padded_vocab) float32
+    (an MoE model's aux loss is dropped, as the reference's API does)."""
+    out = get_model(cfg).forward(params, batch["tokens"], cfg, phase)
+    return out[0] if cfg.family == "moe" else out
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, device="cuda"):

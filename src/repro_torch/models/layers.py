@@ -238,26 +238,52 @@ def _paged_kv_scale(cfg: ArchConfig):
     return KV_INT8_SCALE if cfg.kv_cache_dtype == "int8" else None
 
 
+def decode_rows(q, tables, q_start, kv_len):
+    """A causal chunk's B * C query rows as single-query decode rows: q
+    (B, C, H, hd) -> (B * C, 1, H, hd), each row with its lane's table
+    and its own key count ``min(q_start + j + 1, kv_len)`` (a padded row
+    past ``n_valid`` sees the lane's ``kv_len`` keys, as under the causal
+    mask). Returns (q, tables, positions, key counts) of the rows."""
+    b, c = q.shape[:2]
+    j = torch.arange(c, device=q_start.device)
+    lens = torch.minimum(q_start[:, None] + j + 1, kv_len[:, None])
+    lens = lens.reshape(-1).to(kv_len.dtype)
+    return (q.reshape((b * c, 1) + q.shape[2:]),
+            torch.repeat_interleave(tables, c, dim=0), lens - 1, lens)
+
+
 def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
-                 cfg: ArchConfig, *, causal: bool) -> torch.Tensor:
+                 cfg: ArchConfig, *, causal: bool,
+                 rows_as_decode: bool = False) -> torch.Tensor:
     """Attention for C chunk queries per sequence against paged KV.
 
     q: (B, C, H, hd); pool_k/pool_v: (N, bs, KV, hd) one layer's pool
     (the chunk's own K/V already written); tables: (B, NB) page tables;
     q_start/kv_len: (B,) absolute position of q row 0 / valid key count.
+
+    ``rows_as_decode`` (speculative verify; ``causal`` chunks only) runs
+    the B * C rows as single-query decode rows (:func:`decode_rows`)
+    through the decode route of the same op: the same function, and on
+    the card the decode kernel's own reduction order, so each verify row
+    has the bits of the decode step at its position. Prefill chunks keep
+    the chunk route (tensor cores on the card).
     """
     mode = _softmax_mode(cfg, phase="serve")
     sole = mode == "sole"
     fn = ops.paged_attention_fn(mode, q.device, cfg.ops_backend)
     kv_scale = _paged_kv_scale(cfg)
-    return fn(q, pool_k, pool_v, tables, q_start, kv_len, causal=causal,
-              exp_bits=cfg.exp_bits,
+    kw = dict(exp_bits=cfg.exp_bits,
               int8_scale=(LOGIT_INT8_SCALE if sole and cfg.logit_int8
                           else None),
               kv_scale=kv_scale,
               # w8a8: V stays raw int8 codes through P.V and kv_scale
               # folds into the final row scale (exact: a power of two).
               quant_pv=bool(cfg.quant.acts and kv_scale is not None))
+    if rows_as_decode and causal:
+        rq, rt, rpos, rlen = decode_rows(q, tables, q_start, kv_len)
+        out = fn(rq, pool_k, pool_v, rt, rpos, rlen, causal=False, **kw)
+        return out.reshape(q.shape)
+    return fn(q, pool_k, pool_v, tables, q_start, kv_len, causal=causal, **kw)
 
 
 # -- dense and blocked attention (whole sequences) ------------------------------

@@ -1,0 +1,263 @@
+"""Mixture-of-Experts FFN (mixtral / dbrx) on one device: the router,
+sort-based capacity dispatch, the expert products over the reference's
+(E, capacity, d) buffer and a combine in the reference's order; and the
+MoE model, which is the dense backbone (``models/transformer.py``) with
+this FFN in place of the MLP.
+
+Counterpart of ``repro/models/moe.py``, local branch. The reference
+routes under ``shard_map`` with expert parallelism (an ``all_to_all``)
+and tensor parallelism (a ``psum``) when a mesh is active; one card needs
+neither, and the mesh half waits for the port's sharding rules (ROADMAP.md
+queue 1 item 9).
+
+Where the bits would part from the reference unless taken care of:
+
+* top-k: ``jax.lax.top_k`` puts the lower expert index first among equal
+  gates; ``torch.topk`` promises no order among ties, so a stable
+  descending sort is taken and its first k kept;
+* dispatch: ``argsort(stable=True)`` by expert, ``bincount``/``cumsum``
+  slot positions, tokens past an expert's capacity dropped in routing
+  order;
+* combine: the reference scatter-adds each token's contributions into a
+  zero buffer of the activation dtype in sorted order, i.e. ascending
+  expert id, one rounding per add; ``index_add_`` on the card uses
+  atomics in no fixed order, so the (T, k) block of contributions is
+  gathered in that order and added left to right;
+* the gates are cast to the activation dtype before the combine; the
+  router's logits are the model-dtype product with a float32 result (the
+  reference casts the product to float32, and inside ``jit`` XLA folds
+  that cast into the dot, so bf16 logits are never rounded to bf16),
+  softmaxed in float32 (the exact softmax: SOLE targets the attention
+  softmax).
+
+The paged serve path pins capacity to the token count (drop-free), which
+makes a row's output independent of its batch; the dense-slot path uses
+the capacity-factor formula, so tokens can drop there, as in the
+reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.state import SequenceStateSpec
+
+
+def init_moe_ffn(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
+    """The stacked expert weights, normal x 0.02 in the serving dtype:
+    router (L, d, E), gate/up (L, E, d, f), down (L, E, f, d). Each layer
+    is drawn on its own: one float32 draw of mixtral's whole gate stack
+    would take 30 GB."""
+    w, mw = T._weights(gen, cfg, device)
+    n, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def stacked(draw, shape):
+        first = draw(shape)
+        out = torch.empty((n,) + shape, dtype=first.dtype, device=device)
+        out[0] = first
+        del first
+        for i in range(1, n):
+            out[i] = draw(shape)
+        return out
+
+    return {"router": stacked(w, (d, e)), "gate": stacked(mw, (e, d, f)),
+            "up": stacked(mw, (e, d, f)), "down": stacked(mw, (e, f, d))}
+
+
+def route(x2: torch.Tensor, wr: torch.Tensor, k: int):
+    """Router over tokens x2 (T, D): ``(gates (T, E) float32, top-k gates
+    renormalised (T, k) float32, top-k expert ids (T, k))``. The logits
+    are the float32 product of the model-dtype operands (exact products,
+    float32 sums), softmaxed in float32; ties keep the lower expert id
+    first, as ``jax.lax.top_k`` does."""
+    logits = x2.float() @ wr.float()
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    gates = ex / ex.sum(-1, keepdim=True)
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_val, top_idx = vals[:, :k], idx[:, :k]
+    return gates, top_val / top_val.sum(-1, keepdim=True), top_idx
+
+
+def dispatch(x2: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tensor,
+             n_experts: int, capacity: int):
+    """Sort-based capacity dispatch (``_dispatch_local``): the (E *
+    capacity, D) expert buffer and what the combine needs, ``(order,
+    dest, keep, gate)`` per routed (token, slot) entry in sorted order.
+    Entries past their expert's capacity are dropped in routing order
+    (token order within an expert)."""
+    t, k = top_idx.shape
+    dev = x2.device
+    flat_e = top_idx.reshape(-1)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], top_val.reshape(-1)[order]
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(t * k, device=dev) - starts[se]
+    keep = pos_in_e < capacity
+    dest = torch.where(keep, se * capacity + pos_in_e, n_experts * capacity)
+    buf = torch.zeros((n_experts * capacity + 1, x2.shape[1]),
+                      dtype=x2.dtype, device=dev)
+    # dropped entries all land on the extra last row, which is cut off
+    buf[dest] = x2[st] * keep[:, None].to(x2.dtype)
+    return buf[:-1], (order, dest, keep, sg)
+
+
+def combine(ye: torch.Tensor, info, top_idx: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``_combine_local`` in the reference's order: each entry's expert
+    row times its gate (zero if dropped) in ``ye``'s dtype, then per token
+    a zero of ``dtype`` plus its k contributions in ascending expert id,
+    each add rounded to ``dtype`` (the sorted scatter-add's order)."""
+    order, dest, keep, sg = info
+    t, k = top_idx.shape
+    pad = torch.zeros((1, ye.shape[1]), dtype=ye.dtype, device=ye.device)
+    ye_pad = torch.cat([ye, pad], 0)
+    contrib = ye_pad[torch.where(keep, dest, ye.shape[0])]
+    contrib = (contrib * (sg * keep).to(ye.dtype)[:, None]).to(dtype)
+    # sorted position of each (token, slot) entry, slots by ascending id
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    slots = torch.argsort(top_idx, dim=1)
+    rows = torch.arange(t, device=top_idx.device)[:, None] * k
+    block = contrib[inv[rows + slots]]                      # (T, k, D)
+    out = torch.zeros((t, ye.shape[1]), dtype=dtype, device=ye.device)
+    for j in range(k):
+        out = out + block[:, j]
+    return out
+
+
+def expert_ffn(xe: torch.Tensor, wg, wu, wd, cfg: ArchConfig) -> torch.Tensor:
+    """(E, C, D) dispatched rows through each expert's gated FFN: SwiGLU,
+    else tanh-GELU gating, in the activation dtype -> (E, C, D)."""
+    h = torch.bmm(xe, wg)
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(h) * torch.bmm(xe, wu)
+    else:
+        h = F.gelu(h, approximate="tanh") * torch.bmm(xe, wu)
+    return torch.bmm(h, wd)
+
+
+def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
+                  capacity: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN of x (B, S, D): ``(out (B, S, D), Switch load-balance aux
+    loss)``. ``capacity`` overrides the per-expert depth
+    ``ceil(T * top_k * capacity_factor / E)``; ``capacity >= T`` is
+    drop-free (an expert sees each token at most once), so each row's
+    output is then independent of the rows beside it."""
+    if any(isinstance(p[n], dict) for n in ("gate", "up", "down")):
+        raise NotImplementedError(
+            "MoE experts with packed int8 weights: the reference has no "
+            "quantized MoE path either (repro/models/moe.py:155-156 casts "
+            "the packed leaves and fails)")
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    x2 = x.reshape(t, d)
+    gates, top_val, top_idx = route(x2, p["router"], k)
+    cap = capacity
+    if cap is None:
+        cap = max(int(math.ceil(t * k * cfg.capacity_factor / e)), 1)
+    xe, info = dispatch(x2, top_idx, top_val.to(x2.dtype), e, cap)
+    ye = expert_ffn(xe.reshape(e, cap, d), p["gate"], p["up"], p["down"],
+                    cfg)
+    out = combine(ye.reshape(e * cap, d), info, top_idx, x.dtype)
+    frac = F.one_hot(top_idx, e).float().mean((0, 1))
+    aux = e * torch.sum(frac * gates.mean(0))
+    return out.reshape(b, s, d), aux
+
+
+# -- full model (the dense backbone with the MoE FFN) --------------------------
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
+    return T.init(gen, cfg, device, ffn_init=init_moe_ffn)
+
+
+def _serve_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
+    """The dense-slot serve FFN: the capacity-factor formula (tokens can
+    drop, as in the reference)."""
+    return apply_moe_ffn(p, x, cfg, phase)[0]
+
+
+def _paged_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
+    """The paged serve FFN: capacity pinned to the token count, so no
+    token drops and a lane's rows never depend on what else rides in the
+    batch (padded chunks, null lanes); the paged engine then gives its
+    dense oracle's tokens."""
+    return apply_moe_ffn(p, x, cfg, phase,
+                         capacity=x.shape[0] * x.shape[1])[0]
+
+
+def forward(params, tokens, cfg: ArchConfig, phase: str):
+    """Returns (logits (B, S, V) float32, aux loss): the mean over layers
+    of the Switch load-balance loss, summed layer by layer in float32."""
+    aux = [torch.zeros((), dtype=torch.float32, device=tokens.device)]
+
+    def ffn(p, h, c, ph):
+        out, a = apply_moe_ffn(p, h, c, ph)
+        aux[0] = aux[0] + a
+        return out
+
+    logits = T.forward(params, tokens, cfg, phase, ffn_apply=ffn)
+    return logits, aux[0] / cfg.n_layers
+
+
+def init_cache(cfg: ArchConfig, batch: int, length: int, device):
+    return T.init_cache(cfg, batch, length, device)
+
+
+def sequence_state_spec(cfg: ArchConfig) -> SequenceStateSpec:
+    """MoE shares the dense backbone's state (attention KV only); the FFN
+    is stateless, and the paged path's drop-free routing keeps prefix
+    sharing and speculative verify exact."""
+    return SequenceStateSpec(family="moe", kv_layers=cfg.n_layers,
+                             supports_prefix_cache=True,
+                             supports_spec_decode=True)
+
+
+def prefill(params, tokens, cfg: ArchConfig, cache_len: int, n_pad=None):
+    return T.prefill(params, tokens, cfg, cache_len, n_pad=n_pad,
+                     ffn_apply=_serve_ffn)
+
+
+def decode_step(params, cache, token, pos, cfg: ArchConfig, write_pos=None):
+    return T.decode_step(params, cache, token, pos, cfg, write_pos=write_pos,
+                         ffn_apply=_serve_ffn)
+
+
+def prefill_paged(params, tokens, q_start, n_valid, tables, pools,
+                  cfg: ArchConfig):
+    return T.prefill_paged(params, tokens, q_start, n_valid, tables, pools,
+                           cfg, ffn_apply=_paged_ffn)
+
+
+def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig):
+    return T.decode_step_paged(params, pools, token, pos, tables, cfg,
+                               ffn_apply=_paged_ffn)
+
+
+def decode_horizon_paged(params, pools, token, pos, tables, temperature,
+                         top_k, seed, counter, eos_ids, cfg: ArchConfig, *,
+                         num_steps: int, use_top_k: bool = True,
+                         stochastic: bool = True, use_eos: bool = True):
+    return T.decode_horizon_paged(
+        params, pools, token, pos, tables, temperature, top_k, seed,
+        counter, eos_ids, cfg, num_steps=num_steps, use_top_k=use_top_k,
+        stochastic=stochastic, use_eos=use_eos, ffn_apply=_paged_ffn)
+
+
+def verify_paged(params, pools, tokens, q_start, n_valid, tables,
+                 temperature, top_k, seed, counter, eos_ids,
+                 cfg: ArchConfig, *, use_top_k: bool = True,
+                 stochastic: bool = True, use_eos: bool = True):
+    return T.verify_paged(
+        params, pools, tokens, q_start, n_valid, tables, temperature, top_k,
+        seed, counter, eos_ids, cfg, use_top_k=use_top_k,
+        stochastic=stochastic, use_eos=use_eos, ffn_apply=_paged_ffn)

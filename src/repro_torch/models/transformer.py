@@ -1,8 +1,13 @@
-"""Dense decoder-only LM (qwen2 / stablelm backbone): parameter init, the
-full-sequence forward, the dense-slot serve path (whole-prompt prefill
-into stacked dot-layout caches, one-token decode steps) and the paged
-serve path (the paged forward, chunked prefill, decode steps and fused
-decode horizons that sample on the device).
+"""Dense decoder-only LM (qwen2 / stablelm / minitron / nemotron / mixtral
+backbone): parameter init, the full-sequence forward, the dense-slot serve
+path (whole-prompt prefill into stacked dot-layout caches, one-token decode
+steps) and the paged serve path (the paged forward, chunked prefill, decode
+steps, fused decode horizons that sample on the device, speculative
+verify).
+
+MoE archs reuse this module with the FFN swapped (``models/moe.py``): every
+entry takes an ``ffn_init`` / ``ffn_apply`` hook, ``ffn_apply(p, h, cfg,
+phase)`` in place of :func:`layers.apply_mlp`, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,37 +37,54 @@ def _norm(cfg: ArchConfig, lead, device):
     return p
 
 
-def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
-    """Random weights with the reference's shapes and scales (normal x
-    0.02; the LM head x d_model^-0.5; norms ones/zeros; QKV biases zero),
-    drawn from ``gen`` and stored once in their serving dtype. Per-layer
-    leaves carry the stacked leading ``layers`` axis. Under
-    ``cfg.quant.weights`` the matmul weights stay float32 masters, as in
-    the reference, so the engine packs its int8 codes from float32."""
+def _weights(gen: torch.Generator, cfg: ArchConfig, device):
+    """(w, mw): draw a weight of a shape at a scale in the serving dtype;
+    ``mw`` a matmul weight (QUANT_WEIGHT_SPEC), kept as a float32 master
+    under ``cfg.quant.weights``."""
     dt = L.torch_dtype(cfg.dtype)
     master = torch.float32 if cfg.quant.weights else dt
-    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    n = cfg.n_layers
-    v = cfg.padded_vocab
 
     def w(shape, scale=0.02, dtype=dt):
         return _normal(gen, shape, scale, dtype, device)
 
-    def mw(shape, scale=0.02):     # a matmul weight (QUANT_WEIGHT_SPEC)
+    def mw(shape, scale=0.02):
         return w(shape, scale, master)
+    return w, mw
 
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
+    """The dense FFN's stacked weights: gate (gated kinds), up, down."""
+    _, mw = _weights(gen, cfg, device)
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind not in L.MLP_KINDS:
+        raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
+    mlp = {"up": mw((n, d, f)), "down": mw((n, f, d))}
+    if cfg.mlp_kind in L.GATED_MLP_KINDS:
+        mlp = {"gate": mw((n, d, f)), **mlp}
+    return mlp
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, device,
+         ffn_init=None) -> Dict:
+    """Random weights with the reference's shapes and scales (normal x
+    0.02; the LM head x d_model^-0.5; norms ones/zeros; QKV biases zero),
+    drawn from ``gen`` and stored once in their serving dtype. Per-layer
+    leaves carry the stacked leading ``layers`` axis; ``ffn_init(gen,
+    cfg, device)`` draws the FFN (:func:`init_mlp` by default). Under
+    ``cfg.quant.weights`` the matmul weights stay float32 masters, as in
+    the reference, so the engine packs its int8 codes from float32."""
+    dt = L.torch_dtype(cfg.dtype)
+    w, mw = _weights(gen, cfg, device)
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = cfg.n_layers
+    v = cfg.padded_vocab
     attn = {"wq": mw((n, d, h, hd)), "wk": mw((n, d, kv, hd)),
             "wv": mw((n, d, kv, hd)), "wo": mw((n, h, hd, d))}
     if cfg.qkv_bias:
         attn["bq"] = torch.zeros((n, h, hd), dtype=dt, device=device)
         attn["bk"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
         attn["bv"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
-    if cfg.mlp_kind not in L.MLP_KINDS:
-        raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
-    mlp = {"up": mw((n, d, f)), "down": mw((n, f, d))}
-    if cfg.mlp_kind in L.GATED_MLP_KINDS:
-        mlp = {"gate": mw((n, d, f)), **mlp}
+    mlp = (ffn_init or init_mlp)(gen, cfg, device)
     return {
         "embed": {"table": w((v, d)), "head": mw((d, v), d ** -0.5)},
         "layers": {
@@ -89,8 +111,14 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def forward(params, tokens, cfg: ArchConfig, phase: str) -> torch.Tensor:
+def _dense_ffn(p, h, cfg: ArchConfig, phase: str) -> torch.Tensor:
+    return L.apply_mlp(h, p, cfg)
+
+
+def forward(params, tokens, cfg: ArchConfig, phase: str,
+            ffn_apply=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32."""
+    ffn_apply = ffn_apply or _dense_ffn
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     lay = params["layers"]
@@ -99,7 +127,7 @@ def forward(params, tokens, cfg: ArchConfig, phase: str) -> torch.Tensor:
         h = L.apply_norm(x, lp["ln1"], cfg, phase)
         attn_out = L.apply_attention(lp["attn"], h, positions, cfg, phase)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, phase)
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        x = x + ffn_apply(lp["mlp"], h, cfg, phase)
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
     return L.lm_logits(params["embed"], x, cfg)
 
@@ -121,7 +149,7 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, device):
 
 
 def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
-            n_pad: Optional[torch.Tensor] = None
+            n_pad: Optional[torch.Tensor] = None, ffn_apply=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the whole prompt, returning the last position's logits
     (B, 1, padded_vocab) and the filled cache.
@@ -133,6 +161,7 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
     norm's batch-global calibration, as in the reference. ``n_pad=None``
     keeps the shared ``arange(S)`` positions.
     """
+    ffn_apply = ffn_apply or _dense_ffn
     b, s = tokens.shape
     dev = tokens.device
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -159,7 +188,7 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
         ctx = attend(q, k, v, q_pos, k_pos, cfg, "serve", causal=cfg.causal)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        x = x + ffn_apply(lp["mlp"], h, cfg, "serve")
         kq, vq, pp = L.pack_prefill_cache(k, v, k_pos, t, cfg)
         ks.append(kq)
         vs.append(vq)
@@ -169,7 +198,7 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
 
 
 def decode_step(params, cache, token, pos, cfg: ArchConfig,
-                write_pos: Optional[int] = None
+                write_pos: Optional[int] = None, ffn_apply=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: token (B,) at ``pos``, a scalar or (B,) per-lane
     logical positions (left-padded batches), with ``write_pos`` the shared
@@ -181,6 +210,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
     column is written at one slot, as the reference does after its layer
     scan.
     """
+    ffn_apply = ffn_apply or _dense_ffn
     x = L.embed_tokens(params["embed"], token[:, None], cfg)
     t = cache["k"].shape[-1]
     wp = int(pos if write_pos is None else write_pos)
@@ -200,7 +230,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
         attn_out, k_col, v_row = L.decode_attend_stacked(
             lp["attn"], h, ck, cv, cpos, i, pos, cfg, slot)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        x = x + ffn_apply(lp["mlp"], h, cfg, "serve")
         k_cols.append(k_col)
         v_rows.append(v_row)
     L.write_kv_columns(ck, cv, torch.stack(k_cols), torch.stack(v_rows), slot)
@@ -213,7 +243,8 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
 
 
 def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
-                   pools, cfg: ArchConfig, *, causal: bool):
+                   pools, cfg: ArchConfig, *, causal: bool, ffn_apply=None,
+                   rows_as_decode: bool = False):
     """Run C tokens per sequence against the paged pools.
 
     tokens/positions: (B, C) absolute positions; n_valid: (B,) real
@@ -232,11 +263,17 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     At w8a8 the residual norms whose consumer is an int8 matmul emit
     ``(int8 codes, per-row scale)`` pairs (ln1 for QKV, ln2 for the MLP,
     the final norm for the head); layer 0's plain norm output is
-    quantized on the fly inside the QKV projections.
+    quantized on the fly inside the QKV projections. A custom
+    ``ffn_apply`` (MoE routing) takes float activations, so then the FFN
+    input is not quantized, as in the reference. ``rows_as_decode``
+    (verify) attends each query row through the decode route
+    (:func:`layers.paged_attend`).
     """
     lay = params["layers"]
     qact = cfg.quant.acts and is_qtensor(lay["attn"]["wq"])
-    quant_ffn = qact and is_qtensor(lay["mlp"]["up"])
+    quant_ffn = (qact and ffn_apply is None
+                 and is_qtensor(lay["mlp"].get("up")))
+    ffn_apply = ffn_apply or _dense_ffn
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_start = positions[:, 0]
     pk, pv = pools["k"], pools["v"]
@@ -258,42 +295,47 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         write_tokens(pk[i], L.kv_quant(k, cfg), block_ids, offsets)
         write_tokens(pv[i], L.kv_quant(v, cfg), block_ids, offsets)
         ctx = L.paged_attend(q, pk[i], pv[i], tables, q_start, kv_len, cfg,
-                             causal=causal)
+                             causal=causal, rows_as_decode=rows_as_decode)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve",
                                      quant_out=quant_ffn)
-        pending = L.apply_mlp(h, lp["mlp"], cfg)
+        pending = ffn_apply(lp["mlp"], h, cfg, "serve")
     _, x = L.apply_residual_norm(x, pending, params["final_norm"], cfg,
                                  "serve", quant_out=qact)
     return L.lm_logits(params["embed"], x, cfg), pools
 
 
 def prefill_paged(params, tokens, q_start, n_valid, tables, pools,
-                  cfg: ArchConfig):
+                  cfg: ArchConfig, *, ffn_apply=None,
+                  rows_as_decode: bool = False):
     """One chunked-prefill step: tokens (B, C) at absolute positions
     q_start..q_start+C-1, of which the first n_valid (B,) are real.
-    Returns (logits (B, C, V), pools)."""
+    Returns (logits (B, C, V), pools). ``rows_as_decode``: attend the rows
+    as decode steps (speculative verify)."""
     c = tokens.shape[1]
     positions = q_start[:, None] + torch.arange(c, device=tokens.device)
     kv_len = q_start + n_valid
     return _paged_forward(params, tokens, positions, n_valid, kv_len,
-                          tables, pools, cfg, causal=True)
+                          tables, pools, cfg, causal=True,
+                          ffn_apply=ffn_apply, rows_as_decode=rows_as_decode)
 
 
-def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig):
+def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig, *,
+                      ffn_apply=None):
     """One continuous-batching decode step: token (B,) at positions (B,),
     attended with kv_len = pos + 1 and no causal mask. Returns
     (logits (B, V), pools)."""
     logits, pools = _paged_forward(
         params, token[:, None], pos[:, None], torch.ones_like(pos), pos + 1,
-        tables, pools, cfg, causal=False)
+        tables, pools, cfg, causal=False, ffn_apply=ffn_apply)
     return logits[:, 0], pools
 
 
 def decode_horizon_paged(params, pools, token, pos, tables, temperature,
                          top_k, seed, counter, eos_ids, cfg: ArchConfig, *,
                          num_steps: int, use_top_k: bool = True,
-                         stochastic: bool = True, use_eos: bool = True):
+                         stochastic: bool = True, use_eos: bool = True,
+                         ffn_apply=None):
     """``num_steps`` decode steps, each sampling its token on the device
     and feeding it to the next, with no host round trip in between. The
     page tables must already cover positions ``pos .. pos + num_steps -
@@ -314,7 +356,7 @@ def decode_horizon_paged(params, pools, token, pos, tables, temperature,
     toks, done = [], []
     for i in range(num_steps):
         logits, pools = decode_step_paged(params, pools, token, pos, tables,
-                                          cfg)
+                                          cfg, ffn_apply=ffn_apply)
         token = sample_tokens(logits, temperature, top_k, seed,
                               counter + i if stochastic else counter,
                               cfg.vocab_size, use_top_k=use_top_k,
@@ -329,7 +371,8 @@ def decode_horizon_paged(params, pools, token, pos, tables, temperature,
 def verify_paged(params, pools, tokens, q_start, n_valid, tables,
                  temperature, top_k, seed, counter, eos_ids,
                  cfg: ArchConfig, *, use_top_k: bool = True,
-                 stochastic: bool = True, use_eos: bool = True):
+                 stochastic: bool = True, use_eos: bool = True,
+                 ffn_apply=None):
     """Speculative verify: score C = K + 1 positions per lane in one
     forward and draw the pinned counter-keyed sample at every position.
 
@@ -337,9 +380,11 @@ def verify_paged(params, pools, tokens, q_start, n_valid, tables,
     (zeros past ``n_valid``), fed at positions ``q_start .. q_start + C -
     1`` through the chunked-prefill forward: causal, the draft's K/V
     written to the lane's pre-extended pages, the padded tail routed to
-    the null page. Slot ``i`` draws with counter ``counter + i``, so it is
-    the token plain decode would emit there given the same prefix (the
-    acceptance rule in serve/spec.py). The sampling tensors follow
+    the null page. Its attention runs the B * C rows as decode rows
+    (``rows_as_decode``), so on the card each row has the decode step's
+    bits at its position, whatever C. Slot ``i`` draws with counter
+    ``counter + i``, so it is the token plain decode would emit there
+    given the same prefix (the acceptance rule in serve/spec.py). The sampling tensors follow
     :func:`decode_horizon_paged` (None for an all-greedy batch).
 
     Returns (pinned (B, C) int32, done (B, C) bool: each draw's
@@ -347,7 +392,8 @@ def verify_paged(params, pools, tokens, q_start, n_valid, tables,
     the device; the caller truncates the rejected tails' pages.
     """
     logits, pools = prefill_paged(params, tokens, q_start, n_valid, tables,
-                                  pools, cfg)
+                                  pools, cfg, ffn_apply=ffn_apply,
+                                  rows_as_decode=True)
     b, c = tokens.shape
     flat = logits.reshape(b * c, logits.shape[-1])
 

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sole.quant import PTFQuantParams, true_div
+from repro_torch.core.sole.quant import PTFQuantParams, quantize_act, true_div
 from repro_torch.kernels import ailayernorm as K_norm
 from repro_torch.kernels.e2softmax import e2softmax
 from repro_torch.kernels.flash_e2softmax import (flash_e2softmax,
@@ -105,6 +105,44 @@ registry.register("residual_layernorm_q", "sole", "cuda")(
     _residual_norm_q(rms=False))
 registry.register("residual_rmsnorm_q", "sole", "cuda")(
     _residual_norm_q(rms=True))
+
+
+# The exact mode's float norms: the row-stable exact-norm kernel (one
+# reduction order per row whatever the row count), with the reference
+# backend's defaults for eps; the residual add and ``quantize_act`` stay
+# elementwise / per-row torch ops, which are row-stable already.
+
+@registry.register("layernorm", "exact", "cuda")
+def exact_layernorm_cuda(x, gamma, beta, *, eps=1e-5, out_dtype=None, **kw):
+    return K_norm.exact_norm(x, gamma, beta, rms=False, eps=eps,
+                             out_dtype=out_dtype)
+
+
+@registry.register("rmsnorm", "exact", "cuda")
+def exact_rmsnorm_cuda(x, gamma, *, eps=1e-6, out_dtype=None, **kw):
+    return K_norm.exact_norm(x, gamma, rms=True, eps=eps, out_dtype=out_dtype)
+
+
+def _exact_residual_norm(rms: bool, quant_out: bool):
+    eps_default = 1e-6 if rms else 1e-5
+
+    def fn(x, r, gamma, beta=None, *, eps=eps_default, out_dtype=None, **kw):
+        """``(x + r, norm(x + r))`` (``quant_out``: the norm as ``(int8
+        codes, per-row scale)``), the sum in the inputs' dtype as in the
+        reference backend."""
+        s = x + r
+        out = K_norm.exact_norm(s, gamma, None if rms else beta, rms=rms,
+                                eps=eps,
+                                out_dtype=None if quant_out else out_dtype)
+        return s, (quantize_act(out) if quant_out else out)
+    return fn
+
+
+for _kind, _rms in (("layernorm", False), ("rmsnorm", True)):
+    registry.register(f"residual_{_kind}", "exact", "cuda")(
+        _exact_residual_norm(_rms, quant_out=False))
+    registry.register(f"residual_{_kind}_q", "exact", "cuda")(
+        _exact_residual_norm(_rms, quant_out=True))
 
 
 @registry.register("matmul", "w8a8", "cuda")

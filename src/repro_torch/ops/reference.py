@@ -31,6 +31,7 @@ from repro_torch.core.baselines.softermax import softermax
 from repro_torch.core.sole.ailayernorm import ailayernorm, airmsnorm
 from repro_torch.core.sole.e2softmax import e2softmax, snap_input
 from repro_torch.core.sole.quant import quantize_act
+from repro_torch.kernels.ailayernorm import exact_norm_plain
 from repro_torch.kernels.flash_e2softmax import (default_kv_head_map,
                                                  flash_e2softmax_paged_plain,
                                                  snap_reciprocal)
@@ -94,17 +95,12 @@ def snap_logits(d: torch.Tensor, int8_scale: Optional[float]) -> torch.Tensor:
 
 @registry.register("layernorm", "exact", "reference")
 def exact_layernorm(x, gamma, beta, *, eps=1e-5, **kw):
-    x = x.float()
-    mu = x.mean(-1, keepdim=True)
-    var = torch.square(x - mu).mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
+    return exact_norm_plain(x, gamma, beta, rms=False, eps=eps)
 
 
 @registry.register("rmsnorm", "exact", "reference")
 def exact_rmsnorm(x, gamma, *, eps=1e-6, **kw):
-    x = x.float()
-    ms = torch.square(x).mean(-1, keepdim=True)
-    return x * torch.rsqrt(ms + eps) * gamma
+    return exact_norm_plain(x, gamma, rms=True, eps=eps)
 
 
 @registry.register("layernorm", "sole", "reference")

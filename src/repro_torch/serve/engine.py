@@ -99,6 +99,22 @@ def _to_host(toks: torch.Tensor, done: torch.Tensor):
     return host[:, :w], host[:, w:].astype(bool)
 
 
+def _check_family(cfg: ArchConfig, engine: str) -> None:
+    """The families the port serves: dense and MoE. MoE under int8
+    weights has no reference to hold it to (the JAX package's MoE FFN
+    casts the packed expert leaves and fails), so it raises."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{engine}: family {cfg.family!r} is not ported yet (ROADMAP.md "
+            "queue 1 item 7)")
+    if cfg.family == "moe" and cfg.quant.weights:
+        raise NotImplementedError(
+            f"{engine}: MoE with quant mode {cfg.quant.mode!r}: the "
+            "reference has no quantized MoE path (repro/models/moe.py:155-156 "
+            "casts the packed expert weights and fails), so the port has "
+            "none")
+
+
 def _serving_params(cfg: ArchConfig, params, device):
     """The engine's parameter tree on ``device``: under ``cfg.quant.weights``
     every matmul weight packed to int8 + per-channel scales, as the
@@ -111,7 +127,9 @@ def _serving_params(cfg: ArchConfig, params, device):
 
 
 class PagedEngine:
-    """Continuous-batching engine over paged KV for the dense family.
+    """Continuous-batching engine over paged KV for the dense and MoE
+    families (MoE routing drop-free, so each lane's tokens are its dense
+    oracle's).
 
     Each step admits waiting requests, runs one prefill chunk of one
     sequence (B=1, C=``prefill_chunk``; the final chunk padded with
@@ -132,7 +150,8 @@ class PagedEngine:
     the step takes the decode horizon.
 
     Features the port does not have yet raise here rather than being
-    silently downgraded: other families and mesh rules.
+    silently downgraded: the other families, MoE under int8 weights and
+    mesh rules.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -146,10 +165,7 @@ class PagedEngine:
             raise ValueError(
                 f"family {cfg.family!r} has no quantized serving path "
                 "(quant.weights is dense/moe-only)")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 7)")
+        _check_family(cfg, "PagedEngine")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
@@ -553,8 +569,10 @@ class Engine:
     reference's host ``Sampler`` makes); only the (B,) ids come to the
     host.
 
-    Dense family only; moe, ssm and hybrid raise (ROADMAP.md queue 1
-    item 7), as do mesh rules (item 9).
+    The dense and MoE families (MoE with the capacity-factor formula,
+    so tokens can drop, as in the reference); ssm and hybrid raise
+    (ROADMAP.md queue 1 item 7), as do MoE under int8 weights and mesh
+    rules (item 9).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
@@ -562,10 +580,7 @@ class Engine:
         device = _resolve_device(device, "Engine")
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"Engine serves LM families, got {cfg.family}")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 7)")
+        _check_family(cfg, "Engine")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "

@@ -60,6 +60,13 @@ Tolerances, and why:
   apart) exact mode to 1e-4 of the output scale, SOLE at most 1% of rows
   off by more than 1e-3. The C > 1 route against the C = 1 route on the
   same rows: the same codes, other sum orders: 1e-5.
+* verify rows as the model attends them (``rows_as_decode``: the decode
+  kernel, one single-row query per row) against the decode step at each
+  row's position: bitwise, at head dim 64 and 128, bf16 and int8 pages,
+  SOLE and exact.
+* exact-mode norms: the kernel's rows bitwise equal whatever the row
+  count; against the plain torch ops (another reduction order, torch's
+  approximate rsqrt on the card) 1e-5 of the output scale.
 """
 import dataclasses
 
@@ -1467,3 +1474,116 @@ def test_spec_engine_on_card(cuda_device, mode):
     assert all(len(o) == 8 for o in outs["cuda"])
     if mode != "sole":
         assert outs["cuda"] == plain == outs["cpu"]
+
+
+# -- row stability: verify rows against decode rows, the exact norms -----------
+
+
+def _row_cfg(d, pool, mode):
+    """qwen2 (head dim 64, the tensor cores) or minitron (128, the CUDA
+    cores) in bf16, with bf16 pages, int8 pages, or int8 pages at w8a8
+    (``quant_pv``: V's raw codes through P.V)."""
+    cfg = get_config("qwen2_0_5b" if d == 64 else "minitron_8b")
+    kw = dict(kv_cache_dtype="auto" if pool == "bf16" else "int8")
+    if pool == "int8-qpv":
+        kw["quant"] = QuantConfig("w8a8")
+    if mode == "exact":
+        kw.update(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    return dataclasses.replace(cfg, **kw)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int8-qpv"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_verify_rows_bitwise_equal_decode_rows(cuda_device, d, pool, mode):
+    """``paged_attend`` as ``verify_paged`` calls it (8 lanes x C = 5
+    causal rows, ragged n_valid, null lanes, random bf16 q) against the
+    decode step at each valid row's position (kv_len = position + 1):
+    the verify rows run through the decode kernel as single-row queries,
+    so every valid row is bitwise equal to its decode row."""
+    from repro_torch.models import layers as L
+    cfg = _row_cfg(d, pool, mode)
+    b, c, h, kvh = 8, 5, cfg.n_heads, cfg.n_kv_heads
+    q_start, kv_len = _verify_lanes(b, c, seed=d + len(pool))
+    rng = np.random.default_rng(d)
+    _, k, v, tables, _ = _paged_inputs(
+        rng, b=b, c=c, h=h, kvh=kvh, d=d, bs=16, nb=20, q_start=q_start,
+        kv_len=kv_len)
+    q = torch.from_numpy(rng.standard_normal((b, c, h, d))).to(
+        cuda_device, torch.bfloat16)
+    if pool == "bf16":
+        kt, vt = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in (k, v))
+    else:
+        v = rng.integers(-127, 128, v.shape)
+        kt, vt = (torch.from_numpy(np.clip(a, -127, 127)).to(
+            cuda_device, torch.int8) for a in (k, v))
+    tables = torch.from_numpy(tables).to(cuda_device)
+    qs = torch.tensor(q_start, dtype=torch.int32, device=cuda_device)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    before = KA.flash_e2softmax_paged.launches
+    wide = L.paged_attend(q, kt, vt, tables, qs, kl, cfg, causal=True,
+                          rows_as_decode=True)
+    assert KA.flash_e2softmax_paged.launches == before + 1
+    n = 0
+    for i in range(b):
+        for j in range(kv_len[i] - q_start[i]):
+            pos = torch.tensor([q_start[i] + j], dtype=torch.int32,
+                               device=cuda_device)
+            row = L.paged_attend(q[i:i + 1, j:j + 1].contiguous(), kt, vt,
+                                 tables[i:i + 1], pos, pos + 1, cfg,
+                                 causal=False)
+            assert torch.equal(wide[i, j], row[0, 0]), (i, j)
+            n += 1
+    torch.cuda.synchronize()
+    assert n >= b and torch.isfinite(wide).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,rms", [(896, True), (4096, True), (4096, False),
+                                   (6144, False)])
+def test_exact_norm_rows_are_stable(cuda_device, c, rms, dtype):
+    """The exact-mode norm kernel gives each row the same bits at 1, 8,
+    40, 128 and 2,400 rows and alone; against the plain torch ops (another
+    reduction order, torch's approximate rsqrt) to 1e-5 of the scale."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c + rms)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((2400, c), generator=gen, device=cuda_device) * 3
+         + torch.randn((2400, 1), generator=gen, device=cuda_device)).to(dt)
+    g = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    bt = None if rms else torch.randn((c,), generator=gen,
+                                      device=cuda_device)
+    eps = 1e-6 if rms else 1e-5
+    before = KN.exact_norm.launches
+    full = KN.exact_norm(x, g, bt, rms=rms, eps=eps)
+    assert KN.exact_norm.launches == before + 1
+    for rows in (1, 8, 40, 128):
+        assert torch.equal(KN.exact_norm(x[:rows], g, bt, rms=rms, eps=eps),
+                           full[:rows])
+    for i in (0, 7, 39, 1234, 2399):
+        assert torch.equal(KN.exact_norm(x[i:i + 1], g, bt, rms=rms,
+                                         eps=eps)[0], full[i])
+    half = KN.exact_norm(x, g, bt, rms=rms, eps=eps, out_dtype=torch.bfloat16)
+    assert torch.equal(half, full.to(torch.bfloat16))
+    ref = KN.exact_norm_plain(x, g, bt, rms=rms, eps=eps)
+    torch.cuda.synchronize()
+    assert (full - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_exact_residual_norms_q_row_stable(cuda_device, kind):
+    """The exact residual norm with int8 out (w8a8's ``residual_*_q``) at 40
+    rows (a verify dispatch) and 8 (a decode step): the first 8 rows'
+    sums, codes and scales are bitwise equal; one kernel per call."""
+    fn = ops.resolve(f"residual_{kind}_q", "exact", "cuda")
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, r = (torch.randn((40, 896), generator=gen, device=cuda_device).to(
+        torch.bfloat16) for _ in range(2))
+    g = torch.ones(896, device=cuda_device)
+    bt = torch.zeros(896, device=cuda_device)
+    before = KN.exact_norm.launches
+    s40, (q40, sc40) = fn(x, r, g, bt)
+    s8, (q8, sc8) = fn(x[:8], r[:8], g, bt)
+    assert KN.exact_norm.launches == before + 2
+    assert torch.equal(s40[:8], s8)
+    assert torch.equal(q40[:8], q8) and torch.equal(sc40[:8], sc8)

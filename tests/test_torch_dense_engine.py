@@ -257,7 +257,8 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(family="moe"), NotImplementedError, "queue 1 item 7"),
+    (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
+     "no quantized MoE path"),
     (dict(family="ssm"), NotImplementedError, "queue 1 item 7"),
     (dict(family="hybrid"), NotImplementedError, "queue 1 item 7"),
     (dict(family="encdec"), ValueError, "LM families")])

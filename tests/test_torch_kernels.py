@@ -207,8 +207,13 @@ def test_backend_follows_device():
     assert tops.backend_for("paged_attention", "sole", "cpu") == "reference"
     assert tops.backend_for("paged_attention", "sole", "cuda") == "cuda"
     assert tops.backend_for("rmsnorm", "sole", "cuda") == "cuda"
+    # the exact norms run the row-stable exact-norm kernel on the card
+    # (torch's reductions there split rows by the batch's row count)
+    for op in ("rmsnorm", "layernorm", "residual_rmsnorm",
+               "residual_layernorm_q"):
+        assert tops.backend_for(op, "exact", "cuda") == "cuda"
+        assert tops.backend_for(op, "exact", "cpu") == "reference"
     # no kernel in the reference either: plain torch on the card
-    assert tops.backend_for("rmsnorm", "exact", "cuda") == "reference"
     assert tops.backend_for("softmax", "ibert", "cuda") == "reference"
     for mode in ("exact", "sole"):
         assert tops.backend_for("flash_attention", mode, "cpu") == "reference"

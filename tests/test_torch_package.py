@@ -179,9 +179,9 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(family="moe"), NotImplementedError, "ROADMAP"),
+    (dict(family="ssm"), NotImplementedError, "ROADMAP"),
     (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
-     "ROADMAP"),
+     "no quantized MoE path"),
     (dict(family="ssm", quant=QuantConfig("w8a8")), ValueError,
      "no quantized serving path"),
     (dict(family="hybrid", quant=QuantConfig("w8a16")), ValueError,
@@ -221,11 +221,11 @@ def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
         fn(x, x, torch.ones(8), torch.zeros(8), params=object())
 
 
-@pytest.mark.parametrize("kw", [dict(cfg=dict(family="moe")),
+@pytest.mark.parametrize("kw", [dict(cfg=dict(family="ssm")),
                                 dict(rules=object())])
 def test_engine_raises_for_unported_features(kw):
-    """Another family and mesh rules are not ported: they raise, naming
-    the roadmap item (speculative decoding is ported:
+    """A family not ported yet (ssm; dense and MoE are) and mesh rules
+    raise, naming the roadmap item (speculative decoding is ported:
     ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
     kw = dict(kw)

@@ -114,18 +114,19 @@ def _record_calls(monkeypatch):
 
     orig_prefill, orig_decode = T.prefill_paged, T.decode_step_paged
 
-    def prefill(params, tokens, q_start, n_valid, tables, pools, cfg):
+    def prefill(params, tokens, q_start, n_valid, tables, pools, cfg, **kw):
         before = snap(pools)
         logits, pools = orig_prefill(params, tokens, q_start, n_valid,
-                                     tables, pools, cfg)
+                                     tables, pools, cfg, **kw)
         calls.append(("prefill", (tokens.numpy(), q_start.numpy(),
                                   n_valid.numpy(), tables.numpy()), before,
                       logits.numpy()))
         return logits, pools
 
-    def decode(params, pools, token, pos, tables, cfg):
+    def decode(params, pools, token, pos, tables, cfg, **kw):
         before = snap(pools)
-        logits, pools = orig_decode(params, pools, token, pos, tables, cfg)
+        logits, pools = orig_decode(params, pools, token, pos, tables, cfg,
+                                    **kw)
         calls.append(("decode", (token.numpy(), pos.numpy(),
                                  tables.numpy()), before, logits.numpy()))
         return logits, pools
