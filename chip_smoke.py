@@ -127,15 +127,32 @@ LayerNorm). The exact-mode spec traces then assert plain decode's tokens,
 and every verify slot's ops equal the decode step's bit for bit (qwen2,
 bf16 and w8a8).
 
-The MoE family (phase 4): mixtral_8x7b at full width, 16 of its 32
+The MoE family (phase 4): mixtral_8x7b at full width, 8 of its 32
 layers (bf16, SOLE; the launch checks of every paged trace), through
 ``PagedEngine``, the dense-slot ``Engine``, exact-mode oracle and n-gram
 spec traces beside plain (held to the margin rule: cuBLAS picks the
 projections' and experts' GEMMs by M), the first op where a verify slot
 and a decode step part, an open-loop ``AsyncEngine`` trace with cancellations and a
-profiled paged wave with the expert FFN's share; dbrx_132b, 8 of 40
+profiled paged wave with the expert FFN's share; dbrx_132b, 4 of 40
 layers, through ``PagedEngine``; the smoke MoE engines (paged and dense,
 exact and SOLE) on the card against the CPU.
+
+The recurrent families (phases 3-5): the calibrating and the exact norm
+with rwkv6's (64, 64) per-head GroupNorm affine at 512, 8,192 and
+153,600 rows of 64 (bitwise against the plain version; each head's exact
+rows bitwise alone), the paged kernel at recurrentgemma_9b's attention
+(16 query heads on one KV head, d 256: the CUDA cores) over bf16 and
+float32 pools, the hybrid dense path's ``_sole_probs`` and ``layers.fma``
+against ``fma32``; then rwkv6_7b (32 layers) and recurrentgemma_9b (38
+layers) at full width through ``PagedEngine`` (SOLE, the two-wave trace),
+``PagedEngine`` in exact mode cold and then warm with a checkpoint at
+every block (warm tokens equal cold; checkpoint, and for the hybrid page,
+hits), the dense-slot ``Engine`` and a profiled wave (the norms' and the
+recurrence's device share, the host time in the recurrence), with the
+launches per forward checked (rwkv6: 3L + 1 norms; the hybrid: 2L + 1
+norms and one attention launch per attention block), slot and checkpoint
+bytes; the smoke engines on the card against the CPU; the new shapes
+timed beside their plain versions, SDPA and ``F.group_norm``.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -292,10 +309,12 @@ def time_ms(torch, fn, flush, reps=30):
 
 
 def profiled_kernel_ms(torch, fn, flush, kernel, reps=20):
-    """Mean device time of the kernels whose name holds ``kernel`` per
-    call of ``fn`` (L2 flushed before each), from ``torch.profiler``'s
-    CUDA activity: the kernel alone, without launch or event overhead.
-    None when the profiler records no device time for it."""
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel`` (``fn`` launches it once a call, L2 flushed before each),
+    from ``torch.profiler``'s CUDA activity: the kernel alone, without
+    launch or event overhead. The mean is over the launches the profiler
+    recorded, which in a short window can be fewer than ``reps`` (it kept
+    1 of 20 once). None when it records no device time for it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -304,8 +323,9 @@ def profiled_kernel_ms(torch, fn, flush, kernel, reps=20):
             flush()
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(_device_us(e) for e in rows)
+    return us / sum(e.count for e in rows) / 1e3 if us > 0 else None
 
 
 def wall_ms(torch, fn, reps=100):
@@ -802,8 +822,14 @@ def check_sole_probs(torch, cfg, stage):
                            KE.e2softmax_plain(logits, **kw)):
             raise AssertionError(f"e2softmax {name}: the strided mask and "
                                  "bf16 out differ from the plain version")
-        n, others, seen = device_kernels(
-            torch, lambda: L._sole_probs(logits, mask, cfg, torch.bfloat16))
+        # the profiler can drop every record of a kernel launched through
+        # ctypes in a window (it kept 0 of 5 once): up to three windows
+        for _ in range(3):
+            n, others, seen = device_kernels(
+                torch, lambda: L._sole_probs(logits, mask, cfg,
+                                             torch.bfloat16))
+            if seen:
+                break
         if n != 1 or others or not seen:
             raise AssertionError(f"_sole_probs {name}: {n} device kernels "
                                  f"per call, others {others}, {seen} "
@@ -1191,7 +1217,7 @@ def paged_exact_vs_sdpa(torch, case, kvmap, flush, causal=False):
     t = max(kv_lens)
     pages = tables[:, :-(-t // BLOCK_SIZE)].long()
     rows = kvmap.long()
-    dt = torch.bfloat16
+    dt = q.dtype
 
     def gather(pool):                       # (B, H, T, d) per query head
         g = pool[pages].flatten(1, 2)[:, :t]            # (B, T, KV, d)
@@ -3587,8 +3613,10 @@ def time_exact_norm(torch, norms, launches):
 
 # -- the MoE family (mixtral_8x7b, dbrx_132b) -----------------------------------
 
-MIXTRAL_LAYERS = 16                # of 32: 47 GB of bf16 weights fit in 80
-DBRX_LAYERS = 8                    # of 40: 52 GB
+# depth cut by the run's time limit (16 and 8 layers, 47 and 52 GB of bf16
+# weights, fit in 80 GB and ran until the recurrent families joined)
+MIXTRAL_LAYERS = 8                 # of 32
+DBRX_LAYERS = 4                    # of 40
 
 
 def profile_moe(torch, cfg, params, label):
@@ -3701,6 +3729,699 @@ def small_moe_parity(torch):
             check_agreement(douts, f"{arch} dense {mode}", bar)
 
 
+# -- the recurrent families (rwkv6_7b, recurrentgemma_9b) -----------------------
+
+# rwkv6's per-head GroupNorm rows (64 heads of 64 channels, an (H, hd)
+# affine) at a decode step, a paged prefill chunk and the dense prefill
+GROUPNORM_CASES = {"decode": DECODE_BATCH * 64,
+                   "prefill": PREFILL_CHUNK * 64,
+                   "dense_prefill": DECODE_BATCH * PREFILL_ROWS * 64}
+
+
+def _groupnorm_rows(torch, gen, rows):
+    x = torch.randn((rows, 64), generator=gen, device="cuda") * 3
+    x[:, ::7] *= 8                             # outlier channels, alpha > 0
+    g = 1 + 0.1 * torch.randn((64, 64), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((64, 64), generator=gen, device="cuda")
+    return x, g, b
+
+
+def _mqa_case(torch, gen, name, dtype, grid):
+    """A paged case at recurrentgemma_9b's attention (16 query heads on
+    one KV head of dimension 256), in ``dtype`` (bf16 or float32 q and
+    pools)."""
+    sh = (dict(b=1, c=PREFILL_CHUNK, q_start=[PREFILL_CHUNK],
+               kv_lens=[2 * PREFILL_CHUNK]) if name == "prefill" else
+          dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+               kv_lens=[49, 300, 117, 1, 256, 83, 160, 1]))
+    case = paged_case(torch, gen, h=16, kvh=1, d=256, grid=grid, **sh)
+    return tuple(t.to(dtype) if t.is_floating_point() else t for t in case)
+
+
+def hybrid_stage_inputs(torch, gen):
+    """The hybrid dense path's ``_sole_probs`` inputs: ``decode_attend``'s
+    (8, 16, 1, 384) logits over the rolling window cache, the valid
+    columns broadcast over lanes and heads (stride 0); the prefill's
+    (8, 16, 300, 300) logits under the causal mask broadcast over lanes
+    and heads (shared positions: no padding mask)."""
+    dev = "cuda"
+    cols = torch.arange(DENSE_MAX_LEN, device=dev)
+    valid = cols <= PREFILL_ROWS + 4
+    dmask = torch.broadcast_to(valid[None, None, None],
+                               (DECODE_BATCH, 16, 1, DENSE_MAX_LEN))
+    pos = torch.arange(PREFILL_ROWS, device=dev)
+    pmask = torch.broadcast_to((pos[:, None] >= pos[None])[None, None],
+                               (DECODE_BATCH, 16, PREFILL_ROWS, PREFILL_ROWS))
+    return {name: dict(logits=torch.randn(mask.shape, generator=gen,
+                                          device=dev) * 4, mask=mask)
+            for name, mask in (("hybrid_decode", dmask),
+                               ("hybrid_prefill", pmask))}
+
+
+def check_recurrent_kernels(torch):
+    """Phase 3 at the recurrent families' new shapes: the calibrating norm
+    with rwkv6's (64, 64) GroupNorm affine (``alpha``, ``scale`` and the
+    output bitwise equal to its plain version on two calls; a (64, 64)
+    affine of one repeated row gives the (64,) call's bits), the exact norm
+    with it (each head's rows bitwise equal to a (64,) call on them alone;
+    1e-5 of the scale from the plain ops), the paged kernel at the hybrid's
+    attention (16 on 1 KV head, d 256: the CUDA-core route) over bf16 and
+    float32 pools at decode and a 128-row chunk (exact-logit inputs 1e-5 of
+    the scale; random: SOLE at most 1% of rows off by more than 1e-3, exact
+    1e-4 of the scale), the hybrid dense path's ``_sole_probs`` (bitwise
+    equal to the chain, one launch, one device kernel a call) and
+    ``layers.fma`` (``addcmul``) bitwise equal to ``fma32``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    res = {"gn_calib": {}, "gn_exact": {}, "mqa": {}}
+    for name, rows in GROUPNORM_CASES.items():
+        x, g, b = _groupnorm_rows(torch, gen, rows)
+        want = KN.calibrated_norm_plain(x, None, g, b, rms=False)
+        for _ in range(2):
+            got = KN.calibrated_norm(x, None, g, b, rms=False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, w) for a, w in zip(got[1:], want[1:])):
+                raise AssertionError(f"calib groupnorm {name}: not bitwise")
+        one = KN.calibrated_norm(x, None, g[9], b[9], rms=False)[1]
+        rep = KN.calibrated_norm(x, None, g[9].expand(64, 64).contiguous(),
+                                 b[9].expand(64, 64).contiguous(),
+                                 rms=False)[1]
+        if not torch.equal(one, rep):
+            raise AssertionError(f"calib groupnorm {name}: the (G, C) path "
+                                 "parts from the (C,) one")
+        full = KN.exact_norm(x, g, b, rms=False, eps=1e-5)
+        for hh in (0, 9, 63):
+            if not torch.equal(full[hh::64], KN.exact_norm(
+                    x[hh::64].contiguous(), g[hh], b[hh], rms=False,
+                    eps=1e-5)):
+                raise AssertionError(f"exact groupnorm {name}: head {hh}")
+        ref = KN.exact_norm_plain(x, g, b, rms=False, eps=1e-5)
+        torch.cuda.synchronize()
+        err = (full - ref).abs().max().item()
+        if err > 1e-5 * ref.abs().max().item():
+            raise AssertionError(f"exact groupnorm {name}: {err}")
+        res["gn_calib"][name] = dict(x=x, g=g, b=b, max_abs_err=0.0)
+        res["gn_exact"][name] = dict(x=x, g=g, b=b, max_abs_err=err)
+        log(f"groupnorm rows={rows} C=64 (64, 64) affine: calibrating norm "
+            f"bitwise (alpha histogram "
+            f"{torch.bincount(want[2], minlength=4).tolist()}), (G, C) of "
+            f"one row = (C,); exact norm heads bitwise alone, {err:.3e} "
+            "from the plain ops")
+    kvmap = KA.default_kv_head_map(16, 1, "cuda")
+    for name in ("decode", "prefill"):
+        causal = name == "prefill"
+        for dt, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            errs, offs = {}, {}
+            for grid in (True, False):
+                case = _mqa_case(torch, gen, name, dt, grid)
+                if KA.paged_variant(dt, dt, 256, BLOCK_SIZE) != "CUDA cores":
+                    raise AssertionError("paged d 256: not the CUDA cores")
+                for mode in ("sole", "exact"):
+                    kw = dict(sole=mode == "sole", exp_bits=4,
+                              int8_scale=(L.LOGIT_INT8_SCALE
+                                          if mode == "sole" else None))
+                    out = KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+                    ref = KA.flash_e2softmax_paged_plain(
+                        *case, kvmap, causal=causal, **kw)
+                    torch.cuda.synchronize()
+                    err = (out - ref).abs()
+                    scale = max(ref.abs().max().item(), 1.0)
+                    key = f"{mode}_{'grid' if grid else 'random'}"
+                    errs[key] = err.max().item()
+                    if not torch.isfinite(out).all():
+                        raise AssertionError(f"paged d 256 {name}: non-finite")
+                    if grid or mode == "exact":
+                        tol = (1e-5 if grid else 1e-4) * scale
+                        if errs[key] > tol:
+                            raise AssertionError(
+                                f"paged d 256 {name}{tag} {key}: "
+                                f"{errs[key]} > {tol}")
+                    else:
+                        offs[key] = (err.amax(-1) > 1e-3 * scale).float(
+                            ).mean().item()
+                        if offs[key] > 0.01:
+                            raise AssertionError(
+                                f"paged d 256 {name}{tag} {key}: "
+                                f"{offs[key]} of rows off")
+            res["mqa"][f"hybrid_{name}{tag}"] = dict(
+                case=case, causal=causal, max_abs_err=max(errs.values()),
+                max_abs_err_random=max(v for k, v in errs.items()
+                                       if "random" in k))
+            log(f"paged_e2softmax d=256 H 16/KV 1 {name} "
+                f"{'float32' if tag else 'bf16'} [CUDA cores]: max|err| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; SOLE random rows off by > 1e-3: {offs}")
+    stage = hybrid_stage_inputs(torch, gen)
+    res["e2_stage"] = check_sole_probs(torch, get_config("recurrentgemma_9b"),
+                                       stage)
+    res["e2_inputs"] = stage
+    a, b, c = (torch.randn(1 << 20, generator=gen, device="cuda")
+               for _ in range(3))
+    if not torch.equal(L.fma(a, b, c), KN.fma32(a, b, c)):
+        raise AssertionError("layers.fma on the card is not one rounding")
+    log("layers.fma (addcmul) on the card: bitwise equal to fma32 on 2^20 "
+        "random triples")
+    return res
+
+
+def time_recurrent_kernels(torch, rk, launches):
+    """Phase 5 at the recurrent shapes: the paged kernel at d 256 / 16 on 1
+    (CUDA events, the profiler's kernel time, its plain version, the bound,
+    exact mode and SDPA on the gathered K/V); the calibrating and the exact
+    norm with the (64, 64) GroupNorm affine (the latter beside
+    ``F.group_norm``, the same exact function over (rows / 64, 4096) with
+    per-channel weights, on the same float32 rows); the hybrid's
+    ``_sole_probs`` stage by events, host wall and kernels per call beside
+    the chain. ``launches`` by kernel from the full-width traces."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import layers as L
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    table = []
+    pe = dict(name="paged_e2softmax_mqa_d256", route="cuda",
+              source="src/repro_torch/kernels/csrc/paged_e2softmax.cu",
+              replaces="src/repro/kernels/flash_e2softmax.py:186",
+              shapes={})
+    kw = dict(sole=True, exp_bits=4, int8_scale=L.LOGIT_INT8_SCALE)
+    kvmap = KA.default_kv_head_map(16, 1, "cuda")
+    for name, res in rk["mqa"].items():
+        case, causal = res["case"], res["causal"]
+
+        def run():
+            return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+        nbytes, flops = attention_work(case, causal, 16, 1, 256)
+        bms, by = bound_ms(nbytes, flops, FP32_FLOPS if "f32" in name
+                           else BF16_FLOPS)
+        exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
+                                                causal)
+        pe["shapes"][name] = dict(
+            shape=f"q {tuple(case[0].shape)} {case[0].dtype} KV 1 kv_len "
+                  f"{case[4][:, 1].tolist()}",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush, "paged_e2softmax"),
+            plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
+                *case, kvmap, causal=causal, **kw), flush, reps=5),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            exact_ms=exact_ms, library_ms=sdpa_ms, bytes=nbytes, flops=flops)
+    main = pe["shapes"]["hybrid_decode"]
+    pe.update(launches=launches["paged_e2softmax_mqa_d256"],
+              max_abs_err=max(s["max_abs_err"] for s in pe["shapes"].values()),
+              ms=main["ms"], plain_ms=main["plain_ms"],
+              bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+              library_ms=main["library_ms"],
+              library="scaled_dot_product_attention (exact, K/V gathered)")
+    table.append(pe)
+    for key, wrap, kern, src in (
+            ("gn_calib", "ailayernorm_calib_groupnorm", "calib_norm_kernel",
+             "src/repro/kernels/ailayernorm.py:305 (params=None, reached "
+             "by repro/models/rwkv6.py:86-91 on the reference backend)"),
+            ("gn_exact", "ailayernorm_exact_groupnorm", "exact_norm_kernel",
+             "src/repro/ops/reference.py:57 (exact_layernorm; XLA's "
+             "reduction: no pallas_call)")):
+        e = dict(name=wrap, route="cuda",
+                 source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+                 replaces=src, shapes={})
+        for name, res in rk[key].items():
+            x, g, b = res["x"], res["g"], res["b"]
+            rows = x.shape[0]
+            if key == "gn_calib":
+                def run():
+                    return KN.calibrated_norm(x, None, g, b, rms=False)
+
+                def plain():
+                    return KN.calibrated_norm_plain(x, None, g, b, rms=False)
+                library = None
+                ops_per = QNORM_OPS_PER_ELEMENT
+            else:
+                def run():
+                    return KN.exact_norm(x, g, b, rms=False, eps=1e-5)
+
+                def plain():
+                    return KN.exact_norm_plain(x, g, b, rms=False, eps=1e-5)
+                xg = x.reshape(rows // 64, 64 * 64)
+
+                def library():
+                    return F.group_norm(xg, 64, g.reshape(-1), b.reshape(-1),
+                                        1e-5)
+                ops_per = 8
+            nbytes = 2 * rows * 64 * 4 + 2 * 64 * 64 * 4
+            bms, by = bound_ms(nbytes, ops_per * rows * 64, FP32_FLOPS)
+            e["shapes"][name] = dict(
+                shape=f"rows {rows} C 64, (64, 64) affine, float32",
+                ms=time_ms(torch, run, flush),
+                kernel_ms=profiled_kernel_ms(torch, run, flush, kern),
+                plain_ms=time_ms(torch, plain, flush, reps=10),
+                wall_ms=wall_ms(torch, run),
+                library_ms=None if library is None else time_ms(
+                    torch, library, flush),
+                bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+                bytes=nbytes)
+        main = e["shapes"]["decode"]
+        e.update(launches=launches[wrap],
+                 max_abs_err=max(s["max_abs_err"]
+                                 for s in e["shapes"].values()),
+                 ms=main["ms"], plain_ms=main["plain_ms"],
+                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                 library_ms=main["library_ms"],
+                 library=(None if key == "gn_calib" else
+                          "torch.nn.functional.group_norm (64 groups)"))
+        table.append(e)
+    cfg = get_config("recurrentgemma_9b")
+    e = dict(name="e2softmax_hybrid", route="cuda",
+             source="src/repro_torch/kernels/csrc/e2softmax.cu",
+             replaces="src/repro/kernels/e2softmax.py:48", shapes={})
+    for name, inp in rk["e2_inputs"].items():
+        logits, mask = inp["logits"], inp["mask"]
+
+        def one():
+            return L._sole_probs(logits, mask, cfg, torch.bfloat16)
+
+        def chain():
+            return sole_probs_chain(torch, cfg, logits, mask, KE.e2softmax)
+        nbytes = logits.numel() * 4 + distinct_bytes(mask) + logits.numel() * 2
+        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
+                           FP32_FLOPS)
+        e["shapes"][name] = dict(
+            shape=f"logits {tuple(logits.shape)} f32, mask strides "
+                  f"{tuple(mask.stride())}, bf16 out",
+            ms=time_ms(torch, one, flush),
+            kernel_ms=profiled_kernel_ms(torch, one, flush, "e2softmax"),
+            plain_ms=time_ms(torch, lambda: sole_probs_chain(
+                torch, cfg, logits, mask, KE.e2softmax_plain), flush, reps=5),
+            wall_ms=wall_ms(torch, one), chain_ms=time_ms(torch, chain, flush),
+            kernels_per_call=rk["e2_stage"][name]["device_kernels"],
+            bound_ms=bms, bound_by=by, max_abs_err=0.0, bytes=nbytes)
+    main = e["shapes"]["hybrid_decode"]
+    e.update(launches=launches["e2softmax_hybrid"], max_abs_err=0.0,
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=None)
+    table.append(e)
+    for t in table:
+        for s, v in t["shapes"].items():
+            k, lib = v["kernel_ms"], v.get("library_ms")
+            log(f"{t['name']} {s} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+                f"(profiler: kernel "
+                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"plain {v['plain_ms'] * 1e3:.1f} us; library "
+                f"{'none' if lib is None else f'{lib * 1e3:.1f} us'}; bound "
+                f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']})")
+    return table
+
+
+class ForwardCounter:
+    """Counts model forwards (one ``layers.lm_logits`` call each, on every
+    path of every family) until :meth:`close`."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+        self._L, self._real = L, L.lm_logits
+        self.forwards = 0
+
+        def counted(*a, **kw):
+            self.forwards += 1
+            return self._real(*a, **kw)
+        L.lm_logits = counted
+
+    def close(self):
+        self._L.lm_logits = self._real
+
+
+def recurrent_norms_per_forward(cfg) -> int:
+    """SOLE norm launches of one forward: rwkv6 3 per layer (ln1, the
+    GroupNorm, ln2), the hybrid 2 per layer, and the final norm."""
+    return (3 if cfg.family == "ssm" else 2) * cfg.n_layers + 1
+
+
+def recurrent_trace(torch, cfg, params, label, *, dense=False, chunk=None,
+                    warm=False):
+    """One full-width trace of a recurrent family, the counts set to 0
+    just before and read just after: the trace's ten requests (wave 1;
+    wave 2 a repeat of request 0 whose eos ids are every token wave 1
+    drew, and a request on the shared system prompt) through
+    ``PagedEngine`` (``chunk`` its prefill chunk) or the dense-slot
+    ``Engine``; ``warm``: wave 1 cold, then wave 1 again (exact mode: the
+    warm tokens must equal the cold ones; state checkpoints must hit).
+    Checks token counts, finish reasons, drained slots and pages, and the
+    launches per forward: the SOLE norms as calibrating-norm launches
+    (exact mode: exact-norm launches), the hybrid's attention as one paged
+    (paged) or E2Softmax (dense) launch per attention block, nothing
+    else of ours. Returns (launches, summary)."""
+    from repro_torch.models import rglru
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if dense:
+        eng = Engine(cfg, params, batch_size=DECODE_BATCH,
+                     max_len=DENSE_MAX_LEN, device="cuda")
+    else:
+        eng = PagedEngine(cfg, params,
+                          num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                          block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                          max_running=8, decode_batch=DECODE_BATCH,
+                          prefill_chunk=chunk or PREFILL_CHUNK,
+                          decode_horizon=8, device="cuda")
+        ckpt_s = [0.0]
+        real_ckpt = eng._maybe_checkpoint
+
+        def timed_ckpt(seq, boundary):
+            t0 = time.perf_counter()
+            real_ckpt(seq, boundary)
+            ckpt_s[0] += time.perf_counter() - t0
+        eng._maybe_checkpoint = timed_ckpt
+    prompts, tail = trace_prompts(cfg)
+    wave1 = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    counter = ForwardCounter()
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out1 = eng.generate(wave1)
+        torch.cuda.synchronize()
+        t1 = time.time() - t0
+        if warm:
+            wave2 = wave1
+        else:
+            eos = sorted({t for o in out1 for t in o})
+            wave2 = [Request(prompt=prompts[0], max_new_tokens=NEW_TOKENS,
+                             eos_ids=tuple(eos)),
+                     Request(prompt=tail, max_new_tokens=NEW_TOKENS)]
+        t0 = time.time()
+        out2 = eng.generate(wave2)
+        torch.cuda.synchronize()
+        t2 = time.time() - t0
+    finally:
+        counter.close()
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = counter.forwards
+    outs = out1 + out2
+    if any(len(o) != NEW_TOKENS for o in out1):
+        raise AssertionError(f"[{label}] wave 1 token counts")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"[{label}] token id out of range")
+    summary = {"wave1_s": t1, "wave2_s": t2, "forwards": fwd,
+               "new_tokens": sum(len(o) for o in outs),
+               "max_memory_allocated_gib": peak_gib}
+    if warm:
+        if cfg.norm_mode == "exact" and out2 != out1:
+            diff = sum(a != b for x, y in zip(out1, out2)
+                       for a, b in zip(x, y))
+            raise AssertionError(f"[{label}] warm replay parts from cold "
+                                 f"on {diff} tokens")
+        summary["warm_equal_cold"] = out2 == out1
+    else:
+        eos_fired = eos_outcome(out2[0], set(eos))
+        if len(out2[1]) != NEW_TOKENS:
+            raise AssertionError(f"[{label}] wave 2 request 1 tokens")
+        summary["eos_fired"] = eos_fired
+    exact = cfg.norm_mode == "exact"
+    norms = recurrent_norms_per_forward(cfg) * fwd
+    nb = rglru.n_blocks(cfg) if cfg.family == "hybrid" else 0
+    want = {k: 0 for k in launches}
+    want["ailayernorm_exact" if exact else "ailayernorm_calib"] = norms
+    want["e2softmax" if dense else "paged_e2softmax"] = nb * fwd
+    if fwd <= 0 or launches != want:
+        raise AssertionError(f"[{label}] launches {launches} over {fwd} "
+                             f"forwards, expected {want}")
+    if dense:
+        summary.update(prefill_calls=eng.prefill_calls,
+                       decode_calls=eng.decode_calls)
+    else:
+        st = eng.stats()
+        eng.cache.check_refcounts()
+        eng.slot_pool.check_slots()
+        if st["state_slots_in_use"] or st["blocks_in_use"]:
+            raise AssertionError(f"[{label}] slots or pages leaked: {st}")
+        if warm and not st["checkpoint_hit_tokens"]:
+            raise AssertionError(f"[{label}] no checkpoint hit: {st}")
+        if warm and nb and not st["prefix_hit_tokens"]:
+            raise AssertionError(f"[{label}] no page hit beside the "
+                                 "checkpoint")
+        summary.update(
+            slot_bytes=st["state_bytes_per_slot"],
+            checkpoints=st.get("state_checkpoints", 0),
+            checkpoint_bytes=(st.get("state_checkpoints", 0)
+                              * st["state_bytes_per_slot"]),
+            checkpoint_hit_tokens=st.get("checkpoint_hit_tokens", 0),
+            prefix_hit_tokens=st["prefix_hit_tokens"],
+            checkpoint_host_s=ckpt_s[0], peak_slots=st[
+                "peak_state_slots_in_use"], finish_reasons=st[
+                "finish_reasons"])
+    per_fwd = {k: v / fwd for k, v in launches.items() if v}
+    log(f"[{label}] served {len(outs)} requests, {summary['new_tokens']} new "
+        f"tokens: wave 1 {t1:.3f} s, wave 2 {t2:.3f} s; {fwd} forwards; "
+        f"launches per forward {json.dumps(per_fwd)}; peak device memory "
+        f"{peak_gib:.3f} GiB")
+    log(f"[{label}] " + json.dumps({k: v for k, v in summary.items()
+                                     if k not in ("wave1_s", "wave2_s")}))
+    return launches, summary
+
+
+def graph_device_ms(torch, fn, reps=10):
+    """(device ms, device kernels) per call of ``fn``, a chain of many
+    small kernels: captured once in a CUDA graph and replayed between CUDA
+    events, so the interval holds the chain's device work without the
+    host's launch gaps (plain events would time the host's pace once the
+    launch queue fills); the kernels per call from ``torch.profiler`` (the
+    most it records in three windows: a short window can drop records)."""
+    from torch.profiler import ProfilerActivity, profile
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    kernels = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = max(kernels, sum(e.count for e in prof.key_averages()
+                                   if _device_us(e) > 0))
+    return start.elapsed_time(end) / reps, kernels
+
+
+def recurrence_device_ms(torch, cfg, params):
+    """Device time of the recurrence itself (``wkv_sequential`` or
+    ``rg_lru``, one layer's call, replayed as a CUDA graph:
+    :func:`graph_device_ms`) at a decode step (8 lanes, one token) and a
+    prefill chunk (one lane, 128 tokens) on random inputs of the model's
+    width, and its device kernels per call."""
+    from repro_torch.models import rglru as TG
+    from repro_torch.models import rwkv6 as TR
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for name, (b, s) in (("decode", (DECODE_BATCH, 1)),
+                         ("chunk", (1, PREFILL_CHUNK))):
+        if cfg.family == "ssm":
+            h, d = cfg.n_heads, cfg.rwkv_head_size
+            r, k, v = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda") for _ in range(3))
+            w = torch.rand((b, s, h, d), generator=gen, device="cuda")
+            u = params["layers"]["tm"]["u"][0]
+            st = torch.randn((b, h, d, d), generator=gen, device="cuda")
+
+            def fn():
+                return TR.wkv_sequential(r, k, v, w, u, st)
+        else:
+            p = {k: v[0] for k, v in params["blocks"]["rec1"].items()
+                 if not isinstance(v, dict)}
+            x = torch.randn((b, s, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            h0 = torch.randn((b, cfg.d_model), generator=gen, device="cuda")
+
+            def fn():
+                return TG.rg_lru(x, x, p, cfg, h0)
+        ms, kernels = graph_device_ms(torch, fn)
+        out[name] = dict(ms=ms, device_kernels=kernels)
+    return out
+
+
+def profile_recurrent(torch, cfg, params, label, dense=False):
+    """``profile_engine``'s wave for a recurrent family under the profiler:
+    wall, device busy, device kernels per forward (forwards counted by
+    ``lm_logits`` calls), the norm kernels' device time and share of busy,
+    the host wall spent inside the recurrence's calls (``wkv_sequential``
+    or ``rg_lru``), and the recurrence's device time estimated from
+    :func:`recurrence_device_ms` (the wave's eight one-chunk prefills and
+    its decode steps, every layer) and its share of busy."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import rglru as TG
+    from repro_torch.models import rwkv6 as TR
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
+    mod, fn_name = ((TR, "wkv_sequential") if cfg.family == "ssm"
+                    else (TG, "rg_lru"))
+    real = getattr(mod, fn_name)
+    host = [0.0]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        host[0] += time.perf_counter() - t0
+        return out
+    if dense:
+        eng = Engine(cfg, params, batch_size=DECODE_BATCH,
+                     max_len=DENSE_MAX_LEN, device="cuda")
+    else:
+        eng = PagedEngine(
+            cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+            block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN, max_running=8,
+            decode_batch=DECODE_BATCH, prefill_chunk=PREFILL_CHUNK,
+            decode_horizon=8, device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 128)
+                    .astype(np.int32), max_new_tokens=NEW_TOKENS)
+            for _ in range(DECODE_BATCH)]
+    eng.generate(reqs[:1])                      # warm the allocator
+    torch.cuda.synchronize()
+    setattr(mod, fn_name, timed)
+    counter = ForwardCounter()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        setattr(mod, fn_name, real)
+        counter.close()
+    rows = sorted(((_device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    kernels = sum(n for _, n, _ in rows)
+    norm_ms = sum(us for us, _, key in rows
+                  if "calib_norm_kernel" in key or "exact_norm_kernel" in key
+                  ) / 1e3
+    fwd = counter.forwards
+    rec = recurrence_device_ms(torch, cfg, params)
+    layers = cfg.n_layers if cfg.family == "ssm" else (
+        cfg.n_layers - (cfg.n_layers - cfg.n_tail_layers)
+        // len(cfg.block_pattern))
+    est_ms = layers * (DECODE_BATCH * rec["chunk"]["ms"]
+                       + max(fwd - DECODE_BATCH, 0) * rec["decode"]["ms"])
+    out = {"wall_s": wall, "device_busy_s": busy, "kernels": kernels,
+           "forwards": fwd, "kernels_per_forward": kernels / max(fwd, 1),
+           "norm_kernel_ms": norm_ms, "norm_share_of_busy": norm_ms / 1e3 / busy,
+           "recurrence": fn_name, "recurrence_layers": layers,
+           "recurrence_call_ms": rec,
+           "recurrence_device_ms_estimate": est_ms,
+           "recurrence_share_of_busy_estimate": est_ms / 1e3 / busy,
+           "recurrence_host_s": host[0],
+           "recurrence_host_share_of_wall": host[0] / wall,
+           "top": [{"ms": us / 1e3, "count": n, "kernel": key[:100]}
+                   for us, n, key in rows[:12]]}
+    log(f"[{label}] profiled wave: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({busy / wall:.3f} of wall), {kernels} kernels over "
+        f"{fwd} forwards ({kernels / max(fwd, 1):.1f} per forward); norm "
+        f"kernels {norm_ms:.2f} ms ({out['norm_share_of_busy']:.3f} of "
+        f"busy); {fn_name}: {layers} calls a forward, device "
+        f"{rec['decode']['ms'] * 1e3:.1f} us a decode call "
+        f"({rec['decode']['device_kernels']:.0f} kernels), "
+        f"{rec['chunk']['ms'] * 1e3:.1f} us a 128-token chunk "
+        f"({rec['chunk']['device_kernels']:.0f} kernels), est. {est_ms:.1f} "
+        f"ms ({out['recurrence_share_of_busy_estimate']:.3f} of busy); host "
+        f"{host[0]:.3f} s in its calls ({host[0] / wall:.3f} of wall)")
+    for us, n, key in rows[:12]:
+        log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
+    return out
+
+
+def serve_recurrent(torch):
+    """Phase 4 for the recurrent families at full width and full depth
+    (random weights from a seed, bf16): rwkv6_7b (32 layers) and
+    recurrentgemma_9b (38 layers), each through ``PagedEngine`` (SOLE, the
+    two-wave trace with an eos request), ``PagedEngine`` in exact mode
+    with prefill chunks of one block (a checkpoint at every block) cold and
+    then warm (checkpoint, and for the hybrid page, hits; tokens equal to
+    cold), the dense-slot ``Engine`` (SOLE) and a profiled paged wave;
+    each model freed before the next. Returns the launches and summaries
+    by path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    out = {}
+    for arch, tag in (("rwkv6_7b", "rwkv6"), ("recurrentgemma_9b",
+                                              "hybrid")):
+        cfg = get_config(arch)
+        t0 = time.time()
+        before = torch.cuda.memory_allocated()
+        params = api.init_params(0, cfg, "cuda")
+        torch.cuda.synchronize()
+        resident = (torch.cuda.memory_allocated() - before) / 2 ** 30
+        log(f"[{tag}] init_params: {time.time() - t0:.2f} s, {resident:.3f} "
+            f"GiB of weights ({before / 2 ** 30:.3f} GiB held before)")
+        exact = dataclasses.replace(cfg, softmax_mode="exact",
+                                    norm_mode="exact", logit_int8=False)
+        res = {"resident_gib": resident}
+        for key, c, kw in (("paged", cfg, {}),
+                           ("paged_exact_warm", exact,
+                            dict(chunk=BLOCK_SIZE, warm=True)),
+                           ("dense", cfg, dict(dense=True))):
+            res[key] = recurrent_trace(torch, c, params, f"{tag} {key}",
+                                       **kw)
+        res["profile"] = profile_recurrent(torch, cfg, params, f"{tag} paged")
+        out[tag] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_recurrent_parity(torch):
+    """The smoke ssm and hybrid engines (the hybrid at 4 layers: one
+    rec-rec-attention block, one tail layer; float32) through
+    ``PagedEngine`` and the dense-slot ``Engine`` on the card against the
+    same engines on the CPU: exact mode tokens equal, SOLE at least 95%."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Engine, PagedEngine, Request
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    for arch, over in (("rwkv6_7b", {}),
+                       ("recurrentgemma_9b", dict(n_layers=4,
+                                                  n_tail_layers=1))):
+        for mode, change, bar in (("exact", exact, 1.0), ("sole", {}, 0.95)):
+            cfg = dataclasses.replace(get_config(arch).smoke(), **over,
+                                      **change)
+            params = api.init_params(0, cfg, "cpu")
+            rng = np.random.default_rng(1)
+            reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                            .astype(np.int32), max_new_tokens=8)
+                    for n in (5, 20, 12, 30, 9)]
+            same = [Request(prompt=rng.integers(0, cfg.vocab_size, 12)
+                            .astype(np.int32), max_new_tokens=8)
+                    for _ in range(5)]
+            outs, douts = [], []
+            for dev in ("cpu", "cuda"):
+                eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                                  max_seq_len=64, decode_batch=4,
+                                  prefill_chunk=8, device=dev)
+                outs.append(eng.generate(reqs))
+                eng.cache.check_refcounts()
+                douts.append(Engine(cfg, params, batch_size=4, max_len=64,
+                                    device=dev).generate(same))
+            check_agreement(outs, f"{arch} paged {mode}", bar)
+            check_agreement(douts, f"{arch} dense {mode}", bar)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -3729,6 +4450,12 @@ def main() -> int:
         t0 = time.time()
         logs = build.build_all()
         log(f"kernel build: {time.time() - t0:.1f} s")
+        t_mark = [time.time()]
+
+        def mark(name):
+            now = time.time()
+            log(f"[phase time] {name}: {now - t_mark[0]:.1f} s")
+            t_mark[0] = now
         for name, text in logs.items():
             for line in text.splitlines():
                 if "ptxas" in line or "bytes" in line:
@@ -3764,8 +4491,10 @@ def main() -> int:
         gemm = check_int8_gemm(torch)
         e2 = check_e2softmax(torch, cfg)
         check_new_e2_stage(torch, mini, e2)
+        rk = check_recurrent_kernels(torch)
         ops_inp = ops_inputs(torch)
         ops_res = check_ops_kernels(torch, ops_inp)
+        mark("kernel checks")
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
         spec = spec_traces(torch, cfg, params, "bf16")
         spec["ops"] = verify_decode_ops(torch, cfg, params, "bf16")
@@ -3786,12 +4515,22 @@ def main() -> int:
         dlaunches8, dtrace8 = serve_dense_full_width(torch, cfg8, params8,
                                                      "dense w8a8")
         olaunches = serve_ops_path(torch, ops_inp, ops_res)
+        mark("qwen2_0_5b paths, spec, open loop, op layer")
         new = serve_new_configs(torch)
+        mark("minitron_8b, nemotron_4_15b")
         new.update(serve_moe(torch))
+        mark("mixtral_8x7b, dbrx_132b")
+        rec = serve_recurrent(torch)
+        mark("rwkv6_7b, recurrentgemma_9b")
+        for tag, res in rec.items():
+            for key in ("paged", "paged_exact_warm", "dense"):
+                new[f"{tag}_{key}"] = res[key]
         pair = draft_model_pair(torch)
         small_engine_parity(torch)
         small_spec_parity(torch)
         small_moe_parity(torch)
+        small_recurrent_parity(torch)
+        mark("draft pair, smoke engines")
         table = time_kernels(torch, attn, launches, cfg)
         table.append(time_calib_norm(torch, calib, launches))
         table += time_w8a8_kernels(torch, attn8, gemm, launches8, cfg)
@@ -3799,6 +4538,14 @@ def main() -> int:
         table += time_ops_kernels(torch, ops_res, olaunches)
         table.append(time_exact_norm(torch, norms,
                                      spec["oracle"]["launches"]))
+        table += time_recurrent_kernels(torch, rk, {
+            "paged_e2softmax_mqa_d256":
+                rec["hybrid"]["paged"][0]["paged_e2softmax"],
+            "ailayernorm_calib_groupnorm":
+                rec["rwkv6"]["paged"][0]["ailayernorm_calib"],
+            "ailayernorm_exact_groupnorm":
+                rec["rwkv6"]["paged_exact_warm"][0]["ailayernorm_exact"],
+            "e2softmax_hybrid": rec["hybrid"]["dense"][0]["e2softmax"]})
         static = static_op_stage(torch)
         spec_launches = {
             **{f"bf16 exact {k}": spec[k]["launches"]
@@ -3831,6 +4578,7 @@ def main() -> int:
             e["launches_spec_traces"] = {
                 label: counts[key] for label, counts in spec_launches.items()
                 if key in counts}
+        mark("timings")
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")
         dtrace["profile"] = profile_engine(torch, cfg, params, "dense bf16",
                                            dense=True)
@@ -3846,7 +4594,12 @@ def main() -> int:
                         "spec_bf16": spec,
                         "spec_w8a8": spec8, "open_loop": open_loop,
                         "draft_pair": pair,
+                        "recurrent_profiles": {
+                            tag: {k: v for k, v in res.items()
+                                  if k in ("profile", "resident_gib")}
+                            for tag, res in rec.items()},
                         **{f"trace_{k}": v[1] for k, v in new.items()}}))
+        mark("qwen2_0_5b profiled waves")
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()

@@ -137,7 +137,7 @@ class ArchConfig:
 
 
 ARCH_NAMES = ("qwen2_0_5b", "stablelm_1_6b", "nemotron_4_15b", "minitron_8b",
-              "mixtral_8x7b", "dbrx_132b")
+              "mixtral_8x7b", "dbrx_132b", "rwkv6_7b", "recurrentgemma_9b")
 
 _REGISTRY = {}
 
@@ -147,8 +147,8 @@ def get_config(name: str) -> ArchConfig:
     if key not in ARCH_NAMES:
         raise ValueError(
             f"architecture {name!r} is not ported yet (ported: "
-            f"{ARCH_NAMES}; the ssm, hybrid, encdec and vlm configs come "
-            "with their families, ROADMAP.md queue 1 item 7)")
+            f"{ARCH_NAMES}; the encdec and vlm configs come with their "
+            "families, ROADMAP.md queue 1 item 7)")
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG

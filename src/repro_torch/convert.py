@@ -7,7 +7,11 @@ in its serving dtype — ``cfg.dtype`` for projections (the MoE experts'
 ``(L, E, d, f)`` gate/up/down and ``(L, d, E)`` router included), biases
 and embeddings, which is bit-identical to the reference's per-use ``cast``
 (both round to nearest even), and float32 for norm gains and biases,
-which the reference feeds to its norms uncast.
+which the reference feeds to its norms uncast, and for the recurrent
+families' leaves it computes with uncast: rwkv6's decay ``w0``/``w1``/
+``w2``, bonus ``u`` and GroupNorm ``gn_g``/``gn_b``, the RG-LRU's
+``lam``. The trees are the reference's: ``layers.tm``/``layers.cm`` for
+rwkv6, ``blocks.rec1``/``rec2``/``attn`` and ``tail`` for the hybrid.
 
 Under ``cfg.quant.weights`` packed ``{"q", "s"}`` leaves become int8 codes
 and float32 scales, and unpacked matmul weights (``QUANT_WEIGHT_SPEC``)
@@ -25,7 +29,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC
 
-NORM_KEYS = ("ln1", "ln2", "final_norm")
+NORM_KEYS = ("ln1", "ln2", "final_norm", "ln", "ln_mlp")
+# leaves the reference uses in float32 without a cast
+FLOAT32_KEYS = ("w0", "w1", "w2", "u", "gn_g", "gn_b", "lam")
 
 
 def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda"):
@@ -47,7 +53,8 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda"):
                         "s": leaf(node["s"], torch.float32)}
             return {k: conv(v, k, in_norm or k in NORM_KEYS)
                     for k, v in node.items()}
-        if in_norm or (quant and key in QUANT_WEIGHT_SPEC):
+        if (in_norm or key in FLOAT32_KEYS
+                or (quant and key in QUANT_WEIGHT_SPEC)):
             return leaf(node, torch.float32)
         return leaf(node, dt)
 

@@ -105,18 +105,35 @@ def row_stats(xi, alpha, *, rms: bool):
     return xs, mu, torch.clamp_min(var, 1.0)
 
 
+def grouped_rows(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., C) as (rows / G, G, C) for a (G, C) affine, under which
+    row r takes gamma/beta row r mod G (rwkv6's per-head GroupNorm: G
+    heads of C channels); ``x`` itself for a (C,) affine."""
+    if gamma.ndim == 1:
+        return x
+    g, c = gamma.shape
+    rows = x.numel() // c if c else 0
+    if x.shape[-1] != c or rows % g:
+        raise ValueError(f"a ({g}, {c}) affine needs rows of {c} channels in "
+                         f"a multiple of {g}, got {tuple(x.shape)}")
+    return x.reshape(-1, g, c)
+
+
 def _norm_codes_plain(xi, alpha, gamma, beta, *, rms: bool) -> torch.Tensor:
     """The row body from int32 codes on, in the kernel's order. The
     LayerNorm affine is one fused multiply-add, as LLVM contracts the
     compiled reference's ``(gamma * rs) * (xs - mu) + beta``; a None
-    ``beta`` is a zero shift."""
+    ``beta`` is a zero shift. ``gamma``/``beta`` (C,), or (G, C) with row
+    r taking row r mod G."""
+    shape = xi.shape
+    xi = grouped_rows(xi, gamma)
     xs, mu, var = row_stats(xi, alpha, rms=rms)
     rs = inv_sqrt(var)
     if rms:
-        return gamma * xs.float() * rs
+        return (gamma * xs.float() * rs).reshape(shape)
     if beta is None:
         beta = torch.zeros_like(gamma)
-    return fma32(gamma * rs, xs.float() - mu, beta)
+    return fma32(gamma * rs, xs.float() - mu, beta).reshape(shape)
 
 
 def ptf_codes(x, denom) -> torch.Tensor:
@@ -332,7 +349,8 @@ def calibrated_norm_plain(x, r, gamma, beta, *, rms: bool,
     rows, :func:`qnorm_plain` on ``h`` in float32, then the output cast to
     ``out_dtype`` or, with ``quant_out``, ``quantize_act`` of it. Returns
     ``(h, out or (codes, row scale), alpha, scale)``, the scale a (1,)
-    float32 tensor."""
+    float32 tensor. ``gamma``/``beta`` are (C,), or (G, C) with row r of
+    ``x`` (flattened to rows of C) taking row r mod G."""
     h = x if r is None else x + r
     params = calibrate_ptf(h, unsigned=not rms)
     out = qnorm_plain(h, params.scale, params.alpha, gamma, beta, rms=rms)
@@ -345,10 +363,11 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                     with_params: bool = True):
     """The residual add, PTF calibration over all rows and the
     quantize+norm of ``x`` (..., C) float32 or bf16, ``r`` of the same
-    shape and type or None, ``gamma``/``beta`` (C,) float32 (``beta`` None
-    for RMS): one cluster launch on CUDA tensors, which must be
-    contiguous. Returns what :func:`calibrated_norm_plain` returns, the
-    output in ``out_dtype`` (float32 or the activation type);
+    shape and type or None, ``gamma``/``beta`` (C,) float32, or (G, C) with
+    row r of ``x`` taking row r mod G (``beta`` None for RMS): one cluster
+    launch on CUDA tensors, which must be contiguous. Returns what
+    :func:`calibrated_norm_plain` returns, the output in ``out_dtype``
+    (float32 or the activation type);
     ``with_params=False`` leaves out the calibration (None, None) on the
     card, where the model paths need no copy of it."""
     if x.device.type == "cpu":
@@ -366,21 +385,24 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
     if not rms and beta is None:
         raise ValueError("LayerNorm needs beta")
     c = x.shape[-1]
+    rows = x.numel() // c if c else 0
+    groups = gamma.shape[0] if gamma.ndim == 2 else 1
     chan = (gamma,) if rms else (gamma, beta)
-    if (c > MAX_CHANNELS or not x.is_contiguous()
+    if (c > MAX_CHANNELS or not x.is_contiguous() or rows % groups
             or (r is not None and (r.shape != x.shape or r.dtype != x.dtype
                                    or r.device != x.device
                                    or not r.is_contiguous()))
-            or any(t.shape != (c,) or t.dtype != torch.float32
+            or any(t.shape != gamma.shape or t.shape[-1:] != (c,)
+                   or t.ndim > 2 or t.dtype != torch.float32
                    or t.device != x.device or not t.is_contiguous()
                    for t in chan)):
         raise ValueError(
             f"calibrated_norm takes contiguous x (..., C <= {MAX_CHANNELS}) "
-            f"and r alike, gamma/beta (C,) float32 on its device; got x "
+            f"and r alike, gamma/beta (C,) or (G, C) float32 on its device "
+            f"(rows a multiple of G); got x "
             f"{tuple(x.shape)} {x.dtype}, r "
             f"{None if r is None else (tuple(r.shape), r.dtype)}, gamma/beta "
             f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in chan]}")
-    rows = x.numel() // c if c else 0
     dev = x.device
     h = x if r is None else torch.empty_like(x)
     alpha = scale = None
@@ -406,9 +428,10 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                       None if r is None else h, out, codes, qscale, alpha,
                       scale)]
     lib = build.load("ailayernorm")
-    fn = build.declare(lib, "ailayernorm_calib", 10, 7, 2)
+    fn = build.declare(lib, "ailayernorm_calib", 10, 8, 2)
     eps, eps6 = _fill_eps(x.dtype)
-    rc = build.launch(dev, fn, *ptrs, rows, c, int(rms), _ACT_TYPES[x.dtype],
+    rc = build.launch(dev, fn, *ptrs, rows, c, groups, int(rms),
+                      _ACT_TYPES[x.dtype],
                       int(out_dtype != torch.float32), int(quant_out), vec,
                       ctypes.c_float(eps), ctypes.c_float(eps6))
     build.check(lib, rc, "ailayernorm_calib launch")
@@ -427,19 +450,22 @@ def exact_norm_plain(x, gamma, beta=None, *, rms: bool,
     backend's ``exact_layernorm``/``exact_rmsnorm``): ``mean``, ``square``
     and ``rsqrt`` of each row. On the card torch splits these reductions
     by the number of rows, so a row's bits depend on its batch; the
-    kernel does not."""
-    x = x.float()
+    kernel does not. ``gamma``/``beta`` (C,), or (G, C) with row r of
+    ``x`` (flattened to rows of C) taking row r mod G."""
+    shape = x.shape
+    x = grouped_rows(x.float(), gamma)
     if rms:
         ms = torch.square(x).mean(-1, keepdim=True)
-        return x * torch.rsqrt(ms + eps) * gamma
+        return (x * torch.rsqrt(ms + eps) * gamma).reshape(shape)
     mu = x.mean(-1, keepdim=True)
     var = torch.square(x - mu).mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
+    return ((x - mu) * torch.rsqrt(var + eps) * gamma + beta).reshape(shape)
 
 
 def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
                out_dtype=None) -> torch.Tensor:
-    """Exact-mode LayerNorm (``beta`` given) or RMSNorm of ``x`` (..., C):
+    """Exact-mode LayerNorm (``beta`` given) or RMSNorm of ``x`` (..., C),
+    ``gamma``/``beta`` (C,) or (G, C) (row r takes row r mod G):
     on CUDA tensors one launch of ``exact_norm_kernel`` (a team per row,
     a reduction order fixed by C, so every row has the same bits whatever
     the row count), on CPU tensors :func:`exact_norm_plain`. Float32 out,
@@ -458,17 +484,21 @@ def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
     chan = [gamma.float().contiguous()]
     if not rms:
         chan.append(beta.float().contiguous())
-    if any(t.shape != (c,) or t.device != x.device for t in chan):
-        raise ValueError(f"gamma/beta must be ({c},) on {x.device}, got "
-                         f"{[(tuple(t.shape), str(t.device)) for t in chan]}")
+    groups = gamma.shape[0] if gamma.ndim == 2 else 1
+    if any(t.shape != gamma.shape or t.shape[-1:] != (c,) or t.ndim > 2
+           or t.device != x.device for t in chan) or rows.shape[0] % groups:
+        raise ValueError(f"gamma/beta must be ({c},) or (G, {c}) on "
+                         f"{x.device} with rows a multiple of G, got "
+                         f"{[(tuple(t.shape), str(t.device)) for t in chan]}"
+                         f" over {rows.shape[0]} rows")
     out = torch.empty(rows.shape, dtype=written, device=x.device)
     if rows.shape[0] and c:
         lib = build.load("ailayernorm")
-        fn = build.declare(lib, "ailayernorm_exact", 4, 5, 1)
+        fn = build.declare(lib, "ailayernorm_exact", 4, 6, 1)
         rc = build.launch(
             x.device, fn, rows.data_ptr(), chan[0].data_ptr(),
             None if rms else chan[1].data_ptr(), out.data_ptr(),
-            rows.shape[0], c, int(rms), _ACT_TYPES[rows.dtype],
+            rows.shape[0], c, groups, int(rms), _ACT_TYPES[rows.dtype],
             int(written == torch.bfloat16), ctypes.c_float(eps))
         build.check(lib, rc, "ailayernorm_exact launch")
         exact_norm.launches += 1

@@ -265,10 +265,12 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
   const size_t smem = sizeof(float) *
       ((size_t)bs * (d + 1) + (size_t)bs * d + (size_t)kRowTile * d + (size_t)kWarps * bs);
   auto kernel = paged_e2softmax_kernel<TQ, TP>;
-  if (smem > 48 * 1024) {
+  static size_t allowed = 48 * 1024;        // per instantiation: opt in once
+  if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
+    allowed = smem;
   }
   // rows of a KV group: at most H * C (the CTA finds its own count)
   dim3 grid(B * KV, (H * C + kRowTile - 1) / kRowTile);

@@ -24,10 +24,18 @@ Examples::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \
       --smoke --device cpu --engine paged --spec-decode ngram
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b \
+      --smoke --device cpu --engine paged
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma_9b --smoke --device cpu
+
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
-``minitron_8b``, ``nemotron_4_15b`` and the MoE ``mixtral_8x7b``,
-``dbrx_132b``; MoE with ``--quantize`` raises, as the reference has no
-quantized MoE path). Not ported yet (ROADMAP.md queue 1 item 9):
+``minitron_8b``, ``nemotron_4_15b``, the MoE ``mixtral_8x7b``,
+``dbrx_132b``, the ssm ``rwkv6_7b`` and the hybrid ``recurrentgemma_9b``;
+MoE with ``--quantize`` raises, as the reference has no quantized MoE
+path; the recurrent families raise, as the reference's engines do, on
+``--quantize``, ``--spec-decode`` and on ``--prefix-cache`` beyond what
+their state spec allows). Not ported yet (ROADMAP.md queue 1 item 9):
 ``--mesh``.
 """
 from __future__ import annotations
@@ -65,7 +73,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="share identical block-aligned prompt prefixes "
-                         "(paged engine; default: on for the dense family)")
+                         "(paged engine; default: what the family supports; "
+                         "recurrent families restore state checkpoints)")
     ap.add_argument("--watermark", type=int, default=1,
                     help="free pages held back at admission; higher = "
                          "fewer preemptions, lower = denser packing")

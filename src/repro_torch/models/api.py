@@ -1,12 +1,15 @@
-"""Model API: the only model surface ``serve/`` talks to. The dense and
-MoE families are ported; ssm, hybrid, encdec and vlm raise (ROADMAP.md
-queue 1 item 7).
+"""Model API: the only model surface ``serve/`` talks to. The dense, MoE,
+ssm (rwkv6) and hybrid (RecurrentGemma) families are ported; encdec and
+vlm raise (ROADMAP.md queue 1 item 7).
 
 The dense-slot engine calls :func:`prefill` / :func:`decode_step` on
 stacked caches (:func:`init_cache`). The paged calls follow the
-reference's calling convention: ``state`` is the engine's composite
-device state (``{"k", "v"}`` page pools) and ``refs`` the per-dispatch
-references (``"tables"`` (B, NB)).
+reference's single calling convention: ``state`` is the engine's
+composite device state (``{"k", "v"}`` page pools and/or ``"slots"``, a
+``StateSlotPool``'s tree) and ``refs`` the per-dispatch references
+(``"tables"`` (B, NB) and/or ``"slots"`` (B,)), only the keys the
+family's :func:`sequence_state_spec` calls for. Dense and MoE keep their
+``(tables, pools)`` signatures behind adapters here.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ from typing import Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, rglru, rwkv6, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "ssm": rwkv6,
+                   "hybrid": rglru}
+_PAGES_ONLY = ("dense", "moe")
 
 
 def get_model(cfg: ArchConfig):
@@ -72,15 +77,22 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig, write_pos=None):
 def prefill_paged(params, tokens, q_start, n_valid, refs, state,
                   cfg: ArchConfig):
     """One chunked-prefill step. Returns (logits (B,C,V), state)."""
-    logits, pools = get_model(cfg).prefill_paged(
-        params, tokens, q_start, n_valid, refs["tables"], state, cfg)
+    m = get_model(cfg)
+    if cfg.family not in _PAGES_ONLY:
+        return m.prefill_paged(params, tokens, q_start, n_valid, refs, state,
+                               cfg)
+    logits, pools = m.prefill_paged(params, tokens, q_start, n_valid,
+                                    refs["tables"], state, cfg)
     return logits, dict(state, **pools)
 
 
 def decode_step_paged(params, token, pos, refs, state, cfg: ArchConfig):
     """One decode step: token/pos (B,). Returns (logits (B,V), state)."""
-    logits, pools = get_model(cfg).decode_step_paged(
-        params, state, token, pos, refs["tables"], cfg)
+    m = get_model(cfg)
+    if cfg.family not in _PAGES_ONLY:
+        return m.decode_step_paged(params, token, pos, refs, state, cfg)
+    logits, pools = m.decode_step_paged(params, state, token, pos,
+                                        refs["tables"], cfg)
     return logits, dict(state, **pools)
 
 
@@ -90,6 +102,11 @@ def decode_horizon_paged(params, token, pos, refs, state, temperature,
                          stochastic: bool = True, use_eos: bool = True):
     """``num_steps`` fused decode+sample steps. Returns
     (tokens (B, num_steps), done (B, num_steps), state)."""
+    if cfg.family not in _PAGES_ONLY:
+        return get_model(cfg).decode_horizon_paged(
+            params, token, pos, refs, state, temperature, top_k, seed,
+            counter, eos_ids, cfg, num_steps=num_steps, use_top_k=use_top_k,
+            stochastic=stochastic, use_eos=use_eos)
     toks, done, pools = get_model(cfg).decode_horizon_paged(
         params, state, token, pos, refs["tables"], temperature, top_k, seed,
         counter, eos_ids, cfg, num_steps=num_steps, use_top_k=use_top_k,

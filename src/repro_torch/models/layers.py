@@ -23,6 +23,7 @@ from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, log2exp, split_sum
 from repro_torch.core.sole.quant import is_qtensor, quantize_act, true_div
+from repro_torch.kernels.ailayernorm import fma32
 from repro_torch.kernels.flash_e2softmax import exp2_int
 from repro_torch.ops.reference import repeat_kv
 
@@ -40,6 +41,16 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def cast(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x.to(torch_dtype(cfg.dtype))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, as XLA contracts it inside ``jit``: the
+    correctly rounded ``fma32`` on the CPU, ``addcmul`` on the card (one
+    launch, which nvcc contracts into an FMA; the card tests hold it to
+    ``fma32``). In ``a``'s dtype."""
+    if a.device.type == "cpu":
+        return fma32(a, b, c).to(a.dtype)
+    return torch.addcmul(c, a, b)
 
 
 def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1) -> torch.Tensor:
@@ -513,6 +524,44 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     k_col = kv_quant(k, cfg).permute(0, 2, 3, 1)         # (B,KV,hd,1)
     v_row = kv_quant(v, cfg).permute(0, 2, 1, 3)         # (B,KV,1,hd)
     return out, k_col, v_row
+
+
+def decode_attend(p, x1, cache, pos: int, cfg: ArchConfig) -> torch.Tensor:
+    """One-token self-attention against one layer's (B, T, KV, hd) cache
+    and its position ring ``cache["pos"]`` (T,), the reference's
+    ``decode_attend`` (the hybrid's dense-slot path): ``pos`` is the shared
+    absolute position, for windowed models the cache a rolling buffer of
+    min(T, window) columns. The current token's K/V and position are
+    written into the cache **in place** at its slot before the attention
+    reads it. Returns the attention output (B, 1, D)."""
+    q, k, v = _project_qkv(p, x1, cfg)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=x1.device)
+    if cfg.pos_kind == "rope":
+        q = apply_rope(q, pos_t, cfg)
+        k = apply_rope(k, pos_t, cfg)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    t = ck.shape[1]
+    slot = pos % t if cfg.window else min(pos, t - 1)
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    cpos[slot] = pos
+    b, _, h, hd = q.shape
+    kf = repeat_kv(cast(ck, cfg), h)
+    vf = repeat_kv(cast(cv, cfg), h)
+    qs = q * (hd ** -0.5)
+    logits = torch.einsum("bshd,bthd->bhst", qs, kf).float()
+    valid = cpos <= pos
+    if cfg.window:
+        valid = valid & ((pos - cpos) < cfg.window)
+    mask = torch.broadcast_to(valid[None, None, None, :], logits.shape)
+    mode = _softmax_mode(cfg, phase="serve")
+    if mode == "sole":
+        probs = _sole_probs(logits, mask, cfg, q.dtype)
+    else:
+        probs = ops.softmax_fn(mode, q.device, cfg.ops_backend)(
+            logits, mask=mask).to(q.dtype)
+    ctx = torch.einsum("bhst,bthd->bshd", probs, vf)
+    return _wo_proj(ctx, p, cfg)
 
 
 def write_kv_columns(ck, cv, k_cols, v_rows, slot: int) -> None:

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.state import SequenceStateSpec
 
@@ -55,18 +56,12 @@ def init_moe_ffn(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
     would take 30 GB."""
     w, mw = T._weights(gen, cfg, device)
     n, d, f, e = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
-
-    def stacked(draw, shape):
-        first = draw(shape)
-        out = torch.empty((n,) + shape, dtype=first.dtype, device=device)
-        out[0] = first
-        del first
-        for i in range(1, n):
-            out[i] = draw(shape)
-        return out
-
-    return {"router": stacked(w, (d, e)), "gate": stacked(mw, (e, d, f)),
-            "up": stacked(mw, (e, d, f)), "down": stacked(mw, (e, f, d))}
+    dt = L.torch_dtype(cfg.dtype)
+    master = torch.float32 if cfg.quant.weights else dt
+    return {"router": T.stacked(w, n, (d, e), dt, device),
+            "gate": T.stacked(mw, n, (e, d, f), master, device),
+            "up": T.stacked(mw, n, (e, d, f), master, device),
+            "down": T.stacked(mw, n, (e, f, d), master, device)}
 
 
 def route(x2: torch.Tensor, wr: torch.Tensor, k: int):
@@ -219,7 +214,8 @@ def sequence_state_spec(cfg: ArchConfig) -> SequenceStateSpec:
     sharing and speculative verify exact."""
     return SequenceStateSpec(family="moe", kv_layers=cfg.n_layers,
                              supports_prefix_cache=True,
-                             supports_spec_decode=True)
+                             supports_spec_decode=True,
+                             supports_cow_fork=True, window=cfg.window)
 
 
 def prefill(params, tokens, cfg: ArchConfig, cache_len: int, n_pad=None):

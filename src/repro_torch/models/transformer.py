@@ -29,6 +29,16 @@ def _normal(gen, shape, scale, dtype, device):
     return w.mul_(scale).to(dtype)
 
 
+def stacked(draw, n: int, shape, dtype, device) -> torch.Tensor:
+    """(n,) + shape drawn one layer at a time: a float32 draw of a whole
+    full-width stack (mixtral's expert gates, rwkv6's channel mix) would
+    take gigabytes."""
+    out = torch.empty((n,) + tuple(shape), dtype=dtype, device=device)
+    for i in range(n):
+        out[i] = draw(shape)
+    return out
+
+
 def _norm(cfg: ArchConfig, lead, device):
     shape = tuple(lead) + (cfg.d_model,)
     p = {"g": torch.ones(shape, dtype=torch.float32, device=device)}
@@ -101,7 +111,8 @@ def sequence_state_spec(cfg: ArchConfig) -> SequenceStateSpec:
     """Dense LMs: sequence state is attention KV and nothing else."""
     return SequenceStateSpec(family="dense", kv_layers=cfg.n_layers,
                              supports_prefix_cache=True,
-                             supports_spec_decode=True)
+                             supports_spec_decode=True,
+                             supports_cow_fork=True, window=cfg.window)
 
 
 def _layer(tree, i: int):

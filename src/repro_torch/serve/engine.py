@@ -21,6 +21,13 @@ from one to the other. Under ``cfg.quant`` w8a16/w8a8 each packs the
 matmul weights to int8 at construction (every projection and the LM head
 then run through the int8 GEMM kernel at w8a8), and
 ``cfg.kv_cache_dtype="int8"`` keeps int8 KV pages or dense caches.
+
+The recurrent families (ssm: rwkv6; hybrid: RecurrentGemma) keep their
+per-sequence state in a ``StateSlotPool`` (serve/state.py): the paged
+engine zero-fills or checkpoint-restores a sequence's slot at admission
+and, with prefix caching, snapshots it to host memory at block-aligned
+prefill boundaries inside the prompt; the hybrid also pages its attention
+blocks' K/V.
 """
 from __future__ import annotations
 
@@ -33,10 +40,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
+from repro_torch.models.state import tree_map
 from repro_torch.serve.kv_cache import PagedKVCache, copy_pages
 from repro_torch.serve.sampling import (Sampler, apply_finish, eos_table,
                                         sample_tokens, sampler_for)
 from repro_torch.serve.scheduler import Scheduler, Sequence
+from repro_torch.serve.state import StateCheckpointCache, StateSlotPool
 from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
 
 
@@ -100,13 +109,18 @@ def _to_host(toks: torch.Tensor, done: torch.Tensor):
 
 
 def _check_family(cfg: ArchConfig, engine: str) -> None:
-    """The families the port serves: dense and MoE. MoE under int8
-    weights has no reference to hold it to (the JAX package's MoE FFN
-    casts the packed expert leaves and fails), so it raises."""
-    if cfg.family not in ("dense", "moe"):
+    """The families the port serves: dense, MoE, ssm and hybrid. MoE under
+    int8 weights has no reference to hold it to (the JAX package's MoE FFN
+    casts the packed expert leaves and fails), so it raises; the recurrent
+    families have no quantized serving path at all."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{engine}: family {cfg.family!r} is not ported yet (ROADMAP.md "
             "queue 1 item 7)")
+    if cfg.family in ("ssm", "hybrid") and cfg.quant.weights:
+        raise ValueError(
+            f"family {cfg.family!r} has no quantized serving path "
+            "(quant.weights is dense/moe-only)")
     if cfg.family == "moe" and cfg.quant.weights:
         raise NotImplementedError(
             f"{engine}: MoE with quant mode {cfg.quant.mode!r}: the "
@@ -127,9 +141,12 @@ def _serving_params(cfg: ArchConfig, params, device):
 
 
 class PagedEngine:
-    """Continuous-batching engine over paged KV for the dense and MoE
-    families (MoE routing drop-free, so each lane's tokens are its dense
-    oracle's).
+    """Continuous-batching engine over paged **sequence state** for the
+    dense, MoE, ssm and hybrid families (MoE routing drop-free, so each
+    lane's tokens are its dense oracle's). The family's
+    ``SequenceStateSpec`` says which pools its state lives in (KV pages,
+    recurrent state slots) and which features are legal; an unsupported
+    feature raises at construction.
 
     Each step admits waiting requests, runs one prefill chunk of one
     sequence (B=1, C=``prefill_chunk``; the final chunk padded with
@@ -150,8 +167,8 @@ class PagedEngine:
     the step takes the decode horizon.
 
     Features the port does not have yet raise here rather than being
-    silently downgraded: the other families, MoE under int8 weights and
-    mesh rules.
+    silently downgraded: the encdec and vlm families, int8 weights on MoE
+    and the recurrent families, and mesh rules.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -161,10 +178,6 @@ class PagedEngine:
                  device="cuda", prefix_cache: Optional[bool] = None,
                  watermark: int = 1, rules=None, spec_config=None):
         device = _resolve_device(device, "PagedEngine")
-        if cfg.quant.weights and cfg.family not in ("dense", "moe"):
-            raise ValueError(
-                f"family {cfg.family!r} has no quantized serving path "
-                "(quant.weights is dense/moe-only)")
         _check_family(cfg, "PagedEngine")
         if rules is not None:
             raise NotImplementedError(
@@ -178,6 +191,11 @@ class PagedEngine:
                 "keep dead KV resident; cap max_seq_len at the window")
         if prefix_cache is None:
             prefix_cache = state_spec.supports_prefix_cache
+        elif prefix_cache and not state_spec.supports_prefix_cache:
+            raise ValueError(
+                f"family {cfg.family!r} does not support prefix caching "
+                "(its sequence state cannot be restored at a matched "
+                "boundary)")
         if spec_config is not None:
             if not state_spec.supports_spec_decode:
                 raise ValueError(
@@ -195,17 +213,35 @@ class PagedEngine:
                 f"decode_horizon must be >= 1, got {decode_horizon}")
         self.cfg = cfg
         self.device = device
+        self.state_spec = state_spec
         self.prefix_cache = prefix_cache
         self.params = _serving_params(cfg, params, device)
         self.decode_batch = decode_batch
         self.decode_horizon = decode_horizon
+        # always built: a pure-recurrent family gets zero-byte pools with
+        # every host-side invariant intact
         self.cache = PagedKVCache(cfg, num_blocks=num_blocks,
                                   block_size=block_size,
                                   max_seq_len=max_seq_len,
-                                  prefix_cache=prefix_cache, device=device)
+                                  prefix_cache=(prefix_cache
+                                                and state_spec.has_pages),
+                                  device=device,
+                                  kv_layers=state_spec.kv_layers)
+        # recurrent families: one state slot per running lane (+ the null
+        # slot) and, with prefix caching, the block-boundary checkpoints
+        # that stand in for page sharing
+        self.slot_pool = None
+        self.ckpts = None
+        if state_spec.has_slots:
+            self.slot_pool = StateSlotPool(state_spec,
+                                           num_slots=max_running + 1,
+                                           device=device)
+            if prefix_cache:
+                self.ckpts = StateCheckpointCache(block_size=block_size)
         self.sched = Scheduler(self.cache, max_running=max_running,
                                prefill_chunk=prefill_chunk,
-                               watermark=watermark)
+                               watermark=watermark, spec=state_spec,
+                               slots=self.slot_pool, ckpts=self.ckpts)
         self.spec = spec_config
         self.finish_reasons: Dict[str, int] = {}
         self._finished: Dict[int, List[int]] = {}
@@ -224,9 +260,63 @@ class PagedEngine:
                    self._tensor(np.array(dst, np.int64)))
 
     def _refs(self, seqs: List[Optional[Sequence]]) -> Dict[str, torch.Tensor]:
-        """Page tables for a padded batch; ``None`` lanes get null rows."""
+        """Page tables and/or slot ids for a padded batch; ``None`` lanes
+        get the null page row and the null slot."""
         sids = [s.seq_id if s is not None else None for s in seqs]
-        return {"tables": self._tensor(self.cache.batch_tables(sids))}
+        refs = {}
+        if self.state_spec.has_pages:
+            refs["tables"] = self._tensor(self.cache.batch_tables(sids))
+        if self.slot_pool is not None:
+            refs["slots"] = self._tensor(self.slot_pool.batch_slots(sids))
+        return refs
+
+    # -- composite sequence state ---------------------------------------------
+
+    def _state(self) -> Dict[str, object]:
+        """The family's device state for one model call: the page pools
+        and/or the slot tree, keyed as ``models.api`` expects."""
+        st: Dict[str, object] = (dict(self.cache.pools)
+                                 if self.state_spec.has_pages else {})
+        if self.slot_pool is not None:
+            st["slots"] = self.slot_pool.slots
+        return st
+
+    def _put_state(self, state: Dict[str, object]) -> None:
+        if self.state_spec.has_pages:
+            self.cache.pools = {"k": state["k"], "v": state["v"]}
+        if self.slot_pool is not None:
+            self.slot_pool.slots = state["slots"]
+
+    def _init_state(self, seq: Sequence) -> None:
+        """Once per admission, before the first prefill chunk: zero-fill
+        the sequence's slot (its contents are the previous owner's) or
+        load the host checkpoint the scheduler matched."""
+        if seq.state_ready:
+            return
+        if self.slot_pool is not None:
+            i = self.slot_pool.slot_of(seq.seq_id)
+            if seq._restore is not None:
+                tree_map(lambda s, v: s[i].copy_(v), self.slot_pool.slots,
+                         seq._restore)
+                seq._restore = None
+            else:
+                tree_map(lambda s: s[i].zero_(), self.slot_pool.slots)
+        seq.state_ready = True
+
+    def _maybe_checkpoint(self, seq: Sequence, boundary: int) -> None:
+        """After a prefill chunk ending at ``boundary`` replay tokens: copy
+        the slot to host memory and register it under the prompt's chain
+        keys, iff the boundary is block-aligned and strictly inside the
+        prompt (the final position is always recomputed)."""
+        if self.ckpts is None or seq.prefix_keys is None:
+            return
+        if (boundary % self.cache.block_size != 0 or boundary <= 0
+                or boundary > seq.prompt_len - 1):
+            return
+        i = self.slot_pool.slot_of(seq.seq_id)
+        self.ckpts.register(seq.prefix_keys, boundary,
+                            tree_map(lambda s: s[i].to("cpu", copy=True),
+                                     self.slot_pool.slots))
 
     # -- one engine iteration -------------------------------------------------
 
@@ -239,18 +329,21 @@ class PagedEngine:
         if copies is None:
             return                       # seq itself was preempted
         self._apply_copies(copies)
+        self._init_state(seq)
         chunk = np.zeros((1, c), np.int32)
         chunk[0, :real] = replay[start:start + real]
         logits, state = api.prefill_paged(
             self.params, self._tensor(chunk),
             self._tensor(np.array([start], np.int32)),
             self._tensor(np.array([real], np.int32)), self._refs([seq]),
-            self.cache.pools, self.cfg)
-        self.cache.pools = state
+            self._state(), self.cfg)
+        self._put_state(state)
         seq.prefilled = start + real
+        self._maybe_checkpoint(seq, start + real)
         if not seq.in_prefill:
-            self.cache.register_prompt(seq.seq_id, seq.prompt,
-                                       seq.prefix_keys)
+            if self.state_spec.has_pages:
+                self.cache.register_prompt(seq.seq_id, seq.prompt,
+                                           seq.prefix_keys)
             if not seq.out:
                 # fresh sequence: the first generated token comes from the
                 # last real prompt position's logits (a resumed sequence
@@ -296,9 +389,9 @@ class PagedEngine:
         sampling, flags = self._lane_sampling(lanes)
         toks, done, state = api.decode_horizon_paged(
             self.params, self._tensor(token), self._tensor(pos),
-            self._refs(seqs), self.cache.pools, *sampling, self.cfg,
+            self._refs(seqs), self._state(), *sampling, self.cfg,
             num_steps=h, **flags)
-        self.cache.pools = state
+        self._put_state(state)
         rows, done_rows = _to_host(toks, done)
         for i, seq in enumerate(lanes):
             # cut the lane at its first finish event; draws after the cut
@@ -517,8 +610,24 @@ class PagedEngine:
                 self.decode_tokens / max(self.decode_dispatches, 1), 3),
             "truncated_tokens": self.truncated_tokens,
             "reclaimed_pages": self.reclaimed_pages,
-            "state_footprint_bytes": int(c.blocks_in_use * per_page),
         }
+        # the state footprint: live pages and live slots, what admission
+        # and preemption manage (O(1) per sequence for a recurrent family)
+        foot = c.blocks_in_use * per_page
+        if self.slot_pool is not None:
+            sp = self.slot_pool
+            foot += sp.slots_in_use * sp.bytes_per_slot
+            out.update({
+                "state_slots_in_use": sp.slots_in_use,
+                "free_state_slots": sp.free_slots,
+                "peak_state_slots_in_use": sp.peak_slots_in_use,
+                "state_bytes_per_slot": sp.bytes_per_slot,
+            })
+            if self.ckpts is not None:
+                cs = self.ckpts.stats()
+                out["state_checkpoints"] = cs["entries"]
+                out["checkpoint_hit_tokens"] = cs["hit_tokens"]
+        out["state_footprint_bytes"] = int(foot)
         if self.spec is not None:
             # verify dispatches count as decode dispatches and only kept
             # tokens count, so tokens per target dispatch is
@@ -538,6 +647,8 @@ class PagedEngine:
     def reset_stats(self) -> None:
         """Zero the serving counters (cached pages stay resident)."""
         self.cache.reset_stats()
+        if self.slot_pool is not None:
+            self.slot_pool.reset_stats()
         s = self.sched
         s.preemptions = s.admitted = s.finished = s.cancelled = 0
         self.steps = 0
@@ -570,9 +681,13 @@ class Engine:
     host.
 
     The dense and MoE families (MoE with the capacity-factor formula,
-    so tokens can drop, as in the reference); ssm and hybrid raise
-    (ROADMAP.md queue 1 item 7), as do MoE under int8 weights and mesh
-    rules (item 9).
+    so tokens can drop, as in the reference) thread per-lane positions, so
+    left-padded lanes mask their pad columns; the recurrent families (ssm,
+    hybrid) keep the reference's shared positions: pad tokens run through
+    the recurrence, so parity batches use equal-length prompts. Encdec and
+    vlm raise (ROADMAP.md queue 1 item 7), as do int8 weights on MoE and
+    the recurrent families, int8 KV on the hybrid's dense caches (the
+    reference stores a cast there, with no scale) and mesh rules (item 9).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
@@ -585,11 +700,20 @@ class Engine:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
                 "item 9)")
+        if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "Engine: int8 KV on the hybrid's dense caches: the "
+                "reference's decode_attend stores a cast of K/V there, with "
+                "no scale, so the port has no such path (PagedEngine pages "
+                "int8 KV)")
         self.cfg = cfg
         self.device = device
         self.params = _serving_params(cfg, params, device)
         self.batch = batch_size
         self.max_len = max_len
+        # attention-cache families thread per-lane positions through prefill
+        # and decode; the recurrent families keep shared positions
+        self._lane_pos = cfg.family in ("dense", "moe")
         # why each request of the last generate() call stopped, parallel
         # to its returned outputs
         self.finish_reasons: List[str] = []
@@ -643,9 +767,9 @@ class Engine:
         for j, r in enumerate(chunk):
             toks[j, plen - len(r.prompt):] = r.prompt      # left-pad
             n_pad[j] = plen - len(r.prompt)
-        logits, cache = api.prefill(self.params, self._tensor(toks),
-                                    self.cfg, self.max_len,
-                                    n_pad=self._tensor(n_pad))
+        logits, cache = api.prefill(
+            self.params, self._tensor(toks), self.cfg, self.max_len,
+            n_pad=self._tensor(n_pad) if self._lane_pos else None)
         self.prefill_calls += 1
         first = self._sample(logits[:, -1], samplers,
                              [j < real for j in range(b)])
@@ -665,10 +789,14 @@ class Engine:
         for _ in range(max_new - 1):
             if not any(live(j) for j in range(b)):
                 break                    # early exit: all lanes finished
-            logits, cache = api.decode_step(
-                self.params, cache, self._tensor(token),
-                self._tensor((pos - n_pad).astype(np.int32)), self.cfg,
-                write_pos=pos)
+            if self._lane_pos:
+                logits, cache = api.decode_step(
+                    self.params, cache, self._tensor(token),
+                    self._tensor((pos - n_pad).astype(np.int32)), self.cfg,
+                    write_pos=pos)
+            else:
+                logits, cache = api.decode_step(
+                    self.params, cache, self._tensor(token), pos, self.cfg)
             self.decode_calls += 1
             drawn = self._sample(logits, samplers, [live(j) for j in range(b)])
             token = np.zeros((b,), np.int32)

@@ -48,7 +48,8 @@ class PagedKVCache:
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int,
                  block_size: int = 16, max_seq_len: int = 512,
-                 prefix_cache: bool = True, device="cuda"):
+                 prefix_cache: bool = True, device="cuda",
+                 kv_layers: Optional[int] = None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (page 0 is the null page)")
         from repro_torch.models.layers import kv_store_dtype
@@ -59,7 +60,11 @@ class PagedKVCache:
         self.max_seq_len = max_seq_len
         self.prefix_cache = prefix_cache
         self.device = torch.device(device)
-        shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+        # kv_layers lets a family page only its attention layers (the
+        # hybrid's blocks); a pure-recurrent family passes 0 and gets
+        # zero-byte pools with every host-side invariant intact.
+        self.kv_layers = cfg.n_layers if kv_layers is None else kv_layers
+        shape = (self.kv_layers, num_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = kv_store_dtype(cfg)
         self.pools: Dict[str, torch.Tensor] = {

@@ -11,6 +11,12 @@ growth step cannot be covered the youngest running sequence is
 re-enters the front of the queue with its generated tokens intact, to
 replay ``prompt + out[:-1]`` through chunked prefill on re-admission.
 Long prompts are prefilled in fixed-size chunks, one per engine step.
+
+Recurrent families (``spec.has_slots``) also hold one state slot per
+running sequence, acquired at admission and released at finish,
+cancellation and preemption; with prefix caching on they resume only at a
+block boundary a state checkpoint covers (the hybrid: the deepest one its
+page match also covers, the unusable page tail dropped).
 """
 from __future__ import annotations
 
@@ -46,6 +52,11 @@ class Sequence:                        # tracked in running/waiting by object
     spec_k: Optional[int] = None
     spec_ema: float = 1.0
     spec_cool: int = 0
+    # recurrent-slot lifecycle: the engine zero-fills or checkpoint-restores
+    # the sequence's slot before the first prefill chunk of each admission;
+    # _restore holds the host checkpoint tree the scheduler matched, if any.
+    state_ready: bool = False
+    _restore: Optional[object] = dataclasses.field(default=None, repr=False)
     _replay: Optional[np.ndarray] = dataclasses.field(default=None,
                                                       repr=False)
 
@@ -86,8 +97,16 @@ class Scheduler:
     """Pairs the waiting queue with the shared-page pool."""
 
     def __init__(self, cache: PagedKVCache, *, max_running: int,
-                 prefill_chunk: int, watermark: int = 1):
+                 prefill_chunk: int, watermark: int = 1, spec=None,
+                 slots=None, ckpts=None):
         self.cache = cache
+        # the family's SequenceStateSpec (None: pages only), its
+        # StateSlotPool and, with prefix caching on a slot family, the
+        # StateCheckpointCache that stands in for page sharing
+        self.state_spec = spec
+        self.slots = slots
+        self.ckpts = ckpts
+        self._uses_pages = spec is None or spec.has_pages
         self.max_running = max_running
         self.prefill_chunk = prefill_chunk
         self.watermark = watermark
@@ -104,7 +123,8 @@ class Scheduler:
     def check_fits(self, prompt: np.ndarray, max_new_tokens: int) -> None:
         """Raise if this request's footprint can never be allocated."""
         footprint = len(prompt) + max(max_new_tokens - 1, 0)
-        need = self.cache.blocks_for_tokens(footprint)
+        need = (self.cache.blocks_for_tokens(footprint)
+                if self._uses_pages else 0)
         limit = min(self.cache.max_blocks_per_seq, self.cache.num_blocks - 1)
         if need > limit:
             raise ValueError(
@@ -140,12 +160,34 @@ class Scheduler:
         n = 0
         while self.waiting and len(self.running) < self.max_running:
             seq = self.waiting[0]
-            if self.cache.prefix_cache and seq.prefix_keys is None:
+            if self.slots is not None and self.slots.free_slots == 0:
+                break              # the slot pool is full: a finish frees one
+            want_keys = ((self._uses_pages and self.cache.prefix_cache)
+                         or self.ckpts is not None)
+            if want_keys and seq.prefix_keys is None:
                 seq.prefix_keys = self.cache.prefix_keys(seq.prompt)
-            pages, matched = self.cache.lookup_prefix(seq.prompt,
-                                                      seq.prefix_keys)
-            need_new = max(0, self.cache.blocks_for_tokens(seq.replay_len)
-                           - len(pages))
+            if self._uses_pages:
+                pages, matched = self.cache.lookup_prefix(seq.prompt,
+                                                          seq.prefix_keys)
+            else:
+                pages, matched = [], 0
+            restore = None
+            if self.slots is not None:
+                # a slot family resumes only where a state checkpoint
+                # exists (pages alone cannot rebuild the recurrent state);
+                # the hybrid caps it at the page match and drops the
+                # unusable page tail
+                if self.ckpts is not None:
+                    limit = (matched if self._uses_pages
+                             else seq.prompt_len - 1)
+                    matched, restore = self.ckpts.lookup(seq.prefix_keys,
+                                                         limit)
+                else:
+                    matched = 0
+                if self._uses_pages:
+                    pages = pages[:matched // self.cache.block_size]
+            need_new = (max(0, self.cache.blocks_for_tokens(seq.replay_len)
+                            - len(pages)) if self._uses_pages else 0)
             avail = (self.cache.free_blocks + self.cache.cached_blocks
                      - sum(1 for p in pages if self.cache.is_cached(p)))
             if self.running and need_new + self.watermark > avail:
@@ -156,7 +198,11 @@ class Scheduler:
             self.cache.attach(seq.seq_id, pages,
                               query_tokens=seq.prompt_len if first else 0,
                               hit_tokens=matched if first else 0)
+            if self.slots is not None:
+                self.slots.acquire(seq.seq_id)
             seq.prefilled = matched
+            seq.state_ready = False
+            seq._restore = restore
             self.running.append(self.waiting.popleft())
             self.admitted += 1
             n += 1
@@ -169,7 +215,9 @@ class Scheduler:
         """Make positions ``[start, end)`` writable for ``seq``; on pool
         exhaustion preempt the youngest running sequence and retry.
         Returns the COW page copies, or None if ``seq`` itself was
-        preempted."""
+        preempted. Slot state is fixed-size: its growth is free."""
+        if not self._uses_pages:
+            return []
         while True:
             copies = self.cache.append_tokens(seq.seq_id, start, end)
             if copies is not None:
@@ -184,7 +232,11 @@ class Scheduler:
         waiting queue, outputs intact."""
         self.running.remove(seq)
         self.cache.release(seq.seq_id)
+        if self.slots is not None:
+            self.slots.release(seq.seq_id)
         seq.prefilled = 0
+        seq.state_ready = False
+        seq._restore = None
         seq.restarts += 1
         self.waiting.appendleft(seq)
         self.preemptions += 1
@@ -255,9 +307,12 @@ class Scheduler:
             seq.spec_k = min(max(2 * seq.spec_k, 1), spec.max_k)
 
     def finish(self, seq: Sequence) -> None:
-        """Release page refs; registered prompt pages stay hot."""
+        """Release page refs and the slot; registered prompt pages stay
+        hot."""
         self.running.remove(seq)
         self.cache.release(seq.seq_id)
+        if self.slots is not None:
+            self.slots.release(seq.seq_id)
         self.finished += 1
 
     def cancel(self, seq: Sequence) -> bool:
@@ -268,6 +323,8 @@ class Scheduler:
         if seq in self.running:
             self.running.remove(seq)
             self.cache.release(seq.seq_id)
+            if self.slots is not None:
+                self.slots.release(seq.seq_id)
         else:
             try:
                 self.waiting.remove(seq)

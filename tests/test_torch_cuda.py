@@ -67,6 +67,12 @@ Tolerances, and why:
 * exact-mode norms: the kernel's rows bitwise equal whatever the row
   count; against the plain torch ops (another reduction order, torch's
   approximate rsqrt on the card) 1e-5 of the output scale.
+* the recurrent families: the calibrating norm with a (G, C) affine
+  (rwkv6's per-head GroupNorm) bitwise against its plain version, the
+  exact norm's heads bitwise alone; ``layers.fma`` bitwise ``fma32``; the
+  paged kernel at 16 query heads on one KV head of dimension 256 (d^-1/2
+  exact) on exact-logit inputs 1e-5; the smoke ssm and hybrid engines,
+  card vs CPU: exact mode tokens equal, SOLE at least 95%.
 """
 import dataclasses
 
@@ -1587,3 +1593,189 @@ def test_exact_residual_norms_q_row_stable(cuda_device, kind):
     assert KN.exact_norm.launches == before + 2
     assert torch.equal(s40[:8], s8)
     assert torch.equal(q40[:8], q8) and torch.equal(sc40[:8], sc8)
+
+
+# -- the recurrent families: rwkv6's per-head GroupNorm, the hybrid's MQA -------
+
+
+GROUPNORM_ROWS = (8 * 64, 128 * 64, 2400 * 64)   # decode, chunk, dense prefill
+
+
+def _groupnorm_case(rng, rows, device):
+    """rwkv6's GroupNorm at full width: float32 WKV rows of one head's 64
+    channels, 64 heads, an (H, hd) = (64, 64) affine."""
+    x = rng.standard_normal((rows, 64)).astype(np.float32) * 2
+    x *= 2.0 ** rng.integers(0, 4, size=64)            # every PTF alpha
+    g = (1 + 0.1 * rng.standard_normal((64, 64))).astype(np.float32)
+    b = (0.1 * rng.standard_normal((64, 64))).astype(np.float32)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(g).to(device),
+            torch.from_numpy(b).to(device))
+
+
+@pytest.mark.parametrize("rows", GROUPNORM_ROWS)
+def test_calibrated_norm_per_head_affine(cuda_device, rows):
+    """The calibrating norm with a (G, C) affine (row r takes row r mod G):
+    ``alpha``, ``scale`` and the output bitwise equal to its plain version
+    (calibration over every row); a (G, C) affine whose rows are all one
+    (C,) affine gives the (C,) call's bits."""
+    x, g, b = _groupnorm_case(np.random.default_rng(rows), rows, cuda_device)
+    want = KN.calibrated_norm_plain(x, None, g, b, rms=False)
+    for _ in range(2):
+        got = KN.calibrated_norm(x, None, g, b, rms=False)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(got[1:], want[1:]))
+    one = KN.calibrated_norm(x, None, g[5], b[5], rms=False)[1]
+    rep = KN.calibrated_norm(x, None, g[5].expand(64, 64).contiguous(),
+                             b[5].expand(64, 64).contiguous(), rms=False)[1]
+    assert torch.equal(one, rep)
+
+
+@pytest.mark.parametrize("rows", GROUPNORM_ROWS)
+def test_exact_norm_per_head_affine(cuda_device, rows):
+    """The exact-mode norm with a (G, C) affine: each head's rows equal a
+    (C,) call on those rows alone, bit for bit (the kernel's rows do not
+    depend on their batch); against the plain torch ops 1e-5 of the
+    scale."""
+    x, g, b = _groupnorm_case(np.random.default_rng(rows + 1), rows,
+                              cuda_device)
+    full = KN.exact_norm(x, g, b, rms=False, eps=1e-5)
+    for h in (0, 1, 37, 63):
+        one = KN.exact_norm(x[h::64].contiguous(), g[h], b[h], rms=False,
+                            eps=1e-5)
+        assert torch.equal(full[h::64], one)
+    ref = KN.exact_norm_plain(x, g, b, rms=False, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (full - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+def test_groupnorm_op_is_one_launch(cuda_device, mode):
+    """rwkv6's ``_group_norm``: the ``layernorm`` op on (B, S, H, hd)
+    float32 with (H, hd) params is one launch of the mode's kernel and
+    equals the kernels' plain version on the same rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import rwkv6 as TR
+    cfg = get_config("rwkv6_7b")
+    if mode == "exact":
+        cfg = dataclasses.replace(cfg, norm_mode="exact")
+    x, g, b = _groupnorm_case(np.random.default_rng(3), 8 * 64, cuda_device)
+    o = x.reshape(2, 4, 64, 64)
+    wrapper = KN.exact_norm if mode == "exact" else KN.calibrated_norm
+    before = wrapper.launches
+    out = TR._group_norm(o, g, b, cfg, "serve")
+    assert wrapper.launches == before + 1 and out.shape == o.shape
+    if mode == "exact":
+        want = KN.exact_norm(x, g, b, rms=False, eps=1e-5)
+    else:
+        want = KN.calibrated_norm_plain(x, None, g, b, rms=False)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(out.reshape(-1, 64), want)
+
+
+def test_fma_on_the_card_is_one_rounding(cuda_device):
+    """``layers.fma`` (``addcmul``) rounds once, as ``fma32`` does: the
+    RG-LRU scan's combine and the causal conv's taps take the compiled
+    reference's FMA contraction on the card too."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b, c = (torch.randn(1 << 20, generator=gen, device="cuda")
+               for _ in range(3))
+    assert torch.equal(L.fma(a, b, c), KN.fma32(a, b, c))
+    assert not torch.equal(a * b + c, KN.fma32(a, b, c))
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_paged_kernel_mqa_head_dim_256(cuda_device, name, pool, mode):
+    """recurrentgemma_9b's local attention: 16 query heads on one KV head
+    of dimension 256 (the CUDA-core route; d^-1/2 = 1/16 exact), a causal
+    128-row chunk or a decode batch of 8 with null lanes, bf16 and float32
+    pools, on exact-logit inputs: 1e-5."""
+    spec = (dict(b=1, c=128, nb=32, q_start=[128], kv_len=[256])
+            if name == "prefill" else
+            dict(b=8, c=1, nb=32, q_start=[0] * 8,
+                 kv_len=[49, 300, 117, 1, 256, 83, 160, 1]))
+    arrays = _paged_inputs(np.random.default_rng(11), h=16, kvh=1, d=256,
+                           bs=16, **spec)
+    dt = getattr(torch, pool)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dt) for a in arrays[:3])
+    tables, meta = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    assert KA.paged_variant(q.dtype, k.dtype, 256, 16) == "CUDA cores"
+    kw = dict(causal=name == "prefill", sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    kvmap = KA.default_kv_head_map(16, 1, cuda_device)
+    out = KA.flash_e2softmax_paged(q, k, v, tables, meta, **kw)
+    ref = KA.flash_e2softmax_paged_plain(q, k, v, tables, meta, kvmap, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["decode", "prefill"])
+def test_sole_probs_at_the_hybrids_shapes(cuda_device, name):
+    """The hybrid's dense-slot attention softmax (``decode_attend``: 8
+    lanes x 16 heads of one row over a 384-column ring, the valid columns
+    broadcast at stride 0; the prefill's causal (300, 300) mask broadcast
+    over 16 heads): one E2Softmax launch per call, bitwise equal to the
+    max / snap / E2Softmax / cast chain on its plain pieces."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("recurrentgemma_9b")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if name == "decode":
+        cols = torch.arange(384, device="cuda")
+        valid = (cols <= 300) & (cols != 17)
+        mask = torch.broadcast_to(valid[None, None, None], (8, 16, 1, 384))
+    else:
+        pos = torch.arange(300, device="cuda")
+        mask = torch.broadcast_to((pos[:, None] >= pos[None])[None, None],
+                                  (8, 16, 300, 300))
+    logits = torch.randn(mask.shape, generator=gen, device="cuda") * 4
+    before = KE.e2softmax.launches
+    probs = L._sole_probs(logits, mask, cfg, torch.bfloat16)
+    assert KE.e2softmax.launches == before + 1
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    d = ops.snap_logits(logits - torch.clamp_min(m, -1e30), LOGIT_INT8_SCALE)
+    want = KE.e2softmax_plain(d, mask=mask.contiguous(), exp_bits=4).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(probs, want)
+
+
+@pytest.mark.parametrize("engine", ["paged", "dense"])
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "recurrentgemma_9b"])
+def test_recurrent_smoke_engines_on_card(cuda_device, arch, mode, engine):
+    """The ssm and hybrid smoke engines (the hybrid at 4 layers: one
+    rec-rec-attention block, one tail layer) on the card against the same
+    engines on the CPU: exact mode greedy tokens equal, SOLE at least 95%
+    equal. Every SOLE norm of the card run is a calibrating-norm launch
+    (rwkv6: 3 per layer and the final one per forward)."""
+    cfg = get_config(arch).smoke()
+    if arch == "recurrentgemma_9b":
+        cfg = dataclasses.replace(cfg, n_layers=4, n_tail_layers=1)
+    if mode == "exact":
+        cfg = dataclasses.replace(cfg, softmax_mode="exact",
+                                  norm_mode="exact", logit_int8=False)
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    n = 12 if engine == "dense" else None
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n or m)
+                    .astype(np.int32), max_new_tokens=8)
+            for m in (5, 20, 12, 30, 9)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        if engine == "paged":
+            eng = PagedEngine(cfg, params, num_blocks=32, block_size=8,
+                              max_seq_len=64, decode_batch=4,
+                              prefill_chunk=8, device=dev)
+        else:
+            eng = Engine(cfg, params, batch_size=4, max_len=64, device=dev)
+        before = KN.calibrated_norm.launches
+        outs.append(eng.generate(reqs))
+        if dev == "cuda" and mode == "sole":
+            assert KN.calibrated_norm.launches > before
+    pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+    assert all(len(o) == 8 for o in outs[1])
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    assert agree >= (1.0 if mode == "exact" else 0.95)

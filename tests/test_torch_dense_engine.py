@@ -259,8 +259,10 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize("change,err,match", [
     (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
      "no quantized MoE path"),
-    (dict(family="ssm"), NotImplementedError, "queue 1 item 7"),
-    (dict(family="hybrid"), NotImplementedError, "queue 1 item 7"),
+    (dict(family="ssm", quant=QuantConfig("w8a16")), ValueError,
+     "no quantized serving path"),
+    (dict(family="hybrid", kv_cache_dtype="int8"), NotImplementedError,
+     "int8 KV"),
     (dict(family="encdec"), ValueError, "LM families")])
 def test_engine_raises_for_unported_families(change, err, match):
     cfg, params = _smoke()

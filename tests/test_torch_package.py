@@ -121,17 +121,31 @@ def test_import_scan_sees_every_kind_of_import(tmp_path):
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_init_params_tree_matches_reference(name):
     """Same leaves and shapes; norms ones/zeros, biases zero, weights at
-    the reference's scales (0.02, the head d_model^-0.5)."""
+    the reference's scales (0.02, the head d_model^-0.5); the recurrent
+    families' constants (rwkv6's ``w0`` -6, the RG-LRU's ``lam`` 0.7, ``ba``
+    2) in the dtype the reference computes them in."""
     cfg = dataclasses.replace(get_config(name).smoke(), dtype="float32")
     params = api.init_params(0, cfg, "cpu")
     want = shapes_of(japi.init_params(0, jax_config(name).smoke())[0])
     got = {k: v for k, v in _shapes(params).items()}
     assert got == _flat(want)
-    layers = params["layers"]
-    assert torch.equal(layers["ln1"]["g"], torch.ones_like(layers["ln1"]["g"]))
+    layers = params.get("layers") or params["tail"]
+    norm = layers["ln1"] if "ln1" in layers else layers["ln"]
+    assert torch.equal(norm["g"], torch.ones_like(norm["g"]))
+    if cfg.family == "ssm":
+        assert (layers["tm"]["w0"] == -6.0).all()
+        assert layers["tm"]["w0"].dtype == torch.float32
+        assert torch.equal(layers["tm"]["gn_g"],
+                           torch.ones_like(layers["tm"]["gn_g"]))
+        ffn = layers["cm"]["wk"]
+    else:
+        ffn = layers["mlp"]["up"]
+    if cfg.family == "hybrid":
+        assert (layers["lam"] == 0.7).all() and (layers["ba"] == 2.0).all()
+        assert layers["lam"].dtype == torch.float32
     if cfg.qkv_bias:
         assert not layers["attn"]["bq"].any()
-    for leaf, scale in ((layers["mlp"]["up"], 0.02),
+    for leaf, scale in ((ffn, 0.02),
                         (params["embed"]["head"], cfg.d_model ** -0.5)):
         assert abs(leaf.std().item() / scale - 1) < 0.1
     again = api.init_params(0, cfg, "cpu")
@@ -179,7 +193,7 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(family="ssm"), NotImplementedError, "ROADMAP"),
+    (dict(family="encdec"), NotImplementedError, "ROADMAP"),
     (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
      "no quantized MoE path"),
     (dict(family="ssm", quant=QuantConfig("w8a8")), ValueError,
@@ -221,12 +235,12 @@ def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
         fn(x, x, torch.ones(8), torch.zeros(8), params=object())
 
 
-@pytest.mark.parametrize("kw", [dict(cfg=dict(family="ssm")),
+@pytest.mark.parametrize("kw", [dict(cfg=dict(family="vlm")),
                                 dict(rules=object())])
 def test_engine_raises_for_unported_features(kw):
-    """A family not ported yet (ssm; dense and MoE are) and mesh rules
-    raise, naming the roadmap item (speculative decoding is ported:
-    ``tests/test_torch_spec.py``)."""
+    """A family not ported yet (vlm; dense, MoE, ssm and hybrid are) and
+    mesh rules raise, naming the roadmap item (speculative decoding is
+    ported: ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
     kw = dict(kw)
     cfg = dataclasses.replace(cfg, **kw.pop("cfg", {}))
