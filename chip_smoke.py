@@ -154,6 +154,23 @@ norms and one attention launch per attention block), slot and checkpoint
 bytes; the smoke engines on the card against the CPU; the new shapes
 timed beside their plain versions, SDPA and ``F.group_norm``.
 
+The encdec and vlm families (phases 3-5, ``serve_families``, each
+sub-phase's ``[phase time]`` logged): ``_sole_probs`` at whisper's
+encoder rows of 1,500 (all true, and with a padded tail), its
+cross-attention at a decode step and a 64-row chunk (per-lane masks at
+stride 0 over heads) and qwen2-vl's prefill and decode, against the plain
+chain (masked entries 0); the calibrating norm bitwise and the exact
+norm's rows at LayerNorm 768 and RMS 3,584; the paged kernel at 12 on 12
+heads, d 64; then whisper_small at full width and depth through
+``PagedEngine`` (eight requests of 1,500 frames: SOLE bf16 with the
+launches per decoder forward and per encode checked, a profiled wave with
+the encoder's share; exact float32 tokens equal to the dense-cache
+oracle's, to a tight pool's that preempts and re-encodes and to an
+``AsyncEngine`` open loop's), qwen2_vl_7b at full width and depth (2 x
+1,024 embeds on a 16 x 16 patch grid and text, 32 decode steps; exact
+float32 logits held to ``forward``), the smoke models card vs CPU, and
+the new shapes timed.
+
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is available or the port is not beside this file.
@@ -4422,6 +4439,787 @@ def small_recurrent_parity(torch):
             check_agreement(douts, f"{arch} dense {mode}", bar)
 
 
+# -- the encdec and vlm families (whisper_small, qwen2_vl_7b) --------------------
+
+WHISPER_FRAMES = 1500              # 30 s of audio at 50 frames/s (cross_len)
+WHISPER_PROMPTS = (4, 64, 16, 40, 8, 33, 24, 12)   # decoder prompt lengths
+WHISPER_BLOCKS = 8 * (WHISPER_FRAMES // BLOCK_SIZE + 1 + 6) + 1
+# the null page, two requests' cross pages (94 each) and their prompts'
+# pages (1 + 4): any decode growth preempts
+WHISPER_TIGHT_BLOCKS = 1 + 2 * (WHISPER_FRAMES // BLOCK_SIZE + 1) + 5
+VLM_PROMPT = 1024                  # embeds a lane: a 16 x 16 patch grid, text
+VLM_GRID = 16
+VLM_LANES = 2
+XATTN_VALID = (1500, 1200, 800, 1, 1500, 333, 1000, 1)   # cross_valid a lane
+FAMILY_NORM_CASES = {"ln768_decode": (DECODE_BATCH, 768, False),
+                     "ln768_chunk": (PREFILL_CHUNK, 768, False),
+                     "ln768_encoder": (WHISPER_FRAMES, 768, False),
+                     "rms3584_decode": (DECODE_BATCH, 3584, True),
+                     "rms3584_prefill": (VLM_LANES * VLM_PROMPT, 3584, True)}
+
+
+def family_stage_inputs(torch, gen):
+    """The ``_sole_probs`` inputs of the two families' paths, raw float32
+    logits and the mask as ``attend_dense`` hands it over: whisper's
+    encoder (one request, 12 heads, 1,500 x 1,500, the all-true (S, T)
+    mask broadcast over the batch and heads; and with a padded tail of 300
+    columns), its cross-attention at a decode step (8 lanes x 12 heads x 1
+    row of 1,500) and at a 64-row chunk of each lane, with the per-lane
+    (B, 1, S, T) mask of ``XATTN_VALID`` at stride 0 over heads; qwen2-vl's
+    prefill (2 lanes x 28 heads x 1,024 causal rows) and decode step (the
+    (B, KV, g, T + 1) logits over its 1,056-column cache, the write slot
+    masked)."""
+    dev = "cuda"
+    s = WHISPER_FRAMES
+    cols = torch.arange(s, device=dev)
+    enc = torch.ones((s, s), dtype=torch.bool, device=dev)
+    tail = torch.broadcast_to(cols[None] < s - 300, (s, s))
+    valid = torch.tensor(XATTN_VALID, device=dev)
+    lane = cols[None] < valid[:, None]                       # (8, T)
+    xdec = torch.broadcast_to(lane[:, None, None, :], (8, 12, 1, s))
+    xchunk = torch.broadcast_to(lane[:, None, None, :], (8, 12, 64, s))
+    n = VLM_PROMPT
+    pos = torch.arange(n, device=dev)
+    causal = torch.broadcast_to((pos[:, None] >= pos[None])[None, None],
+                                (VLM_LANES, 28, n, n))
+    t = VLM_PROMPT + NEW_TOKENS
+    cvalid = torch.arange(t, device=dev) <= VLM_PROMPT + 4
+    cvalid[VLM_PROMPT + 4] = False                           # the write slot
+    vdec = torch.cat([torch.broadcast_to(cvalid[None, None, None],
+                                         (VLM_LANES, 4, 7, t)),
+                      torch.ones((VLM_LANES, 4, 7, 1), dtype=torch.bool,
+                                 device=dev)], -1)
+    masks = {"whisper_encoder": torch.broadcast_to(enc, (1, 12, s, s)),
+             "whisper_encoder_tail": torch.broadcast_to(tail, (1, 12, s, s)),
+             "whisper_xattn_decode": xdec, "whisper_xattn_chunk": xchunk,
+             "vlm_prefill": causal, "vlm_decode": vdec}
+    return {name: dict(logits=torch.randn(mask.shape, generator=gen,
+                                          device=dev) * 4, mask=mask)
+            for name, mask in masks.items()}
+
+
+def _family_norm_rows(torch, gen, rows, c, rms):
+    x = torch.randn((rows, c), generator=gen, device="cuda") * 3
+    x[:, ::7] *= 8                             # outlier channels, alpha > 0
+    x = x.to(torch.bfloat16)
+    r = torch.randn((rows, c), generator=gen, device="cuda").to(x.dtype)
+    g = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    b = None if rms else 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    return x, r, g, b
+
+
+def check_family_kernels(torch):
+    """Phase 3 at the encdec and vlm families' shapes. E2Softmax: the path's
+    whole ``_sole_probs`` stage (one launch) against the chain on the
+    plain version at :func:`family_stage_inputs` (rows past 512 columns sum
+    in another order: ``e2_match``'s bar), every masked entry, the padded
+    tail's included, exactly 0. The calibrating norm (residual add,
+    calibration, quantize + norm; and without the residual, the encoder's
+    and decoder's first norm) bitwise equal to its plain version on two
+    calls, and the exact norm's rows bitwise equal when computed alone and
+    within 1e-5 of the scale of its plain torch ops, at LayerNorm 768 (8,
+    128, 1,500 rows) and RMS 3,584 (8, 2,048 rows). The paged kernel at
+    whisper's decoder attention (12 heads on 12 KV heads, d 64: the
+    tensor-core route) at a decode step and a 128-row chunk, bf16 pages,
+    SOLE and exact (exact-logit inputs to 1e-5 of the scale; random: SOLE
+    at most 1% of rows off by more than 1e-3, exact 1e-4)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    res = {"e2": {}, "calib": {}, "exact": {}, "paged": {}}
+    cfgs = {"whisper": get_config("whisper_small"),
+            "vlm": get_config("qwen2_vl_7b")}
+    stage = family_stage_inputs(torch, gen)
+    for name, inp in stage.items():
+        logits, mask = inp["logits"], inp["mask"]
+        cfg = cfgs[name.split("_")[0]]
+        before = KE.e2softmax.launches
+        probs = L._sole_probs(logits, mask, cfg, torch.bfloat16)
+        if KE.e2softmax.launches != before + 1:
+            raise AssertionError(f"_sole_probs {name}: not one launch")
+        want = sole_probs_chain(torch, cfg, logits, mask, KE.e2softmax_plain)
+        torch.cuda.synchronize()
+        c = logits.shape[-1]
+        err, off = e2_match(torch, probs.float().reshape(-1, c),
+                            want.float().reshape(-1, c), c)
+        if (probs[~torch.broadcast_to(mask, probs.shape)] != 0).any():
+            raise AssertionError(f"_sole_probs {name}: a masked entry is "
+                                 "not 0")
+        res["e2"][name] = dict(logits=logits, mask=mask, cfg=cfg,
+                               max_abs_err=err, rows_off=off)
+        log(f"_sole_probs {name} logits {tuple(logits.shape)} mask strides "
+            f"{tuple(mask.stride())}: one launch, max|err| {err:.3e} against "
+            f"the plain chain, rows in another ALDivision bucket {off:.5f}, "
+            "masked entries 0")
+    for name, (rows, c, rms) in FAMILY_NORM_CASES.items():
+        x, r, g, b = _family_norm_rows(torch, gen, rows, c, rms)
+        pb = torch.zeros_like(g) if rms else b
+        for rr in (r, None):
+            want = KN.calibrated_norm_plain(x, rr, g, pb, rms=rms,
+                                            out_dtype=x.dtype)
+            for _ in range(2):
+                got = KN.calibrated_norm(x, rr, g, b, rms=rms,
+                                         out_dtype=x.dtype)
+                torch.cuda.synchronize()
+                if not all(torch.equal(p, q) for p, q in zip(got, want)):
+                    raise AssertionError(f"calib norm {name}: not bitwise")
+        eps = 1e-6 if rms else 1e-5
+        full = KN.exact_norm(x, g, b, rms=rms, eps=eps)
+        for i in (0, rows // 2, rows - 1):
+            if not torch.equal(KN.exact_norm(x[i:i + 1], g, b, rms=rms,
+                                             eps=eps)[0], full[i]):
+                raise AssertionError(f"exact norm {name}: row {i} alone")
+        ref = KN.exact_norm_plain(x, g, b, rms=rms, eps=eps)
+        torch.cuda.synchronize()
+        err = (full - ref).abs().max().item()
+        if err > 1e-5 * ref.abs().max().item():
+            raise AssertionError(f"exact norm {name}: {err}")
+        res["calib"][name] = dict(x=x, r=r, gamma=g, beta=b, rms=rms,
+                                  max_abs_err=0.0)
+        res["exact"][name] = dict(x=x, g=g, b=b, rms=rms, eps=eps,
+                                  max_abs_err=err)
+        log(f"family norm {name} rows={rows} C={c}: calibrating norm bitwise "
+            f"(with and without the residual), exact norm rows alone "
+            f"bitwise, {err:.3e} from its plain ops")
+    kvmap = KA.default_kv_head_map(12, 12, "cuda")
+    shapes = {"decode": dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+                             kv_lens=[49, 96, 17, 1, 64, 83, 40, 1]),
+              "chunk": dict(b=1, c=PREFILL_CHUNK, q_start=[0],
+                            kv_lens=[PREFILL_CHUNK])}
+    for name, sh in shapes.items():
+        causal = name == "chunk"
+        errs, offs = {}, {}
+        for grid in (True, False):
+            case = paged_case(torch, gen, h=12, kvh=12, d=64, grid=grid, **sh)
+            for mode in ("sole", "exact"):
+                kw = dict(sole=mode == "sole", exp_bits=4,
+                          int8_scale=(L.LOGIT_INT8_SCALE if mode == "sole"
+                                      else None))
+                out = KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+                ref = KA.flash_e2softmax_paged_plain(*case, kvmap,
+                                                     causal=causal, **kw)
+                torch.cuda.synchronize()
+                err = (out - ref).abs()
+                scale = max(ref.abs().max().item(), 1.0)
+                key = f"{mode}_{'grid' if grid else 'random'}"
+                errs[key] = err.max().item()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"paged 12/12 {name}: non-finite")
+                if grid or mode == "exact":
+                    tol = (1e-5 if grid else 1e-4) * scale
+                    if errs[key] > tol:
+                        raise AssertionError(f"paged 12/12 {name} {key}: "
+                                             f"{errs[key]} > {tol}")
+                else:
+                    offs[key] = (err.amax(-1) > 1e-3 * scale).float(
+                        ).mean().item()
+                    if offs[key] > 0.01:
+                        raise AssertionError(f"paged 12/12 {name} {key}: "
+                                             f"{offs[key]} of rows off")
+        res["paged"][f"whisper_{name}"] = dict(
+            case=case, causal=causal, max_abs_err=max(errs.values()))
+        log(f"paged_e2softmax H 12/KV 12 d 64 {name} "
+            f"[{KA.paged_variant(torch.bfloat16, torch.bfloat16, 64, BLOCK_SIZE)}]"
+            ": max|err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; SOLE random rows off by > 1e-3: {offs}")
+    return res
+
+
+def time_family_kernels(torch, fk, launches):
+    """Phase 5 at the two families' shapes, four rows of the kernel table:
+    the ``_sole_probs`` stage (one E2Softmax launch; bound: the logits, the
+    distinct mask bytes and the bf16 output once), the calibrating norm's
+    residual op stage and the exact norm (beside ``F.layer_norm`` /
+    ``F.rms_norm`` on a float32 copy), and the paged kernel at 12 on 12
+    heads (beside its exact mode and SDPA on the gathered K/V); each by
+    CUDA events with L2 flushed, the kernel alone by the profiler, and its
+    plain version. ``launches`` by row from the full-width paths."""
+    import torch.nn.functional as F
+    from repro_torch import ops
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import e2softmax as KE
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models import layers as L
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    table = []
+    e = dict(name="e2softmax_encdec_vlm", route="cuda",
+             source="src/repro_torch/kernels/csrc/e2softmax.cu",
+             replaces="src/repro/kernels/e2softmax.py:48", shapes={})
+    for name, res in fk["e2"].items():
+        logits, mask, cfg = res["logits"], res["mask"], res["cfg"]
+
+        def one():
+            return L._sole_probs(logits, mask, cfg, torch.bfloat16)
+        nbytes = logits.numel() * 4 + distinct_bytes(mask) + logits.numel() * 2
+        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
+                           FP32_FLOPS)
+        e["shapes"][name] = dict(
+            shape=f"logits {tuple(logits.shape)} f32, mask strides "
+                  f"{tuple(mask.stride())}, bf16 out",
+            ms=time_ms(torch, one, flush, reps=10),
+            kernel_ms=profiled_kernel_ms(torch, one, flush, "e2softmax",
+                                         reps=5),
+            plain_ms=time_ms(torch, lambda: sole_probs_chain(
+                torch, cfg, logits, mask, KE.e2softmax_plain), flush, reps=3),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            rows_off=res["rows_off"], bytes=nbytes)
+    main = e["shapes"]["whisper_xattn_decode"]
+    e.update(launches=sum(launches["e2softmax_encdec_vlm"].values()),
+             launches_by_path=launches["e2softmax_encdec_vlm"],
+             max_abs_err=max(s["max_abs_err"] for s in e["shapes"].values()),
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=None, main_shape="whisper_xattn_decode")
+    table.append(e)
+    for key, wrap, kern in (("calib", "ailayernorm_calib_encdec_vlm",
+                             "calib_norm_kernel"),
+                            ("exact", "ailayernorm_exact_encdec_vlm",
+                             "exact_norm_kernel")):
+        e = dict(name=wrap, route="cuda",
+                 source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+                 replaces=("src/repro/kernels/ailayernorm.py:305"
+                           if key == "calib" else
+                           "src/repro/ops/reference.py:57 (exact_layernorm; "
+                           "with exact_rmsnorm, :65, XLA's reduction: no "
+                           "pallas_call)"), shapes={})
+        for name, res in fk[key].items():
+            x, rms = res["x"], res["rms"]
+            rows, c = x.shape
+            kind = "rmsnorm" if rms else "layernorm"
+            if key == "calib":
+                r, g, b = res["r"], res["gamma"], res["beta"]
+                stage = ops.resolve(f"residual_{kind}", "sole", "cuda")
+                extra = () if rms else (b,)
+                pb = torch.zeros_like(g) if rms else b
+
+                def run():
+                    return stage(x, r, g, *extra, out_dtype=x.dtype)
+
+                def plain():
+                    return KN.calibrated_norm_plain(x, r, g, pb, rms=rms,
+                                                    out_dtype=x.dtype)
+                library = None
+                nbytes = 4 * rows * c * 2 + 2 * c * 4
+                flops = QNORM_OPS_PER_ELEMENT * rows * c
+            else:
+                g, b, eps = res["g"], res["b"], res["eps"]
+                xf = x.float()
+
+                def run():
+                    return KN.exact_norm(x, g, b, rms=rms, eps=eps)
+
+                def plain():
+                    return KN.exact_norm_plain(x, g, b, rms=rms, eps=eps)
+                lib = getattr(F, "rms_norm", None)
+                if rms:
+                    library = None if lib is None else (
+                        lambda: lib(xf, (c,), g, eps))
+                else:
+                    library = lambda: F.layer_norm(xf, (c,), g, b, eps)  # noqa
+                nbytes = rows * c * (2 + 4) + c * 4 * (1 + (not rms))
+                flops = 8 * rows * c
+            bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+            e["shapes"][name] = dict(
+                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16",
+                ms=time_ms(torch, run, flush),
+                kernel_ms=profiled_kernel_ms(torch, run, flush, kern),
+                plain_ms=time_ms(torch, plain, flush, reps=10),
+                library_ms=(None if library is None
+                            else time_ms(torch, library, flush)),
+                bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+                bytes=nbytes)
+        main = e["shapes"]["ln768_decode"]
+        e.update(launches=sum(launches[wrap].values()),
+                 launches_by_path=launches[wrap],
+                 max_abs_err=max(s["max_abs_err"]
+                                 for s in e["shapes"].values()),
+                 ms=main["ms"], plain_ms=main["plain_ms"],
+                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                 library_ms=main["library_ms"],
+                 library=(None if key == "calib" else
+                          "torch.nn.functional.layer_norm on a float32 copy"))
+        table.append(e)
+    e = dict(name="paged_e2softmax_mha_d64", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_e2softmax.cu",
+             replaces="src/repro/kernels/flash_e2softmax.py:186", shapes={})
+    kw = dict(sole=True, exp_bits=4, int8_scale=L.LOGIT_INT8_SCALE)
+    kvmap = KA.default_kv_head_map(12, 12, "cuda")
+    for name, res in fk["paged"].items():
+        case, causal = res["case"], res["causal"]
+
+        def run():
+            return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
+        nbytes, flops = attention_work(case, causal, 12, 12, 64)
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
+                                                causal)
+        e["shapes"][name] = dict(
+            shape=f"q {tuple(case[0].shape)} bf16 KV 12 kv_len "
+                  f"{case[4][:, 1].tolist()}",
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush, "paged_e2softmax"),
+            plain_ms=time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
+                *case, kvmap, causal=causal, **kw), flush, reps=5),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            exact_ms=exact_ms, library_ms=sdpa_ms, bytes=nbytes, flops=flops)
+    main = e["shapes"]["whisper_decode"]
+    e.update(launches=sum(launches["paged_e2softmax_mha_d64"].values()),
+             launches_by_path=launches["paged_e2softmax_mha_d64"],
+             max_abs_err=max(s["max_abs_err"] for s in e["shapes"].values()),
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=main["library_ms"],
+             library="scaled_dot_product_attention (exact, K/V gathered)")
+    table.append(e)
+    for t in table:
+        for s_, v in t["shapes"].items():
+            k, lib = v["kernel_ms"], v.get("library_ms")
+            log(f"{t['name']} {s_} [{v['shape']}]: {v['ms'] * 1e3:.1f} us "
+                f"(profiler: kernel "
+                f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}; "
+                f"plain {v['plain_ms'] * 1e3:.1f} us; library "
+                f"{'none' if lib is None else f'{lib * 1e3:.1f} us'}; bound "
+                f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']})")
+    return table
+
+
+class EncodeCounter:
+    """Counts ``api.encode_paged`` calls (one per admission of an encdec
+    request) until :meth:`close`."""
+
+    def __init__(self):
+        from repro_torch.models import api
+        self._api, self._real = api, api.encode_paged
+        self.encodes = 0
+
+        def counted(*a, **kw):
+            self.encodes += 1
+            return self._real(*a, **kw)
+        api.encode_paged = counted
+
+    def close(self):
+        self._api.encode_paged = self._real
+
+
+def whisper_requests(cfg):
+    """Eight requests of ``WHISPER_FRAMES`` seeded frames (unit normal, one
+    request's 1,500 x 768) and decoder prompts of ``WHISPER_PROMPTS``
+    tokens, ``NEW_TOKENS`` new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(
+                        np.int32), max_new_tokens=NEW_TOKENS,
+                    frames=rng.standard_normal(
+                        (WHISPER_FRAMES, cfg.d_model)).astype(np.float32))
+            for n in WHISPER_PROMPTS]
+
+
+def whisper_engine(cfg, params, blocks=WHISPER_BLOCKS, watermark=1):
+    from repro_torch.serve.engine import PagedEngine
+    return PagedEngine(cfg, params, num_blocks=blocks, block_size=BLOCK_SIZE,
+                       max_seq_len=128, max_running=8,
+                       decode_batch=DECODE_BATCH, prefill_chunk=PREFILL_CHUNK,
+                       decode_horizon=8, watermark=watermark, device="cuda")
+
+
+def whisper_trace(torch, cfg, params, label, *, blocks=WHISPER_BLOCKS,
+                  watermark=1, loop=False):
+    """One trace of ``whisper_requests`` through ``PagedEngine`` (closed,
+    or ``loop``: ``AsyncEngine`` with Poisson arrivals at
+    ``OPEN_LOOP_RATE``), the counts set to 0 just before and read just
+    after: per decoder forward L paged attentions, L cross-attention
+    E2Softmax launches and 3L + 1 norms (SOLE: calibrating; exact: the
+    exact kernel); per encode L E2Softmax launches and 2L + 1 norms; no
+    other kernel of ours. Returns (launches, outputs, summary)."""
+    import numpy as np
+    from repro_torch.serve.loop import AsyncEngine
+    eng = whisper_engine(cfg, params, blocks, watermark)
+    reqs = whisper_requests(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter, encodes = ForwardCounter(), EncodeCounter()
+    reset_launches()
+    try:
+        t0 = time.time()
+        if loop:
+            lp = AsyncEngine(eng)
+            rng = np.random.default_rng(5)
+            arrivals = np.cumsum(rng.exponential(1 / OPEN_LOOP_RATE,
+                                                 len(reqs))).astype(int)
+            handles = [lp.add_request(r, arrival=int(a))
+                       for r, a in zip(reqs, arrivals)]
+            lp.run()
+            outs = [h.tokens for h in handles]
+        else:
+            outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        counter.close()
+        encodes.close()
+    launches = read_launches()
+    fwd, enc, n = counter.forwards, encodes.encodes, cfg.n_layers
+    exact = cfg.norm_mode == "exact"
+    want = {k: 0 for k in launches}
+    want["paged_e2softmax"] = n * fwd
+    want["e2softmax"] = 0 if exact else n * (fwd + enc)
+    want["ailayernorm_exact" if exact else "ailayernorm_calib"] = (
+        (3 * n + 1) * fwd + (2 * n + 1) * enc)
+    if fwd <= 0 or enc < len(reqs) or launches != want:
+        raise AssertionError(f"[{label}] launches {launches} over {fwd} "
+                             f"forwards and {enc} encodes, expected {want}")
+    if [len(o) for o in outs] != [NEW_TOKENS] * len(reqs):
+        raise AssertionError(f"[{label}] token counts")
+    st = eng.stats()
+    eng.cache.check_refcounts()
+    if st["blocks_in_use"] or eng.cache._cross_tables:
+        raise AssertionError(f"[{label}] pages leaked: {st}")
+    summary = {"wall_s": wall, "forwards": fwd, "encodes": enc,
+               "preemptions": st["preemptions"],
+               "peak_blocks_in_use": st["peak_blocks_in_use"],
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30}
+    if loop:
+        ls = lp.stats()
+        summary.update(ttft_steps=ls["ttft_steps"], itl_steps=ls["itl_steps"],
+                       ttft_ms=ls["ttft_ms"])
+    log(f"[{label}] {len(reqs)} requests of {WHISPER_FRAMES} frames, "
+        f"{sum(len(o) for o in outs)} tokens in {wall:.3f} s; {fwd} decoder "
+        f"forwards, {enc} encodes; launches {json.dumps(launches)}; "
+        + json.dumps({k: v for k, v in summary.items() if k != "wall_s"}))
+    return launches, outs, summary
+
+
+def whisper_oracle(torch, cfg, params, reqs):
+    """The port's dense-cache oracle on the card: per request ``prefill``
+    of its frames and prompt, then greedy ``decode_step``s."""
+    from repro_torch.models import api
+    outs = []
+    for r in reqs:
+        plen = len(r.prompt)
+        batch = {"frames": torch.tensor(r.frames, device="cuda")[None],
+                 "tokens": torch.tensor(r.prompt, device="cuda")[None]}
+        logits, cache = api.prefill(params, batch, cfg,
+                                    plen + r.max_new_tokens)
+        out = [int(logits[0, -1, :cfg.vocab_size].argmax())]
+        for i in range(1, r.max_new_tokens):
+            logits, cache = api.decode_step(
+                params, cache, torch.tensor([out[-1]], dtype=torch.int32,
+                                            device="cuda"), plen + i - 1, cfg)
+            out.append(int(logits[0, :cfg.vocab_size].argmax()))
+        outs.append(out)
+    return outs
+
+
+def tokens_equal(a, b, label):
+    if a != b:
+        diff = [(i, next(j for j, (x, y) in enumerate(zip(p, q)) if x != y))
+                for i, (p, q) in enumerate(zip(a, b)) if p != q]
+        raise AssertionError(f"[{label}] tokens part: (request, first "
+                             f"token) {diff}")
+
+
+def profile_whisper(torch, cfg, params):
+    """One SOLE wave of ``whisper_requests`` under ``torch.profiler``:
+    wall, device busy and its share, device kernels per decoder forward,
+    and the encoder's share of busy, from one encode's device time (CUDA
+    events over ``api.encode_paged`` of one request) times the wave's
+    encodes."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    eng = whisper_engine(cfg, params)
+    reqs = whisper_requests(cfg)
+    eng.generate(reqs[:1])                       # warm the allocator
+    torch.cuda.synchronize()
+    counter, encodes = ForwardCounter(), EncodeCounter()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        counter.close()
+        encodes.close()
+    rows = sorted(((_device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if _device_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    kernels = sum(n for _, n, _ in rows)
+    frames = torch.tensor(reqs[0].frames, device="cuda")[None]
+    row = torch.tensor(eng.cache.batch_cross([None], 94), device="cuda")
+    state = eng._state()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    api.encode_paged(eng.params, frames, row, state, cfg)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        api.encode_paged(eng.params, frames, row, state, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    enc_ms = start.elapsed_time(end) / 5
+    enc_share = encodes.encodes * enc_ms / 1e3 / busy
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "busy_share_of_wall": busy / wall, "kernels": kernels,
+           "forwards": counter.forwards, "encodes": encodes.encodes,
+           "kernels_per_forward": kernels / max(counter.forwards, 1),
+           "encode_ms": enc_ms, "encoder_share_of_busy": enc_share,
+           "decoder_share_of_busy": 1 - enc_share,
+           "top": [{"ms": us / 1e3, "count": n, "kernel": key[:100]}
+                   for us, n, key in rows[:10]]}
+    log(f"[whisper paged] profiled wave: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s ({busy / wall:.3f} of wall), {kernels} kernels over "
+        f"{counter.forwards} decoder forwards and {encodes.encodes} encodes; "
+        f"one encode {enc_ms:.2f} ms on the device: encoder "
+        f"{enc_share:.3f} of busy, decoder {1 - enc_share:.3f}")
+    for us, n, key in rows[:10]:
+        log(f"  {us / 1e3:9.2f} ms {n:7d} x  {key[:100]}")
+    return out
+
+
+def serve_whisper(torch):
+    """Phase 4 for encdec: whisper_small at full width and depth (12 + 12
+    layers, d 768, random weights from a seed) through ``PagedEngine``,
+    the counts read around each trace: SOLE bf16 (the main path); exact
+    float32, tokens equal to the port's dense-cache oracle on the card;
+    exact float32 in a tight pool (preempts and re-encodes) with tokens
+    equal to the roomy run; exact float32 through ``AsyncEngine`` with
+    Poisson arrivals, tokens equal to the closed run; a profiled SOLE
+    wave. Returns (launches of the SOLE and of the roomy exact trace,
+    summaries)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    cfg = get_config("whisper_small")
+    t0 = time.time()
+    params = api.init_params(0, cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"[whisper] init_params bf16: {time.time() - t0:.2f} s")
+    launches, _, sole = whisper_trace(torch, cfg, params, "whisper sole bf16")
+    prof = profile_whisper(torch, cfg, params)
+    del params
+    exact = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                                logit_int8=False, dtype="float32")
+    params = api.init_params(0, exact, "cuda")
+    xlaunches, roomy, ex = whisper_trace(torch, exact, params,
+                                         "whisper exact f32")
+    tokens_equal(roomy, whisper_oracle(torch, exact, params,
+                                       whisper_requests(exact)),
+                 "whisper exact f32: paged vs dense oracle")
+    _, tight, ts = whisper_trace(torch, exact, params,
+                                 "whisper exact f32 tight",
+                                 blocks=WHISPER_TIGHT_BLOCKS, watermark=0)
+    if not ts["preemptions"] or ts["encodes"] <= len(WHISPER_PROMPTS):
+        raise AssertionError(f"whisper tight pool: no re-encode ({ts})")
+    tokens_equal(tight, roomy, "whisper exact f32: tight vs roomy")
+    _, looped, ls = whisper_trace(torch, exact, params,
+                                  "whisper exact f32 open loop", loop=True)
+    tokens_equal(looped, roomy, "whisper exact f32: open loop vs closed")
+    del params
+    torch.cuda.empty_cache()
+    log("[whisper] exact f32: paged tokens equal the dense oracle's, the "
+        "tight pool's (re-encoded) and the open loop's")
+    return {"sole": launches, "exact": xlaunches}, {
+        "sole": sole, "exact": ex, "tight": ts, "open_loop": ls,
+        "profile": prof}
+
+
+def vlm_prompt(torch, params, cfg, seed=0):
+    """``VLM_LANES`` lanes of ``VLM_PROMPT`` embeds: a 16 x 16 patch grid
+    (token rows perturbed: temporal 0, height and width the patch's row
+    and column) at flat positions 0-255, then text whose three ids are its
+    flat position, as the decode step's are. Returns (batch, text ids)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (VLM_LANES, VLM_PROMPT),
+                         generator=gen, device="cuda")
+    emb = params["embed"]["table"][toks].clone()
+    n = VLM_GRID * VLM_GRID
+    emb[:, :n] += (0.02 * torch.randn((VLM_LANES, n, cfg.d_model),
+                                      generator=gen, device="cuda")
+                   ).to(emb.dtype)
+    pos = torch.arange(VLM_PROMPT, dtype=torch.int32, device="cuda")
+    pos = pos.expand(3, VLM_LANES, VLM_PROMPT).clone()
+    grid = torch.arange(n, dtype=torch.int32, device="cuda")
+    pos[0, :, :n] = 0
+    pos[1, :, :n] = grid // VLM_GRID
+    pos[2, :, :n] = grid % VLM_GRID
+    return {"embeds": emb, "positions": pos}, toks
+
+
+def vlm_run(torch, cfg, params, label):
+    """``api.prefill`` of the prompt into a cache of ``VLM_PROMPT +
+    NEW_TOKENS`` columns, then ``NEW_TOKENS`` greedy ``decode_step``s, the
+    counts set to 0 just before and read just after (per call 28
+    E2Softmax launches in SOLE mode, 57 norms: calibrating or exact).
+    Returns (launches, prompt batch, decoded tokens, logits per call,
+    summary)."""
+    from repro_torch.models import api
+    batch, _ = vlm_prompt(torch, params, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    logits, cache = api.prefill(params, batch, cfg, VLM_PROMPT + NEW_TOKENS)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    rows = [logits[:, 0].float()]
+    toks = []
+    t0 = time.time()
+    for i in range(NEW_TOKENS):
+        tok = rows[-1][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits, cache = api.decode_step(params, cache, tok, VLM_PROMPT + i,
+                                        cfg)
+        rows.append(logits.float())
+    torch.cuda.synchronize()
+    t_dec = (time.time() - t0) / NEW_TOKENS
+    launches = read_launches()
+    calls = 1 + NEW_TOKENS
+    exact = cfg.norm_mode == "exact"
+    want = {k: 0 for k in launches}
+    want["e2softmax"] = 0 if exact else cfg.n_layers * calls
+    want["ailayernorm_exact" if exact else "ailayernorm_calib"] = (
+        (2 * cfg.n_layers + 1) * calls)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, expected {want}")
+    if not all(torch.isfinite(r).all() for r in rows):
+        raise AssertionError(f"[{label}] non-finite logits")
+    summary = {"prefill_s": t_pre, "decode_step_s": t_dec,
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[{label}] prefill of {VLM_LANES} x {VLM_PROMPT} embeds "
+        f"{t_pre:.3f} s, {NEW_TOKENS} decode steps at {t_dec * 1e3:.1f} ms; "
+        f"launches per call {json.dumps({k: v / calls for k, v in launches.items() if v})}; "
+        f"peak {summary['max_memory_allocated_gib']:.2f} GiB")
+    return launches, batch, torch.stack(toks, 1), rows, summary
+
+
+def serve_vlm(torch):
+    """Phase 4 for vlm: qwen2_vl_7b at full width and depth (28 layers,
+    random weights from a seed): :func:`vlm_run` in SOLE bf16 (the main
+    path), then in exact float32 with the prefill and decode logits held
+    to ``forward`` over the prompt and the decoded tokens (2e-3, the bar
+    of the reference's ``tests/test_parity.py``). Returns (launches of the
+    SOLE and of the exact run, summaries)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    cfg = get_config("qwen2_vl_7b")
+    t0 = time.time()
+    params = api.init_params(0, cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"[vlm] init_params bf16: {time.time() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    launches, _, _, _, sole = vlm_run(torch, cfg, params, "vlm sole bf16")
+    del params
+    torch.cuda.empty_cache()
+    exact = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
+                                logit_int8=False, dtype="float32")
+    params = api.init_params(0, exact, "cuda")
+    xlaunches, batch, toks, rows, ex = vlm_run(torch, exact, params,
+                                               "vlm exact f32")
+    emb = torch.cat([batch["embeds"],
+                     params["embed"]["table"][toks.long()]], 1)
+    n = VLM_PROMPT + NEW_TOKENS
+    flat = torch.arange(VLM_PROMPT, n, dtype=torch.int32, device="cuda")
+    pos = torch.cat([batch["positions"],
+                     flat.expand(3, VLM_LANES, NEW_TOKENS)], 2)
+    with torch.no_grad():
+        full = api.forward(params, {"embeds": emb, "positions": pos}, exact)
+    errs = [(rows[i] - full[:, VLM_PROMPT - 1 + i]).abs().max().item()
+            for i in range(NEW_TOKENS + 1)]
+    ex["max_abs_err_vs_forward"] = max(errs)
+    log(f"[vlm exact f32] prefill + {NEW_TOKENS} decode logits against "
+        f"forward over {n} positions: max |err| {max(errs):.3e} (prefill "
+        f"{errs[0]:.3e})")
+    if max(errs) > 2e-3:
+        raise AssertionError(f"vlm prefill/decode vs forward: {max(errs)}")
+    del params, full
+    torch.cuda.empty_cache()
+    return {"sole": launches, "exact": xlaunches}, {"sole": sole,
+                                                    "exact": ex}
+
+
+def small_family_parity(torch):
+    """The smoke whisper engine (``PagedEngine``; float32) and the smoke
+    qwen2-vl ``prefill`` + ``decode_step`` on the card against the same
+    on the CPU: exact mode tokens equal, SOLE at least 95%."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import PagedEngine, Request, _to_device
+    exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
+    for mode, change, bar in (("exact", exact, 1.0), ("sole", {}, 0.95)):
+        cfg = dataclasses.replace(get_config("whisper_small").smoke(),
+                                  **change)
+        params = api.init_params(0, cfg, "cpu")
+        rng = np.random.default_rng(1)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(
+                            np.int32), max_new_tokens=8,
+                        frames=rng.standard_normal((m, cfg.d_model)).astype(
+                            np.float32))
+                for n, m in ((5, 32), (20, 17), (12, 40), (9, 8), (3, 32))]
+        outs = []
+        for dev in ("cpu", "cuda"):
+            eng = PagedEngine(cfg, params, num_blocks=64, block_size=8,
+                              max_seq_len=64, decode_batch=4,
+                              prefill_chunk=8, device=dev)
+            outs.append(eng.generate(reqs))
+            eng.cache.check_refcounts()
+        check_agreement(outs, f"whisper_small paged {mode}", bar)
+        cfg = dataclasses.replace(get_config("qwen2_vl_7b").smoke(), **change)
+        params = api.init_params(0, cfg, "cpu")
+        outs = []
+        for dev in ("cpu", "cuda"):
+            p = _to_device(params, dev)
+            gen = torch.Generator().manual_seed(3)
+            toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
+            emb = params["embed"]["table"][toks]
+            pos = torch.arange(24, dtype=torch.int32).expand(3, 4, 24)
+            logits, cache = api.prefill(
+                p, {"embeds": emb.to(dev), "positions": pos.to(dev)}, cfg, 32)
+            out = [logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+            for i in range(7):
+                logits, cache = api.decode_step(p, cache, out[-1], 24 + i,
+                                                cfg)
+                out.append(logits[:, :cfg.vocab_size].argmax(-1).to(
+                    torch.int32))
+            outs.append(torch.stack(out, 1).cpu().tolist())
+        check_agreement(outs, f"qwen2_vl_7b prefill/decode {mode}", bar)
+
+
+def serve_families(torch):
+    """The encdec and vlm phases, timed: kernel checks at their shapes,
+    whisper_small and qwen2_vl_7b at full width, the smoke models on the
+    card against the CPU. Returns (kernel checks, launches by new table
+    row, summaries)."""
+    t0 = time.time()
+    fk = check_family_kernels(torch)
+    log(f"[phase time] encdec/vlm kernel checks: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    wl, wsum = serve_whisper(torch)
+    log(f"[phase time] whisper_small paths: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    vl, vsum = serve_vlm(torch)
+    log(f"[phase time] qwen2_vl_7b paths: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    small_family_parity(torch)
+    log(f"[phase time] encdec/vlm smoke card vs cpu: {time.time() - t0:.1f} s")
+    # launches: the SOLE paths' (the main paths), the exact norm's from
+    # the exact runs (it runs in exact mode only)
+    launches = {}
+    for row, kern, mode in (
+            ("e2softmax_encdec_vlm", "e2softmax", "sole"),
+            ("ailayernorm_calib_encdec_vlm", "ailayernorm_calib", "sole"),
+            ("ailayernorm_exact_encdec_vlm", "ailayernorm_exact", "exact"),
+            ("paged_e2softmax_mha_d64", "paged_e2softmax", "sole")):
+        launches[row] = {"whisper": wl[mode][kern], "vlm": vl[mode][kern]}
+    return fk, launches, {"whisper": wsum, "vlm": vsum}
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -4522,6 +5320,8 @@ def main() -> int:
         mark("mixtral_8x7b, dbrx_132b")
         rec = serve_recurrent(torch)
         mark("rwkv6_7b, recurrentgemma_9b")
+        fk, flaunches, fams = serve_families(torch)
+        mark("whisper_small, qwen2_vl_7b")
         for tag, res in rec.items():
             for key in ("paged", "paged_exact_warm", "dense"):
                 new[f"{tag}_{key}"] = res[key]
@@ -4546,6 +5346,7 @@ def main() -> int:
             "ailayernorm_exact_groupnorm":
                 rec["rwkv6"]["paged_exact_warm"][0]["ailayernorm_exact"],
             "e2softmax_hybrid": rec["hybrid"]["dense"][0]["e2softmax"]})
+        table += time_family_kernels(torch, fk, flaunches)
         static = static_op_stage(torch)
         spec_launches = {
             **{f"bf16 exact {k}": spec[k]["launches"]
@@ -4594,6 +5395,7 @@ def main() -> int:
                         "spec_bf16": spec,
                         "spec_w8a8": spec8, "open_loop": open_loop,
                         "draft_pair": pair,
+                        "families": fams,
                         "recurrent_profiles": {
                             tag: {k: v for k, v in res.items()
                                   if k in ("profile", "resident_gib")}

@@ -2,8 +2,7 @@
 ``QuantConfig`` and ``.smoke()`` (held field-for-field equal to the JAX
 package's by ``tests/test_torch_package.py``).
 
-Only the architectures this slice serves are registered; other names
-raise.
+Every family of the JAX package is registered; other names raise.
 """
 from __future__ import annotations
 
@@ -137,7 +136,8 @@ class ArchConfig:
 
 
 ARCH_NAMES = ("qwen2_0_5b", "stablelm_1_6b", "nemotron_4_15b", "minitron_8b",
-              "mixtral_8x7b", "dbrx_132b", "rwkv6_7b", "recurrentgemma_9b")
+              "mixtral_8x7b", "dbrx_132b", "rwkv6_7b", "recurrentgemma_9b",
+              "whisper_small", "qwen2_vl_7b")
 
 _REGISTRY = {}
 
@@ -147,8 +147,7 @@ def get_config(name: str) -> ArchConfig:
     if key not in ARCH_NAMES:
         raise ValueError(
             f"architecture {name!r} is not ported yet (ported: "
-            f"{ARCH_NAMES}; the encdec and vlm configs come with their "
-            "families, ROADMAP.md queue 1 item 7)")
+            f"{ARCH_NAMES})")
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG

@@ -11,7 +11,9 @@ which the reference feeds to its norms uncast, and for the recurrent
 families' leaves it computes with uncast: rwkv6's decay ``w0``/``w1``/
 ``w2``, bonus ``u`` and GroupNorm ``gn_g``/``gn_b``, the RG-LRU's
 ``lam``. The trees are the reference's: ``layers.tm``/``layers.cm`` for
-rwkv6, ``blocks.rec1``/``rec2``/``attn`` and ``tail`` for the hybrid.
+rwkv6, ``blocks.rec1``/``rec2``/``attn`` and ``tail`` for the hybrid,
+``enc_layers``, ``enc_norm`` and ``dec_layers`` (with the cross-attention's
+``ln_x`` and ``xattn``) for whisper, the dense tree for qwen2-vl.
 
 Under ``cfg.quant.weights`` packed ``{"q", "s"}`` leaves become int8 codes
 and float32 scales, and unpacked matmul weights (``QUANT_WEIGHT_SPEC``)
@@ -29,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC
 
-NORM_KEYS = ("ln1", "ln2", "final_norm", "ln", "ln_mlp")
+NORM_KEYS = ("ln1", "ln2", "final_norm", "ln", "ln_mlp", "ln_x", "enc_norm")
 # leaves the reference uses in float32 without a cast
 FLOAT32_KEYS = ("w0", "w1", "w2", "u", "gn_g", "gn_b", "lam")
 

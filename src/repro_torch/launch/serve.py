@@ -28,15 +28,21 @@ Examples::
       --smoke --device cpu --engine paged
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma_9b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small \
+      --smoke --device cpu --engine paged
 
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
 ``minitron_8b``, ``nemotron_4_15b``, the MoE ``mixtral_8x7b``,
-``dbrx_132b``, the ssm ``rwkv6_7b`` and the hybrid ``recurrentgemma_9b``;
-MoE with ``--quantize`` raises, as the reference has no quantized MoE
-path; the recurrent families raise, as the reference's engines do, on
+``dbrx_132b``, the ssm ``rwkv6_7b``, the hybrid ``recurrentgemma_9b``,
+the encdec ``whisper_small`` and the vlm ``qwen2_vl_7b``; MoE with
+``--quantize`` raises, as the reference has no quantized MoE path; the
+recurrent families and encdec raise, as the reference's engines do, on
 ``--quantize``, ``--spec-decode`` and on ``--prefix-cache`` beyond what
-their state spec allows). Not ported yet (ROADMAP.md queue 1 item 9):
-``--mesh``.
+their state spec allows). ``whisper_small`` is served by ``--engine
+paged`` only, each request with synthetic (cross_len, d_model) encoder
+frames from ``--seed``; ``--engine dense`` refuses it and both engines
+refuse ``qwen2_vl_7b`` (not paged-servable), with the reference's
+messages. Not ported yet (ROADMAP.md queue 1 item 9): ``--mesh``.
 """
 from __future__ import annotations
 
@@ -142,16 +148,26 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     params = api.init_params(args.seed, cfg, device)
     rng = np.random.default_rng(args.seed)
     eos_ids = tuple(int(t) for t in args.eos_ids.split(",") if t.strip())
+    # encdec requests carry synthetic encoder frames (the paged engine
+    # encodes them once at admission and parks cross K/V in pages)
+    cross = api.sequence_state_spec(cfg).cross_tokens if paged else 0
+
+    def frames():
+        if not cross:
+            return None
+        return rng.standard_normal((cross, cfg.d_model)).astype(np.float32)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
                                         size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.new_tokens,
                     temperature=args.temperature, top_k=args.top_k,
-                    seed=args.sample_seed + i, eos_ids=eos_ids)
+                    seed=args.sample_seed + i, eos_ids=eos_ids,
+                    frames=frames())
             for i in range(args.requests)]
     max_len = args.prompt_len + args.new_tokens
     if paged:
         blocks = args.num_blocks or max(
-            args.requests * ((max_len + 15) // 16 + 1), 16)
+            args.requests * ((max_len + 15) // 16 + 1 + (cross + 15) // 16),
+            16)
         spec = spec_config_from_flag(args.spec_decode, cfg,
                                      max_k=args.spec_k, seed=args.seed,
                                      smoke=args.smoke, device=device)

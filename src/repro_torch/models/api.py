@@ -1,6 +1,6 @@
-"""Model API: the only model surface ``serve/`` talks to. The dense, MoE,
-ssm (rwkv6) and hybrid (RecurrentGemma) families are ported; encdec and
-vlm raise (ROADMAP.md queue 1 item 7).
+"""Model API: the only model surface ``serve/`` talks to, for every family
+of the JAX package: dense, MoE, encdec (whisper), vlm (qwen2-vl), ssm
+(rwkv6) and hybrid (RecurrentGemma).
 
 The dense-slot engine calls :func:`prefill` / :func:`decode_step` on
 stacked caches (:func:`init_cache`). The paged calls follow the
@@ -8,8 +8,14 @@ reference's single calling convention: ``state`` is the engine's
 composite device state (``{"k", "v"}`` page pools and/or ``"slots"``, a
 ``StateSlotPool``'s tree) and ``refs`` the per-dispatch references
 (``"tables"`` (B, NB) and/or ``"slots"`` (B,)), only the keys the
-family's :func:`sequence_state_spec` calls for. Dense and MoE keep their
-``(tables, pools)`` signatures behind adapters here.
+family's :func:`sequence_state_spec` calls for (encdec adds ``"cross"``
+(B, NBc) cross-page tables and ``"cross_valid"`` (B,)). Dense and MoE keep
+their ``(tables, pools)`` signatures behind adapters here. A family whose
+spec is not ``servable`` (vlm) raises from every paged entry.
+
+Encdec and vlm take a batch dict where the LM families take tokens:
+``{"frames", "tokens"}`` and ``{"embeds", "positions"}`` for
+:func:`forward` and :func:`prefill`.
 """
 from __future__ import annotations
 
@@ -18,19 +24,20 @@ from typing import Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, rglru, rwkv6, transformer
+from repro_torch.models import (moe, rglru, rwkv6, transformer, vlm,
+                                whisper)
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe, "ssm": rwkv6,
-                   "hybrid": rglru}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "encdec": whisper,
+                   "vlm": vlm, "ssm": rwkv6, "hybrid": rglru}
 _PAGES_ONLY = ("dense", "moe")
+_BATCH_DICT = ("encdec", "vlm")
 
 
 def get_model(cfg: ArchConfig):
     mod = _FAMILY_MODULES.get(cfg.family)
     if mod is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: "
-            f"{sorted(_FAMILY_MODULES)}; ROADMAP.md queue 1 item 7)")
+        raise ValueError(f"unknown family {cfg.family!r} (known: "
+                         f"{sorted(_FAMILY_MODULES)})")
     return mod
 
 
@@ -48,10 +55,21 @@ def sequence_state_spec(cfg: ArchConfig):
     return get_model(cfg).sequence_state_spec(cfg)
 
 
+def _check_servable(cfg: ArchConfig) -> None:
+    if not sequence_state_spec(cfg).servable:
+        raise ValueError(
+            f"family {cfg.family!r} is not paged-servable "
+            "(see its sequence_state_spec)")
+
+
 def forward(params, batch, cfg: ArchConfig, phase: str = "serve"):
-    """batch {"tokens": (B, S)} -> logits (B, S, padded_vocab) float32
-    (an MoE model's aux loss is dropped, as the reference's API does)."""
-    out = get_model(cfg).forward(params, batch["tokens"], cfg, phase)
+    """batch {"tokens": (B, S)} (encdec: also "frames"; vlm: "embeds" and
+    "positions") -> logits (B, S, padded_vocab) float32 (an MoE model's
+    aux loss is dropped, as the reference's API does)."""
+    m = get_model(cfg)
+    if cfg.family in _BATCH_DICT:
+        return m.forward(params, batch, cfg, phase)
+    out = m.forward(params, batch["tokens"], cfg, phase)
     return out[0] if cfg.family == "moe" else out
 
 
@@ -61,8 +79,9 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, device="cuda"):
 
 
 def prefill(params, tokens, cfg: ArchConfig, cache_len: int, n_pad=None):
-    """Whole-prompt prefill of tokens (B, S) into a fresh cache of
-    ``cache_len`` columns. Returns (last-position logits (B, 1, V), cache)."""
+    """Whole-prompt prefill of tokens (B, S) (encdec and vlm: their batch
+    dict) into a fresh cache of ``cache_len`` columns. Returns
+    (last-position logits (B, 1, V), cache)."""
     return get_model(cfg).prefill(params, tokens, cfg, cache_len,
                                   n_pad=n_pad)
 
@@ -77,6 +96,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig, write_pos=None):
 def prefill_paged(params, tokens, q_start, n_valid, refs, state,
                   cfg: ArchConfig):
     """One chunked-prefill step. Returns (logits (B,C,V), state)."""
+    _check_servable(cfg)
     m = get_model(cfg)
     if cfg.family not in _PAGES_ONLY:
         return m.prefill_paged(params, tokens, q_start, n_valid, refs, state,
@@ -88,6 +108,7 @@ def prefill_paged(params, tokens, q_start, n_valid, refs, state,
 
 def decode_step_paged(params, token, pos, refs, state, cfg: ArchConfig):
     """One decode step: token/pos (B,). Returns (logits (B,V), state)."""
+    _check_servable(cfg)
     m = get_model(cfg)
     if cfg.family not in _PAGES_ONLY:
         return m.decode_step_paged(params, token, pos, refs, state, cfg)
@@ -102,6 +123,7 @@ def decode_horizon_paged(params, token, pos, refs, state, temperature,
                          stochastic: bool = True, use_eos: bool = True):
     """``num_steps`` fused decode+sample steps. Returns
     (tokens (B, num_steps), done (B, num_steps), state)."""
+    _check_servable(cfg)
     if cfg.family not in _PAGES_ONLY:
         return get_model(cfg).decode_horizon_paged(
             params, token, pos, refs, state, temperature, top_k, seed,
@@ -129,3 +151,12 @@ def verify_paged(params, tokens, q_start, n_valid, refs, state, temperature,
         top_k, seed, counter, eos_ids, cfg, use_top_k=use_top_k,
         stochastic=stochastic, use_eos=use_eos)
     return pinned, done, dict(state, **pools)
+
+
+def encode_paged(params, frames, cross_table, state, cfg: ArchConfig):
+    """Admission-time encoder run (encdec only): park every decoder
+    layer's cross K/V in the request's cross pages. Returns the state."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encode_paged is encdec-only, got {cfg.family}")
+    return get_model(cfg).encode_paged(params, frames, cross_table, state,
+                                       cfg)

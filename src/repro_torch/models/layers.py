@@ -1,8 +1,9 @@
-"""Shared model components of the serve paths: embeddings, RoPE, norms,
-the MLPs (SwiGLU, GeGLU, GELU, squared ReLU), QKV/output projections,
-paged attention, the dense (materialized-logits) attention of the
-dense-slot engine and the blocked (online-normalized) attention of long
-sequences, with the SOLE technique as the softmax/norm implementation.
+"""Shared model components of the serve paths: embeddings, RoPE and
+M-RoPE, norms, the MLPs (SwiGLU, GeGLU, GELU, squared ReLU), QKV/output
+projections, paged attention, the dense (materialized-logits) attention
+of the dense-slot engine, the blocked (online-normalized) attention of
+long sequences and cross-attention over encoder states, with the SOLE
+technique as the softmax/norm implementation.
 
 Plain functions on tensors, in the JAX package's layouts. Parameters are
 stored once in their serving dtype (``cfg.dtype`` for projections,
@@ -145,15 +146,42 @@ def rope_freqs(cfg: ArchConfig, device) -> torch.Tensor:
                                   device=device), expo)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               cfg: ArchConfig) -> torch.Tensor:
-    """x: (..., S, H, head_dim); positions broadcastable to (..., S)."""
-    freqs = rope_freqs(cfg, x.device)
-    ang = positions[..., None].float() * freqs
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, head_dim) turned by the angles (..., S, head_dim / 2),
+    in float32, back in x's dtype."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions broadcastable to (..., S)."""
+    freqs = rope_freqs(cfg, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def mrope_sections(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """M-RoPE's (temporal, height, width) shares of the head_dim / 2
+    rotary frequencies."""
+    half = cfg.head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): x (..., S, H, head_dim), positions (3, ..., S);
+    frequency section i turns with position axis i."""
+    freqs = rope_freqs(cfg, x.device)
+    ang3 = positions[..., None].float() * freqs         # (3, ..., S, half)
+    parts, start = [], 0
+    for i, n in enumerate(mrope_sections(cfg)):
+        parts.append(ang3[i][..., start:start + n])
+        start += n
+    return _rotate(x, torch.cat(parts, -1))             # (..., S, half)
 
 
 # -- MLP ----------------------------------------------------------------------
@@ -465,6 +493,60 @@ def apply_attention(p, x, positions, cfg: ArchConfig, phase: str,
     return _wo_proj(ctx, p, cfg)
 
 
+def apply_attention_mrope(p, x, positions3, cfg: ArchConfig,
+                          phase: str) -> torch.Tensor:
+    """qwen2-vl self-attention with M-RoPE positions (3, B, S), causal in
+    the flattened order (the temporal positions never decrease)."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_mrope(q, positions3, cfg)
+    k = apply_mrope(k, positions3, cfg)
+    s = x.shape[1]
+    flat_pos = torch.arange(s, device=x.device)
+    attend = (attend_blocked if attn_impl(cfg, s) == "blocked"
+              else attend_dense)
+    ctx = attend(q, k, v, flat_pos, flat_pos, cfg, phase, causal=True)
+    return _wo_proj(ctx, p, cfg)
+
+
+def apply_cross_attention(p, x, enc_kv, cfg: ArchConfig, phase: str,
+                          k_pos: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Cross-attention: queries from x (B,S,D), keys and values the
+    encoder's (B,T,KV,hd) pair. ``k_pos`` (T,) shared or (B,T) per lane
+    marks padded encoder rows with 2**30 (masked out): a per-lane mask is
+    (B, 1, S, T), read at stride 0 over heads."""
+    if is_qtensor(p["wq"]):
+        q = cast(qmatmul(x, p["wq"], cfg), cfg)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k, v = enc_kv
+    s, t = x.shape[1], k.shape[1]
+    if k_pos is None:
+        k_pos = torch.arange(t, device=x.device)
+    q_pos = torch.arange(s, device=x.device)
+    if k_pos.ndim == 2:           # per-lane encoder validity (paged serving)
+        q_pos = torch.broadcast_to(q_pos, (x.shape[0], s))
+    ctx = attend_dense(q, k, v, q_pos, k_pos, cfg, phase, causal=False)
+    return _wo_proj(ctx, p, cfg)
+
+
+def cross_kv(p, enc_out, cfg: ArchConfig):
+    """The encoder states' (B,T,KV,hd) keys and values for one decoder
+    layer's cross-attention."""
+    if is_qtensor(p["wk"]):
+        k = cast(qmatmul(enc_out, p["wk"], cfg), cfg)
+        v = cast(qmatmul(enc_out, p["wv"], cfg), cfg)
+    else:
+        k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
+        v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
+
+
 def attn_impl(cfg: ArchConfig, s: int) -> str:
     """``cfg.attn_impl`` for a sequence of ``s`` tokens: ``auto`` is
     blocked from 8192 tokens on, dense below."""
@@ -474,7 +556,8 @@ def attn_impl(cfg: ArchConfig, s: int) -> str:
 
 
 def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
-                          cfg: ArchConfig, slot: int
+                          cfg: ArchConfig, slot: int,
+                          positions3: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against the stacked dot-layout caches
     ck (L,B,KV,hd,T) and cv (L,B,KV,T,hd), which are only read here: the
@@ -482,14 +565,19 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     caller writes every layer's column after the layer loop. ``cpos`` is
     the position ring (T,) or per lane (B,T); ``pos`` scalar or per lane
     (B,); ``slot`` the ring column this step writes (its stale content is
-    masked out). The logits are float32 products of the model-dtype
-    operands. Returns (attn_out, k_col (B,KV,hd,1), v_row (B,KV,1,hd)).
+    masked out). M-RoPE models pass the token's 3-axis ``positions3``
+    (3, B, 1). The logits are float32 products of
+    the model-dtype operands. Returns (attn_out, k_col (B,KV,hd,1), v_row
+    (B,KV,1,hd)).
     """
     q, k, v = _project_qkv(p, x1, cfg)
     if cfg.pos_kind == "rope":
         rp = pos[:, None] if pos.ndim else pos[None]
         q = apply_rope(q, rp, cfg)
         k = apply_rope(k, rp, cfg)
+    elif cfg.pos_kind == "mrope" and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg)
+        k = apply_mrope(k, positions3, cfg)
     t = ck.shape[-1]
     kl = kv_dequant(ck[layer_idx], cfg)                  # (B,KV,hd,T)
     vl = kv_dequant(cv[layer_idx], cfg)                  # (B,KV,T,hd)

@@ -62,16 +62,34 @@ def _weights(gen: torch.Generator, cfg: ArchConfig, device):
     return w, mw
 
 
-def init_mlp(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
-    """The dense FFN's stacked weights: gate (gated kinds), up, down."""
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, device,
+             n: Optional[int] = None) -> Dict:
+    """The dense FFN's weights stacked over ``n`` layers (``cfg.n_layers``
+    by default): gate (gated kinds), up, down."""
     _, mw = _weights(gen, cfg, device)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    n = cfg.n_layers if n is None else n
+    d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_kind not in L.MLP_KINDS:
         raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
     mlp = {"up": mw((n, d, f)), "down": mw((n, f, d))}
     if cfg.mlp_kind in L.GATED_MLP_KINDS:
         mlp = {"gate": mw((n, d, f)), **mlp}
     return mlp
+
+
+def init_attention(mw, cfg: ArchConfig, n: int, device) -> Dict:
+    """An attention block's projections stacked over ``n`` layers, drawn
+    with ``mw`` (:func:`_weights`), and its zero QKV biases if the config
+    has them."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = {"wq": mw((n, d, h, hd)), "wk": mw((n, d, kv, hd)),
+            "wv": mw((n, d, kv, hd)), "wo": mw((n, h, hd, d))}
+    if cfg.qkv_bias:
+        dt = L.torch_dtype(cfg.dtype)
+        attn["bq"] = torch.zeros((n, h, hd), dtype=dt, device=device)
+        attn["bk"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
+        attn["bv"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
+    return attn
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, device,
@@ -83,17 +101,9 @@ def init(gen: torch.Generator, cfg: ArchConfig, device,
     cfg, device)`` draws the FFN (:func:`init_mlp` by default). Under
     ``cfg.quant.weights`` the matmul weights stay float32 masters, as in
     the reference, so the engine packs its int8 codes from float32."""
-    dt = L.torch_dtype(cfg.dtype)
     w, mw = _weights(gen, cfg, device)
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    n = cfg.n_layers
-    v = cfg.padded_vocab
-    attn = {"wq": mw((n, d, h, hd)), "wk": mw((n, d, kv, hd)),
-            "wv": mw((n, d, kv, hd)), "wo": mw((n, h, hd, d))}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((n, h, hd), dtype=dt, device=device)
-        attn["bk"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
-        attn["bv"] = torch.zeros((n, kv, hd), dtype=dt, device=device)
+    d, n, v = cfg.d_model, cfg.n_layers, cfg.padded_vocab
+    attn = init_attention(mw, cfg, n, device)
     mlp = (ffn_init or init_mlp)(gen, cfg, device)
     return {
         "embed": {"table": w((v, d)), "head": mw((d, v), d ** -0.5)},

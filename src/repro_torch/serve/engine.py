@@ -28,6 +28,14 @@ engine zero-fills or checkpoint-restores a sequence's slot at admission
 and, with prefix caching, snapshots it to host memory at block-aligned
 prefill boundaries inside the prompt; the hybrid also pages its attention
 blocks' K/V.
+
+The encoder-decoder family (encdec: whisper) is served by the paged engine
+only: each request carries its encoder frames (``Request.frames``), the
+encoder runs once at admission and parks every decoder layer's cross K/V
+in pages the scheduler reserved beside the self-attention pages; a
+preempted request re-encodes on re-admission. The vlm family is not
+paged-servable and neither engine serves it (its ``prefill``/``decode_step``
+are reached through ``models.api``).
 """
 from __future__ import annotations
 
@@ -61,6 +69,9 @@ class Request:
     # ("stop"). The finishing token / sequence is kept in the output.
     eos_ids: Tuple[int, ...] = ()
     stop: Tuple[Tuple[int, ...], ...] = ()
+    # encdec only: the encoder input (S_enc, D) or (1, S_enc, D), run once
+    # per admission.
+    frames: Optional[np.ndarray] = None
 
 
 def _check_float32_masters(tree, key=None) -> None:
@@ -109,15 +120,11 @@ def _to_host(toks: torch.Tensor, done: torch.Tensor):
 
 
 def _check_family(cfg: ArchConfig, engine: str) -> None:
-    """The families the port serves: dense, MoE, ssm and hybrid. MoE under
-    int8 weights has no reference to hold it to (the JAX package's MoE FFN
-    casts the packed expert leaves and fails), so it raises; the recurrent
-    families have no quantized serving path at all."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{engine}: family {cfg.family!r} is not ported yet (ROADMAP.md "
-            "queue 1 item 7)")
-    if cfg.family in ("ssm", "hybrid") and cfg.quant.weights:
+    """Quantized serving: only the dense and MoE families have a path, as
+    in the reference. MoE under int8 weights has no reference to hold it
+    to (the JAX package's MoE FFN casts the packed expert leaves and
+    fails), so it raises too."""
+    if cfg.family not in ("dense", "moe") and cfg.quant.weights:
         raise ValueError(
             f"family {cfg.family!r} has no quantized serving path "
             "(quant.weights is dense/moe-only)")
@@ -142,8 +149,8 @@ def _serving_params(cfg: ArchConfig, params, device):
 
 class PagedEngine:
     """Continuous-batching engine over paged **sequence state** for the
-    dense, MoE, ssm and hybrid families (MoE routing drop-free, so each
-    lane's tokens are its dense oracle's). The family's
+    dense, MoE, encdec, ssm and hybrid families (MoE routing drop-free, so
+    each lane's tokens are its dense oracle's). The family's
     ``SequenceStateSpec`` says which pools its state lives in (KV pages,
     recurrent state slots) and which features are legal; an unsupported
     feature raises at construction.
@@ -166,9 +173,15 @@ class PagedEngine:
     rejected tail's pages are handed back at once. When no lane drafts
     the step takes the decode horizon.
 
-    Features the port does not have yet raise here rather than being
-    silently downgraded: the encdec and vlm families, int8 weights on MoE
-    and the recurrent families, and mesh rules.
+    Encdec requests carry encoder frames: at admission the encoder runs
+    once (one request at a time) and writes every decoder layer's cross
+    K/V into the request's cross pages, which each prefill chunk and decode
+    horizon reads (null lanes claim one valid cross row).
+
+    Features without a path raise here rather than being silently
+    downgraded: the vlm family (not paged-servable), int8 weights on every
+    family but dense, int8 KV pages on encdec (the reference reads its int8
+    cross pages undequantized) and mesh rules.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -179,11 +192,22 @@ class PagedEngine:
                  watermark: int = 1, rules=None, spec_config=None):
         device = _resolve_device(device, "PagedEngine")
         _check_family(cfg, "PagedEngine")
+        state_spec = api.sequence_state_spec(cfg)
+        if not state_spec.servable:
+            raise ValueError(
+                f"family {cfg.family!r} is not paged-servable "
+                "(see its sequence_state_spec)")
+        if state_spec.cross_tokens and cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "PagedEngine: encdec with int8 KV pages: the reference "
+                "writes the cross pages as int8 codes and reads them back "
+                "cast, not dequantized (repro/models/whisper.py:318-320), "
+                "so its tokens part from its own dense oracle; the port has "
+                "no such path")
         if rules is not None:
             raise NotImplementedError(
                 "sharding rules are not ported yet (ROADMAP.md queue 1 "
                 "item 9)")
-        state_spec = api.sequence_state_spec(cfg)
         if cfg.window and max_seq_len > cfg.window:
             raise ValueError(
                 "pages are append-only: serving past the sliding window "
@@ -260,14 +284,23 @@ class PagedEngine:
                    self._tensor(np.array(dst, np.int64)))
 
     def _refs(self, seqs: List[Optional[Sequence]]) -> Dict[str, torch.Tensor]:
-        """Page tables and/or slot ids for a padded batch; ``None`` lanes
-        get the null page row and the null slot."""
+        """Page tables, slot ids and/or cross-page tables for a padded
+        batch; ``None`` lanes get the null page row and the null slot."""
         sids = [s.seq_id if s is not None else None for s in seqs]
+        spec = self.state_spec
         refs = {}
-        if self.state_spec.has_pages:
+        if spec.has_pages:
             refs["tables"] = self._tensor(self.cache.batch_tables(sids))
         if self.slot_pool is not None:
             refs["slots"] = self._tensor(self.slot_pool.batch_slots(sids))
+        if spec.cross_tokens:
+            cb = self.cache.blocks_for_tokens(spec.cross_tokens)
+            refs["cross"] = self._tensor(self.cache.batch_cross(sids, cb))
+            # null lanes claim one valid cross row: they attend one garbage
+            # null-page key rather than an all-masked row
+            refs["cross_valid"] = self._tensor(np.array(
+                [s.cross_valid if s is not None else 1 for s in seqs],
+                np.int32))
         return refs
 
     # -- composite sequence state ---------------------------------------------
@@ -290,7 +323,9 @@ class PagedEngine:
     def _init_state(self, seq: Sequence) -> None:
         """Once per admission, before the first prefill chunk: zero-fill
         the sequence's slot (its contents are the previous owner's) or
-        load the host checkpoint the scheduler matched."""
+        load the host checkpoint the scheduler matched; encdec: run the
+        encoder on the request's frames, parking the cross K/V in the
+        pages the scheduler reserved."""
         if seq.state_ready:
             return
         if self.slot_pool is not None:
@@ -301,6 +336,21 @@ class PagedEngine:
                 seq._restore = None
             else:
                 tree_map(lambda s: s[i].zero_(), self.slot_pool.slots)
+        spec = self.state_spec
+        if spec.cross_tokens:
+            if seq.frames is None:
+                raise ValueError(
+                    f"family {self.cfg.family!r} needs encoder frames on "
+                    "every request (Request.frames)")
+            frames = np.asarray(seq.frames, np.float32)
+            if frames.ndim == 2:
+                frames = frames[None]
+            seq.cross_valid = max(1, min(frames.shape[1], spec.cross_tokens))
+            cb = self.cache.blocks_for_tokens(spec.cross_tokens)
+            row = self.cache.cross_row(seq.seq_id, cb)[None]
+            self._put_state(api.encode_paged(
+                self.params, self._tensor(frames), self._tensor(row),
+                self._state(), self.cfg))
         seq.state_ready = True
 
     def _maybe_checkpoint(self, seq: Sequence, boundary: int) -> None:
@@ -552,9 +602,14 @@ class PagedEngine:
 
     def submit(self, request: Request) -> Sequence:
         """Validate and queue one request; returns its live Sequence."""
+        if self.state_spec.cross_tokens and request.frames is None:
+            raise ValueError(
+                f"family {self.cfg.family!r} needs encoder frames on "
+                "every request (Request.frames)")
         return self.sched.submit(
             request.prompt, request.max_new_tokens,
-            sampler=sampler_for(request, self.cfg.vocab_size))
+            sampler=sampler_for(request, self.cfg.vocab_size),
+            frames=request.frames)
 
     def cancel(self, seq: Sequence) -> bool:
         """Cancel a submitted sequence, a finish event like any other:
@@ -685,9 +740,10 @@ class Engine:
     left-padded lanes mask their pad columns; the recurrent families (ssm,
     hybrid) keep the reference's shared positions: pad tokens run through
     the recurrence, so parity batches use equal-length prompts. Encdec and
-    vlm raise (ROADMAP.md queue 1 item 7), as do int8 weights on MoE and
-    the recurrent families, int8 KV on the hybrid's dense caches (the
-    reference stores a cast there, with no scale) and mesh rules (item 9).
+    vlm are not LM families and raise, as in the reference, as do int8
+    weights on MoE and the recurrent families, int8 KV on the hybrid's
+    dense caches (the reference stores a cast there, with no scale) and
+    mesh rules (ROADMAP.md queue 1 item 9).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,

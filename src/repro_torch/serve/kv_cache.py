@@ -23,6 +23,10 @@ Pages are shared between sequences through three mechanisms:
   resident on an LRU list for future hits and is evicted only under
   allocation pressure.
 
+Encoder-decoder sequences also hold **cross pages** (:meth:`alloc_cross`):
+private, never registered, written once by the admission-time encoder
+pass, read-only after, freed with the sequence.
+
 Allocation is on demand (:meth:`append_tokens` grows a table to cover
 the token range about to be written, or returns None — the preemption
 signal). Host state is plain Python; the device pools are torch tensors
@@ -81,6 +85,8 @@ class PagedKVCache:
         self._entries: Dict[int, Tuple[Optional[int], bytes]] = {}
         self._ref: List[int] = [0] * num_blocks
         self._tables: Dict[int, List[int]] = {}
+        # encdec: seq id -> its private, read-only cross-attention pages
+        self._cross_tables: Dict[int, List[int]] = {}
         self.peak_blocks_in_use = 0
         self.evictions = 0
         self.cow_copies = 0
@@ -131,7 +137,7 @@ class PagedKVCache:
         """Invariant sweep: refcounts match the page tables and are never
         negative; free/evictable/table sets partition the pages."""
         counts = [0] * self.num_blocks
-        for table in self._tables.values():
+        for table in (*self._tables.values(), *self._cross_tables.values()):
             for pid in table:
                 counts[pid] += 1
         assert self._ref == counts, (self._ref, counts)
@@ -143,6 +149,11 @@ class PagedKVCache:
         resident = set(self._free) | set(self._evictable)
         for table in self._tables.values():
             assert resident.isdisjoint(table)
+        for table in self._cross_tables.values():
+            assert resident.isdisjoint(table)
+            # cross pages are never registered or shared: refcount 1
+            for pid in table:
+                assert self._ref[pid] == 1 and pid not in self._registered
         for h, pid in self._index.items():
             assert self._registered.get(pid) == h
             assert pid in self._entries
@@ -307,9 +318,51 @@ class PagedKVCache:
     def release(self, seq_id: int) -> None:
         """Drop ``seq_id``'s references (finish or preemption), tail
         first, so pool pressure evicts chain suffixes before the
-        prefixes they hang off."""
+        prefixes they hang off. Cross pages go straight back to the free
+        list."""
         for pid in reversed(self._tables.pop(seq_id)):
             self._drop(pid)
+        for pid in self._cross_tables.pop(seq_id, []):
+            self._drop(pid)
+            assert self._ref[pid] == 0, f"shared cross page {pid}"
+
+    # -- encdec cross-attention pages -------------------------------------------
+
+    def alloc_cross(self, seq_id: int, n_tokens: int) -> Optional[List[int]]:
+        """Reserve private pages for ``n_tokens`` rows of encoder cross
+        K/V, written once by the admission-time encoder pass and read-only
+        until :meth:`release`. Returns the page ids, or None (no state
+        change) if the pool cannot cover them."""
+        if seq_id in self._cross_tables:
+            raise ValueError(f"seq {seq_id} already has cross pages")
+        need = self.blocks_for_tokens(n_tokens)
+        if need > self.free_capacity():
+            return None
+        pages = [self._acquire() for _ in range(need)]
+        self._cross_tables[seq_id] = pages
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                      self.blocks_in_use)
+        return pages
+
+    def has_cross(self, seq_id: int) -> bool:
+        return seq_id in self._cross_tables
+
+    def cross_row(self, seq_id: int, width: Optional[int] = None
+                  ) -> np.ndarray:
+        """(width,) int32 cross-page table, null-page padded."""
+        blocks = self._cross_tables[seq_id]
+        row = np.zeros((width or len(blocks),), np.int32)
+        row[:len(blocks)] = blocks
+        return row
+
+    def batch_cross(self, seq_ids: Sequence[Optional[int]],
+                    width: int) -> np.ndarray:
+        """(len(seq_ids), width) int32; None or crossless rows -> null."""
+        out = np.zeros((len(seq_ids), width), np.int32)
+        for i, sid in enumerate(seq_ids):
+            if sid is not None and sid in self._cross_tables:
+                out[i] = self.cross_row(sid, width)
+        return out
 
     def table_row(self, seq_id: int) -> np.ndarray:
         """(max_blocks_per_seq,) int32 page table, null-page padded."""
@@ -339,6 +392,14 @@ def write_tokens(pool: torch.Tensor, kv: torch.Tensor, block_ids: torch.Tensor,
     """
     pool[block_ids.long(), offsets.long()] = kv.to(pool.dtype)
     return pool
+
+
+def gather_kv(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One layer's pages gathered to a contiguous cache: pool (N, bs, KV,
+    hd), table (B, NB) -> (B, NB * bs, KV, hd)."""
+    bs, kvh, hd = pool.shape[1:]
+    b, nb = table.shape
+    return pool[table.reshape(-1).long()].reshape(b, nb * bs, kvh, hd)
 
 
 def slots_for_positions(positions: torch.Tensor, block_size: int,

@@ -17,6 +17,11 @@ running sequence, acquired at admission and released at finish,
 cancellation and preemption; with prefix caching on they resume only at a
 block boundary a state checkpoint covers (the hybrid: the deepest one its
 page match also covers, the unusable page tail dropped).
+
+Encoder-decoder sequences (``spec.cross_tokens``) also hold private cross
+pages for their encoder's K/V, reserved at admission on top of the
+self-attention pages and dropped at finish, cancellation and preemption
+(a preempted sequence re-encodes on re-admission).
 """
 from __future__ import annotations
 
@@ -56,6 +61,12 @@ class Sequence:                        # tracked in running/waiting by object
     # the sequence's slot before the first prefill chunk of each admission;
     # _restore holds the host checkpoint tree the scheduler matched, if any.
     state_ready: bool = False
+    # encdec only: the raw encoder input, run once per admission (frames
+    # cannot be replayed from tokens, so preemption re-encodes), and the
+    # encoder rows valid in the cross pages (shorter inputs mask the tail)
+    frames: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                     repr=False)
+    cross_valid: int = 0
     _restore: Optional[object] = dataclasses.field(default=None, repr=False)
     _replay: Optional[np.ndarray] = dataclasses.field(default=None,
                                                       repr=False)
@@ -107,6 +118,9 @@ class Scheduler:
         self.slots = slots
         self.ckpts = ckpts
         self._uses_pages = spec is None or spec.has_pages
+        self._cross_blocks = (cache.blocks_for_tokens(spec.cross_tokens)
+                              if spec is not None and spec.cross_tokens
+                              else 0)
         self.max_running = max_running
         self.prefill_chunk = prefill_chunk
         self.watermark = watermark
@@ -124,21 +138,24 @@ class Scheduler:
         """Raise if this request's footprint can never be allocated."""
         footprint = len(prompt) + max(max_new_tokens - 1, 0)
         need = (self.cache.blocks_for_tokens(footprint)
-                if self._uses_pages else 0)
-        limit = min(self.cache.max_blocks_per_seq, self.cache.num_blocks - 1)
+                if self._uses_pages else 0) + self._cross_blocks
+        # cross pages are a fixed overhead beside the max_seq_len budget
+        limit = min(self.cache.max_blocks_per_seq + self._cross_blocks,
+                    self.cache.num_blocks - 1)
         if need > limit:
             raise ValueError(
                 f"request footprint of {need} pages can never fit "
                 f"(per-seq/pool limit {limit})")
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
-               sampler: Optional[Sampler] = None) -> Sequence:
+               sampler: Optional[Sampler] = None,
+               frames: Optional[np.ndarray] = None) -> Sequence:
         """Queue a request, failing fast if it can never fit."""
         self.check_fits(prompt, max_new_tokens)
         if sampler is None:
             sampler = Sampler(vocab_size=self.cache.cfg.vocab_size)
         seq = Sequence(self._next_id, np.asarray(prompt, np.int32),
-                       max_new_tokens, sampler=sampler)
+                       max_new_tokens, sampler=sampler, frames=frames)
         self._next_id += 1
         self.waiting.append(seq)
         return seq
@@ -186,8 +203,9 @@ class Scheduler:
                     matched = 0
                 if self._uses_pages:
                     pages = pages[:matched // self.cache.block_size]
-            need_new = (max(0, self.cache.blocks_for_tokens(seq.replay_len)
-                            - len(pages)) if self._uses_pages else 0)
+            need_new = self._cross_blocks + (
+                max(0, self.cache.blocks_for_tokens(seq.replay_len)
+                    - len(pages)) if self._uses_pages else 0)
             avail = (self.cache.free_blocks + self.cache.cached_blocks
                      - sum(1 for p in pages if self.cache.is_cached(p)))
             if self.running and need_new + self.watermark > avail:
@@ -198,6 +216,10 @@ class Scheduler:
             self.cache.attach(seq.seq_id, pages,
                               query_tokens=seq.prompt_len if first else 0,
                               hit_tokens=matched if first else 0)
+            if self._cross_blocks and self.cache.alloc_cross(
+                    seq.seq_id, self.state_spec.cross_tokens) is None:
+                self.cache.release(seq.seq_id)
+                break
             if self.slots is not None:
                 self.slots.acquire(seq.seq_id)
             seq.prefilled = matched

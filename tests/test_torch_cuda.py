@@ -1779,3 +1779,191 @@ def test_recurrent_smoke_engines_on_card(cuda_device, arch, mode, engine):
     assert all(len(o) == 8 for o in outs[1])
     agree = sum(a == b for a, b in pairs) / len(pairs)
     assert agree >= (1.0 if mode == "exact" else 0.95)
+
+
+# -- the encdec and vlm families (whisper_small, qwen2_vl_7b) ----------------------
+
+XATTN_VALID = (1500, 1200, 800, 1, 1500, 333, 1000, 1)   # cross rows a lane
+
+
+def _family_mask(name, device):
+    """The masks ``attend_dense`` hands ``_sole_probs`` on the two
+    families' paths: whisper's encoder ((S, T) all true, or a 300-column
+    padded tail, broadcast over batch and heads), its cross-attention at
+    a decode step and a 64-row chunk (per-lane (B, 1, S, T) validity at
+    stride 0 over 12 heads), qwen2-vl's causal prefill over 28 heads."""
+    cols = torch.arange(1500, device=device)
+    if name.startswith("encoder"):
+        keep = cols[None] < (1200 if name == "encoder_tail" else 1500)
+        return torch.broadcast_to(keep, (1, 12, 1500, 1500))
+    if name.startswith("xattn"):
+        lane = cols[None] < torch.tensor(XATTN_VALID, device=device)[:, None]
+        rows = 1 if name == "xattn_decode" else 64
+        return torch.broadcast_to(lane[:, None, None, :], (8, 12, rows, 1500))
+    pos = torch.arange(1024, device=device)
+    return torch.broadcast_to((pos[:, None] >= pos[None])[None, None],
+                              (2, 28, 1024, 1024))
+
+
+@pytest.mark.parametrize("name", ["encoder", "encoder_tail", "xattn_decode",
+                                  "xattn_chunk", "vlm_prefill"])
+def test_sole_probs_at_the_encdec_and_vlm_shapes(cuda_device, name):
+    """``_sole_probs`` at 1,500 columns (the block-per-row body) and at
+    qwen2-vl's 1,024-row causal prefill: one E2Softmax launch per call,
+    equal to the max / snap / E2Softmax / cast chain on its plain pieces
+    up to a row's ALDivision bucket (sums past 512 columns round in
+    another order), every masked entry, the padded tail's included,
+    exactly 0."""
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2_vl_7b" if name.startswith("vlm")
+                     else "whisper_small")
+    mask = _family_mask(name, cuda_device)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    logits = torch.randn(mask.shape, generator=gen, device="cuda") * 4
+    before = KE.e2softmax.launches
+    probs = L._sole_probs(logits, mask, cfg, torch.bfloat16)
+    assert KE.e2softmax.launches == before + 1
+    m = torch.where(mask, logits, -torch.inf).amax(-1, keepdim=True)
+    d = ops.snap_logits(logits - torch.clamp_min(m, -1e30), LOGIT_INT8_SCALE)
+    want = KE.e2softmax_plain(d, mask=mask.contiguous(), exp_bits=4).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    c = mask.shape[-1]
+    _assert_e2_matches(probs.float().reshape(-1, c),
+                       want.float().reshape(-1, c), c)
+    assert not probs[~mask].any()
+
+
+FAMILY_NORMS = [(8, 768, False), (128, 768, False), (1500, 768, False),
+                (8, 3584, True), (2048, 3584, True)]
+
+
+def _family_norm_case(rows, c, device):
+    gen = torch.Generator(device="cuda").manual_seed(rows + c)
+    x = torch.randn((rows, c), generator=gen, device=device) * 3
+    x[:, ::7] *= 8                                   # alpha > 0 channels
+    r = torch.randn((rows, c), generator=gen, device=device)
+    g = 1 + 0.1 * torch.randn((c,), generator=gen, device=device)
+    b = 0.1 * torch.randn((c,), generator=gen, device=device)
+    return x.to(torch.bfloat16), r.to(torch.bfloat16), g, b
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,c,rms", FAMILY_NORMS)
+def test_calibrated_norm_at_the_encdec_and_vlm_widths(cuda_device, rows, c,
+                                                      rms, residual):
+    """whisper's LayerNorm at 768 channels (a decode step, a 128-row chunk,
+    one request's 1,500 encoder rows) and qwen2-vl's RMSNorm at 3,584 (a
+    decode step, a 2 x 1,024 prefill), with and without the residual add:
+    bitwise equal to its plain version on two calls."""
+    x, r, g, b = _family_norm_case(rows, c, cuda_device)
+    rr = r if residual else None
+    beta = None if rms else b
+    want = KN.calibrated_norm_plain(x, rr, g, torch.zeros_like(g) if rms
+                                    else b, rms=rms, out_dtype=x.dtype)
+    for _ in range(2):
+        got = KN.calibrated_norm(x, rr, g, beta, rms=rms, out_dtype=x.dtype)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+@pytest.mark.parametrize("rows,c,rms", FAMILY_NORMS)
+def test_exact_norm_at_the_encdec_and_vlm_widths(cuda_device, rows, c, rms):
+    """The exact-mode norm at the same rows: each row alone bitwise equal
+    to its row of the whole call; 1e-5 of the scale from the plain ops."""
+    x, _, g, b = _family_norm_case(rows, c, cuda_device)
+    beta, eps = (None, 1e-6) if rms else (b, 1e-5)
+    full = KN.exact_norm(x, g, beta, rms=rms, eps=eps)
+    for i in (0, rows // 2, rows - 1):
+        assert torch.equal(KN.exact_norm(x[i:i + 1], g, beta, rms=rms,
+                                         eps=eps)[0], full[i])
+    ref = KN.exact_norm_plain(x, g, beta, rms=rms, eps=eps)
+    torch.cuda.synchronize()
+    assert (full - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_paged_kernel_at_whispers_heads(cuda_device, name, mode):
+    """whisper's decoder self-attention: 12 query heads on 12 KV heads,
+    head dim 64 (the tensor-core route), a causal 128-row chunk or a
+    decode batch of 8 with null lanes, bf16 pools, exact-logit inputs:
+    1e-5."""
+    spec = (dict(b=1, c=128, nb=32, q_start=[0], kv_len=[128])
+            if name == "prefill" else
+            dict(b=8, c=1, nb=32, q_start=[0] * 8,
+                 kv_len=[49, 96, 17, 1, 64, 83, 40, 1]))
+    arrays = _paged_inputs(np.random.default_rng(13), h=12, kvh=12, d=64,
+                           bs=16, **spec)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in arrays[:3])
+    tables, meta = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    kw = dict(causal=name == "prefill", sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    kvmap = KA.default_kv_head_map(12, 12, cuda_device)
+    out = KA.flash_e2softmax_paged(q, k, v, tables, meta, **kw)
+    ref = KA.flash_e2softmax_paged_plain(q, k, v, tables, meta, kvmap, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+def test_whisper_smoke_engine_on_card(cuda_device, mode):
+    """The smoke whisper ``PagedEngine`` (ragged encoder inputs: 8-40
+    frames against cross_len 32) on the card against the CPU: exact mode
+    greedy tokens equal, SOLE at least 95%; on the card every cross page
+    is freed with its sequence."""
+    cfg = get_config("whisper_small").smoke()
+    if mode == "exact":
+        cfg = dataclasses.replace(cfg, softmax_mode="exact",
+                                  norm_mode="exact", logit_int8=False)
+    params = api.init_params(0, cfg, "cpu")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=8,
+                    frames=rng.standard_normal((m, cfg.d_model))
+                    .astype(np.float32))
+            for n, m in ((5, 32), (20, 17), (12, 40), (9, 8), (3, 32))]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = PagedEngine(cfg, params, num_blocks=64, block_size=8,
+                          max_seq_len=64, decode_batch=4, prefill_chunk=8,
+                          device=dev)
+        outs.append(eng.generate(reqs))
+        eng.cache.check_refcounts()
+        assert eng.stats()["blocks_in_use"] == 0
+    pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+    assert all(len(o) == 8 for o in outs[1])
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    assert agree >= (1.0 if mode == "exact" else 0.95)
+
+
+def test_vlm_smoke_prefill_decode_on_card(cuda_device):
+    """The smoke qwen2-vl ``prefill`` + ``decode_step`` (exact mode, a 4 x 4
+    patch grid in the position ids) on the card against the CPU: logits
+    within 1e-4 (cuBLAS and the CPU sum in other orders)."""
+    from repro_torch.serve.engine import _to_device
+    cfg = dataclasses.replace(get_config("qwen2_vl_7b").smoke(),
+                              softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    params = api.init_params(0, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(3))
+    pos = torch.arange(24, dtype=torch.int32).expand(3, 2, 24).clone()
+    pos[0, :, :16] = 0
+    pos[1, :, :16] = torch.arange(16) // 4
+    pos[2, :, :16] = torch.arange(16) % 4
+    rows = []
+    for dev in ("cpu", "cuda"):
+        p = _to_device(params, dev)
+        batch = {"embeds": p["embed"]["table"][toks.to(dev)],
+                 "positions": pos.to(dev)}
+        logits, cache = api.prefill(p, batch, cfg, 28)
+        out = [logits[:, 0].cpu()]
+        for i in range(4):
+            logits, cache = api.decode_step(p, cache, toks[:, 20 + i].to(dev)
+                                            .int(), 24 + i, cfg)
+            out.append(logits.cpu())
+        rows.append(torch.stack(out))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rows[1], rows[0], rtol=0, atol=1e-4)

@@ -129,7 +129,8 @@ def test_init_params_tree_matches_reference(name):
     want = shapes_of(japi.init_params(0, jax_config(name).smoke())[0])
     got = {k: v for k, v in _shapes(params).items()}
     assert got == _flat(want)
-    layers = params.get("layers") or params["tail"]
+    layers = (params.get("layers") or params.get("dec_layers")
+              or params["tail"])
     norm = layers["ln1"] if "ln1" in layers else layers["ln"]
     assert torch.equal(norm["g"], torch.ones_like(norm["g"]))
     if cfg.family == "ssm":
@@ -193,7 +194,7 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change,err,match", [
-    (dict(family="encdec"), NotImplementedError, "ROADMAP"),
+    (dict(family="encdec"), ValueError, "needs encoder frames"),
     (dict(family="moe", quant=QuantConfig("w8a8")), NotImplementedError,
      "no quantized MoE path"),
     (dict(family="ssm", quant=QuantConfig("w8a8")), ValueError,
@@ -201,6 +202,14 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     (dict(family="hybrid", quant=QuantConfig("w8a16")), ValueError,
      "no quantized serving path")])
 def test_engine_raises_for_unported_config(change, err, match):
+    """Configurations the engine refuses; encdec is served but, as in the
+    reference, every request must carry encoder frames."""
+    if change.get("family") == "encdec":
+        cfg = get_config("whisper_small").smoke()
+        eng = PagedEngine(cfg, api.init_params(0, cfg, "cpu"), device="cpu")
+        with pytest.raises(err, match=match):
+            eng.submit(Request(prompt=np.arange(5, dtype=np.int32)))
+        return
     cfg, params = _smoke_engine_args()
     with pytest.raises(err, match=match):
         PagedEngine(dataclasses.replace(cfg, **change), params, device="cpu")
@@ -238,13 +247,16 @@ def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
 @pytest.mark.parametrize("kw", [dict(cfg=dict(family="vlm")),
                                 dict(rules=object())])
 def test_engine_raises_for_unported_features(kw):
-    """A family not ported yet (vlm; dense, MoE, ssm and hybrid are) and
-    mesh rules raise, naming the roadmap item (speculative decoding is
+    """The vlm family is not paged-servable (the reference's ``ValueError``)
+    and mesh rules raise, naming the roadmap item (speculative decoding is
     ported: ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
     kw = dict(kw)
-    cfg = dataclasses.replace(cfg, **kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    change = kw.pop("cfg", {})
+    cfg = dataclasses.replace(cfg, **change)
+    err, match = ((ValueError, "not paged-servable") if change
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         PagedEngine(cfg, params, device="cpu", **kw)
 
 
