@@ -8,7 +8,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together; ten kernels), print
+   ``nvcc`` per source, started together; twelve kernels), print
    ``-Xptxas -v`` and count the tensor-core instructions in the dense
    flash and int8 GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash
    kernel must issue bf16 ``HMMA``);
@@ -171,6 +171,31 @@ oracle's, to a tight pool's that preempts and re-encodes and to an
 float32 logits held to ``forward``), the smoke models card vs CPU, and
 the new shapes timed.
 
+Training (``train_phase``, each part's ``[phase time]`` logged): the
+exact norm's backward kernel (``exact_norm_bwd_kernel`` +
+``exact_norm_wgrad_kernel``) against autograd of its plain version at RMS
+896 x 8 / 2,048 / 8,192 rows, LN 2,048, LN 768, RMS 3,584, LN 4,096 and
+6,144 x 8 / 2,400 and the (64, 64) GroupNorm affine x 512 / 8,192, float32
+and bf16 rows (dx within 2e-6 of its row's scale or one bf16 ulp,
+dgamma/dbeta within 1e-5), bitwise on a second call and per row across
+row counts; then qwen2_0_5b at full width and depth trained through the
+``Trainer`` (float32 masters, bf16 compute, remat ``dots``, AdamW; 8 x
+1,024 affine-task tokens, cut from train_4k's 256 x 4,096): step 0's
+gradients against the reference route on the card (grad norm within
+1e-3, every leaf's cosine >= 0.999), the exact norm's launches per step
+(2L + 1 forward, 2L + 1 backward calls of two kernels each, 2L recomputed
+by remat) and over the 20-step run, the loss falling, a checkpoint at step
+10 and the resume from it bitwise equal to the uninterrupted run, step
+time, tokens/s, peak
+memory, the checkpoint's size and save time and one profiled step's
+share of device time in the norm kernels; ``launch.train_then_serve`` at
+the reference example's size (exact and SOLE copy-task accuracy and the
+drop; the SOLE evaluation runs E2Softmax and the calibrating norm); a
+smoke train step per config on the card against the CPU and a smoke
+``Trainer`` that recovers from an induced failure; the backward kernel
+timed beside autograd of its plain version and of ``F.rms_norm`` /
+``F.layer_norm`` / ``F.group_norm``.
+
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is available or the port is not beside this file.
@@ -180,6 +205,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -877,7 +903,8 @@ def kernel_wrappers():
             "ailayernorm_add_norm_quant": KN.add_norm_quant,
             "ailayernorm_codes": KN.codes_norm,
             "ailayernorm_calib": KN.calibrated_norm,
-            "ailayernorm_exact": KN.exact_norm}
+            "ailayernorm_exact": KN.exact_norm,
+            "ailayernorm_exact_bwd": KN.exact_norm_backward}
 
 
 def reset_launches() -> None:
@@ -1071,7 +1098,7 @@ def serve_dense_full_width(torch, cfg, params, label):
     want_launches = {"e2softmax": cfg.n_layers * calls,
                      "ailayernorm_calib": 0 if exact_norms else norms,
                      "ailayernorm_exact": norms if exact_norms else 0,
-                     "ailayernorm_qnorm": 0,
+                     "ailayernorm_exact_bwd": 0, "ailayernorm_qnorm": 0,
                      "int8_matmul": (gemm_per_forward(cfg) * calls
                                      if cfg.quant.acts else 0),
                      "paged_e2softmax": 0, **{k: 0 for k in OPS_KERNELS}}
@@ -5150,7 +5177,8 @@ def small_family_parity(torch):
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models import api
-    from repro_torch.serve.engine import PagedEngine, Request, _to_device
+    from repro_torch.models.state import tree_map
+    from repro_torch.serve.engine import PagedEngine, Request
     exact = dict(softmax_mode="exact", norm_mode="exact", logit_int8=False)
     for mode, change, bar in (("exact", exact, 1.0), ("sole", {}, 0.95)):
         cfg = dataclasses.replace(get_config("whisper_small").smoke(),
@@ -5174,7 +5202,7 @@ def small_family_parity(torch):
         params = api.init_params(0, cfg, "cpu")
         outs = []
         for dev in ("cpu", "cuda"):
-            p = _to_device(params, dev)
+            p = tree_map(lambda t: t.to(dev), params)
             gen = torch.Generator().manual_seed(3)
             toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
             emb = params["embed"]["table"][toks]
@@ -5218,6 +5246,515 @@ def serve_families(torch):
             ("paged_e2softmax_mha_d64", "paged_e2softmax", "sole")):
         launches[row] = {"whisper": wl[mode][kern], "vlm": vl[mode][kern]}
     return fk, launches, {"whisper": wsum, "vlm": vsum}
+
+
+# -- training (qwen2_0_5b at full width; the exact norm's backward kernel) -----
+
+# the backward kernel's shapes: (name, rows, C, rms, groups)
+NORM_BWD_CASES = (
+    ("rms896", (8, 2048, 8192), 896, True, 1),
+    ("ln2048", (8, 2048), 2048, False, 1),
+    ("ln768", (8, 1500), 768, False, 1),
+    ("rms3584", (8, 2048), 3584, True, 1),
+    ("ln4096", (8, 2400), 4096, False, 1),
+    ("ln6144", (8, 2400), 6144, False, 1),
+    ("groupnorm", (512, 8192), 64, False, 64))
+TRAIN_SEQ = 1024                   # train_4k's 4,096 cut for one card and time
+TRAIN_BATCH = 8                    # train_4k's 256 cut likewise
+TRAIN_STEPS = 20
+TRAIN_CKPT_AT = 10
+TRAIN_LR = 3e-4
+GRAD_NORM_RTOL = 1e-3              # kernels against the reference route
+GRAD_COSINE_MIN = 0.999
+
+
+def _bwd_inputs(torch, gen, rows, c, rms, groups, dtype):
+    lead = (groups, c) if groups > 1 else (c,)
+    x = (torch.randn((rows, c), generator=gen, device="cuda") * 3
+         + torch.randn((rows, 1), generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+    g = 1 + 0.1 * torch.randn(lead, generator=gen, device="cuda")
+    b = None if rms else 0.1 * torch.randn(lead, generator=gen,
+                                           device="cuda")
+    return x, dy, g, b
+
+
+def _bf16_ulp(torch, v):
+    """One bf16 ulp at |v| (the spacing of bf16 values there)."""
+    a = v.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_norm_backward(torch):
+    """The exact norm's backward kernel (``exact_norm_bwd_kernel`` +
+    ``exact_norm_wgrad_kernel``) against autograd of its plain version on
+    the card at every ``NORM_BWD_CASES`` shape, float32 and bf16 rows (dy
+    in the rows' type): dx within 2e-6 of the row's scale (max |inv * g *
+    dy| over the row) in float32, within one bf16 ulp of the plain value
+    (or that bar) in bf16; dgamma/dbeta within 1e-5 of their largest
+    magnitude; a second call bitwise equal; the first 8 rows' dx (and a
+    (64, 64) GroupNorm's first 64) bitwise equal to a call on those rows
+    alone."""
+    from repro_torch.kernels import ailayernorm as KN
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    res = {}
+    for name, row_counts, c, rms, groups in NORM_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in row_counts:
+                x, dy, g, b = _bwd_inputs(torch, gen, rows, c, rms, groups,
+                                          dtype)
+                eps = 1e-6 if rms else 1e-5
+                dx, dg, db = KN.exact_norm_backward(x, g, b, dy, rms=rms,
+                                                    eps=eps)
+                dx2, dg2, db2 = KN.exact_norm_backward(x, g, b, dy, rms=rms,
+                                                       eps=eps)
+                same = (torch.equal(dx, dx2) and torch.equal(dg, dg2)
+                        and (rms or torch.equal(db, db2)))
+                head = max(8, groups)
+                dxh = KN.exact_norm_backward(x[:head].contiguous(), g, b,
+                                             dy[:head].contiguous(), rms=rms,
+                                             eps=eps)[0]
+                stable = torch.equal(dxh, dx[:head])
+                px, pg, pb = KN.exact_norm_backward_plain(x, g, b, dy,
+                                                          rms=rms, eps=eps)
+                xf = KN.grouped_rows(x.float(), g).reshape(rows, c)
+                gg = g.reshape(-1, c).repeat(rows // groups, 1) \
+                    if groups > 1 else g
+                mu = 0 if rms else xf.mean(-1, keepdim=True)
+                var = torch.square(xf - mu).mean(-1, keepdim=True)
+                inv = torch.rsqrt(var + eps)
+                scale = (inv * gg * dy.float()).abs().amax(-1, keepdim=True)
+                err = (dx.float() - px.float()).abs()
+                bar = 2e-6 * scale
+                if dtype == torch.bfloat16:
+                    bar = torch.maximum(bar, _bf16_ulp(torch, px))
+                dx_ok = bool((err <= bar).all())
+                dx_rel = (err / scale.clamp_min(1e-30)).max().item()
+                g_err = ((dg - pg).abs().max() / pg.abs().max()).item()
+                b_err = 0.0 if rms else (
+                    (db - pb).abs().max() / pb.abs().max()).item()
+                key = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_rows{rows}"
+                log(f"ailayernorm_exact_bwd {key}: dx max |err| / row scale "
+                    f"{dx_rel:.3e} ({'within' if dx_ok else 'OUTSIDE'} the "
+                    f"bar), dgamma {g_err:.3e}, dbeta {b_err:.3e} of their "
+                    f"max; two calls bitwise {same}; first {head} rows "
+                    f"alone bitwise {stable}")
+                if not (dx_ok and same and stable and g_err <= 1e-5
+                        and b_err <= 1e-5):
+                    raise AssertionError(f"norm backward {key} fails")
+                res[key] = dict(x=x, dy=dy, g=g, b=b, rms=rms, eps=eps,
+                                max_rel_err=max(dx_rel, g_err, b_err))
+    return res
+
+
+BWD_KERNELS = ("exact_norm_bwd_kernel", "exact_norm_wgrad_kernel")
+
+
+def bwd_device_kernels(torch, run, key):
+    """One backward call is its two kernels on the device and no other
+    (no fill, no cast): two launches a call by the wrapper's counter and
+    no other kernel under ``torch.profiler``. Up to five windows, until
+    one keeps a record of ours: the profiler can keep none in a window,
+    and in runs of windows (3 in a row at one shape once, while every
+    other shape of that sweep kept all 10), so a shape's own windows may
+    keep none; ``time_norm_backward`` holds the sweep to records of both
+    kernels. Returns (kernels per call, records of ours kept of 10)."""
+    from repro_torch.kernels import ailayernorm as KN
+    for _ in range(5):
+        n, others, seen = device_kernels(
+            torch, run, wrappers=(KN.exact_norm_backward,),
+            ours=lambda k: any(s in k for s in BWD_KERNELS))
+        if seen:
+            break
+    if n != 2 or others:
+        raise AssertionError(f"norm backward {key}: {n} device kernels per "
+                             f"call, others {others}, {seen} records of "
+                             "its kernels")
+    return n, seen
+
+
+def time_norm_backward(torch, cases, launches):
+    """The backward kernel (one call: its two launches, checked as the
+    only device kernels of a call) by CUDA events with L2 flushed, beside autograd of its plain version and of one
+    PyTorch call of the same function on the same float32 rows
+    (``F.rms_norm``/``F.layer_norm``; ``F.group_norm`` with 64 groups for
+    the per-head affine), each timed as the backward alone on a graph
+    kept for it. Bound: x and dy read, dx written (the rows' type), gamma
+    read and dgamma (dbeta) written in float32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ailayernorm as KN
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    e = dict(name="ailayernorm_exact_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/ailayernorm.cu",
+             replaces="src/repro/train/trainer.py:56 (jax.value_and_grad "
+                      "through XLA's exact norms, repro/ops/reference.py:57, "
+                      "65: no pallas_call)",
+             shapes={})
+    for key, r in cases.items():
+        x, dy, g, b, rms, eps = (r[k] for k in ("x", "dy", "g", "b", "rms",
+                                                "eps"))
+        rows, c = x.shape
+        groups = g.shape[0] if g.ndim == 2 else 1
+
+        def run():
+            return KN.exact_norm_backward(x, g, b, dy, rms=rms, eps=eps)
+
+        def graph(fn_out, ins):
+            return lambda: torch.autograd.grad(fn_out, ins, dyf,
+                                               retain_graph=True)
+        dyf = dy.float()
+        xs = x.detach().float().requires_grad_(True)
+        gs = g.detach().requires_grad_(True)
+        bs = None if rms else b.detach().requires_grad_(True)
+        ins = (xs, gs) if rms else (xs, gs, bs)
+        plain = graph(KN.exact_norm_plain(xs, gs, bs, rms=rms, eps=eps), ins)
+        if groups > 1:
+            lib_out = F.group_norm(xs.reshape(-1, groups * c), groups,
+                                   gs.reshape(-1), bs.reshape(-1),
+                                   eps).reshape(rows, c)
+        elif rms:
+            lib_out = (F.rms_norm(xs, (c,), gs, eps)
+                       if hasattr(F, "rms_norm") else None)
+        else:
+            lib_out = F.layer_norm(xs, (c,), gs, bs, eps)
+        library = None if lib_out is None else graph(lib_out, ins)
+        nbytes = (3 * rows * c * x.element_size()
+                  + g.numel() * 4 * (2 if rms else 3))
+        bms, by = bound_ms(nbytes, 14 * rows * c, FP32_FLOPS)
+        n_dev, kept = bwd_device_kernels(torch, run, key)
+        e["shapes"][key] = dict(
+            shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}"
+                  f"{f' ({groups}, {c}) affine' if groups > 1 else ''} "
+                  f"{x.dtype}".replace("torch.", ""),
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "exact_norm_bwd_kernel"),
+            wgrad_ms=profiled_kernel_ms(torch, run, flush,
+                                        "exact_norm_wgrad_kernel"),
+            device_kernels=n_dev, records_kept=kept,
+            plain_ms=time_ms(torch, plain, flush, reps=10),
+            library_ms=(None if library is None
+                        else time_ms(torch, library, flush, reps=10)),
+            bound_ms=bms, bound_by=by, bytes=nbytes,
+            max_rel_err=r["max_rel_err"])
+    if not any(v["records_kept"] == 10 for v in e["shapes"].values()):
+        raise AssertionError("norm backward: the profiler kept all 10 "
+                             "records of the two kernels at no shape")
+    main = e["shapes"]["rms896_bf16_rows8192"]
+    e.update(launches=launches["fwd_bwd"]["ailayernorm_exact_bwd"],
+             launches_from=f"qwen2_0_5b full-width Trainer run, "
+                           f"{TRAIN_STEPS} steps",
+             max_abs_err=max(r["max_rel_err"] for r in cases.values()),
+             max_abs_err_is="largest dx error over its row's scale, or "
+                            "dgamma/dbeta error over their max",
+             ms=main["ms"], plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=main["library_ms"],
+             library="autograd of torch.nn.functional.rms_norm on float32 "
+                     "rows (backward only)")
+    for s_, v in e["shapes"].items():
+        k, w, lib = v["kernel_ms"], v["wgrad_ms"], v["library_ms"]
+        log(f"ailayernorm_exact_bwd {s_} [{v['shape']}]: {v['ms'] * 1e3:.1f} "
+            f"us (profiler: {v['device_kernels']:.0f} device kernels a call, "
+            f"{v['records_kept']} of their 10 records kept; dx kernel "
+            f"{'not measured' if k is None else f'{k * 1e3:.1f} us'}, wgrad "
+            f"kernel {'not measured' if w is None else f'{w * 1e3:.1f} us'}; "
+            f"plain "
+            f"autograd {v['plain_ms'] * 1e3:.1f} us; library autograd "
+            f"{'none' if lib is None else f'{lib * 1e3:.1f} us'}; bound "
+            f"{v['bound_ms'] * 1e3:.2f} us by {v['bound_by']})")
+    return e
+
+
+def _grad_launches(torch, masters, batch, cfg):
+    """One train step's gradients through ``trainer.loss_and_grads``'s
+    pieces with the exact norm's counts read between them: (loss, grads,
+    {"forward", "recompute", "backward"} launches)."""
+    from repro_torch.convert import serving_view
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import _leaves, _unflatten_like
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(masters)]
+    KN.exact_norm.launches = KN.exact_norm_backward.launches = 0
+    loss, _ = api.loss_fn(serving_view(_unflatten_like(masters, leaves), cfg),
+                          batch, cfg)
+    fwd = KN.exact_norm.launches
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = {"forward": fwd, "recompute": KN.exact_norm.launches - fwd,
+              "backward": KN.exact_norm_backward.launches}
+    return loss.item(), grads, counts
+
+
+def train_full_width(torch, workdir):
+    """qwen2_0_5b at full width and depth (24 layers, d 896, 14/2 heads,
+    vocab 151,936): float32 masters, bf16 compute, remat ``dots``, AdamW,
+    batch 8 x 1,024 tokens of the affine task (train_4k's 256 x 4,096 cut
+    for one card and the time limit).
+
+    Step 0's gradients through the kernels against the same step with
+    ``ops_backend="reference"`` (the plain norms) on the card: grad norm
+    within 1e-3, every leaf's cosine >= 0.999; the exact norm's launches
+    per forward (2L + 1), per backward (2(2L + 1): two kernels a call) and
+    what remat recomputes (the layers' 2L). Then the ``Trainer`` (the user's entry point) for 20
+    steps with its counts set to 0 just before and read just after, a
+    checkpoint at step 10 (the step-20 one too); loss falling (mean of the
+    last five below the first five's), no NaN; then a second ``Trainer``
+    restored from step 10 and run to 20: masters bitwise the first run's,
+    else the first differing leaf is printed and the check fails; one
+    profiled step's device time in the norm kernels."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train.optimizer import OptConfig, _leaves
+    from repro_torch.train.trainer import Trainer, batch_to_device
+    cfg = get_config("qwen2_0_5b")
+    full = SHAPES["train_4k"]
+    shape = ShapeConfig("train_1k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    reduced = {"global_batch": f"{full.global_batch} -> {TRAIN_BATCH}",
+               "seq_len": f"{full.seq_len} -> {TRAIN_SEQ}"}
+    log(f"[train] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}), remat {cfg.remat}, bf16 compute over float32 "
+        f"masters; reduced from train_4k: {json.dumps(reduced)}")
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_STEPS // 10 + 1,
+                    total_steps=TRAIN_STEPS)
+    ckdir = os.path.join(workdir, "qwen2_full")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tr = Trainer(cfg, shape, opt, device="cuda", ckpt_dir=ckdir,
+                 ckpt_every=TRAIN_CKPT_AT)
+    n_params = sum(p.numel() for p in _leaves(tr.params))
+    batch = batch_to_device(make_batch(cfg, shape, 0), "cuda")
+    nl = 2 * cfg.n_layers + 1
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k, counts = _grad_launches(torch, tr.params, batch, cfg)
+    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref_cfg = dataclasses.replace(cfg, ops_backend="reference")
+    loss_r, grads_r, counts_r = _grad_launches(torch, tr.params, batch,
+                                               ref_cfg)
+    gn_k = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_k)).item()
+    gn_r = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_r)).item()
+    cos = [torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+        for a, b in zip(grads_k, grads_r)]
+    del grads_k, grads_r
+    log(f"[train] step 0 through the kernels: loss {loss_k:.6f}, grad norm "
+        f"{gn_k:.6f}; reference route: loss {loss_r:.6f}, grad norm "
+        f"{gn_r:.6f} (rel {abs(gn_k - gn_r) / gn_r:.2e}); min leaf cosine "
+        f"{min(cos):.6f}; exact-norm launches {json.dumps(counts)} "
+        f"(reference route {json.dumps(counts_r)}); peak {peak_step:.2f} GiB")
+    if abs(gn_k - gn_r) > GRAD_NORM_RTOL * gn_r or min(cos) < GRAD_COSINE_MIN:
+        raise AssertionError("train step 0: kernels and reference route "
+                             "part")
+    if counts["forward"] != nl or counts["backward"] != 2 * nl:
+        raise AssertionError(f"train step 0: exact-norm launches {counts}, "
+                             f"expected {nl} forward and {2 * nl} backward "
+                             "(two kernels a call)")
+    if counts_r != {"forward": 0, "recompute": 0, "backward": 0}:
+        raise AssertionError(f"reference route launched {counts_r}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    out = tr.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    fwd_bwd = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in out["metrics"]]
+    times = [m["step_time"] for m in out["metrics"]]
+    step_s = float(np.median(times[1:]))
+    want_fwd = TRAIN_STEPS * (counts["forward"] + counts["recompute"])
+    want = {k: 0 for k in fwd_bwd}
+    want.update(ailayernorm_exact=want_fwd,
+                ailayernorm_exact_bwd=TRAIN_STEPS * 2 * nl)
+    log(f"[train] Trainer: {TRAIN_STEPS} steps in {wall:.2f} s (median step "
+        f"{step_s:.3f} s, {TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s); "
+        f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak "
+        f"{peak:.2f} GiB; launches {json.dumps({k: v for k, v in fwd_bwd.items() if v})}")
+    if fwd_bwd != want:
+        raise AssertionError(f"Trainer launches {fwd_bwd}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite train loss")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    size = sum(os.path.getsize(os.path.join(ckdir, f"step-{TRAIN_CKPT_AT}", f))
+               for f in os.listdir(os.path.join(ckdir,
+                                                f"step-{TRAIN_CKPT_AT}")))
+    saves = dict(tr.saver.times)
+    ref = [p.clone() for p in _leaves(tr.params)]
+    del tr, out
+    torch.cuda.empty_cache()
+    tr2 = Trainer(cfg, shape, opt, device="cuda", ckpt_dir=ckdir)
+    t0 = time.time()
+    tr2.restore(step=TRAIN_CKPT_AT)
+    torch.cuda.synchronize()
+    t_restore = time.time() - t0
+    tr2.saver = None
+    tr2.run(TRAIN_STEPS)
+    got = _leaves(tr2.params)
+    diff = [i for i, (a, b) in enumerate(zip(ref, got))
+            if not torch.equal(a, b)]
+    log(f"[train] checkpoint at step {TRAIN_CKPT_AT}: {size / 2 ** 30:.2f} "
+        f"GiB ({n_params:,} parameters, masters + moments); saves (host "
+        f"snapshot s, write s) by step {json.dumps(saves)}; restore "
+        f"{t_restore:.2f} s; resumed to step "
+        f"{TRAIN_STEPS}: {len(got) - len(diff)}/{len(got)} leaves bitwise "
+        f"equal to the uninterrupted run"
+        + (f"; first differing leaf {diff[0]}" if diff else ""))
+    if diff:
+        raise AssertionError(f"resume differs from the uninterrupted run at "
+                             f"leaf {diff[0]}")
+    # one profiled step: the norm kernels' share of device time
+    step_fn = tr2.step_fn
+    b = batch_to_device(make_batch(cfg, shape, TRAIN_STEPS), "cuda")
+    step_fn(tr2.params, tr2.opt_state, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(tr2.params, tr2.opt_state, b)
+        torch.cuda.synchronize()
+    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    busy = sum(us for _, us, _ in rows)
+    norm_us = sum(us for k, us, _ in rows if "exact_norm" in k)
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    share = norm_us / busy if busy else None
+    log(f"[train] profiled step: device busy {busy / 1e3:.1f} ms, the exact "
+        f"norm kernels {norm_us / 1e3:.2f} ms "
+        f"({'not measured' if share is None else f'{share:.4f}'} of busy); "
+        f"top kernels {json.dumps([(k[:60], round(us / 1e3, 2), n) for k, us, n in top])}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del tr2, ref, got
+    torch.cuda.empty_cache()
+    return {"launches": {"step0": counts, "fwd_bwd": fwd_bwd},
+            "summary": dict(
+                arch=cfg.name, reduced=reduced, steps=TRAIN_STEPS,
+                losses=losses, step_s=step_s,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                peak_gib=peak, peak_step0_gib=peak_step, params=n_params,
+                grad_norm=gn_k, grad_norm_reference=gn_r,
+                min_leaf_cosine=min(cos), ckpt_gib=size / 2 ** 30,
+                ckpt_saves_s=saves, ckpt_restore_s=t_restore,
+                resume_bitwise=not diff, profiled_busy_ms=busy / 1e3,
+                norm_kernels_ms=norm_us / 1e3, norm_share=share)}
+
+
+def train_then_serve_on_card(torch):
+    """``repro_torch.launch.train_then_serve`` at the reference example's
+    size (150 steps of 16 x 64 copy-task tokens, lr 5e-3) on the card,
+    the counts set to 0 just before and read just after: the training
+    steps run the exact norm forward and backward, the SOLE evaluation
+    E2Softmax and the calibrating norm. Prints the exact and SOLE
+    accuracies and the drop."""
+    from repro_torch.launch import train_then_serve
+    reset_launches()
+    t0 = time.time()
+    res = train_then_serve.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[train_then_serve] {time.time() - t0:.2f} s; exact "
+        f"{res['exact']:.4f}, SOLE {res['sole']:.4f}, drop "
+        f"{res['drop']:+.4f}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for k in ("ailayernorm_exact", "ailayernorm_exact_bwd", "e2softmax",
+              "ailayernorm_calib"):
+        if not launches[k]:
+            raise AssertionError(f"train_then_serve launched no {k}")
+    if not res["losses"][-1] < res["losses"][0]:
+        raise AssertionError("train_then_serve: loss did not fall")
+    return {"accuracy_exact": res["exact"], "accuracy_sole": res["sole"],
+            "drop": res["drop"], "launches": launches}
+
+
+SMOKE_LOSS_RTOL = 1e-4             # card against CPU, float32 smoke steps
+SMOKE_GNORM_RTOL = 1e-3
+
+
+def small_train_parity(torch, workdir):
+    """One smoke train step per config (float32 masters, seed 0, one
+    ``make_batch`` of 8 x 32) on the card through the kernels against the
+    same step on the CPU: loss within 1e-4 and grad norm within 1e-3
+    relative (cuBLAS and the CPU sum in other orders). Then a smoke
+    ``Trainer`` on the card with an induced failure at step 8
+    (``fail_at``): it restores step 5 and completes every step."""
+    from repro_torch.configs.base import ARCH_NAMES, ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import api
+    from repro_torch.models.state import tree_map
+    from repro_torch.train.optimizer import OptConfig, global_norm
+    from repro_torch.train.trainer import (Trainer, batch_to_device,
+                                           loss_and_grads)
+    shape = ShapeConfig("smoke", seq_len=32, global_batch=8, kind="train")
+    res = {}
+    for name in ARCH_NAMES:
+        cfg = get_config(name).smoke()
+        masters = api.init_params(0, cfg, "cpu", masters=True)
+        b = make_batch(cfg, shape, 0)
+        out = []
+        for dev in ("cpu", "cuda"):
+            loss, _, grads = loss_and_grads(
+                tree_map(lambda t: t.to(dev), masters),
+                batch_to_device(b, dev), cfg)
+            out.append((loss.item(), global_norm(grads).item()))
+        (lc, gc), (lg, gg) = out
+        res[name] = {"loss_cpu": lc, "loss_cuda": lg, "gnorm_cpu": gc,
+                     "gnorm_cuda": gg}
+        log(f"[train smoke] {name}: loss cpu {lc:.7f} cuda {lg:.7f}; grad "
+            f"norm cpu {gc:.6f} cuda {gg:.6f}")
+        if (abs(lg - lc) > SMOKE_LOSS_RTOL * abs(lc)
+                or abs(gg - gc) > SMOKE_GNORM_RTOL * gc):
+            raise AssertionError(f"smoke train step {name}: card and CPU "
+                                 "part")
+    ckdir = os.path.join(workdir, "smoke_fail")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tr = Trainer(get_config("qwen2_0_5b").smoke(),
+                 ShapeConfig("smoke", seq_len=64, global_batch=8,
+                             kind="train"),
+                 OptConfig(lr=1e-2, warmup_steps=5, total_steps=60),
+                 device="cuda", ckpt_dir=ckdir, ckpt_every=5)
+    out = tr.run(12, fail_at=8)
+    steps = [m["step"] for m in out["metrics"]]
+    log(f"[train smoke] fail_at 8: steps run {steps}")
+    if len(steps) < 12 or sorted(set(steps)) != list(range(12)):
+        raise AssertionError("failure recovery did not complete the steps")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    res["fail_at_steps"] = steps
+    return res
+
+
+def train_phase(torch):
+    """The training phase, each part timed: the backward kernel against
+    its plain version, qwen2_0_5b at full width, train_then_serve, the
+    smoke steps card vs CPU, the backward kernel's timings. Returns (its
+    kernel-table entry, summaries)."""
+    workdir = os.path.join(ROOT, "build", "train_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.time()
+    cases = check_norm_backward(torch)
+    log(f"[phase time] norm backward checks: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    full = train_full_width(torch, workdir)
+    log(f"[phase time] qwen2_0_5b training: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tts = train_then_serve_on_card(torch)
+    log(f"[phase time] train_then_serve: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    smoke = small_train_parity(torch, workdir)
+    log(f"[phase time] smoke train steps card vs cpu: "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    entry = time_norm_backward(torch, cases, full["launches"])
+    entry["launches_per_step"] = {
+        "forward": full["launches"]["step0"]["forward"],
+        "recompute": full["launches"]["step0"]["recompute"],
+        "backward": full["launches"]["step0"]["backward"]}
+    entry["launches_train_then_serve"] = tts["launches"][
+        "ailayernorm_exact_bwd"]
+    log(f"[phase time] norm backward timings: {time.time() - t0:.1f} s")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return entry, {"qwen2_full": full["summary"], "train_then_serve": tts,
+                   "smoke": smoke}
 
 
 def main() -> int:
@@ -5322,6 +5859,8 @@ def main() -> int:
         mark("rwkv6_7b, recurrentgemma_9b")
         fk, flaunches, fams = serve_families(torch)
         mark("whisper_small, qwen2_vl_7b")
+        train_entry, train = train_phase(torch)
+        mark("training")
         for tag, res in rec.items():
             for key in ("paged", "paged_exact_warm", "dense"):
                 new[f"{tag}_{key}"] = res[key]
@@ -5347,6 +5886,7 @@ def main() -> int:
                 rec["rwkv6"]["paged_exact_warm"][0]["ailayernorm_exact"],
             "e2softmax_hybrid": rec["hybrid"]["dense"][0]["e2softmax"]})
         table += time_family_kernels(torch, fk, flaunches)
+        table.append(train_entry)
         static = static_op_stage(torch)
         spec_launches = {
             **{f"bf16 exact {k}": spec[k]["launches"]
@@ -5396,6 +5936,7 @@ def main() -> int:
                         "spec_w8a8": spec8, "open_loop": open_loop,
                         "draft_pair": pair,
                         "families": fams,
+                        "training": train,
                         "recurrent_profiles": {
                             tag: {k: v for k, v in res.items()
                                   if k in ("profile", "resident_gib")}

@@ -1,6 +1,7 @@
 """Architecture configuration: the port's own copy of ``ArchConfig``,
-``QuantConfig`` and ``.smoke()`` (held field-for-field equal to the JAX
-package's by ``tests/test_torch_package.py``).
+``QuantConfig``, ``.smoke()``, ``ShapeConfig`` and ``SHAPES`` (held
+field-for-field equal to the JAX package's by
+``tests/test_torch_package.py``).
 
 Every family of the JAX package is registered; other names raise.
 """
@@ -9,6 +10,22 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,9 @@ rwkv6, ``blocks.rec1``/``rec2``/``attn`` and ``tail`` for the hybrid,
 ``enc_layers``, ``enc_norm`` and ``dec_layers`` (with the cross-attention's
 ``ln_x`` and ``xattn``) for whisper, the dense tree for qwen2-vl.
 
+:func:`serving_view` builds that tree from float32 masters (the
+trainer's) by the same leaf rule, as differentiable casts.
+
 Under ``cfg.quant.weights`` packed ``{"q", "s"}`` leaves become int8 codes
 and float32 scales, and unpacked matmul weights (``QUANT_WEIGHT_SPEC``)
 stay float32 so that the engine packs them from the same float32 masters
@@ -36,9 +39,19 @@ NORM_KEYS = ("ln1", "ln2", "final_norm", "ln", "ln_mlp", "ln_x", "enc_norm")
 FLOAT32_KEYS = ("w0", "w1", "w2", "u", "gn_g", "gn_b", "lam")
 
 
-def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda"):
-    """Reference value tree (numpy leaves) -> the port's tensors."""
-    dt = torch_dtype(cfg.dtype)
+def _keeps_float32(key, in_norm: bool, cfg: ArchConfig) -> bool:
+    """The leaf rule: norm gains and biases, ``FLOAT32_KEYS`` and (under
+    int8 weights) the unpacked matmul weights stay float32."""
+    return (in_norm or key in FLOAT32_KEYS
+            or (cfg.quant.weights and key in QUANT_WEIGHT_SPEC))
+
+
+def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda",
+                    masters: bool = False):
+    """Reference value tree (numpy leaves) -> the port's tensors.
+    ``masters`` keeps every leaf float32 (the trainer's masters; see
+    :func:`serving_view`)."""
+    dt = torch.float32 if masters else torch_dtype(cfg.dtype)
     quant = cfg.quant.weights
 
     def leaf(a, dtype):
@@ -55,9 +68,26 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig, device="cuda"):
                         "s": leaf(node["s"], torch.float32)}
             return {k: conv(v, k, in_norm or k in NORM_KEYS)
                     for k, v in node.items()}
-        if (in_norm or key in FLOAT32_KEYS
-                or (quant and key in QUANT_WEIGHT_SPEC)):
+        if _keeps_float32(key, in_norm, cfg):
             return leaf(node, torch.float32)
         return leaf(node, dt)
 
     return conv(tree, None, False)
+
+
+def serving_view(masters: Mapping, cfg: ArchConfig):
+    """The tree the layers run on, built from float32 masters by the
+    leaf rule of :func:`params_from_jax`: the float32 leaves as they are,
+    every other leaf ``.to(cfg.dtype)`` — a differentiable cast (round to
+    nearest even, the reference's per-use ``cast``), so one train step's
+    gradients land on the masters in float32. Bitwise the serving tree the
+    same weights would give."""
+    dt = torch_dtype(cfg.dtype)
+
+    def conv(node, key, in_norm: bool):
+        if isinstance(node, Mapping):
+            return {k: conv(v, k, in_norm or k in NORM_KEYS)
+                    for k, v in node.items()}
+        return node if _keeps_float32(key, in_norm, cfg) else node.to(dt)
+
+    return conv(masters, None, False)

@@ -29,10 +29,16 @@ entries are one team-per-row kernel template; each takes the PTF params'
   kernel: XLA's reduction there), a team per row (a warp below 2,048
   channels, the CTA from there) in a reduction order fixed by C, so a
   row's bits do not depend on the rows beside it; its plain version is the
-  reference backend's torch ops.
+  reference backend's torch ops. It is differentiable: a
+  ``torch.autograd.Function`` whose backward, :func:`exact_norm_backward`,
+  is a hand-written kernel too (``exact_norm_bwd_kernel``, then
+  ``exact_norm_wgrad_kernel`` for dgamma/dbeta, no atomics); its plain
+  version is autograd through :func:`exact_norm_plain`.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
-tensors it launches its kernel or raises. A static-params op call on
+tensors it launches its kernel or raises. The SOLE kernels have no
+backward: on CUDA tensors they raise where grad mode is on and an input
+requires grad (``build.refuse_grad``), so a graph is never cut silently. A static-params op call on
 contiguous float32 or bf16 activations on the card is one kernel launch:
 no cast of the rows, no ``denom()``, no zero beta and no cast of the
 output, which the kernel writes in float32 or the activations' type.
@@ -216,6 +222,8 @@ def _static_launch(wrapper, x, r, scale, alpha, gamma, beta, *, rms: bool,
     float32 (``beta`` None: a zero shift). Returns ``(h or None, out)``,
     ``out`` in ``out_dtype`` (float32 or bf16), or ``(h, (codes, (rows, 1)
     scale))`` with ``quant``."""
+    build.refuse_grad(f"ailayernorm {wrapper.__name__}", x, r, scale, alpha,
+                      gamma, beta)
     if x.device.type == "cuda" and x.dtype not in _ACT_TYPES:
         raise TypeError(f"x dtype {x.dtype}: the kernel reads float32 or "
                         "bfloat16 rows")
@@ -313,6 +321,7 @@ def codes_norm(xi, alpha, gamma, beta) -> torch.Tensor:
     int32 with per-channel ``alpha`` (C,) int32 -> (rows, C) float32."""
     if xi.device.type == "cpu":
         return codes_norm_plain(xi, alpha, gamma, beta)
+    build.refuse_grad("ailayernorm codes_norm", xi, gamma, beta)
     rows, c = xi.shape[0], xi.shape[-1]
     _check_row_args(xi, c, xi=(xi, torch.int32, (rows, c)),
                     **_chan(alpha, gamma, beta, c))
@@ -377,6 +386,7 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                                      out_dtype=out_dtype, quant_out=quant_out)
     if x.device.type != "cuda":
         raise ValueError(f"no ailayernorm kernel for device {x.device}")
+    build.refuse_grad("ailayernorm calibrated_norm", x, r, gamma, beta)
     if x.dtype not in _ACT_TYPES:
         raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
                         "bfloat16")
@@ -462,6 +472,127 @@ def exact_norm_plain(x, gamma, beta=None, *, rms: bool,
     return ((x - mu) * torch.rsqrt(var + eps) * gamma + beta).reshape(shape)
 
 
+def _exact_launch(rows, gamma, beta, *, rms: bool, eps: float,
+                  written) -> torch.Tensor:
+    """One launch of ``exact_norm_kernel`` on rows (R, C): the output
+    (R, C) in ``written`` (float32 or bf16)."""
+    out = torch.empty(rows.shape, dtype=written, device=rows.device)
+    if rows.shape[0] and rows.shape[1]:
+        lib = build.load("ailayernorm")
+        fn = build.declare(lib, "ailayernorm_exact", 4, 6, 1)
+        groups = gamma.shape[0] if gamma.ndim == 2 else 1
+        rc = build.launch(
+            rows.device, fn, rows.data_ptr(), gamma.data_ptr(),
+            None if rms else beta.data_ptr(), out.data_ptr(),
+            rows.shape[0], rows.shape[1], groups, int(rms),
+            _ACT_TYPES[rows.dtype], int(written == torch.bfloat16),
+            ctypes.c_float(eps))
+        build.check(lib, rc, "ailayernorm_exact launch")
+        exact_norm.launches += 1
+    return out
+
+
+def bwd_chunk(c: int, groups: int) -> int:
+    """Rows per CTA of the backward kernel: about 32K elements, a
+    multiple of ``groups``, at most 1,024 (its shared mu/inv)."""
+    chunk = max(1, 32768 // max(c, 1))
+    chunk = -(-chunk // groups) * groups
+    return min(chunk, max(groups, 1024 // groups * groups))
+
+
+def exact_norm_backward_plain(x, gamma, beta, dy, *, rms: bool,
+                              eps: float):
+    """``(dx, dgamma, dbeta)`` by autograd through
+    :func:`exact_norm_plain`: dx in x's dtype, dgamma/dbeta float32
+    (dbeta None for RMS)."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(True)
+        g = gamma.detach().float().requires_grad_(True)
+        b = None if rms else beta.detach().float().requires_grad_(True)
+        out = exact_norm_plain(xs, g, b, rms=rms, eps=eps)
+        ins = (xs, g) if rms else (xs, g, b)
+        grads = torch.autograd.grad(out, ins, dy.float())
+    return (grads[0].to(x.dtype), grads[1],
+            None if rms else grads[2])
+
+
+def exact_norm_backward(x, gamma, beta, dy, *, rms: bool, eps: float):
+    """The exact norm's gradient: ``(dx (rows, C) in x's dtype, dgamma,
+    dbeta)`` (float32, gamma's (C,) or (G, C) shape; dbeta None for RMS)
+    from the forward's rows ``x`` (R, C), ``gamma``/``beta`` and ``dy``
+    (R, C) float32 or bf16. CUDA tensors: ``exact_norm_bwd_kernel`` then
+    ``exact_norm_wgrad_kernel`` (two launches, counted two a call), with
+    no atomics, so a call has the same bits on every run and each row's dx
+    the same bits whatever the row count; CPU tensors:
+    :func:`exact_norm_backward_plain`.
+    """
+    if x.device.type == "cpu":
+        return exact_norm_backward_plain(x, gamma, beta, dy, rms=rms,
+                                         eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ailayernorm kernel for device {x.device}")
+    rows, c = x.shape
+    groups = gamma.shape[0] if gamma.ndim == 2 else 1
+    dy = dy.contiguous()
+    if (x.dtype not in _ACT_TYPES or dy.dtype not in _ACT_TYPES
+            or dy.shape != x.shape or not x.is_contiguous()
+            or gamma.dtype != torch.float32 or not gamma.is_contiguous()
+            or (not rms and (beta is None or beta.shape != gamma.shape))
+            or rows % groups):
+        raise ValueError(
+            f"exact_norm_backward takes contiguous x (R, C) and dy alike, "
+            f"float32 or bf16, float32 gamma/beta (C,) or (G, C) with R a "
+            f"multiple of G; got x {tuple(x.shape)} {x.dtype}, dy "
+            f"{tuple(dy.shape)} {dy.dtype}, gamma {tuple(gamma.shape)} "
+            f"{gamma.dtype}")
+    dev = x.device
+    dx = torch.empty_like(x)
+    if rows == 0 or c == 0:
+        dgamma = torch.zeros(gamma.shape, dtype=torch.float32, device=dev)
+        return dx, dgamma, None if rms else torch.zeros_like(dgamma)
+    # exact_norm_wgrad_kernel writes every element of dgamma and dbeta
+    dgamma = torch.empty(gamma.shape, dtype=torch.float32, device=dev)
+    dbeta = None if rms else torch.empty_like(dgamma)
+    chunk = bwd_chunk(c, groups)
+    parts = -(-rows // chunk) * groups * c
+    part_g = torch.empty(parts, dtype=torch.float32, device=dev)
+    part_b = None if rms else torch.empty_like(part_g)
+    lib = build.load("ailayernorm")
+    fn = build.declare(lib, "ailayernorm_exact_bwd", 8, 7, 1)
+    rc = build.launch(
+        dev, fn, x.data_ptr(), dy.data_ptr(), gamma.data_ptr(),
+        dx.data_ptr(), part_g.data_ptr(),
+        None if rms else part_b.data_ptr(), dgamma.data_ptr(),
+        None if rms else dbeta.data_ptr(), rows, c, groups, chunk, int(rms),
+        _ACT_TYPES[x.dtype], _ACT_TYPES[dy.dtype], ctypes.c_float(eps))
+    build.check(lib, rc, "ailayernorm_exact_bwd launch")
+    exact_norm_backward.launches += 2    # exact_norm_bwd_kernel + wgrad
+    return dx, dgamma, dbeta
+
+
+exact_norm_backward.launches = 0
+
+
+class _ExactNorm(torch.autograd.Function):
+    """``exact_norm_kernel`` forward, ``exact_norm_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, rows, gamma, beta, rms, eps, written):
+        ctx.save_for_backward(rows, gamma, beta)
+        ctx.rms, ctx.eps = rms, eps
+        return _exact_launch(rows, gamma, beta, rms=rms, eps=eps,
+                             written=written)
+
+    @staticmethod
+    def backward(ctx, dy):
+        rows, gamma, beta = ctx.saved_tensors
+        dx, dg, db = exact_norm_backward(rows, gamma, beta, dy, rms=ctx.rms,
+                                         eps=ctx.eps)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dg if need[1] else None,
+                db if need[2] else None, None, None, None)
+
+
 def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
                out_dtype=None) -> torch.Tensor:
     """Exact-mode LayerNorm (``beta`` given) or RMSNorm of ``x`` (..., C),
@@ -470,7 +601,10 @@ def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
     a reduction order fixed by C, so every row has the same bits whatever
     the row count), on CPU tensors :func:`exact_norm_plain`. Float32 out,
     or ``out_dtype`` (float32 or bf16, written by the kernel; another type
-    is cast after)."""
+    is cast after). Differentiable: where grad mode is on and an input
+    requires grad, the launch runs inside a ``torch.autograd.Function``
+    whose backward is :func:`exact_norm_backward` (its kernels on the
+    card)."""
     if x.device.type == "cpu":
         out = exact_norm_plain(x, gamma, beta, rms=rms, eps=eps)
         return out if out_dtype is None else out.to(out_dtype)
@@ -491,17 +625,13 @@ def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
                          f"{x.device} with rows a multiple of G, got "
                          f"{[(tuple(t.shape), str(t.device)) for t in chan]}"
                          f" over {rows.shape[0]} rows")
-    out = torch.empty(rows.shape, dtype=written, device=x.device)
-    if rows.shape[0] and c:
-        lib = build.load("ailayernorm")
-        fn = build.declare(lib, "ailayernorm_exact", 4, 6, 1)
-        rc = build.launch(
-            x.device, fn, rows.data_ptr(), chan[0].data_ptr(),
-            None if rms else chan[1].data_ptr(), out.data_ptr(),
-            rows.shape[0], c, groups, int(rms), _ACT_TYPES[rows.dtype],
-            int(written == torch.bfloat16), ctypes.c_float(eps))
-        build.check(lib, rc, "ailayernorm_exact launch")
-        exact_norm.launches += 1
+    beta_t = None if rms else chan[1]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (rows, *chan)):
+        out = _ExactNorm.apply(rows, chan[0], beta_t, rms, eps, written)
+    else:
+        out = _exact_launch(rows, chan[0], beta_t, rms=rms, eps=eps,
+                            written=written)
     return out.reshape(x.shape).to(out_dtype or torch.float32)
 
 

@@ -128,6 +128,22 @@ def launch(device, fn, *args) -> int:
         return fn(*args, ctypes.c_void_p(stream))
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a call of a kernel that has no
+    backward (grad mode on and an input that requires grad): its output
+    would cut the graph silently. Only the exact norm has a backward
+    kernel."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward kernel: its inputs require grad. "
+            "Training runs the exact modes (train_softmax_mode and "
+            "train_norm_mode 'exact'); run the plain versions "
+            "(ops_backend='reference') to differentiate a SOLE op")
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned after a launch."""
     if rc != 0:

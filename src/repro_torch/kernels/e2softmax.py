@@ -117,6 +117,7 @@ def _launch_ints(shape, xs, ms, n: int):
 
 
 def _launch(x, mask, *, exp_bits, int8_scale, out_dtype) -> torch.Tensor:
+    build.refuse_grad("e2softmax", x)
     if x.dtype not in _TYPE_CODES:
         raise TypeError(f"x dtype {x.dtype}: the kernel takes float32 or "
                         "bfloat16")

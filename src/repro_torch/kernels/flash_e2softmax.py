@@ -191,6 +191,7 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
             exp_bits, int8_scale, kv_scale, quant_pv) -> torch.Tensor:
+    build.refuse_grad("flash_e2softmax_paged", q, k_pool, v_pool)
     b, h, c, d = q.shape
     n, bs, kvh, dk = k_pool.shape
     nb = tables.shape[1]
@@ -364,6 +365,7 @@ def dense_variant(dtype: torch.dtype) -> str:
 
 def _launch_dense(q, k, v, *, causal, sole, exp_bits, int8_scale, bq, bk,
                   exact_corr) -> torch.Tensor:
+    build.refuse_grad("flash_e2softmax", q, k, v)
     bh, s, d = q.shape
     t = k.shape[1]
     dev = q.device

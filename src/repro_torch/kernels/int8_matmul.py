@@ -112,6 +112,7 @@ def _workspace(device: torch.device, plan: SplitPlan):
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    build.refuse_grad("int8_matmul", x, w)
     for name, t in (("x", x), ("w", w)):
         if t.dtype != torch.int8 or t.ndim != 2 or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous 2-D int8 tensor, got "

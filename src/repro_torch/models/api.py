@@ -16,14 +16,23 @@ spec is not ``servable`` (vlm) raises from every paged entry.
 Encdec and vlm take a batch dict where the LM families take tokens:
 ``{"frames", "tokens"}`` and ``{"embeds", "positions"}`` for
 :func:`forward` and :func:`prefill`.
+
+Training (``repro/models/api.py:62-112``): :func:`loss_fn` is the mean
+next-token cross-entropy, plus ``AUX_LOSS_WEIGHT`` times the MoE
+load-balance loss, of a ``"train"``-phase forward (exact softmax and
+norms). It takes the serving-dtype view of float32 masters
+(``convert.serving_view``), so its gradients reach the masters through
+the view's casts, as the reference's reach its masters through its
+per-use ``cast``.
 """
 from __future__ import annotations
 
-from typing import Union
+import dataclasses
+from typing import Dict, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import (moe, rglru, rwkv6, transformer, vlm,
                                 whisper)
 
@@ -31,6 +40,10 @@ _FAMILY_MODULES = {"dense": transformer, "moe": moe, "encdec": whisper,
                    "vlm": vlm, "ssm": rwkv6, "hybrid": rglru}
 _PAGES_ONLY = ("dense", "moe")
 _BATCH_DICT = ("encdec", "vlm")
+_TOKENS = ("dense", "ssm", "hybrid")
+
+AUX_LOSS_WEIGHT = 0.01
+WHISPER_DEC_LEN = 448
 
 
 def get_model(cfg: ArchConfig):
@@ -42,12 +55,17 @@ def get_model(cfg: ArchConfig):
 
 
 def init_params(seed: Union[int, torch.Generator], cfg: ArchConfig,
-                device="cuda"):
+                device="cuda", masters: bool = False):
     """Random parameters from a seed (or a ``torch.Generator`` on
-    ``device``), laid out like the reference's value tree."""
+    ``device``), laid out like the reference's value tree. ``masters``
+    keeps every leaf float32 (the trainer's master copy): the same float32
+    draws, uncast, so ``convert.serving_view`` of them is bitwise the
+    default tree."""
     gen = seed
     if isinstance(seed, int):
         gen = torch.Generator(device=device).manual_seed(seed)
+    if masters:
+        cfg = dataclasses.replace(cfg, dtype="float32")
     return get_model(cfg).init(gen, cfg, device)
 
 
@@ -71,6 +89,63 @@ def forward(params, batch, cfg: ArchConfig, phase: str = "serve"):
         return m.forward(params, batch, cfg, phase)
     out = m.forward(params, batch["tokens"], cfg, phase)
     return out[0] if cfg.family == "moe" else out
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean next-token NLL. logits (B, S, V) float32, targets (B, S)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets.long()[..., None],
+                                dim=-1)[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(params, batch, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"xent", "aux"}) of a train-phase forward: dense, ssm and
+    hybrid take ``batch["tokens"]``, MoE adds ``AUX_LOSS_WEIGHT * aux``,
+    encdec and vlm take the batch dict."""
+    m = get_model(cfg)
+    dev = batch["targets"].device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cfg.family in _TOKENS:
+        logits = m.forward(params, batch["tokens"], cfg, "train")
+    elif cfg.family == "moe":
+        logits, aux = m.forward(params, batch["tokens"], cfg, "train")
+    else:
+        logits = m.forward(params, batch, cfg, "train")
+    xent = cross_entropy(logits, batch["targets"])
+    loss = xent + AUX_LOSS_WEIGHT * aux
+    return loss, {"xent": xent, "aux": aux}
+
+
+def train_inputs(cfg: ArchConfig, shape: ShapeConfig):
+    """(batch tree of meta-device tensors, logical-axes tree) for a train
+    step: the shapes and dtypes :func:`loss_fn` takes, allocating
+    nothing."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if cfg.family == "encdec":
+        t = min(WHISPER_DEC_LEN, s)
+        batch = {"frames": meta((b, s, cfg.d_model), dt),
+                 "tokens": meta((b, t), i32), "targets": meta((b, t), i32)}
+        axes = {"frames": ("batch", None, None), "tokens": ("batch", None),
+                "targets": ("batch", None)}
+    elif cfg.family == "vlm":
+        batch = {"embeds": meta((b, s, cfg.d_model), dt),
+                 "positions": meta((3, b, s), i32),
+                 "targets": meta((b, s), i32)}
+        axes = {"embeds": ("batch", None, None),
+                "positions": (None, "batch", None),
+                "targets": ("batch", None)}
+    else:
+        batch = {"tokens": meta((b, s), i32), "targets": meta((b, s), i32)}
+        axes = {"tokens": ("batch", None), "targets": ("batch", None)}
+    return batch, axes
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, device="cuda"):

@@ -44,12 +44,35 @@ def cast(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x.to(torch_dtype(cfg.dtype))
 
 
+class _Fma32(torch.autograd.Function):
+    """``fma32`` with the gradient of ``a * b + c`` (its float64 rounding
+    steps have none)."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return fma32(a, b, c).to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        need = ctx.needs_input_grad
+        return ((g * b).sum_to_size(sa) if need[0] else None,
+                (g * a).sum_to_size(sb) if need[1] else None,
+                g.sum_to_size(sc) if need[2] else None)
+
+
 def fma(a, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once, as XLA contracts it inside ``jit``: the
     correctly rounded ``fma32`` on the CPU, ``addcmul`` on the card (one
     launch, which nvcc contracts into an FMA; the card tests hold it to
-    ``fma32``). In ``a``'s dtype."""
+    ``fma32``). In ``a``'s dtype; differentiable as ``a * b + c``."""
     if a.device.type == "cpu":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (a, b, c)):
+            return _Fma32.apply(a, b, c)
         return fma32(a, b, c).to(a.dtype)
     return torch.addcmul(c, a, b)
 

@@ -193,15 +193,9 @@ def _paged_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
 def forward(params, tokens, cfg: ArchConfig, phase: str):
     """Returns (logits (B, S, V) float32, aux loss): the mean over layers
     of the Switch load-balance loss, summed layer by layer in float32."""
-    aux = [torch.zeros((), dtype=torch.float32, device=tokens.device)]
-
-    def ffn(p, h, c, ph):
-        out, a = apply_moe_ffn(p, h, c, ph)
-        aux[0] = aux[0] + a
-        return out
-
-    logits = T.forward(params, tokens, cfg, phase, ffn_apply=ffn)
-    return logits, aux[0] / cfg.n_layers
+    logits, aux = T.forward(params, tokens, cfg, phase,
+                            ffn_apply=apply_moe_ffn, with_aux=True)
+    return logits, aux / cfg.n_layers
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, device):

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.state import SequenceStateSpec, sds, tree_map
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import _layer, _norm, _normal, stacked
 from repro_torch.serve.kv_cache import slots_for_positions, write_tokens
 from repro_torch.serve.sampling import eos_hits, sample_tokens
@@ -225,13 +226,20 @@ def forward(params, tokens, cfg: ArchConfig, phase: str) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    bl = params["blocks"]
+
+    def block(x, bp):
+        x, _ = recurrent_block(bp["rec1"], x, cfg, phase)
+        x, _ = recurrent_block(bp["rec2"], x, cfg, phase)
+        return attn_block(bp["attn"], x, positions, cfg, phase)
+
+    def tail(x, tp):
+        return recurrent_block(tp, x, cfg, phase)[0]
+
+    block, tail = (T.remat_wrap(f, cfg, phase) for f in (block, tail))
     for i in range(n_blocks(cfg)):
-        x, _ = recurrent_block(_layer(bl["rec1"], i), x, cfg, phase)
-        x, _ = recurrent_block(_layer(bl["rec2"], i), x, cfg, phase)
-        x = attn_block(_layer(bl["attn"], i), x, positions, cfg, phase)
+        x = block(x, _layer(params["blocks"], i))
     for i in range(cfg.n_tail_layers):
-        x, _ = recurrent_block(_layer(params["tail"], i), x, cfg, phase)
+        x = tail(x, _layer(params["tail"], i))
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
     return L.lm_logits(params["embed"], x, cfg)
 

@@ -32,7 +32,8 @@ from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.state import SequenceStateSpec, sds, tree_map
-from repro_torch.models.transformer import _layer, _norm, _normal, stacked
+from repro_torch.models.transformer import (_layer, _norm, _normal,
+                                            remat_wrap, stacked)
 from repro_torch.serve.sampling import eos_hits, sample_tokens
 
 LORA_R = 32      # token-shift lora rank
@@ -229,8 +230,13 @@ def forward(params, tokens, cfg: ArchConfig, phase: str) -> torch.Tensor:
     from zero state."""
     x = L.embed_tokens(params["embed"], tokens, cfg)
     st0 = _empty_state(cfg, tokens.shape[0], tokens.device)
+
+    def body(x, lp):
+        return _layer_step(x, lp, st0, cfg, phase)[0]
+
+    body = remat_wrap(body, cfg, phase)
     for i in range(cfg.n_layers):
-        x, _ = _layer_step(x, _layer(params["layers"], i), st0, cfg, phase)
+        x = body(x, _layer(params["layers"], i))
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
     return L.lm_logits(params["embed"], x, cfg)
 

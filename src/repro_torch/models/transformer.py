@@ -136,21 +136,78 @@ def _dense_ffn(p, h, cfg: ArchConfig, phase: str) -> torch.Tensor:
     return L.apply_mlp(h, p, cfg)
 
 
+def _saves_weight_product(ctx, op, *args, **kwargs):
+    """The ``dots`` policy (JAX's ``checkpoint_dots_with_no_batch_dims``):
+    keep the outputs of products without batch dimensions — the weight
+    products, which reach ATen as ``mm``/``addmm`` or an einsum's ``bmm``
+    of batch 1 — and recompute everything else (attention's and the
+    experts' batched products, norms, softmax, elementwise)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, cfg: ArchConfig, phase: str):
+    """``cfg.remat`` around one layer's function, as the reference's
+    ``remat_wrap`` (``repro/models/transformer.py:18-25``), in a train
+    forward that records gradients: ``none`` keeps every activation,
+    ``full`` recomputes the layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), ``dots`` keeps the weight
+    products' outputs and recomputes the rest. Elsewhere (serving, no
+    grad) ``fn`` itself: remat changes no value."""
+    if (phase != "train" or cfg.remat == "none"
+            or not torch.is_grad_enabled()):
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    import functools
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            _saves_weight_product)
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def forward(params, tokens, cfg: ArchConfig, phase: str,
-            ffn_apply=None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab) float32."""
+            ffn_apply=None, with_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, padded_vocab) float32. With
+    ``with_aux`` ``ffn_apply`` returns ``(out, aux)`` and the result is
+    ``(logits, sum of the layers' aux)``, summed layer by layer in float32
+    from 0, as the reference's scan carry (MoE)."""
     ffn_apply = ffn_apply or _dense_ffn
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    lay = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer(lay, i)
+
+    def layer(x, lp):
         h = L.apply_norm(x, lp["ln1"], cfg, phase)
         attn_out = L.apply_attention(lp["attn"], h, positions, cfg, phase)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, phase)
-        x = x + ffn_apply(lp["mlp"], h, cfg, phase)
+        out = ffn_apply(lp["mlp"], h, cfg, phase)
+        if with_aux:
+            return x + out[0], out[1]
+        return x + out
+
+    body = remat_wrap(layer, cfg, phase)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device) \
+        if with_aux else None
+    lay = params["layers"]
+    for i in range(cfg.n_layers):
+        if with_aux:
+            x, a = body(x, _layer(lay, i))
+            aux = aux + a
+        else:
+            x = body(x, _layer(lay, i))
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
-    return L.lm_logits(params["embed"], x, cfg)
+    logits = L.lm_logits(params["embed"], x, cfg)
+    return (logits, aux) if with_aux else logits
 
 
 # -- dense-slot serving --------------------------------------------------------

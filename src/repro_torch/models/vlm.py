@@ -34,14 +34,17 @@ def forward(params, batch, cfg: ArchConfig, phase: str) -> torch.Tensor:
     (B, S, padded_vocab) float32."""
     x = L.cast(batch["embeds"], cfg)
     positions3 = batch["positions"]
-    lay = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = T._layer(lay, i)
+
+    def layer(x, lp):
         h = L.apply_norm(x, lp["ln1"], cfg, phase)
         attn_out = L.apply_attention_mrope(lp["attn"], h, positions3, cfg,
                                            phase)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, phase)
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        return x + L.apply_mlp(h, lp["mlp"], cfg)
+
+    layer = T.remat_wrap(layer, cfg, phase)
+    for i in range(cfg.n_layers):
+        x = layer(x, T._layer(params["layers"], i))
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
     return L.lm_logits(params["embed"], x, cfg)
 

@@ -84,14 +84,17 @@ def encode(params, frames, cfg: ArchConfig, phase: str) -> torch.Tensor:
     over all B * S_enc rows of its call."""
     x = L.cast(frames, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    lay = params["enc_layers"]
-    for i in range(cfg.n_enc_layers):
-        lp = T._layer(lay, i)
+
+    def layer(x, lp):
         h = L.apply_norm(x, lp["ln1"], cfg, phase)
         attn_out = L.apply_attention(lp["attn"], h, positions, cfg, phase,
                                      causal=False)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, phase)
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        return x + L.apply_mlp(h, lp["mlp"], cfg)
+
+    layer = T.remat_wrap(layer, cfg, phase)
+    for i in range(cfg.n_enc_layers):
+        x = layer(x, T._layer(params["enc_layers"], i))
     return L.apply_norm(x, params["enc_norm"], cfg, phase)
 
 
@@ -103,9 +106,8 @@ def decode(params, tokens, enc_out, cfg: ArchConfig,
     x = L.embed_tokens(params["embed"], tokens, cfg)
     x = x + L.cast(_sin_pos(s, cfg.d_model, x.device), cfg)[None]
     positions = torch.arange(s, device=x.device)
-    lay = params["dec_layers"]
-    for i in range(cfg.n_layers):
-        lp = T._layer(lay, i)
+
+    def layer(x, lp, enc_out):
         h = L.apply_norm(x, lp["ln1"], cfg, phase)
         attn_out = L.apply_attention(lp["attn"], h, positions, cfg, phase,
                                      causal=True)
@@ -113,7 +115,11 @@ def decode(params, tokens, enc_out, cfg: ArchConfig,
         kv = L.cross_kv(lp["xattn"], enc_out, cfg)
         xattn_out = L.apply_cross_attention(lp["xattn"], h, kv, cfg, phase)
         x, h = L.apply_residual_norm(x, xattn_out, lp["ln2"], cfg, phase)
-        x = x + L.apply_mlp(h, lp["mlp"], cfg)
+        return x + L.apply_mlp(h, lp["mlp"], cfg)
+
+    layer = T.remat_wrap(layer, cfg, phase)
+    for i in range(cfg.n_layers):
+        x = layer(x, T._layer(params["dec_layers"], i), enc_out)
     x = L.apply_norm(x, params["final_norm"], cfg, phase)
     return L.lm_logits(params["embed"], x, cfg)
 

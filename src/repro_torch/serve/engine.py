@@ -86,12 +86,6 @@ def _check_float32_masters(tree, key=None) -> None:
             "keep them under cfg.quant.weights)")
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 def _resolve_device(device, engine: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -144,7 +138,7 @@ def _serving_params(cfg: ArchConfig, params, device):
     if cfg.quant.weights:
         _check_float32_masters(params)
         params = quantize_params(params)
-    return _to_device(params, device)
+    return tree_map(lambda t: t.to(device), params)
 
 
 class PagedEngine:

@@ -1942,7 +1942,7 @@ def test_vlm_smoke_prefill_decode_on_card(cuda_device):
     """The smoke qwen2-vl ``prefill`` + ``decode_step`` (exact mode, a 4 x 4
     patch grid in the position ids) on the card against the CPU: logits
     within 1e-4 (cuBLAS and the CPU sum in other orders)."""
-    from repro_torch.serve.engine import _to_device
+    from repro_torch.models.state import tree_map
     cfg = dataclasses.replace(get_config("qwen2_vl_7b").smoke(),
                               softmax_mode="exact", norm_mode="exact",
                               logit_int8=False)
@@ -1955,7 +1955,7 @@ def test_vlm_smoke_prefill_decode_on_card(cuda_device):
     pos[2, :, :16] = torch.arange(16) % 4
     rows = []
     for dev in ("cpu", "cuda"):
-        p = _to_device(params, dev)
+        p = tree_map(lambda t: t.to(dev), params)
         batch = {"embeds": p["embed"]["table"][toks.to(dev)],
                  "positions": pos.to(dev)}
         logits, cache = api.prefill(p, batch, cfg, 28)
@@ -1967,3 +1967,178 @@ def test_vlm_smoke_prefill_decode_on_card(cuda_device):
         rows.append(torch.stack(out))
     torch.cuda.synchronize()
     torch.testing.assert_close(rows[1], rows[0], rtol=0, atol=1e-4)
+
+
+# -- training: the exact norm's backward kernel and the train step --------------
+
+def _bwd_case(device, rows, c, rms, groups, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lead = (groups, c) if groups > 1 else (c,)
+    x = (torch.randn((rows, c), generator=gen, device=device) * 3
+         + torch.randn((rows, 1), generator=gen, device=device)).to(dtype)
+    dy = torch.randn((rows, c), generator=gen, device=device).to(dtype)
+    g = 1 + 0.1 * torch.randn(lead, generator=gen, device=device)
+    b = None if rms else 0.1 * torch.randn(lead, generator=gen,
+                                           device=device)
+    return x, dy, g, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c,rms,groups", [
+    (8, 896, True, 1), (2048, 896, True, 1), (2048, 2048, False, 1),
+    (1500, 768, False, 1), (8, 3584, True, 1), (2400, 6144, False, 1),
+    (512, 64, False, 64), (8192, 64, False, 64)])
+def test_exact_norm_backward_matches_plain(cuda_device, rows, c, rms, groups,
+                                           dtype):
+    """``exact_norm_bwd_kernel`` + ``exact_norm_wgrad_kernel`` against
+    autograd of the plain version on the card: dx within 2e-6 of its
+    row's scale (max |inv * g * dy|) in float32 and within one bf16 ulp (or
+    that bar) in bf16; dgamma/dbeta within 1e-5 of their largest
+    magnitude; bitwise equal on a second call; the first rows' dx
+    bitwise equal to a call on those rows alone."""
+    dt = getattr(torch, dtype)
+    x, dy, g, b = _bwd_case(cuda_device, rows, c, rms, groups, dt, rows + c)
+    eps = 1e-6 if rms else 1e-5
+    before = KN.exact_norm_backward.launches
+    dx, dg, db = KN.exact_norm_backward(x, g, b, dy, rms=rms, eps=eps)
+    assert KN.exact_norm_backward.launches == before + 2   # dx, then wgrad
+    assert dx.dtype == dt and dg.dtype == torch.float32 and dg.shape == g.shape
+    again = KN.exact_norm_backward(x, g, b, dy, rms=rms, eps=eps)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+    head = max(8, groups)
+    alone = KN.exact_norm_backward(x[:head].contiguous(), g, b,
+                                   dy[:head].contiguous(), rms=rms, eps=eps)
+    assert torch.equal(alone[0], dx[:head])
+    px, pg, pb = KN.exact_norm_backward_plain(x, g, b, dy, rms=rms, eps=eps)
+    xf = KN.grouped_rows(x.float(), g).reshape(rows, c)
+    gg = g.reshape(-1, c).repeat(rows // groups, 1) if groups > 1 else g
+    mu = 0 if rms else xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt(torch.square(xf - mu).mean(-1, keepdim=True) + eps)
+    scale = (inv * gg * dy.float()).abs().amax(-1, keepdim=True)
+    bar = 2e-6 * scale
+    if dt == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            px.float().abs().clamp_min(2.0 ** -126))) - 7)
+        bar = torch.maximum(bar, ulp)
+    assert ((dx.float() - px.float()).abs() <= bar).all()
+    assert (dg - pg).abs().max() <= 1e-5 * pg.abs().max()
+    if not rms:
+        assert torch.equal(again[2], db)
+        assert (db - pb).abs().max() <= 1e-5 * pb.abs().max()
+
+
+def test_exact_norm_autograd_runs_the_backward_kernel(cuda_device):
+    """Autograd through ``exact_norm`` on CUDA tensors that require grad
+    launches the forward kernel once and the backward's two kernels once
+    per call, and gives what ``exact_norm_backward`` gives; without grad the forward
+    alone runs (the serve path), with the same bits."""
+    x, dy, g, b = _bwd_case(cuda_device, 40, 896, False, 1, torch.bfloat16, 5)
+    xs, gs, bs = (t.clone().requires_grad_(True) for t in (x, g, b))
+    f0, b0 = KN.exact_norm.launches, KN.exact_norm_backward.launches
+    out = KN.exact_norm(xs, gs, bs, rms=False, eps=1e-5,
+                        out_dtype=torch.bfloat16)
+    grads = torch.autograd.grad(out, (xs, gs, bs), dy)
+    assert KN.exact_norm.launches == f0 + 1
+    assert KN.exact_norm_backward.launches == b0 + 2
+    want = KN.exact_norm_backward(x, g, b, dy, rms=False, eps=1e-5)
+    for a, w in zip(grads, want):
+        assert torch.equal(a, w)
+    with torch.no_grad():
+        plain = KN.exact_norm(x, g, b, rms=False, eps=1e-5,
+                              out_dtype=torch.bfloat16)
+    assert torch.equal(plain, out.detach())
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(
+        cuda_device):
+    """Every other hand kernel raises when grad mode is on and an input
+    requires grad, instead of cutting the graph; under ``no_grad`` it
+    runs. (The int8 GEMM's inputs are int8, which cannot require grad;
+    its wrapper holds the same check.)"""
+    dev = cuda_device
+    x = torch.randn(8, 896, device=dev, requires_grad=True)
+    g = torch.ones(896, device=dev)
+    calls = {
+        "calibrated_norm": lambda: KN.calibrated_norm(x, None, g, rms=True),
+        "ailayernorm qnorm": lambda: KN.qnorm(
+            x, torch.ones(1, device=dev), torch.zeros(896, dtype=torch.int32,
+                                                      device=dev), g,
+            rms=True),
+        "e2softmax": lambda: KE.e2softmax(x),
+        "flash_e2softmax": lambda: KA.flash_e2softmax(
+            x.reshape(1, 8, 896)[..., :64].contiguous(),
+            x.detach().reshape(1, 8, 896)[..., :64].contiguous(),
+            x.detach().reshape(1, 8, 896)[..., :64].contiguous()),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()
+    q = torch.randn(1, 14, 1, 64, device=dev, requires_grad=True)
+    pool = torch.zeros(4, 16, 2, 64, device=dev)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        KA.flash_e2softmax_paged(
+            q, pool, pool, torch.ones(1, 1, dtype=torch.int32, device=dev),
+            torch.tensor([[0, 1]], dtype=torch.int32, device=dev),
+            causal=False)
+
+
+def test_sole_train_config_fails_loudly_on_card(cuda_device):
+    """A train step whose train-phase norm is SOLE reaches the
+    calibrating norm with masters that require grad: it raises."""
+    from repro_torch.train.trainer import batch_to_device, loss_and_grads
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.configs.base import ShapeConfig
+    cfg = dataclasses.replace(get_config("qwen2_0_5b").smoke(),
+                              train_norm_mode="sole")
+    masters = api.init_params(0, cfg, cuda_device, masters=True)
+    b = batch_to_device(make_batch(cfg, ShapeConfig("s", 16, 2, "train"), 0),
+                        cuda_device)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        loss_and_grads(masters, b, cfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mixtral_8x7b", "rwkv6_7b",
+                                  "recurrentgemma_9b", "whisper_small",
+                                  "qwen2_vl_7b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One smoke train step (float32 masters, remat dots) through the
+    kernels against the CPU: loss within 1e-4 and the grad norm within
+    1e-3 relative (cuBLAS and the CPU sum in other orders); the exact
+    norm's backward kernel ran."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.state import tree_map
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainer import batch_to_device, loss_and_grads
+    cfg = get_config(arch).smoke()
+    masters = api.init_params(0, cfg, "cpu", masters=True)
+    b = make_batch(cfg, ShapeConfig("s", 32, 4, "train"), 0)
+    res = []
+    before = KN.exact_norm_backward.launches
+    for dev in ("cpu", "cuda"):
+        loss, _, grads = loss_and_grads(
+            tree_map(lambda t: t.to(dev), masters), batch_to_device(b, dev),
+            cfg)
+        res.append((loss.item(), global_norm(grads).item()))
+    assert KN.exact_norm_backward.launches > before
+    (lc, gc), (lg, gg) = res
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert abs(gg - gc) <= 1e-3 * gc
+
+
+def test_trainer_recovers_from_a_failure_on_card(cuda_device, tmp_path):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(get_config("qwen2_0_5b").smoke(),
+                 ShapeConfig("s", 64, 8, "train"),
+                 OptConfig(lr=1e-2, warmup_steps=5, total_steps=60),
+                 device=cuda_device, ckpt_dir=str(tmp_path), ckpt_every=5)
+    out = tr.run(12, fail_at=8)
+    steps = [m["step"] for m in out["metrics"]]
+    assert steps == list(range(8)) + list(range(5, 12))
+    first = {m["step"]: m["loss"] for m in out["metrics"][:8]}
+    for m in out["metrics"][8:11]:
+        assert m["loss"] == first[m["step"]]

@@ -1,7 +1,9 @@
 """Package-level guarantees of the PyTorch/CUDA port (``src/repro_torch``).
 
 * Its configs are a copy of the JAX package's, held field-for-field equal
-  here (the port may not import ``repro.configs``).
+  here (the port may not import ``repro.configs``): the architectures,
+  the shapes (``ShapeConfig``, ``SHAPES``) and the optimizer's
+  ``OptConfig``.
 * Neither the package nor ``chip_smoke.py`` imports ``jax``/``jaxlib`` or
   anything of ``repro`` (an AST scan of every import statement and every
   ``importlib.import_module`` call).
@@ -20,12 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import SHAPES as JAX_SHAPES
 from repro.configs.base import ArchConfig as JaxArchConfig
 from repro.configs.base import QuantConfig as JaxQuantConfig
+from repro.configs.base import ShapeConfig as JaxShapeConfig
 from repro.configs.base import get_config as jax_config
 from repro.models import api as japi
 from repro.models.layers import shapes_of
-from repro_torch.configs.base import ARCH_NAMES, ArchConfig, QuantConfig
+from repro.train.optimizer import OptConfig as JaxOptConfig
+from repro_torch.configs.base import (ARCH_NAMES, SHAPES, ArchConfig,
+                                      QuantConfig, ShapeConfig)
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ailayernorm as KN
 from repro_torch.kernels import build
@@ -34,6 +40,7 @@ from repro_torch.kernels import int8_matmul as KM
 from repro_torch import ops as tops
 from repro_torch.models import api
 from repro_torch.serve.engine import PagedEngine, Request
+from repro_torch.train.optimizer import OptConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -48,6 +55,10 @@ def test_config_classes_match_reference():
     """Same fields, in the same order, with the same defaults."""
     assert _fields(ArchConfig) == _fields(JaxArchConfig)
     assert _fields(QuantConfig) == _fields(JaxQuantConfig)
+    assert _fields(ShapeConfig) == _fields(JaxShapeConfig)
+    assert _fields(OptConfig) == _fields(JaxOptConfig)
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
     for mode in ("off", "w8a16", "w8a8"):
         t, j = QuantConfig(mode), JaxQuantConfig(mode)
         assert (t.weights, t.acts) == (j.weights, j.acts)
@@ -101,7 +112,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 "sharding/__init__.py", "core/sole/quant.py", "ops/cuda.py",
                 "kernels/e2softmax.py", "launch/__init__.py",
                 "launch/serve.py", "launch/quickstart.py", "ops/oracles.py",
-                "core/baselines/ibert.py", "core/baselines/softermax.py"):
+                "core/baselines/ibert.py", "core/baselines/softermax.py",
+                "data/pipeline.py", "data/__init__.py", "train/__init__.py",
+                "train/optimizer.py", "train/checkpoint.py",
+                "train/elastic.py", "train/trainer.py", "launch/train.py",
+                "launch/train_then_serve.py"):
         assert os.path.join("src", "repro_torch", mod) in scanned
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
