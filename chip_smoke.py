@@ -194,7 +194,8 @@ drop; the SOLE evaluation runs E2Softmax and the calibrating norm); a
 smoke train step per config on the card against the CPU and a smoke
 ``Trainer`` that recovers from an induced failure; the backward kernel
 timed beside autograd of its plain version and of ``F.rms_norm`` /
-``F.layer_norm`` / ``F.group_norm``.
+``F.layer_norm`` / ``F.group_norm``. The exact norm's forward is timed
+at the train step's shape too (8 x 1,024 rows of 896, bf16 in and out).
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -3594,9 +3595,11 @@ def check_exact_norm(torch):
 def time_exact_norm(torch, norms, launches):
     """Phase 5 for the exact-mode norm kernel: CUDA events (L2 flushed)
     at a decode step's 8 rows, a verify dispatch's 40 and the dense
-    prefill's 2,400, beside its plain torch ops and one PyTorch call of
-    the same function on a float32 copy of the rows (``rms_norm`` /
-    ``layer_norm``, timed only); bound: the bf16 rows in, float32 out."""
+    prefill's 2,400, and at the train step's 8 x 1,024 rows of
+    qwen2_0_5b's 896 (bf16 in and out, its compute type), beside its
+    plain torch ops and one PyTorch call of the same function on a
+    float32 copy of the rows (``rms_norm`` / ``layer_norm``, timed only);
+    bound: the bf16 rows in, the output (float32, or bf16) out."""
     import torch.nn.functional as F
     from repro_torch.kernels import ailayernorm as KN
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
@@ -3605,37 +3608,49 @@ def time_exact_norm(torch, norms, launches):
              replaces="src/repro/ops/reference.py:65 (exact_rmsnorm; with "
                       "exact_layernorm, :57, XLA's reduction: no pallas_call)",
              shapes={})
-    for name, res in norms.items():
+    # (name, the check's inputs, rows, out type)
+    cases = [(name, res, rows, None) for name, res in norms.items()
+             for rows in (DECODE_BATCH, VERIFY_ROWS, DECODE_BATCH * 300)]
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    n = TRAIN_BATCH * TRAIN_SEQ
+    xt = (torch.randn((n, 896), generator=gen, device="cuda") * 3
+          + torch.randn((n, 1), generator=gen, device="cuda")).to(
+              torch.bfloat16)
+    cases.append(("rms896", dict(norms["rms896"], x=xt), n, torch.bfloat16))
+    for name, res, rows, od in cases:
         x, g, b, rms, eps = (res[k] for k in ("x", "g", "b", "rms", "eps"))
-        for rows in (DECODE_BATCH, VERIFY_ROWS, DECODE_BATCH * 300):
-            xr = x[:rows].contiguous()
-            xf = xr.float()
-            c = xr.shape[1]
+        xr = x[:rows].contiguous()
+        xf = xr.float()
+        c = xr.shape[1]
 
-            def run():
-                return KN.exact_norm(xr, g, b, rms=rms, eps=eps)
+        def run():
+            return KN.exact_norm(xr, g, b, rms=rms, eps=eps, out_dtype=od)
 
-            def plain():
-                return KN.exact_norm_plain(xr, g, b, rms=rms, eps=eps)
-            if rms:
-                lib = getattr(F, "rms_norm", None)
-                library = None if lib is None else (
-                    lambda: lib(xf, (c,), g, eps))
-            else:
-                library = lambda: F.layer_norm(xf, (c,), g, b, eps)  # noqa
-            nbytes = rows * c * (xr.element_size() + 4) + c * 4 * (1 + (not rms))
-            bms, by = bound_ms(nbytes, 8 * rows * c, FP32_FLOPS)
-            e["shapes"][f"{name}_rows{rows}"] = dict(
-                shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16 in, "
-                      "float32 out",
-                ms=time_ms(torch, run, flush),
-                kernel_ms=profiled_kernel_ms(torch, run, flush,
-                                             "exact_norm_kernel"),
-                plain_ms=time_ms(torch, plain, flush, reps=10),
-                library_ms=(None if library is None
-                            else time_ms(torch, library, flush)),
-                bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
-                bytes=nbytes)
+        def plain():
+            return KN.exact_norm_plain(xr, g, b, rms=rms, eps=eps)
+        if rms:
+            lib = getattr(F, "rms_norm", None)
+            library = None if lib is None else (
+                lambda: lib(xf, (c,), g, eps))
+        else:
+            library = lambda: F.layer_norm(xf, (c,), g, b, eps)  # noqa
+        out_size = 4 if od is None else 2
+        nbytes = (rows * c * (xr.element_size() + out_size)
+                  + c * 4 * (1 + (not rms)))
+        bms, by = bound_ms(nbytes, 8 * rows * c, FP32_FLOPS)
+        key = f"{name}_rows{rows}" + ("" if od is None else "_train")
+        e["shapes"][key] = dict(
+            shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16 in, "
+                  + ("float32 out" if od is None else
+                     "bf16 out (the train step's)"),
+            ms=time_ms(torch, run, flush),
+            kernel_ms=profiled_kernel_ms(torch, run, flush,
+                                         "exact_norm_kernel"),
+            plain_ms=time_ms(torch, plain, flush, reps=10),
+            library_ms=(None if library is None
+                        else time_ms(torch, library, flush)),
+            bound_ms=bms, bound_by=by, max_abs_err=res["max_abs_err"],
+            bytes=nbytes)
     main = e["shapes"][f"rms896_rows{DECODE_BATCH}"]
     e.update(launches=launches["ailayernorm_exact"],
              launches_from="bf16 exact oracle spec trace (qwen2_0_5b)",

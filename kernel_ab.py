@@ -4,7 +4,7 @@
 one card. Run from the root of a checkout, with another checkout of the
 repository at ``BASE``::
 
-    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,wave]
+    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,exact,wave]
 
 Each turn is a fresh process that puts ``<checkout>/src`` first on the
 path, builds that checkout's kernels there (``kernels/build.py``) and
@@ -44,6 +44,13 @@ times, with CUDA events and the L2 cache flushed before each launch:
   ``residual_rmsnorm``, ``residual_layernorm`` with ``params=`` and
   ``out_dtype=torch.bfloat16`` at 8 and 128 rows) by CUDA events and by
   host wall per call, whatever each checkout launches for them;
+* ``exact``: the exact norm's forward (``exact_norm``: bf16 rows,
+  float32 out) at ``chip_smoke.EXACT_NORM_CASES`` x 8, 40 and 2,400 rows,
+  at the train step's RMS 896 x 8,192 bf16 rows with bf16 out, and on
+  rwkv6's (64, 64) GroupNorm rows (float32, 512 / 8,192 / 153,600 rows),
+  and its backward (``exact_norm_backward``, both of its launches) at
+  every ``chip_smoke.NORM_BWD_CASES`` shape on float32 and bf16 rows
+  (both checkouts' functions take the same arguments);
 * ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` and
   of the dense-slot ``Engine`` at qwen2_0_5b's full width, in bf16 and at
   w8a8 with int8 pages or cache (the end-to-end effect of the kernels and
@@ -51,7 +58,7 @@ times, with CUDA events and the L2 cache flushed before each launch:
   same wave under the profiler.
 
 Inputs come from fixed seeds, alike in every turn. Prints one line per
-shape (the mean of each checkout's two turns, and their ratio), the
+shape (the mean of each checkout's two turns, and their ratios), the
 ``nvidia-smi`` line and one JSON object with every turn's times.
 """
 from __future__ import annotations
@@ -71,7 +78,8 @@ FLASH = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
          ("ragged_noncausal", "sole"), ("stablelm_mha", "sole"))
 
 
-KINDS = ("paged", "sweep", "norm", "flash", "gemm", "e2", "qnorm", "wave")
+KINDS = ("paged", "sweep", "norm", "flash", "gemm", "e2", "qnorm", "exact",
+         "wave")
 # kv lengths of the decode sweep: one to sixteen 128-key chunks
 SWEEP_KV = (16, 128, 300, 1024, 2048)
 
@@ -96,14 +104,15 @@ def worker(src: str, kinds) -> dict:
     names = {"paged": "paged_e2softmax", "sweep": "paged_e2softmax",
              "norm": "ailayernorm", "flash": "flash_e2softmax",
              "gemm": "int8_matmul", "e2": "e2softmax",
-             "qnorm": "ailayernorm"}
+             "qnorm": "ailayernorm", "exact": "ailayernorm"}
     # a wave runs every kernel of the serve paths
     build.build_all(None if "wave" in kinds else [names[k] for k in kinds])
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
     gen = torch.Generator(device="cuda").manual_seed(15)
     out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
            "gemm": {}, "sdpa": {}, "int_mm": {}, "e2": {}, "e2_wall": {},
-           "qnorm": {}, "static_ops": {}, "static_ops_wall": {}, "wave": {}}
+           "qnorm": {}, "static_ops": {}, "static_ops_wall": {},
+           "exact_fwd": {}, "exact_bwd": {}, "wave": {}}
     cfg = get_config("qwen2_0_5b")
     if "paged" in kinds:
         shapes = {"decode": dict(b=DECODE_BATCH, c=1,
@@ -161,6 +170,8 @@ def worker(src: str, kinds) -> dict:
         e2_stage(torch, cfg, gen, flush, out)
     if "qnorm" in kinds:
         static_norms(torch, gen, flush, out)
+    if "exact" in kinds:
+        exact_norms(torch, gen, flush, out)
     if "wave" in kinds:
         out["wave"] = waves(torch, cfg)
     for case, mode in FLASH if "flash" in kinds else ():
@@ -253,6 +264,39 @@ def static_norms(torch, gen, flush, out) -> None:
         name = f"{op}_{rows}x{c}"
         out["static_ops"][name] = time_ms(torch, call, flush)
         out["static_ops_wall"][name] = wall_ms(torch, call, reps=300)
+
+
+def exact_norms(torch, gen, flush, out) -> None:
+    """The ``exact`` kind: the exact norm's forward calls by events into
+    ``out["exact_fwd"]``, its backward calls into ``out["exact_bwd"]``."""
+    from chip_smoke import (EXACT_NORM_CASES, NORM_BWD_CASES, TRAIN_BATCH,
+                            TRAIN_SEQ, _bwd_inputs, time_ms)
+    from repro_torch.kernels import ailayernorm as KN
+    bf, f32 = torch.bfloat16, torch.float32
+    # (name, rows, C, rms, groups, rows' type, out type)
+    fwd = [(f"{'rms' if rms else 'ln'}{c}_rows{rows}", rows, c, rms, 1, bf,
+            None) for c, rms in EXACT_NORM_CASES for rows in (8, 40, 2400)]
+    fwd.append(("rms896_rows8192_train", TRAIN_BATCH * TRAIN_SEQ, 896, True,
+                1, bf, bf))
+    fwd += [(f"groupnorm_rows{rows}", rows, 64, False, 64, f32, None)
+            for rows in (512, 8192, 153600)]
+    for name, rows, c, rms, groups, dt, od in fwd:
+        x, _, g, b = _bwd_inputs(torch, gen, rows, c, rms, groups, dt)
+        eps = 1e-6 if rms else 1e-5
+        out["exact_fwd"][name] = time_ms(
+            torch, lambda: KN.exact_norm(x, g, b, rms=rms, eps=eps,
+                                         out_dtype=od), flush)
+    for name, row_counts, c, rms, groups in NORM_BWD_CASES:
+        for dt in (f32, bf):
+            for rows in row_counts:
+                x, dy, g, b = _bwd_inputs(torch, gen, rows, c, rms, groups,
+                                          dt)
+                eps = 1e-6 if rms else 1e-5
+                key = f"{name}_{'bf16' if dt == bf else 'f32'}_rows{rows}"
+                out["exact_bwd"][key] = time_ms(
+                    torch, lambda: KN.exact_norm_backward(x, g, b, dy,
+                                                          rms=rms, eps=eps),
+                    flush)
 
 
 def e2_stage(torch, cfg, gen, flush, out) -> None:
@@ -386,7 +430,7 @@ def main() -> int:
               flush=True)
     for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
                  "e2", "e2_wall", "qnorm", "static_ops", "static_ops_wall",
-                 "wave"):
+                 "exact_fwd", "exact_bwd", "wave"):
         for name in turns[0][1][kind]:
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}
@@ -398,7 +442,8 @@ def main() -> int:
                 unit, scale = "kernels", 1
             print(f"{kind} {name}: base {mean['base'] * scale:.2f} {unit}, "
                   f"this {mean['this'] * scale:.2f} {unit}, base/this "
-                  f"{mean['base'] / mean['this']:.2f}"
+                  f"{mean['base'] / mean['this']:.2f}, this/base "
+                  f"{mean['this'] / mean['base']:.3f}"
                   + (f"; {lib} {sum(libs) / len(libs) * 1e3:.2f} us"
                      if libs else ""))
     print(smi)

@@ -26,14 +26,18 @@ entries are one team-per-row kernel template; each takes the PTF params'
   :func:`ailayernorm`/:func:`airmsnorm`/:func:`fused_add_norm`/
   :func:`fused_add_norm_quant` without params reach it.
 * :func:`exact_norm`: the exact mode's float LayerNorm / RMSNorm (no TPU
-  kernel: XLA's reduction there), a team per row (a warp below 2,048
-  channels, the CTA from there) in a reduction order fixed by C, so a
-  row's bits do not depend on the rows beside it; its plain version is the
-  reference backend's torch ops. It is differentiable: a
-  ``torch.autograd.Function`` whose backward, :func:`exact_norm_backward`,
-  is a hand-written kernel too (``exact_norm_bwd_kernel``, then
-  ``exact_norm_wgrad_kernel`` for dgamma/dbeta, no atomics); its plain
-  version is autograd through :func:`exact_norm_plain`.
+  kernel: XLA's reduction there). A team of threads per row, its size
+  chosen by C alone (:func:`exact_team`), holds the row in registers,
+  loaded with 16-byte loads before the first add, in a reduction order
+  fixed by C, so a row's bits do not depend on the rows beside it; its
+  plain version is the reference backend's torch ops. It is
+  differentiable: a ``torch.autograd.Function`` whose backward,
+  :func:`exact_norm_backward`, is a hand-written kernel too
+  (``exact_norm_bwd_kernel``: x and dy read once into the forward's
+  teams, the forward's mu/inv, dx and the dgamma/dbeta partials in one
+  pass over row ranges fixed by :func:`bwd_plan`; then
+  ``exact_norm_wgrad_kernel`` sums the partials in order; no atomics);
+  its plain version is autograd through :func:`exact_norm_plain`.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches its kernel or raises. The SOLE kernels have no
@@ -492,12 +496,44 @@ def _exact_launch(rows, gamma, beta, *, rms: bool, eps: float,
     return out
 
 
-def bwd_chunk(c: int, groups: int) -> int:
-    """Rows per CTA of the backward kernel: about 32K elements, a
-    multiple of ``groups``, at most 1,024 (its shared mu/inv)."""
-    chunk = max(1, 32768 // max(c, 1))
-    chunk = -(-chunk // groups) * groups
-    return min(chunk, max(groups, 1024 // groups * groups))
+# csrc/ailayernorm.cu's exact-norm geometry: channels a thread takes at a
+# time (kUnit), units it holds in registers (kExactK), threads of a CTA of
+# teams of up to a warp (kExactCta) and of the largest team (kThreads)
+EXACT_UNIT = 8
+EXACT_UNITS = 4
+EXACT_CTA = 128
+EXACT_TEAM_MAX = 256
+# CTAs the backward aims at, at most: two on each of an H100's 132 SMs. A
+# constant, not the card's SM count, so the dgamma/dbeta bits do not depend
+# on the card that computes them.
+BWD_CTAS = 264
+
+
+def exact_team(c: int) -> int:
+    """Threads of the team that takes a row of ``c`` channels in the exact
+    norm's kernels (``exact_team_size``): the fewest, a power of two up to
+    256, that leave each thread at most four units of eight channels. Its
+    reduction order, and so every row's bits, follow from it."""
+    units = -(-c // EXACT_UNIT)
+    t = 1
+    while t < EXACT_TEAM_MAX and -(-units // t) > EXACT_UNITS:
+        t *= 2
+    return t
+
+
+def bwd_plan(rows: int, c: int, groups: int) -> Tuple[int, int]:
+    """``(chunk, ctas)`` of the backward kernel, from the shape alone:
+    ``chunk`` consecutive rows a CTA, ``rows / BWD_CTAS`` rounded up to a
+    whole number of steps, where a step is a row for each of the CTA's
+    teams (a multiple of ``groups``, so each team keeps one affine row)
+    or, where the team count is not a multiple of ``groups``, ``groups``
+    rows. So at most ``BWD_CTAS`` CTAs, and a few rows give each team one
+    row. The chunking orders the dgamma/dbeta sums, never a row's dx."""
+    t = exact_team(c)
+    teams = EXACT_CTA // t if t <= 32 else 1
+    step = teams if teams % groups == 0 else groups
+    chunk = -(-rows // (BWD_CTAS * step)) * step
+    return chunk, -(-rows // chunk)
 
 
 def exact_norm_backward_plain(x, gamma, beta, dy, *, rms: bool,
@@ -553,8 +589,8 @@ def exact_norm_backward(x, gamma, beta, dy, *, rms: bool, eps: float):
     # exact_norm_wgrad_kernel writes every element of dgamma and dbeta
     dgamma = torch.empty(gamma.shape, dtype=torch.float32, device=dev)
     dbeta = None if rms else torch.empty_like(dgamma)
-    chunk = bwd_chunk(c, groups)
-    parts = -(-rows // chunk) * groups * c
+    chunk, ctas = bwd_plan(rows, c, groups)
+    parts = ctas * groups * c
     part_g = torch.empty(parts, dtype=torch.float32, device=dev)
     part_b = None if rms else torch.empty_like(part_g)
     lib = build.load("ailayernorm")

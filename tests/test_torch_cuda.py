@@ -65,8 +65,12 @@ Tolerances, and why:
   row's position: bitwise, at head dim 64 and 128, bf16 and int8 pages,
   SOLE and exact.
 * exact-mode norms: the kernel's rows bitwise equal whatever the row
-  count; against the plain torch ops (another reduction order, torch's
-  approximate rsqrt on the card) 1e-5 of the output scale.
+  count, at every team size and on both sides of each step, from
+  misaligned storage as from aligned; against the plain torch ops
+  (another reduction order, torch's approximate rsqrt on the card) 1e-5
+  of the output scale. The backward's dx bitwise whatever the row count
+  and chunking, and its dgamma for one row with gamma 1 and dy 1 bitwise
+  the forward's output (the two share mu and inv).
 * the recurrent families: the calibrating norm with a (G, C) affine
   (rwkv6's per-head GroupNorm) bitwise against its plain version, the
   exact norm's heads bitwise alone; ``layers.fma`` bitwise ``fma32``; the
@@ -2047,6 +2051,103 @@ def test_exact_norm_autograd_runs_the_backward_kernel(cuda_device):
         plain = KN.exact_norm(x, g, b, rms=False, eps=1e-5,
                               out_dtype=torch.bfloat16)
     assert torch.equal(plain, out.detach())
+
+
+# widths on each side of every team-size step of the exact norm's kernels
+# (4, 8, ..., 1,024 units of 8 channels; past 1,024 units the streamed
+# instantiation), and one that is not a multiple of 8 (the scalar path)
+EXACT_WIDTHS = (32, 40, 64, 72, 256, 264, 1024, 1032, 2048, 2056, 4096, 4104,
+                8192, 8200, 1001)
+
+
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("c", EXACT_WIDTHS)
+def test_exact_norm_rows_stable_across_team_sizes(cuda_device, c, rms):
+    """At every team size and on both sides of each step, the forward
+    gives each row the same bits at 1, 8, 40 and 300 rows and alone
+    (bf16 rows; float32 and bf16 out), and is within 1e-5 of the scale of
+    the plain torch ops."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c + rms)
+    x = (torch.randn((300, c), generator=gen, device=cuda_device) * 3
+         + torch.randn((300, 1), generator=gen, device=cuda_device)).to(
+             torch.bfloat16)
+    g = 1 + 0.1 * torch.randn((c,), generator=gen, device=cuda_device)
+    b = None if rms else 0.1 * torch.randn((c,), generator=gen,
+                                           device=cuda_device)
+    full = KN.exact_norm(x, g, b, rms=rms, eps=1e-5)
+    for rows in (1, 8, 40):
+        assert torch.equal(KN.exact_norm(x[:rows], g, b, rms=rms, eps=1e-5),
+                           full[:rows])
+    for i in (0, 7, 299):
+        assert torch.equal(KN.exact_norm(x[i:i + 1], g, b, rms=rms,
+                                         eps=1e-5)[0], full[i])
+    half = KN.exact_norm(x, g, b, rms=rms, eps=1e-5, out_dtype=torch.bfloat16)
+    assert torch.equal(half, full.to(torch.bfloat16))
+    ref = KN.exact_norm_plain(x, g, b, rms=rms, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (full - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,rms", [(896, True), (6144, False), (8200, True)])
+def test_exact_norm_misaligned_rows_equal_aligned(cuda_device, c, rms, dtype):
+    """Rows read from a storage offset that is not 16-byte aligned (the
+    kernels' scalar path) give the bits of the same rows in an aligned
+    call (the vector path), forward and backward."""
+    dt = getattr(torch, dtype)
+    x, dy, g, b = _bwd_case(cuda_device, 40, c, rms, 1, dt, c)
+    buf = torch.empty(40 * c + 1, dtype=dt, device=cuda_device)
+    xm = buf[1:].view(40, c)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 != 0
+    eps = 1e-6 if rms else 1e-5
+    assert torch.equal(KN.exact_norm(xm, g, b, rms=rms, eps=eps),
+                       KN.exact_norm(x, g, b, rms=rms, eps=eps))
+    assert torch.equal(KN.exact_norm(xm[5:6], g, b, rms=rms, eps=eps),
+                       KN.exact_norm(x, g, b, rms=rms, eps=eps)[5:6])
+    mis = KN.exact_norm_backward(xm, g, b, dy, rms=rms, eps=eps)
+    want = KN.exact_norm_backward(x, g, b, dy, rms=rms, eps=eps)
+    for a, w in zip(mis, want):
+        assert (a is None and w is None) or torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,rms", [(896, True), (2048, False), (6144, False)])
+def test_exact_norm_backward_rows_stable_under_the_plan(cuda_device, c, rms,
+                                                        dtype):
+    """The backward's dx of the first 1, 8 and 40 rows of an 8,192-row
+    call, each chunked by its own plan, bitwise equal to the same rows of
+    the full call."""
+    dt = getattr(torch, dtype)
+    x, dy, g, b = _bwd_case(cuda_device, 8192, c, rms, 1, dt, 7 + c)
+    eps = 1e-6 if rms else 1e-5
+    full = KN.exact_norm_backward(x, g, b, dy, rms=rms, eps=eps)[0]
+    for rows in (1, 8, 40):
+        assert KN.bwd_plan(rows, c, 1) != KN.bwd_plan(8192, c, 1)
+        dx = KN.exact_norm_backward(x[:rows].contiguous(), g, b,
+                                    dy[:rows].contiguous(), rms=rms,
+                                    eps=eps)[0]
+        assert torch.equal(dx, full[:rows])
+
+
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("c", [64, 896, 2048, 6144, 8200, 1001])
+def test_exact_norm_forward_and_backward_share_the_statistics(cuda_device, c,
+                                                              rms):
+    """One row, gamma 1 (beta 0) and dy 1: dgamma is the sum of x-hat over
+    that row alone, so it equals the forward's float32 output bit for bit
+    only if the backward recomputes mu and 1/sqrt(var + eps) with the
+    forward's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn((1, c), generator=gen, device=cuda_device) * 3
+             + 0.5).to(dt)
+        g = torch.ones(c, device=cuda_device)
+        b = None if rms else torch.zeros(c, device=cuda_device)
+        fwd = KN.exact_norm(x, g, b, rms=rms, eps=1e-5)
+        dg = KN.exact_norm_backward(x, g, b, torch.ones_like(x), rms=rms,
+                                    eps=1e-5)[1]
+        assert torch.equal(dg, fwd[0])
 
 
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad(

@@ -180,15 +180,30 @@ def test_exact_norm_backward_cpu_route(rms, groups):
 
 
 def test_backward_chunks_are_fixed_by_the_shape():
-    """The backward kernel's row ranges: about 32K elements a CTA, a
-    multiple of the affine's rows, at most 1,024 (its shared mu/inv)."""
-    assert KN.bwd_chunk(896, 1) == 36
-    assert KN.bwd_chunk(64, 64) == 512
-    assert KN.bwd_chunk(6144, 1) == 5
-    assert KN.bwd_chunk(8, 1) == 1024
-    for c, g in ((64, 64), (100, 7), (3000, 3), (10, 1000)):
-        ch = KN.bwd_chunk(c, g)
-        assert ch % g == 0 and 1 <= ch <= max(1024, g)
+    """The backward kernel's plan: rows per CTA and CTAs from (rows, C, G)
+    alone (the same on every call, whatever card runs it), chunks a
+    multiple of G covering the rows in at most ``BWD_CTAS`` CTAs; the
+    train shape (8,192 rows of 896) gets 256 CTAs, about two for each of
+    an H100's 132 SMs, each team 8 rows, and 8 rows one row for each
+    team."""
+    assert KN.exact_team(896) == 32 and KN.exact_team(64) == 2
+    assert KN.exact_team(6144) == 256 and KN.exact_team(16) == 1
+    chunk, ctas = KN.bwd_plan(8192, 896, 1)
+    assert chunk % (KN.EXACT_CTA // 32) == 0
+    assert (chunk, ctas) == (32, 256)
+    for c in (768, 896, 2048, 3584, 4096, 6144):
+        chunk, ctas = KN.bwd_plan(8, c, 1)
+        teams = KN.EXACT_CTA // KN.exact_team(c) if KN.exact_team(c) <= 32 \
+            else 1
+        assert chunk == teams and ctas == -(-8 // teams)
+    assert KN.bwd_plan(512, 64, 64) == (64, 8)
+    for rows, c, g in ((8192, 896, 1), (512, 64, 64), (153600, 64, 64),
+                       (2400, 6144, 1), (2100, 100, 7), (3000, 3000, 3),
+                       (1000, 10, 1000), (30, 64, 3), (40, 896, 1)):
+        chunk, ctas = KN.bwd_plan(rows, c, g)
+        assert chunk % g == 0 and chunk >= 1 and ctas <= KN.BWD_CTAS
+        assert (ctas - 1) * chunk < rows <= ctas * chunk
+        assert KN.bwd_plan(rows, c, g) == (chunk, ctas)
 
 
 def test_refuse_grad_only_where_autograd_records():
