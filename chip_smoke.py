@@ -8,10 +8,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together; twelve kernels), print
-   ``-Xptxas -v`` and count the tensor-core instructions in the dense
-   flash and int8 GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash
-   kernel must issue bf16 ``HMMA``);
+   ``nvcc`` per source, started together), print ``-Xptxas -v`` and count
+   the tensor-core instructions in the paged and dense flash and int8
+   GEMM kernels' SASS (``cuobjdump -sass``; the bf16 flash kernels and
+   the paged kernel's instantiations at head dims 64, 128 and 256 must
+   issue bf16 ``HMMA``);
 3. hold each kernel against its plain torch version at the serve paths'
    shapes of qwen2_0_5b: paged prefill (B=1, C=prefill_chunk, causal) and
    decode (B=decode_batch, C=1) over bf16 pools and over int8 pools
@@ -87,7 +88,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 The relu2 + LayerNorm configs join phases 3-6: the paged kernel at
 minitron_8b's attention (head dim 128, 32 heads over 8 KV heads; the
-CUDA-core route, SOLE held to a share of rows) over bf16 and int8 pools,
+tensor cores with q in three bf16 parts, SOLE held to a share of rows)
+over bf16 and int8 pools,
 the calibrating norm at LayerNorm widths 4,096 and 6,144, the int8 GEMM at
 minitron_8b's shapes (K 16,384, the 256,000-entry head) and the dense
 path's ``_sole_probs`` at its heads; then minitron_8b at full width (32
@@ -107,11 +109,11 @@ rows (bitwise share printed), the calibrating norm at 40 rows of 896 and
 4,096 and the int8 GEMM at M = 40; then qwen2_0_5b at full width through
 ``PagedEngine`` with speculation beside the plain run in the same call
 (exact mode: an oracle, an anti-oracle and the n-gram drafter in bf16,
-the oracle and n-gram at w8a8 + int8 KV; SOLE bf16 n-gram), every
-divergence from plain decode held to a logit margin inside the measured
-verify/decode row difference, the launches of each verify dispatch
-checked, a profiled spec trace and the first op where a verify slot and
-a decode step part; an open-loop Poisson trace through ``AsyncEngine``
+the oracle and n-gram at w8a8 + int8 KV; SOLE bf16 n-gram), exact
+mode's tokens equal to plain decode's, the launches of each verify
+dispatch checked, a profiled spec trace and the first op where a verify
+slot and a decode step part; an open-loop Poisson trace through
+``AsyncEngine``
 with two cancellations and then two replicas on the card; nemotron_4_15b
 with a minitron_8b draft model; and the smoke spec engine and
 ``AsyncEngine`` on the card against the CPU.
@@ -129,11 +131,12 @@ bf16 and w8a8).
 
 The MoE family (phase 4): mixtral_8x7b at full width, 8 of its 32
 layers (bf16, SOLE; the launch checks of every paged trace), through
-``PagedEngine``, the dense-slot ``Engine``, exact-mode oracle and n-gram
-spec traces beside plain (held to the margin rule: cuBLAS picks the
-projections' and experts' GEMMs by M), the first op where a verify slot
-and a decode step part, an open-loop ``AsyncEngine`` trace with cancellations and a
-profiled paged wave with the expert FFN's share; dbrx_132b, 4 of 40
+``PagedEngine``, the dense-slot ``Engine``, exact-mode oracle,
+anti-oracle and n-gram spec traces beside plain, asserting plain decode's
+tokens (every product of a decode or verify dispatch is row-stable,
+``layers.stable_mm``), and every verify slot's ops equal to the decode
+step's bit for bit, an open-loop ``AsyncEngine`` trace with cancellations
+and a profiled paged wave with the expert FFN's share; dbrx_132b, 4 of 40
 layers, through ``PagedEngine``; the smoke MoE engines (paged and dense,
 exact and SOLE) on the card against the CPU.
 
@@ -141,9 +144,9 @@ The recurrent families (phases 3-5): the calibrating and the exact norm
 with rwkv6's (64, 64) per-head GroupNorm affine at 512, 8,192 and
 153,600 rows of 64 (bitwise against the plain version; each head's exact
 rows bitwise alone), the paged kernel at recurrentgemma_9b's attention
-(16 query heads on one KV head, d 256: the CUDA cores) over bf16 and
-float32 pools, the hybrid dense path's ``_sole_probs`` and ``layers.fma``
-against ``fma32``; then rwkv6_7b (32 layers) and recurrentgemma_9b (38
+(16 query heads on one KV head, d 256: bf16 pools on the tensor cores,
+float32 on the CUDA cores), the hybrid dense path's ``_sole_probs`` and
+``layers.fma`` against ``fma32``; then rwkv6_7b (32 layers) and recurrentgemma_9b (38
 layers) at full width through ``PagedEngine`` (SOLE, the two-wave trace),
 ``PagedEngine`` in exact mode cold and then warm with a checkpoint at
 every block (warm tokens equal cold; checkpoint, and for the hybrid page,
@@ -396,12 +399,14 @@ def sass_mma_counts(build):
     """Tensor-core instructions in the built kernels' SASS (``cuobjdump
     -sass``): per kernel function of the dense flash library, its
     ``HMMA...BF16`` count, and of the int8 GEMM library, its
-    ``IMMA...S8`` count; None where the toolkit has no cuobjdump."""
+    ``IMMA...S8`` count; of the paged library, each kernel's ``HMMA``
+    count; None where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return None
     counts = {}
     for lib, kind, op in (("flash_e2softmax", "flash_e2softmax_", "HMMA"),
+                          ("paged_e2softmax", "paged_e2softmax_", "HMMA"),
                           ("int8_matmul", "int8_matmul_kernel", "IMMA")):
         text = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300,
@@ -2203,13 +2208,15 @@ def profile_engine(torch, cfg, params, label, dense=False):
 
 def check_paged_d128(torch, cfg):
     """Phase 3 at minitron_8b's attention (head dim 128, 32 heads over 8
-    KV heads): the paged kernel (the CUDA-core route: ``d^-1/2 =
-    2^-3.5`` is no power of two) against its plain version at the decode
-    and prefill-chunk shapes, over bf16 pools and int8 pools (``quant_pv``
-    on and off). The scaled q (plain) and the scaled logits (kernel)
-    round apart, so exact mode is held to 1e-4 of the output scale and a
-    SOLE output, whose codes can flip at a tie, to at most 1% of rows off
-    by more than 1e-3. Returns (bf16 results, int8 results) keyed
+    KV heads): the paged kernel (the tensor cores: ``d^-1/2 = 2^-3.5`` is
+    no power of two, so q is scaled in float32 and split into three bf16
+    parts) against its plain version at the decode and prefill-chunk
+    shapes, over bf16 pools and int8 pools (``quant_pv`` on and off). The
+    kernel's products are exact but summed in another order than the
+    plain float32 einsum, so exact mode is held to 1e-4 of the output
+    scale and a SOLE output, whose codes can flip at a tie, to at most 1%
+    of rows off by more than 1e-3. Each case logs the route it took.
+    Returns (bf16 results, int8 results) keyed
     ``minitron_decode``/``minitron_prefill``."""
     from repro_torch.kernels import flash_e2softmax as KA
     from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
@@ -2230,7 +2237,7 @@ def check_paged_d128(torch, cfg):
                               int8=int8, **sh)
             variant = KA.paged_variant(case[0].dtype, case[1].dtype, d,
                                        case[1].shape[1], KV_INT8_SCALE)
-            if variant != "CUDA cores":
+            if not variant.startswith("bf16 mma"):
                 raise AssertionError(f"paged d={d}: {variant}")
             errs, offs = {}, {}
             for mode in ("sole", "exact"):
@@ -2266,6 +2273,7 @@ def check_paged_d128(torch, cfg):
                             f"{offs[key]} of rows off by > 1e-3")
             store[f"minitron_{name}"] = dict(
                 case=case, causal=causal, errs=errs, rows_off=offs,
+                route=variant,
                 max_abs_err=max(errs.values()),
                 max_abs_err_random=max(errs.values()))
             log(f"paged_e2softmax d={d} H {h}/KV {kvh} {name} "
@@ -2496,7 +2504,10 @@ def serve_new_configs(torch):
     random weights from a seed): minitron_8b through ``PagedEngine`` in
     bf16, through the dense-slot ``Engine`` in bf16, the stochastic
     replays and the blocked prefill on the same weights, the profiled
-    paged wave; then at w8a8 with int8 KV pages; then nemotron_4_15b
+    paged wave, the exact-mode oracle, anti-oracle and n-gram spec traces
+    (plain decode's tokens) and the op-by-op verify/decode probe; then at
+    w8a8
+    with int8 KV pages; then nemotron_4_15b
     through ``PagedEngine`` in bf16 (at w8a8 its float32 masters, 62 GB,
     and codes, 15.6 GB, would not fit in 80 GB beside the run). Each
     model is freed before the next. Returns the launches and traces."""
@@ -2510,6 +2521,16 @@ def serve_new_configs(torch):
     trace["stochastic"] = stochastic_replay(torch, mini, params)
     trace["blocked_prefill"] = blocked_prefill(torch, mini, params)
     trace["profile"] = profile_engine(torch, mini, params, "minitron bf16")
+    spec = spec_traces(torch, mini, params, "minitron bf16")
+    spec["ops"] = verify_decode_ops(torch, mini, params, "minitron bf16")
+    if not spec["ops"]["all_slots_bitwise"]:
+        raise AssertionError("minitron exact: a verify slot parts from its "
+                             "decode step")
+    trace["spec"] = spec
+    out["minitron_spec_oracle"] = (spec["oracle"]["launches"], {})
+    out["minitron_spec_ngram"] = (spec["ngram"]["launches"], {})
+    out["minitron_spec_anti_oracle"] = (spec["anti-oracle"]["launches"],
+                                        {})
     del params
     torch.cuda.empty_cache()
     mini8 = dataclasses.replace(mini, quant=QuantConfig("w8a8"),
@@ -2556,8 +2577,9 @@ def check_verify_kernels(torch, cfg, mini):
     inputs to 1e-5 of the output scale in SOLE and exact mode, random ones
     with at most 1% of rows off by more than 1e-3 (SOLE); on int8 pools
     with ``quant_pv``, exact-logit inputs to 1e-5. At minitron_8b's head
-    dim 128 (CUDA cores) on bf16 and int8 pools: exact mode to 1e-4 of the
-    output scale, SOLE at most 1% of rows off by more than 1e-3. Returns
+    dim 128 (tensor cores, q scaled in float32: 2^-3.5 is no exact bf16
+    factor) on bf16 and int8 pools: exact mode to 1e-4 of the output
+    scale, SOLE at most 1% of rows off by more than 1e-3. Returns
     the C = K + 1 cases for the timings: (bf16 results, int8 results)."""
     from repro_torch.kernels import flash_e2softmax as KA
     from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
@@ -2566,7 +2588,7 @@ def check_verify_kernels(torch, cfg, mini):
     for model, name in ((cfg, "verify"), (mini, "minitron_verify")):
         h, kvh, d = model.n_heads, model.n_kv_heads, model.head_dim
         kvmap = KA.default_kv_head_map(h, kvh, "cuda")
-        wide = d != 64                      # the CUDA-core route's bars
+        wide = d != 64                      # q scaled in float32: wider bars
         # (int8 pools, exact-logit grid) of each case
         combos = (((False, False), (True, False)) if wide else
                   ((False, True), (False, False), (True, True)))
@@ -2945,21 +2967,20 @@ def spec_summary(label, run, plain_wall=None):
     return out
 
 
-def spec_traces(torch, cfg, params, label, *, equal=True, names=None):
+def spec_traces(torch, cfg, params, label):
     """Phase 4: the ten trace requests, ``NEW_TOKENS`` each, through
     ``PagedEngine`` with speculative decoding (``max_k`` 4, decode batch
     8), beside the plain run in the same call, in exact mode. bf16: an
     oracle drafter (the plain run's tokens), an anti-oracle (acceptance 0
     and the controller back on the horizon) and the n-gram drafter; at
-    w8a8 (int8 pages) the oracle and n-gram (``names`` picks a subset).
-    ``equal``: every request's tokens equal the plain run's (verify rows
-    are decode rows bit for bit: the paged kernel's decode route and the
-    row-stable exact norm). Otherwise (the MoE experts' cuBLAS products
-    round by M) each divergence must sit on a near-tie: the plain run's
-    top-2 margin no wider than the verify-vs-decode |logit difference|
-    there (recorded replays). The oracle's rows are recorded either way
-    and compared with the plain run's decode rows. Each verify
-    dispatch's launches are checked."""
+    w8a8 (int8 pages) the oracle and n-gram. Every request's tokens equal
+    the plain run's: verify rows are decode rows bit for bit (the paged
+    kernel's decode route, the row-stable exact norm and the row-stable
+    products of decode and verify dispatches); a divergence fails with
+    its first token, the plain run's top-2 margin and the |logit
+    difference| there (recorded replays). The oracle's rows are recorded
+    and compared with the plain run's decode rows. Each verify dispatch's
+    launches are checked."""
     from repro_torch.serve.spec import NGramDrafter
     cfg = dataclasses.replace(cfg, softmax_mode="exact", norm_mode="exact",
                               logit_int8=False)
@@ -2978,8 +2999,6 @@ def spec_traces(torch, cfg, params, label, *, equal=True, names=None):
     if not w8a8:
         drafters["anti-oracle"] = lambda: AntiOracleDrafter(
             oracle, cfg.vocab_size)
-    if names is not None:
-        drafters = {k: v for k, v in drafters.items() if k in names}
     plain_rec = None
     res = {"plain_wall_s": plain["wall_s"],
            "plain_stats": {k: plain["stats"][k] for k in (
@@ -3021,26 +3040,13 @@ def spec_traces(torch, cfg, params, label, *, equal=True, names=None):
             log(f"[{tag}] logits rows against the plain run's decode rows "
                 "at the same positions and prefixes: "
                 + json.dumps(summ["verify_vs_decode_rows"]))
-        if equal and diverged:
-            raise AssertionError(f"[{tag}] differs from plain decode: {divs}")
-        # each divergence must sit on a near-tie of the plain logits no
-        # wider than the measured difference of the two runs' rows there
-        if diverged and not replay_same:
-            raise AssertionError(f"[{tag}] the recorded replays do not "
-                                 "reproduce the runs")
-        for i, v in divs.items():
-            if (v["plain_top2_margin"] is None
-                    or v["spec_vs_plain_max_abs_logit_diff"] is None
-                    or v["plain_top2_margin"]
-                    > v["spec_vs_plain_max_abs_logit_diff"]):
-                raise AssertionError(f"[{tag}] request {i}'s divergence is "
-                                     f"not accounted for: {v}")
-        summ["divergences"] = {str(k): v for k, v in divs.items()}
+        if diverged:
+            raise AssertionError(f"[{tag}] differs from plain decode "
+                                 f"(replays reproduce the runs: "
+                                 f"{replay_same}): {divs}")
         summ["replays_reproduce_runs"] = replay_same
         log(f"[{tag}] requests equal to the plain run: "
-            f"{sum(o == p for o, p in zip(run['outs'], outs))}/{len(outs)}; "
-            f"divergences (request: first token, tokens, plain top-2 "
-            f"margin, |logit diff| there) {json.dumps(summ['divergences'])}")
+            f"{sum(o == p for o, p in zip(run['outs'], outs))}/{len(outs)}")
         res[name] = summ
     return res
 
@@ -3720,10 +3726,12 @@ def serve_moe(torch):
     ``MIXTRAL_LAYERS`` layers through ``PagedEngine`` (the launch checks of
     every paged trace: attention L, the calibrating norm 2L + 1 per
     forward, no ``qnorm``; finish reasons, refcounts, peak memory), the
-    dense-slot ``Engine`` (E2Softmax L per call), exact-mode oracle and
-    n-gram spec traces beside plain under the margin rule (cuBLAS picks
-    its GEMMs by M), the first op where a verify slot and a decode step
-    part,
+    dense-slot ``Engine`` (E2Softmax L per call), exact-mode oracle,
+    anti-oracle and n-gram spec traces beside plain giving plain decode's
+    tokens (the row-stable products of decode and verify dispatches; the
+    anti-oracle's rejected drafts verify every step, where random weights
+    leave the n-gram drafter nothing to propose), every verify slot's ops
+    bitwise equal to the decode step's,
     one open-loop ``AsyncEngine`` trace with cancellations and one
     profiled paged wave with the expert FFN's share; then dbrx_132b at
     ``DBRX_LAYERS`` layers through ``PagedEngine``. Each model is freed
@@ -3736,14 +3744,17 @@ def serve_moe(torch):
     out["mixtral_bf16"] = (launches, trace)
     out["mixtral_dense_bf16"] = serve_dense_full_width(
         torch, mix, params, "mixtral dense bf16")
-    spec = spec_traces(torch, mix, params, "mixtral bf16", equal=False,
-                       names=("oracle", "ngram"))
+    spec = spec_traces(torch, mix, params, "mixtral bf16")
     spec["ops"] = verify_decode_ops(torch, mix, params, "mixtral bf16")
+    if not spec["ops"]["all_slots_bitwise"]:
+        raise AssertionError("mixtral exact: a verify slot parts from its "
+                             "decode step")
     trace["spec"] = spec
     ol = open_loop_trace(torch, mix, params, replicas=False)
     trace["open_loop"] = ol
     out["mixtral_spec_oracle"] = (spec["oracle"]["launches"], {})
     out["mixtral_spec_ngram"] = (spec["ngram"]["launches"], {})
+    out["mixtral_spec_anti_oracle"] = (spec["anti-oracle"]["launches"], {})
     out["mixtral_open_loop"] = (ol["launches"], {})
     trace["profile"] = profile_moe(torch, mix, params, "mixtral bf16")
     del params
@@ -3844,8 +3855,9 @@ def check_recurrent_kernels(torch):
     affine of one repeated row gives the (64,) call's bits), the exact norm
     with it (each head's rows bitwise equal to a (64,) call on them alone;
     1e-5 of the scale from the plain ops), the paged kernel at the hybrid's
-    attention (16 on 1 KV head, d 256: the CUDA-core route) over bf16 and
-    float32 pools at decode and a 128-row chunk (exact-logit inputs 1e-5 of
+    attention (16 on 1 KV head, d 256: bf16 pools on the tensor cores,
+    float32 pools on the CUDA cores, each case logging its route) at
+    decode and a 128-row chunk (exact-logit inputs 1e-5 of
     the scale; random: SOLE at most 1% of rows off by more than 1e-3, exact
     1e-4 of the scale), the hybrid dense path's ``_sole_probs`` (bitwise
     equal to the chain, one launch, one device kernel a call) and
@@ -3896,8 +3908,9 @@ def check_recurrent_kernels(torch):
             errs, offs = {}, {}
             for grid in (True, False):
                 case = _mqa_case(torch, gen, name, dt, grid)
-                if KA.paged_variant(dt, dt, 256, BLOCK_SIZE) != "CUDA cores":
-                    raise AssertionError("paged d 256: not the CUDA cores")
+                route = KA.paged_variant(dt, dt, 256, BLOCK_SIZE)
+                if route.startswith("bf16 mma") != (dt == torch.bfloat16):
+                    raise AssertionError(f"paged d 256 {dt}: {route}")
                 for mode in ("sole", "exact"):
                     kw = dict(sole=mode == "sole", exp_bits=4,
                               int8_scale=(L.LOGIT_INT8_SCALE
@@ -3926,11 +3939,12 @@ def check_recurrent_kernels(torch):
                                 f"paged d 256 {name}{tag} {key}: "
                                 f"{offs[key]} of rows off")
             res["mqa"][f"hybrid_{name}{tag}"] = dict(
-                case=case, causal=causal, max_abs_err=max(errs.values()),
+                case=case, causal=causal, route=route,
+                max_abs_err=max(errs.values()),
                 max_abs_err_random=max(v for k, v in errs.items()
                                        if "random" in k))
             log(f"paged_e2softmax d=256 H 16/KV 1 {name} "
-                f"{'float32' if tag else 'bf16'} [CUDA cores]: max|err| "
+                f"{'float32' if tag else 'bf16'} [{route}]: max|err| "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f"; SOLE random rows off by > 1e-3: {offs}")
     stage = hybrid_stage_inputs(torch, gen)
@@ -5818,8 +5832,15 @@ def main() -> int:
             for fn, ops in sass.items():
                 log(f"[sass] {fn}: {json.dumps(ops)}")
             for fn, ops in sass.items():
-                if "mma_kernel" in fn and not any("BF16" in o for o in ops):
+                if (("mma_kernel" in fn or "decode_kernel" in fn)
+                        and not any("BF16" in o for o in ops)):
                     raise AssertionError(f"{fn} issues no bf16 HMMA")
+            for dp in (64, 128, 256):
+                for kind in ("mma_kernel", "decode_kernel"):
+                    if not any(f"paged_e2softmax_{kind}ILi{dp}E" in fn
+                               for fn in sass):
+                        raise AssertionError(f"no paged {kind} at head "
+                                             f"dim {dp} in the SASS")
         cfg = get_config("qwen2_0_5b")
         cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                    kv_cache_dtype="int8")

@@ -4,7 +4,7 @@
 one card. Run from the root of a checkout, with another checkout of the
 repository at ``BASE``::
 
-    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,exact,wave]
+    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,exact,wave,moe]
 
 Each turn is a fresh process that puts ``<checkout>/src`` first on the
 path, builds that checkout's kernels there (``kernels/build.py``) and
@@ -13,7 +13,13 @@ times, with CUDA events and the L2 cache flushed before each launch:
 * ``paged``: the paged Flash-E2Softmax at qwen2_0_5b's serve shapes (a
   decode step of 8 sequences over 1-300 keys, a causal 128-token prefill
   chunk over 256 keys), SOLE with the int8 snap, over bf16 pools and over
-  int8 pools (``quant_pv``), as ``chip_smoke.py`` builds them;
+  int8 pools (``quant_pv``), as ``chip_smoke.py`` builds them; the same
+  at head dim 128 (minitron_8b: 32 heads on 8 KV heads; bf16 and int8
+  pools) with its verify dispatch's 40 rows as decode rows (8 lanes x C
+  5, ``chip_smoke.decode_rows_case``), and at head dim 256
+  (recurrentgemma_9b: 16 heads on 1 KV head; bf16 pools); each d-128/256
+  bf16 shape also beside ``scaled_dot_product_attention`` on the K/V
+  gathered beforehand (``chip_smoke.paged_exact_vs_sdpa``);
 * ``sweep``: the paged decode step of 8 sequences at one kv length each,
   from 16 to 2,048 keys (one to sixteen 128-key chunks);
 * ``norm``: the SOLE norm stage of a model's ``apply_residual_norm``, the
@@ -55,7 +61,10 @@ times, with CUDA events and the L2 cache flushed before each launch:
   of the dense-slot ``Engine`` at qwen2_0_5b's full width, in bf16 and at
   w8a8 with int8 pages or cache (the end-to-end effect of the kernels and
   the host work around them), and the device kernels per forward of the
-  same wave under the profiler.
+  same wave under the profiler;
+* ``moe``: mixtral_8x7b at full width and ``chip_smoke.MIXTRAL_LAYERS``
+  layers (bf16, SOLE), one profiled paged wave (``chip_smoke.profile_moe``):
+  its wall, device busy, the expert FFN's device time and share of busy.
 
 Inputs come from fixed seeds, alike in every turn. Prints one line per
 shape (the mean of each checkout's two turns, and their ratios), the
@@ -79,7 +88,11 @@ FLASH = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
 
 
 KINDS = ("paged", "sweep", "norm", "flash", "gemm", "e2", "qnorm", "exact",
-         "wave")
+         "wave", "moe")
+# the paged kind's wide-head shapes: (label, heads, KV heads, head dim,
+# pools); decode over chip_smoke's 1-300 keys, prefill a 128-row chunk
+WIDE_PAGED = (("minitron", 32, 8, 128, ("bf16", "int8")),
+              ("recurrentgemma", 16, 1, 256, ("bf16",)))
 # kv lengths of the decode sweep: one to sixteen 128-key chunks
 SWEEP_KV = (16, 128, 300, 1024, 2048)
 
@@ -106,13 +119,14 @@ def worker(src: str, kinds) -> dict:
              "gemm": "int8_matmul", "e2": "e2softmax",
              "qnorm": "ailayernorm", "exact": "ailayernorm"}
     # a wave runs every kernel of the serve paths
-    build.build_all(None if "wave" in kinds else [names[k] for k in kinds])
+    build.build_all(None if {"wave", "moe"} & set(kinds)
+                    else [names[k] for k in kinds])
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
     gen = torch.Generator(device="cuda").manual_seed(15)
     out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
            "gemm": {}, "sdpa": {}, "int_mm": {}, "e2": {}, "e2_wall": {},
            "qnorm": {}, "static_ops": {}, "static_ops_wall": {},
-           "exact_fwd": {}, "exact_bwd": {}, "wave": {}}
+           "exact_fwd": {}, "exact_bwd": {}, "wave": {}, "moe": {}}
     cfg = get_config("qwen2_0_5b")
     if "paged" in kinds:
         shapes = {"decode": dict(b=DECODE_BATCH, c=1,
@@ -133,6 +147,7 @@ def worker(src: str, kinds) -> dict:
                 out["paged"][f"{name}_{pool}"] = time_ms(
                     torch, lambda: KA.flash_e2softmax_paged(*case, **kw),
                     flush)
+        wide_paged(torch, gen, flush, shapes, out)
     if "sweep" in kinds:
         import chip_smoke
         seq_len = chip_smoke.MAX_SEQ_LEN
@@ -174,6 +189,8 @@ def worker(src: str, kinds) -> dict:
         exact_norms(torch, gen, flush, out)
     if "wave" in kinds:
         out["wave"] = waves(torch, cfg)
+    if "moe" in kinds:
+        out["moe"] = moe_wave(torch)
     for case, mode in FLASH if "flash" in kinds else ():
         name = f"{case}_{mode}"
         b, s, t, h, kvh, hd, causal = FLASH_CASES[case]
@@ -212,6 +229,61 @@ def worker(src: str, kinds) -> dict:
             out["int_mm"][name] = time_ms(
                 torch, lambda: torch._int_mm(xp, w), flush)
     return out
+
+
+def wide_paged(torch, gen, flush, shapes, out) -> None:
+    """The ``paged`` kind's head dims 128 and 256 (``WIDE_PAGED``) at
+    ``shapes`` and, at 128, the verify rows as decode rows, into
+    ``out["paged"]``; SDPA on the bf16 cases into ``out["sdpa"]``."""
+    from chip_smoke import (DECODE_BATCH, VERIFY_K, decode_rows_case,
+                            paged_case, paged_exact_vs_sdpa, time_ms,
+                            verify_lanes)
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    for label, h, kvh, d, pools in WIDE_PAGED:
+        kvmap = KA.default_kv_head_map(h, kvh, "cuda")
+        cases = dict(shapes)
+        if d == 128:
+            q_start, kv = verify_lanes(VERIFY_K + 1)
+            cases["verify_rows"] = dict(b=DECODE_BATCH, c=VERIFY_K + 1,
+                                        q_start=q_start, kv_lens=kv)
+        for pool in pools:
+            for name, sh in cases.items():
+                case = paged_case(torch, gen, h=h, kvh=kvh, d=d, grid=True,
+                                  int8=pool == "int8", **sh)
+                causal = sh["c"] > 1 and name != "verify_rows"
+                if name == "verify_rows":
+                    case = decode_rows_case(torch, case)
+                kw = dict(causal=causal, sole=True, exp_bits=4,
+                          int8_scale=LOGIT_INT8_SCALE)
+                if pool == "int8":
+                    kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                key = f"{label}_{name}_{pool}"
+                out["paged"][key] = time_ms(
+                    torch, lambda: KA.flash_e2softmax_paged(*case, **kw),
+                    flush)
+                if pool == "bf16":
+                    out["sdpa"][key] = paged_exact_vs_sdpa(
+                        torch, case, kvmap, flush, causal)[1]
+
+
+def moe_wave(torch) -> dict:
+    """The ``moe`` kind: ``chip_smoke.profile_moe``'s paged wave of
+    mixtral_8x7b (``MIXTRAL_LAYERS`` layers, seed-0 weights): wall and
+    device busy in seconds, the expert FFN's device ms and share."""
+    import dataclasses
+    from chip_smoke import MIXTRAL_LAYERS, profile_moe
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"),
+                              n_layers=MIXTRAL_LAYERS)
+    params = api.init_params(0, cfg, "cuda")
+    prof = profile_moe(torch, cfg, params, "mixtral bf16")
+    del params
+    torch.cuda.empty_cache()
+    return {k: prof[k] for k in ("wall_s", "device_busy_s", "expert_ffn_ms",
+                                 "expert_ffn_share_of_busy",
+                                 "kernels_per_forward")}
 
 
 def static_norms(torch, gen, flush, out) -> None:
@@ -430,16 +502,19 @@ def main() -> int:
               flush=True)
     for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
                  "e2", "e2_wall", "qnorm", "static_ops", "static_ops_wall",
-                 "exact_fwd", "exact_bwd", "wave"):
+                 "exact_fwd", "exact_bwd", "wave", "moe"):
         for name in turns[0][1][kind]:
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}
-            lib = {"flash": "sdpa", "gemm": "int_mm"}.get(kind, "none")
+            lib = {"flash": "sdpa", "gemm": "int_mm",
+                   "paged": "sdpa"}.get(kind, "none")
             libs = [t[lib][name] for _, t in turns if name in t.get(lib, {})]
             unit = "s" if kind == "wave" else "us"
             scale = 1 if kind == "wave" else 1e3
             if name.endswith("_per_forward"):
                 unit, scale = "kernels", 1
+            if kind == "moe":                  # named by their units
+                unit, scale = "", 1
             print(f"{kind} {name}: base {mean['base'] * scale:.2f} {unit}, "
                   f"this {mean['this'] * scale:.2f} {unit}, base/this "
                   f"{mean['base'] / mean['this']:.2f}, this/base "

@@ -88,16 +88,19 @@ def paged_variant(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
                   aligned: bool = True) -> str:
     """The paged kernel's instantiation for these arguments, as
     ``csrc/paged_e2softmax.cu``'s ``mma_variant`` picks it: bf16 q over bf16
-    or int8 pools of 16-token pages, with ``d^-1/2`` (and an int8 pool's
-    ``kv_scale``) a power of two and ``d`` a multiple of 16 up to 64 (16 or
-    64), runs on the tensor cores (decode steps, C = 1, split each chunk's
-    pages over the warps); everything else on the CUDA cores."""
+    or int8 pools of 16-token pages (an int8 pool's ``kv_scale`` a power of
+    two), ``d`` a multiple of 16, runs on the tensor cores at padded head
+    dim 64 (``d <= 64`` with ``d^-1/2`` a power of two: 16, 64), 128 (``64 <
+    d <= 128``: q scaled in float32 and split into three bf16 parts) or 256
+    (``d = 256``); decode steps (C = 1) split each sequence's pages over
+    warps and the CTAs of a cluster. Everything else (float32, 8-token
+    pages, other head dims or scales) runs on the CUDA cores."""
     int8 = pool_dtype == torch.int8
     if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
-            and bs == PAGE and d % 16 == 0 and d <= 64
-            and _pow2(d ** -0.5)
+            and bs == PAGE and d % 16 == 0 and aligned
             and (not int8 or (kv_scale is not None and _pow2(kv_scale)))
-            and aligned):
+            and ((d <= 64 and _pow2(d ** -0.5)) or 64 < d <= 128
+                 or d == 256)):
         return "bf16 mma.sync tensor cores"
     return "CUDA cores"
 

@@ -15,6 +15,7 @@ leaves (``sharding.rules.quantize_params``) and go through
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -96,6 +97,59 @@ def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1) -> torch.Tensor:
     return ops.matmul_fn("w8a16", x.device, b)(x, w, n_contract=n_contract)
 
 
+# -- decode and verify products ----------------------------------------------
+
+# rows of every product of a decode or verify dispatch on the card
+ROW_TILE = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_rows(k: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """ROW_TILE rows of k zeros (made once per device; never written)."""
+    return torch.zeros((ROW_TILE, k), dtype=dtype, device=device)
+
+
+def pad_rows(a2: torch.Tensor) -> torch.Tensor:
+    """(M, K) rows zero-padded to a multiple of ``ROW_TILE`` rows (one
+    concatenation; a multiple already is returned as it is)."""
+    m, k = a2.shape
+    pad = -m % ROW_TILE
+    if pad == 0:
+        return a2.contiguous()
+    return torch.cat([a2, _zero_rows(k, a2.dtype, a2.device)[:pad]])
+
+
+def tile_mm(ap: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``ap @ w`` for ``ap`` of a multiple of ``ROW_TILE`` rows, as one
+    (ROW_TILE, K) x (K, N) product per tile of rows."""
+    if ap.shape[0] == ROW_TILE:
+        return ap @ w
+    return torch.cat([t @ w for t in ap.split(ROW_TILE)])
+
+
+def stable_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` for ``a`` (..., K) and ``w`` (K, N), whose rows do not
+    depend on how many rows ride with them: the rows run zero-padded in
+    tiles of ``ROW_TILE``, each one product of the same shape.
+
+    The route of every bf16 or float32 product of a decode or verify
+    dispatch on the card (the decode horizon, ``decode_step_paged``,
+    ``verify_paged``). cuBLAS picks its kernel, and with it the order of
+    each row's sums, from (M, N, K), so an 8-row decode product and a
+    40-row verify product round the same row apart (at d 4,096); one
+    shape per (N, K) gives every row one kernel, whatever M and wherever
+    the row sits in its tile (the card tests hold this bitwise). At M <=
+    ROW_TILE a bf16 product at d 4,096 is still bound by the weight
+    bytes, so the padding costs little device time. It runs only on the
+    card: on the CPU the products keep the reference's forms (one product
+    per projection), which the engines' parity tests against JAX hold,
+    and prefill chunks keep them on both devices."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    out = tile_mm(pad_rows(a2), w)[:a2.shape[0]]
+    return out.reshape(lead + (w.shape[1],))
+
+
 # -- norms ------------------------------------------------------------------
 
 
@@ -153,9 +207,13 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return F.embedding(tokens.long(), p["table"])
 
 
-def lm_logits(p, x, cfg: ArchConfig) -> torch.Tensor:
+def lm_logits(p, x, cfg: ArchConfig, stable: bool = False) -> torch.Tensor:
+    """The head's logits in float32; ``stable``: through :func:`stable_mm`
+    (a decode or verify dispatch on the card)."""
     if is_qtensor(p["head"]):
         return qmatmul(x, p["head"], cfg)
+    if stable:
+        return stable_mm(x, p["head"]).float()
     return (x @ p["head"]).float()
 
 
@@ -215,18 +273,26 @@ MLP_KINDS = ("swiglu", "geglu", "gelu", "relu2")
 GATED_MLP_KINDS = ("swiglu", "geglu")
 
 
-def apply_mlp(x, p, cfg: ArchConfig) -> torch.Tensor:
+def apply_mlp(x, p, cfg: ArchConfig, stable: bool = False) -> torch.Tensor:
     """The feed-forward block of ``cfg.mlp_kind``: ``swiglu`` and
     ``geglu`` (gate, up, down), ``gelu`` and ``relu2`` (up, down). GELU
     is the tanh form (``jax.nn.gelu``'s default); ``relu2`` squares in
     the model dtype. ``x`` may be an ``(int8 codes, scale)`` pair at
-    w8a8; the ``down`` input is then quantized per row on the fly."""
+    w8a8; the ``down`` input is then quantized per row on the fly.
+    ``stable`` (a decode or verify dispatch on the card): the float
+    products run as :func:`stable_mm` does, the rows padded once and the
+    hidden rows kept padded for ``down``."""
     kind = cfg.mlp_kind
     if kind not in MLP_KINDS:
         raise ValueError(f"unknown mlp_kind {kind!r}")
+    lead = None
     if is_qtensor(p["up"]):
         def mm(a, w):
             return cast(qmatmul(a, w, cfg), cfg)
+    elif stable:
+        lead = x.shape[:-1]
+        x = pad_rows(x.reshape(-1, x.shape[-1]))
+        mm = tile_mm
     else:
         def mm(a, w):
             return a @ w
@@ -238,17 +304,30 @@ def apply_mlp(x, p, cfg: ArchConfig) -> torch.Tensor:
         h = F.gelu(mm(x, p["up"]), approximate="tanh")
     else:
         h = torch.square(F.relu(mm(x, p["up"])))
-    return mm(h, p["down"])
+    out = mm(h, p["down"])
+    if lead is not None:
+        out = out[:lead.numel()].reshape(lead + (out.shape[-1],))
+    return out
 
 
 # -- attention ----------------------------------------------------------------
 
 
-def _project_qkv(p, x, cfg: ArchConfig):
+def _project_qkv(p, x, cfg: ArchConfig, stable: bool = False):
+    """q, k, v (B, S, heads, hd) of x (B, S, D); ``stable``: the float
+    products as :func:`stable_mm`, x padded once for the three."""
     if is_qtensor(p["wq"]):
         q = cast(qmatmul(x, p["wq"], cfg), cfg)
         k = cast(qmatmul(x, p["wk"], cfg), cfg)
         v = cast(qmatmul(x, p["wv"], cfg), cfg)
+    elif stable:
+        b, s, d = x.shape
+        xp = pad_rows(x.reshape(b * s, d))
+
+        def proj(w):
+            out = tile_mm(xp, w.reshape(d, -1))[:b * s]
+            return out.reshape(b, s, w.shape[1], w.shape[2])
+        q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
     else:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
         k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -260,10 +339,16 @@ def _project_qkv(p, x, cfg: ArchConfig):
     return q, k, v
 
 
-def _wo_proj(ctx: torch.Tensor, p, cfg: ArchConfig) -> torch.Tensor:
-    """Output projection ctx (B,S,H,hd) @ wo (H,hd,D) -> (B,S,D)."""
+def _wo_proj(ctx: torch.Tensor, p, cfg: ArchConfig,
+             stable: bool = False) -> torch.Tensor:
+    """Output projection ctx (B,S,H,hd) @ wo (H,hd,D) -> (B,S,D);
+    ``stable``: as :func:`stable_mm`."""
     if is_qtensor(p["wo"]):
         return cast(qmatmul(ctx, p["wo"], cfg, n_contract=2), cfg)
+    if stable:
+        b, s, h, hd = ctx.shape
+        return stable_mm(ctx.reshape(b, s, h * hd),
+                         p["wo"].reshape(h * hd, -1))
     return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
 
 

@@ -64,13 +64,17 @@ def init_moe_ffn(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
             "down": T.stacked(mw, n, (e, f, d), master, device)}
 
 
-def route(x2: torch.Tensor, wr: torch.Tensor, k: int):
+def route(x2: torch.Tensor, wr: torch.Tensor, k: int, stable: bool = False):
     """Router over tokens x2 (T, D): ``(gates (T, E) float32, top-k gates
     renormalised (T, k) float32, top-k expert ids (T, k))``. The logits
     are the float32 product of the model-dtype operands (exact products,
-    float32 sums), softmaxed in float32; ties keep the lower expert id
-    first, as ``jax.lax.top_k`` does."""
-    logits = x2.float() @ wr.float()
+    float32 sums; ``stable``: through ``layers.stable_mm``), softmaxed in
+    float32; ties keep the lower expert id first, as ``jax.lax.top_k``
+    does."""
+    if stable:
+        logits = L.stable_mm(x2.float(), wr.float())
+    else:
+        logits = x2.float() @ wr.float()
     ex = torch.exp(logits - logits.amax(-1, keepdim=True))
     gates = ex / ex.sum(-1, keepdim=True)
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
@@ -127,9 +131,20 @@ def combine(ye: torch.Tensor, info, top_idx: torch.Tensor,
     return out
 
 
-def expert_ffn(xe: torch.Tensor, wg, wu, wd, cfg: ArchConfig) -> torch.Tensor:
+def expert_ffn(xe: torch.Tensor, wg, wu, wd, cfg: ArchConfig,
+               stable: bool = False) -> torch.Tensor:
     """(E, C, D) dispatched rows through each expert's gated FFN: SwiGLU,
-    else tanh-GELU gating, in the activation dtype -> (E, C, D)."""
+    else tanh-GELU gating, in the activation dtype -> (E, C, D).
+    ``stable`` (C a multiple of ``layers.ROW_TILE``): one set of products
+    of (E, ROW_TILE, D) rows per tile of the capacity, so each row's
+    result is the same whatever C and its slot."""
+    if stable and xe.shape[1] > L.ROW_TILE:
+        return torch.cat([_expert_products(t.contiguous(), wg, wu, wd, cfg)
+                          for t in xe.split(L.ROW_TILE, 1)], 1)
+    return _expert_products(xe, wg, wu, wd, cfg)
+
+
+def _expert_products(xe, wg, wu, wd, cfg: ArchConfig) -> torch.Tensor:
     h = torch.bmm(xe, wg)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(h) * torch.bmm(xe, wu)
@@ -139,13 +154,17 @@ def expert_ffn(xe: torch.Tensor, wg, wu, wd, cfg: ArchConfig) -> torch.Tensor:
 
 
 def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
-                  capacity: Optional[int] = None
+                  capacity: Optional[int] = None, stable: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN of x (B, S, D): ``(out (B, S, D), Switch load-balance aux
     loss)``. ``capacity`` overrides the per-expert depth
     ``ceil(T * top_k * capacity_factor / E)``; ``capacity >= T`` is
     drop-free (an expert sees each token at most once), so each row's
-    output is then independent of the rows beside it."""
+    output is then independent of the rows beside it. ``stable`` (a
+    decode or verify dispatch on the card) rounds the capacity up to a
+    multiple of ``layers.ROW_TILE`` and runs the router and the experts'
+    products on fixed row counts, so a row's bits do not depend on T or
+    on its slot in the expert buffer either."""
     if any(isinstance(p[n], dict) for n in ("gate", "up", "down")):
         raise NotImplementedError(
             "MoE experts with packed int8 weights: the reference has no "
@@ -155,13 +174,15 @@ def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
     x2 = x.reshape(t, d)
-    gates, top_val, top_idx = route(x2, p["router"], k)
+    gates, top_val, top_idx = route(x2, p["router"], k, stable)
     cap = capacity
     if cap is None:
         cap = max(int(math.ceil(t * k * cfg.capacity_factor / e)), 1)
+    if stable:
+        cap = -(-cap // L.ROW_TILE) * L.ROW_TILE
     xe, info = dispatch(x2, top_idx, top_val.to(x2.dtype), e, cap)
     ye = expert_ffn(xe.reshape(e, cap, d), p["gate"], p["up"], p["down"],
-                    cfg)
+                    cfg, stable)
     out = combine(ye.reshape(e * cap, d), info, top_idx, x.dtype)
     frac = F.one_hot(top_idx, e).float().mean((0, 1))
     aux = e * torch.sum(frac * gates.mean(0))
@@ -181,13 +202,15 @@ def _serve_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
     return apply_moe_ffn(p, x, cfg, phase)[0]
 
 
-def _paged_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
+def _paged_ffn(p, x, cfg: ArchConfig, phase: str,
+               stable: bool = False) -> torch.Tensor:
     """The paged serve FFN: capacity pinned to the token count, so no
     token drops and a lane's rows never depend on what else rides in the
     batch (padded chunks, null lanes); the paged engine then gives its
-    dense oracle's tokens."""
-    return apply_moe_ffn(p, x, cfg, phase,
-                         capacity=x.shape[0] * x.shape[1])[0]
+    dense oracle's tokens. ``stable``: the row-stable products of a
+    decode or verify dispatch on the card."""
+    return apply_moe_ffn(p, x, cfg, phase, capacity=x.shape[0] * x.shape[1],
+                         stable=stable)[0]
 
 
 def forward(params, tokens, cfg: ArchConfig, phase: str):

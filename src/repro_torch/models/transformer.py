@@ -132,8 +132,9 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _dense_ffn(p, h, cfg: ArchConfig, phase: str) -> torch.Tensor:
-    return L.apply_mlp(h, p, cfg)
+def _dense_ffn(p, h, cfg: ArchConfig, phase: str,
+               stable: bool = False) -> torch.Tensor:
+    return L.apply_mlp(h, p, cfg, stable=stable)
 
 
 def _saves_weight_product(ctx, op, *args, **kwargs):
@@ -322,7 +323,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
 
 def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
                    pools, cfg: ArchConfig, *, causal: bool, ffn_apply=None,
-                   rows_as_decode: bool = False):
+                   rows_as_decode: bool = False, stable_rows: bool = False):
     """Run C tokens per sequence against the paged pools.
 
     tokens/positions: (B, C) absolute positions; n_valid: (B,) real
@@ -345,13 +346,18 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     ``ffn_apply`` (MoE routing) takes float activations, so then the FFN
     input is not quantized, as in the reference. ``rows_as_decode``
     (verify) attends each query row through the decode route
-    (:func:`layers.paged_attend`).
+    (:func:`layers.paged_attend`). ``stable_rows`` (a decode or verify
+    dispatch) runs, on the card, every float product through the
+    row-stable route (:func:`layers.stable_mm`), so a row's logits do not
+    depend on how many rows the dispatch carries (``ffn_apply`` takes it as
+    ``stable=``).
     """
     lay = params["layers"]
     qact = cfg.quant.acts and is_qtensor(lay["attn"]["wq"])
     quant_ffn = (qact and ffn_apply is None
                  and is_qtensor(lay["mlp"].get("up")))
     ffn_apply = ffn_apply or _dense_ffn
+    stable = stable_rows and tokens.device.type == "cuda"
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_start = positions[:, 0]
     pk, pv = pools["k"], pools["v"]
@@ -366,7 +372,7 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         else:
             x, h = L.apply_residual_norm(x, pending, lp["ln1"], cfg, "serve",
                                          quant_out=qact)
-        q, k, v = L._project_qkv(lp["attn"], h, cfg)
+        q, k, v = L._project_qkv(lp["attn"], h, cfg, stable)
         if cfg.pos_kind == "rope":
             q = L.apply_rope(q, positions, cfg)
             k = L.apply_rope(k, positions, cfg)
@@ -374,13 +380,13 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         write_tokens(pv[i], L.kv_quant(v, cfg), block_ids, offsets)
         ctx = L.paged_attend(q, pk[i], pv[i], tables, q_start, kv_len, cfg,
                              causal=causal, rows_as_decode=rows_as_decode)
-        attn_out = L._wo_proj(ctx, lp["attn"], cfg)
+        attn_out = L._wo_proj(ctx, lp["attn"], cfg, stable)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve",
                                      quant_out=quant_ffn)
-        pending = ffn_apply(lp["mlp"], h, cfg, "serve")
+        pending = ffn_apply(lp["mlp"], h, cfg, "serve", stable=stable)
     _, x = L.apply_residual_norm(x, pending, params["final_norm"], cfg,
                                  "serve", quant_out=qact)
-    return L.lm_logits(params["embed"], x, cfg), pools
+    return L.lm_logits(params["embed"], x, cfg, stable), pools
 
 
 def prefill_paged(params, tokens, q_start, n_valid, tables, pools,
@@ -389,23 +395,26 @@ def prefill_paged(params, tokens, q_start, n_valid, tables, pools,
     """One chunked-prefill step: tokens (B, C) at absolute positions
     q_start..q_start+C-1, of which the first n_valid (B,) are real.
     Returns (logits (B, C, V), pools). ``rows_as_decode``: attend the rows
-    as decode steps (speculative verify)."""
+    as decode steps, and take the row-stable products (speculative
+    verify)."""
     c = tokens.shape[1]
     positions = q_start[:, None] + torch.arange(c, device=tokens.device)
     kv_len = q_start + n_valid
     return _paged_forward(params, tokens, positions, n_valid, kv_len,
                           tables, pools, cfg, causal=True,
-                          ffn_apply=ffn_apply, rows_as_decode=rows_as_decode)
+                          ffn_apply=ffn_apply, rows_as_decode=rows_as_decode,
+                          stable_rows=rows_as_decode)
 
 
 def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig, *,
                       ffn_apply=None):
     """One continuous-batching decode step: token (B,) at positions (B,),
-    attended with kv_len = pos + 1 and no causal mask. Returns
-    (logits (B, V), pools)."""
+    attended with kv_len = pos + 1 and no causal mask, its products
+    row-stable (``stable_rows``). Returns (logits (B, V), pools)."""
     logits, pools = _paged_forward(
         params, token[:, None], pos[:, None], torch.ones_like(pos), pos + 1,
-        tables, pools, cfg, causal=False, ffn_apply=ffn_apply)
+        tables, pools, cfg, causal=False, ffn_apply=ffn_apply,
+        stable_rows=True)
     return logits[:, 0], pools
 
 

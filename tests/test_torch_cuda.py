@@ -56,10 +56,21 @@ Tolerances, and why:
 * codes entry: integer sums exact, epilogue as the quantize+norm: 1e-6.
 * paged attention at the speculative verify shapes (B lanes x C = K + 1
   causal rows, ragged n_valid, null lanes): at head dim 64 as above
-  (1e-5); at head dim 128 (the CUDA cores; 2^-3.5 rounds q and the logits
-  apart) exact mode to 1e-4 of the output scale, SOLE at most 1% of rows
-  off by more than 1e-3. The C > 1 route against the C = 1 route on the
-  same rows: the same codes, other sum orders: 1e-5.
+  (1e-5); at head dim 128 (the tensor cores with q scaled in float32 and
+  split into three bf16 parts: 2^-3.5 is no exact bf16 factor, so the
+  exact-logit grid is not exact there) exact mode to 1e-4 of the output
+  scale, SOLE at most 1% of rows off by more than 1e-3. The C > 1 route
+  against the C = 1 route on the same rows: the same codes, other sum
+  orders: 1e-5.
+* the paged kernel's tensor-core route at head dims 128 (32 or 48 heads
+  on 8 KV heads) and 256 (16 heads on 1): at 256 as at 64 (1e-5 on
+  exact-logit inputs), at 128 as at the verify shapes above; the decode
+  kernel's rows bitwise equal whatever the batch (the split of a
+  sequence's pages over a cluster's CTAs, chosen per launch, changes no
+  bit).
+* the row-stable products of decode and verify dispatches
+  (``layers.stable_mm``, the MoE FFN with ``stable=True``) at mixtral's
+  shapes: each row bitwise equal whatever the row count and its place.
 * verify rows as the model attends them (``rows_as_decode``: the decode
   kernel, one single-row query per row) against the decode step at each
   row's position: bitwise, at head dim 64 and 128, bf16 and int8 pages,
@@ -75,7 +86,8 @@ Tolerances, and why:
   (rwkv6's per-head GroupNorm) bitwise against its plain version, the
   exact norm's heads bitwise alone; ``layers.fma`` bitwise ``fma32``; the
   paged kernel at 16 query heads on one KV head of dimension 256 (d^-1/2
-  exact) on exact-logit inputs 1e-5; the smoke ssm and hybrid engines,
+  exact; bf16 pools on the tensor cores, float32 on the CUDA cores) on
+  exact-logit inputs 1e-5; the smoke ssm and hybrid engines,
   card vs CPU: exact mode tokens equal, SOLE at least 95%.
 """
 import dataclasses
@@ -1328,11 +1340,12 @@ def _verify_lanes(b, c, seed):
 def test_paged_kernel_verify_shapes(cuda_device, b, c, d, pool, mode):
     """The verify dispatch's attention: B lanes of C = K + 1 causal rows,
     a different q_start per lane, n_valid < C (rows past it attend every
-    valid key), null lanes; 16-token pages. At head dim 64 (qwen2, 14/2
-    heads; the tensor cores) exact-logit inputs give identical codes: 1e-5.
-    At head dim 128 (minitron, 32/8 heads; the CUDA cores) the scale
-    2^-3.5 rounds q and the logits apart: exact mode to 1e-4 of the
-    output scale, SOLE at most 1% of rows off by more than 1e-3."""
+    valid key), null lanes; 16-token pages; the tensor cores. At head dim
+    64 (qwen2, 14/2 heads) exact-logit inputs give identical codes: 1e-5.
+    At head dim 128 (minitron, 32/8 heads) the scale 2^-3.5 makes the
+    scaled q inexact on the grid, so the kernel's summation order moves
+    the logits: exact mode to 1e-4 of the output scale, SOLE at most 1% of
+    rows off by more than 1e-3."""
     h, kvh = (14, 2) if d == 64 else (32, 8)
     q_start, kv_len = _verify_lanes(b, c, seed=b * 100 + c)
     rng = np.random.default_rng(d + c)
@@ -1693,9 +1706,9 @@ def test_fma_on_the_card_is_one_rounding(cuda_device):
 @pytest.mark.parametrize("name", ["prefill", "decode"])
 def test_paged_kernel_mqa_head_dim_256(cuda_device, name, pool, mode):
     """recurrentgemma_9b's local attention: 16 query heads on one KV head
-    of dimension 256 (the CUDA-core route; d^-1/2 = 1/16 exact), a causal
-    128-row chunk or a decode batch of 8 with null lanes, bf16 and float32
-    pools, on exact-logit inputs: 1e-5."""
+    of dimension 256 (d^-1/2 = 1/16 exact), a causal 128-row chunk or a
+    decode batch of 8 with null lanes, on exact-logit inputs: 1e-5. bf16
+    pools take the tensor-core route, float32 pools the CUDA cores."""
     spec = (dict(b=1, c=128, nb=32, q_start=[128], kv_len=[256])
             if name == "prefill" else
             dict(b=8, c=1, nb=32, q_start=[0] * 8,
@@ -1705,7 +1718,9 @@ def test_paged_kernel_mqa_head_dim_256(cuda_device, name, pool, mode):
     dt = getattr(torch, pool)
     q, k, v = (torch.from_numpy(a).to(cuda_device, dt) for a in arrays[:3])
     tables, meta = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
-    assert KA.paged_variant(q.dtype, k.dtype, 256, 16) == "CUDA cores"
+    route = KA.paged_variant(q.dtype, k.dtype, 256, 16)
+    assert route == ("CUDA cores" if pool == "float32"
+                     else "bf16 mma.sync tensor cores")
     kw = dict(causal=name == "prefill", sole=mode == "sole", exp_bits=4,
               int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
     kvmap = KA.default_kv_head_map(16, 1, cuda_device)
@@ -1713,6 +1728,207 @@ def test_paged_kernel_mqa_head_dim_256(cuda_device, name, pool, mode):
     ref = KA.flash_e2softmax_paged_plain(q, k, v, tables, meta, kvmap, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- the tensor-core route at head dims 128 and 256 ----------------------------
+
+WIDE_HEADS = {"minitron": (32, 8, 128), "dbrx": (48, 8, 128),
+              "recurrentgemma": (16, 1, 256)}
+WIDE_CASES = {
+    "decode": dict(b=8, c=1, nb=32, q_start=[0] * 8,
+                   kv_len=[49, 300, 117, 1, 256, 83, 160, 1]),
+    "chunk": dict(b=1, c=128, nb=32, q_start=[128], kv_len=[256]),
+    # causal chunks whose rows do not fill the last tile, a null lane
+    "ragged_chunk": dict(b=3, c=37, nb=24, q_start=[20, 250, 0],
+                         kv_len=[57, 270, 1]),
+    # 256 pages: several rounds of a cluster's CTAs
+    "kv4096": dict(b=2, c=1, nb=256, q_start=[0, 0], kv_len=[4096, 4001]),
+}
+
+
+def _wide_pools(rng, k, v, pool, device):
+    if pool == "bf16":
+        return tuple(torch.from_numpy(a).to(device, torch.bfloat16)
+                     for a in (k, v))
+    v = rng.integers(-127, 128, v.shape)
+    return tuple(torch.from_numpy(np.clip(a, -127, 127)).to(device,
+                                                             torch.int8)
+                 for a in (k, v))
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int8-qpv"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+@pytest.mark.parametrize("heads", list(WIDE_HEADS))
+def test_paged_kernel_wide_heads_match_plain(cuda_device, heads, case, pool,
+                                             mode):
+    """The tensor-core route at head dim 128 (minitron's and mixtral's
+    32/8 heads, dbrx's 48/8; q in three bf16 parts) and 256
+    (recurrentgemma's 16/1) against the plain version: decode with null
+    lanes, a 128-row chunk, ragged causal chunks, 4,096 keys, over a
+    permuted KV-head map, bf16 pools and int8 pools with ``quant_pv`` off
+    and on, SOLE with the snap and exact mode. Exact-logit inputs: 1e-5 at
+    256; at 128 exact mode 1e-4 of the output scale, SOLE at most 1% of
+    rows off by more than 1e-3."""
+    h, kvh, d = WIDE_HEADS[heads]
+    spec = WIDE_CASES[case]
+    rng = np.random.default_rng(d + len(case) + len(pool))
+    q, k, v, tables, meta = _paged_inputs(rng, h=h, kvh=kvh, d=d, bs=16,
+                                          **spec)
+    qt = torch.from_numpy(q).to(cuda_device, torch.bfloat16)
+    kt, vt = _wide_pools(rng, k, v, pool, cuda_device)
+    kw = dict(causal=spec["c"] > 1, sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool != "bf16":
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=pool == "int8-qpv")
+    assert KA.paged_variant(qt.dtype, kt.dtype, d, 16,
+                            kw.get("kv_scale")).startswith("bf16 mma")
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kvmap = torch.from_numpy(rng.permutation(np.arange(h) % kvh).astype(
+        np.int32)).to(cuda_device)
+    before = KA.flash_e2softmax_paged.launches
+    out = KA.flash_e2softmax_paged(qt, kt, vt, tables, meta,
+                                   kv_head_map=kvmap, **kw)
+    assert KA.flash_e2softmax_paged.launches == before + 1
+    ref = KA.flash_e2softmax_paged_plain(qt, kt, vt, tables, meta, kvmap,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if d == 256:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        return
+    err = (out - ref).abs()
+    scale = max(ref.abs().max().item(), 1.0)
+    if mode == "exact":
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert (err.amax(-1) > 1e-3 * scale).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("mode", ["exact", "sole"])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("heads", list(WIDE_HEADS))
+def test_paged_decode_rows_bitwise_across_batches(cuda_device, heads, pool,
+                                                  mode):
+    """The decode kernel splits each sequence's pages over the CTAs of a
+    cluster, as many as fill the card for the launch's batch; every page's
+    partial and the in-order fold over them are the same whatever the
+    split, so one row alone, the same 8 rows and 40 rows (random q, 1-500
+    keys) give the same bits."""
+    h, kvh, d = WIDE_HEADS[heads]
+    rng = np.random.default_rng(d + len(pool))
+    lens = [int(x) for x in rng.integers(1, 501, 40)]
+    _, k, v, tables, meta = _paged_inputs(rng, b=40, c=1, h=h, kvh=kvh, d=d,
+                                          bs=16, nb=32, q_start=[0] * 40,
+                                          kv_len=lens)
+    q = torch.from_numpy(rng.standard_normal((40, h, 1, d))).to(
+        cuda_device, torch.bfloat16)
+    kt, vt = _wide_pools(rng, k, v, pool, cuda_device)
+    tables, meta = (torch.from_numpy(a).to(cuda_device)
+                    for a in (tables, meta))
+    kw = dict(causal=False, sole=mode == "sole", exp_bits=4,
+              int8_scale=LOGIT_INT8_SCALE if mode == "sole" else None)
+    if pool == "int8":
+        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+
+    def rows(sl):
+        return KA.flash_e2softmax_paged(q[sl].contiguous(), kt, vt,
+                                        tables[sl].contiguous(),
+                                        meta[sl].contiguous(), **kw)
+    full = rows(slice(0, 40))
+    assert torch.equal(rows(slice(5, 13)), full[5:13])
+    assert torch.equal(rows(slice(7, 8)), full[7:8])
+    torch.cuda.synchronize()
+    assert torch.isfinite(full).all()
+
+
+# -- the row-stable products of decode and verify dispatches -------------------
+
+# (K, N, dtype) of mixtral_8x7b's decode products: wq/wo, wk/wv, an
+# expert's gate/up and down, the head, the router (float32 from bf16)
+MIXTRAL_PRODUCTS = {"wq": (4096, 4096, "bfloat16"),
+                    "wk": (4096, 1024, "bfloat16"),
+                    "expert_up": (4096, 14336, "bfloat16"),
+                    "expert_down": (14336, 4096, "bfloat16"),
+                    "head": (4096, 32000, "bfloat16"),
+                    "router": (4096, 8, "float32")}
+
+
+@pytest.mark.parametrize("name", list(MIXTRAL_PRODUCTS))
+def test_stable_mm_rows_bitwise_across_m(cuda_device, name):
+    """``layers.stable_mm`` at mixtral's shapes: the rows of M = 1, 8, 40
+    and 72 products (72: two tiles), in order and reversed, bitwise equal
+    to the same rows of the 72-row product."""
+    from repro_torch.models import layers as L
+    k, n, dtype = MIXTRAL_PRODUCTS[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    a = torch.randn((72, k), generator=gen, device=cuda_device)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * 0.02
+    if dtype == "bfloat16":
+        a, w = a.bfloat16(), w.bfloat16()
+    else:                                   # bf16 operands, float32 product
+        a, w = a.bfloat16().float(), w.bfloat16().float()
+    full = L.stable_mm(a, w)
+    for m in (1, 8, 40, 72):
+        assert torch.equal(L.stable_mm(a[:m], w), full[:m]), m
+        assert torch.equal(L.stable_mm(a[:m].flip(0), w), full[:m].flip(0))
+    torch.cuda.synchronize()
+
+
+def test_moe_ffn_rows_bitwise_across_t(cuda_device):
+    """The drop-free MoE FFN of a decode or verify dispatch (``stable``)
+    at mixtral's width, one layer of random bf16 experts: each token's row
+    bitwise the same among 8, 40 and 72 tokens (other expert slots, one or
+    two capacity tiles) and in reversed order."""
+    from repro_torch.models import moe as M
+    cfg = get_config("mixtral_8x7b")
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * 0.02).bfloat16()
+    p = {"router": w(d, e), "gate": w(e, d, f), "up": w(e, d, f),
+         "down": w(e, f, d)}
+    x = torch.randn((72, d), generator=gen, device=cuda_device).bfloat16()
+
+    def ffn(rows):
+        return M._paged_ffn(p, rows[None], cfg, "serve", stable=True)[0]
+    few, many, most = ffn(x[:8]), ffn(x[32:72]), ffn(x)
+    assert torch.equal(ffn(x[:8].flip(0)).flip(0), few)
+    assert torch.equal(ffn(x[32:40]), many[:8])
+    assert torch.equal(most[32:72], many) and torch.equal(most[:8], few)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mixtral_8x7b"])
+def test_decode_step_rows_do_not_depend_on_the_batch(cuda_device, arch):
+    """A paged decode step on the card (smoke weights in bf16, exact mode)
+    takes the row-stable products: lane 0's logits are bitwise the same in
+    a batch of 8 lanes as alone."""
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16",
+                              softmax_mode="exact", norm_mode="exact",
+                              logit_int8=False)
+    params = api.init_params(0, cfg, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    pools = {k: torch.randn((cfg.n_layers, 40, 16, cfg.n_kv_heads,
+                             cfg.head_dim), generator=gen,
+                            device=cuda_device).bfloat16()
+             for k in ("k", "v")}
+    tables = torch.arange(1, 33, dtype=torch.int32,
+                          device=cuda_device).reshape(8, 4)
+    pos = torch.tensor([37, 5, 60, 12, 0, 33, 18, 49], dtype=torch.int32,
+                       device=cuda_device)
+    token = torch.randint(0, cfg.vocab_size, (8,), generator=gen,
+                          device=cuda_device).int()
+    many, _ = api.decode_step_paged(params, token, pos, {"tables": tables},
+                                    {k: v.clone() for k, v in pools.items()},
+                                    cfg)
+    one, _ = api.decode_step_paged(params, token[:1], pos[:1],
+                                   {"tables": tables[:1]}, pools, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(many[0], one[0])
 
 
 @pytest.mark.parametrize("name", ["decode", "prefill"])

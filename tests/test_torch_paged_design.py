@@ -91,8 +91,26 @@ def test_paged_variant():
     assert KA.paged_variant(bf, i8, 64, 16, KV_INT8_SCALE) == mma
     assert KA.paged_variant(bf, i8, 64, 16, 0.1) == "CUDA cores"
     assert KA.paged_variant(bf, bf, 32, 16) == "CUDA cores"    # 32^-1/2
-    assert KA.paged_variant(bf, bf, 256, 16) == "CUDA cores"   # wider than 64
     assert KA.paged_variant(bf, bf, 64, 8) == "CUDA cores"     # page size
     assert KA.paged_variant(bf, i8, 4, 16, KV_INT8_SCALE) == "CUDA cores"
     assert KA.paged_variant(f32, f32, 64, 16) == "CUDA cores"
     assert KA.paged_variant(bf, bf, 64, 16, aligned=False) == "CUDA cores"
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_variant_wide_heads(d):
+    """Head dims 128 (minitron, nemotron, mixtral, dbrx: q in three bf16
+    parts) and 256 (recurrentgemma: d^-1/2 = 1/16) take the tensor cores
+    over bf16 pools and int8 pools with a power-of-two kv_scale, at
+    16-token pages; float32, 8-token pages and other scales stay on the
+    CUDA cores, as do head dims between 128 and 256."""
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    mma = "bf16 mma.sync tensor cores"
+    assert KA.paged_variant(bf, bf, d, 16) == mma
+    assert KA.paged_variant(bf, i8, d, 16, KV_INT8_SCALE) == mma
+    assert KA.paged_variant(bf, i8, d, 16, 0.1) == "CUDA cores"
+    assert KA.paged_variant(bf, bf, d, 8) == "CUDA cores"
+    assert KA.paged_variant(bf, i8, d, 8, KV_INT8_SCALE) == "CUDA cores"
+    assert KA.paged_variant(f32, f32, d, 16) == "CUDA cores"
+    assert KA.paged_variant(bf, bf, d, 16, aligned=False) == "CUDA cores"
+    assert KA.paged_variant(bf, bf, d + 64, 16) == "CUDA cores"
