@@ -200,6 +200,29 @@ timed beside autograd of its plain version and of ``F.rms_norm`` /
 ``F.layer_norm`` / ``F.group_norm``. The exact norm's forward is timed
 at the train step's shape too (8 x 1,024 rows of 896, bf16 in and out).
 
+The dry run, ``serve_sole`` and the sanitizers (after training, each
+``[phase time]`` logged): ``launch.serve_sole`` at the example's smoke
+config and at qwen2_0_5b's full width, paged and ``--dense`` (every
+request its 12 tokens; tokens, tokens/s, peak pages and steps printed);
+the sanitizers attached to a full-width qwen2_0_5b ``PagedEngine``,
+frozen after a warm-up request, the rest of the trace under
+``torch.cuda.set_sync_debug_mode("error")`` (only the engine's
+sanctioned transfers sync, no kernel library or device segment after
+freeze, refcount sweeps run), then an ``.item()`` injected into a step
+must raise; the dry run (``launch.dryrun``, on meta tensors) against the
+card: (a) qwen2_0_5b's train cell at 8 x 1,024 tokens predicts one
+``Trainer`` step's ``max_memory_allocated()`` within 10% and its roofline
+bound is no larger than the step's device busy time, (b) the paged decode
+step at the profiled wave's shape predicts its peak within 10%, (c) both
+count the product FLOPs ``FlopCounterMode`` counts on the card, and (d)
+``launch.dryrun --all`` and ``--all --paged`` end with no ``error``
+cell; the cells that fit one card are printed. The sweep runs on the
+host's CPU after the last timed phase (the profiled waves), one process
+per (arch, dense or paged) on every core, into ``build/dryrun_sweep``, so
+no timed phase shares the host with it. The profiled
+waves read the profiler's raw events (``device_rows``), not
+``key_averages()``.
+
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is available or the port is not beside this file.
@@ -207,6 +230,7 @@ when no CUDA device is available or the port is not beside this file.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -216,12 +240,11 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
-FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
-INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
-QNORM_OPS_PER_ELEMENT = 16         # divide, round, clip, square, shifts, sums, affine
-E2_OPS_PER_ELEMENT = 16            # max, subtract, snap, multiply, round, clip, 2^-k, sum, scale
+# operand types of repro_torch.roofline.analysis.PEAK_FLOPS, the one source
+# of the H100's peaks (and its HBM rate) every bound here takes
+BF16, FP32, INT8 = "bfloat16", "float32", "int8"
+QNORM_OPS_PER_ELEMENT = 16         # as repro_torch.roofline.cost counts them
+E2_OPS_PER_ELEMENT = 16
 DENSE_MAX_LEN = 384                # the dense-slot engine's cache columns
 PREFILL_ROWS = 300                 # the dense path's checked prefill length
 PREFILL_CHUNK = 128
@@ -305,27 +328,24 @@ def paged_case(torch, gen, *, b, c, q_start, kv_lens, h, kvh, d, grid,
 
 
 def attention_work(case, causal, h, kvh, d):
-    """(bytes, flops) the paged attention must move / do on these inputs:
-    q, the live keys' K and V rows and the fp32 output once; 4*d flops
-    per unmasked (query, key) pair and head."""
+    """(bytes, flops) the paged attention must move / do on these inputs
+    (``repro_torch.roofline.cost.paged_attention_work``, which the dry
+    run counts the kernel with): q, the live keys' K and V rows and the
+    fp32 output once; 4*d flops per unmasked (query, key) pair and head."""
+    from repro_torch.roofline.cost import paged_attention_work
     q, k, _, _, meta = case
-    b, _, c, _ = q.shape
-    pairs = 0
-    keys = 0
-    for q_start, kv_len in meta.tolist():
-        keys += kv_len
-        for r in range(c):
-            pairs += min(kv_len, q_start + r + 1) if causal else kv_len
-    nbytes = (q.numel() * q.element_size()
-              + 2 * keys * kvh * d * k.element_size()
-              + b * h * c * d * 4 + meta.numel() * 4)
-    return nbytes, 4 * d * pairs * h
+    return paged_attention_work(tuple(q.shape), q.element_size(),
+                                k.element_size(), meta.tolist(),
+                                causal=causal, kv_heads=kvh)
 
 
-def bound_ms(nbytes, flops, flops_rate):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_rate * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes, flops, kind):
+    """(least ms, "bytes" or "operations") of ``nbytes`` moved and
+    ``flops`` operations of type ``kind`` on the H100
+    (``repro_torch.roofline.analysis.bound_s``)."""
+    from repro_torch.roofline.analysis import bound_s
+    t, by = bound_s(nbytes, {kind: flops})
+    return t * 1e3, by
 
 
 def time_ms(torch, fn, flush, reps=30):
@@ -386,6 +406,21 @@ def wall_ms(torch, fn, reps=100):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_rows(torch, prof):
+    """(device us, count, name) of each device-side name (kernels, copies,
+    sets) the profiler recorded, largest first: the sums ``key_averages()``
+    gives, read from the raw events without building its event tree,
+    which takes tens of seconds over a wave's ~100k kernels."""
+    cuda = torch.autograd.DeviceType.CUDA
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            us, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, n, name) for name, (us, n) in acc.items() if us > 0),
+                  reverse=True)
 
 
 def _device_us(event) -> float:
@@ -1217,7 +1252,7 @@ def time_kernels(torch, attn, launches, cfg):
         plain = time_ms(torch, lambda: KA.flash_e2softmax_paged_plain(
             *case, kvmap, causal=causal, **kw), flush, reps=5)
         nbytes, flops = attention_work(case, causal, h, kvh, d)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, BF16)
         exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
                                                 causal)
         entry["paged_e2softmax"]["shapes"][name] = dict(
@@ -1316,7 +1351,7 @@ def time_calib_norm(torch, calib, launches):
         rows, c = x.shape
         nbytes = 4 * rows * c * x.element_size() + 2 * c * 4
         bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
-                           FP32_FLOPS)
+                           FP32)
         e["shapes"][name] = dict(
             shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16",
             ms=time_ms(torch, run, flush),
@@ -1345,12 +1380,9 @@ def time_calib_norm(torch, calib, launches):
 
 def distinct_bytes(t) -> int:
     """Bytes of the distinct elements of ``t`` (a broadcast view counts
-    its stride-0 dims once)."""
-    n = 1
-    for size, stride in zip(t.shape, t.stride()):
-        if stride:
-            n *= size
-    return n * t.element_size()
+    its stride-0 dims once), as the dry run counts a mask's reads."""
+    from repro_torch.roofline.cost import distinct_bytes as count
+    return count(t)
 
 
 def time_e2softmax(torch, e2, launches, launches8):
@@ -1384,7 +1416,7 @@ def time_e2softmax(torch, e2, launches, launches8):
             return KE.e2softmax(x, **kw)
         nbytes = (x.numel() * x.element_size() + x.numel() * 4
                   + (0 if mask is None else mask.numel()))
-        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * x.numel(), FP32_FLOPS)
+        bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * x.numel(), FP32)
         entry["shapes"][name] = dict(
             shape=f"rows {x.shape[0]} C {x.shape[1]} "
                   f"{'masked' if mask is not None else 'unmasked'}",
@@ -1405,7 +1437,7 @@ def time_e2softmax(torch, e2, launches, launches8):
         nbytes = (logits.numel() * 4 + distinct_bytes(mask)
                   + logits.numel() * 2)
         bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
-                           FP32_FLOPS)
+                           FP32)
         entry["stage"][name] = dict(
             shape=f"logits {tuple(logits.shape)} f32, mask strides "
                   f"{tuple(mask.stride())}, bf16 out",
@@ -1495,7 +1527,7 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
         nbytes, flops = attention_work(case, causal, h, kvh, d)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, BF16)
         paged["shapes"][name] = dict(
             shape=f"q {tuple(case[0].shape)} KV {kvh} int8 pools kv_len "
                   f"{case[4][:, 1].tolist()}",
@@ -1516,7 +1548,7 @@ def time_w8a8_kernels(torch, attn8, gemm, launches, cfg):
         x, w = res["x"], res["w"]
         (m, k), n = x.shape, w.shape[1]
         nbytes = m * k + k * n + 4 * m * n
-        bms, by = bound_ms(nbytes, 2 * m * k * n, INT8_OPS)
+        bms, by = bound_ms(nbytes, 2 * m * k * n, INT8)
         lib_ms, lib_note = _int_mm_ms(torch, x, w, flush)
         mm["shapes"][name] = dict(
             shape=f"M {m} K {k} N {n}",
@@ -1911,7 +1943,7 @@ def time_ops_kernels(torch, res, launches):
         nbytes = sum(x.numel() * x.element_size() for x in args) \
             + b * h * s * hd * 4
         flops = 4 * hd * b * h * _causal_pairs(s, t, causal)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, BF16)
         lib = None
         if r["mode"] == "exact":
             q4, k4, v4 = (x.reshape(b, h, -1, hd) for x in args)
@@ -1966,7 +1998,7 @@ def time_ops_kernels(torch, res, launches):
             nbytes = rows * c * row_bytes + chan_bytes \
                 + (4 * rows if e is addq else 0)
             bms, by = bound_ms(nbytes, (QNORM_OPS_PER_ELEMENT + extra_ops)
-                               * rows * c, FP32_FLOPS)
+                               * rows * c, FP32)
 
             def run(fn=fn, fargs=fargs):
                 return fn(*fargs, rms=rms)
@@ -1985,7 +2017,7 @@ def time_ops_kernels(torch, res, launches):
     cargs = res["codes"]["args"]
     rows, c = cargs[0].shape
     nbytes = rows * c * 8 + 12 * c
-    bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c, FP32_FLOPS)
+    bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c, FP32)
     codes["shapes"]["codes"] = dict(
         shape=f"rows {rows} C {c} int32 codes",
         ms=time_ms(torch, lambda: KN.codes_norm(*cargs), flush),
@@ -2120,7 +2152,7 @@ def static_op_stage(torch):
                                       else 0)) \
             + c * (8 if "rmsnorm" in op else 12) + 2
         bms, by = bound_ms(nbytes, QNORM_OPS_PER_ELEMENT * rows * c,
-                           FP32_FLOPS)
+                           FP32)
         v = stage[f"{op}_{rows}x{c}"] = dict(
             shape=f"{op} rows {rows} C {c} bf16 in, bf16 out",
             ms=time_ms(torch, call, flush),
@@ -2175,9 +2207,7 @@ def profile_engine(torch, cfg, params, label, dense=False):
         eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    rows = sorted(((_device_us(e), e.count, e.key)
-                   for e in prof.key_averages() if _device_us(e) > 0),
-                  reverse=True)
+    rows = device_rows(torch, prof)
     busy = sum(r[0] for r in rows) / 1e6
     # forwards: one attention launch per layer (the paged kernel, or the
     # dense engine's E2Softmax); kernels per forward: every device kernel
@@ -3217,11 +3247,11 @@ def profile_spec(torch, cfg, params):
     for name, drafter in (("plain", None), ("oracle", OracleDrafter(oracle))):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run = run_spec_trace(torch, cfg, params, reqs, drafter)
-        busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+        rows = device_rows(torch, prof)
+        busy = sum(r[0] for r in rows) / 1e6
         res[name] = dict(wall_s=run["wall_s"], device_busy_s=busy,
                          busy_share=busy / run["wall_s"],
-                         kernels=sum(e.count for e in prof.key_averages()
-                                     if _device_us(e) > 0),
+                         kernels=sum(r[1] for r in rows),
                          draft_host_s=run["draft_host_s"])
         log(f"[bf16 exact {name}, profiled] wall {run['wall_s']:.3f} s, "
             f"device busy {busy:.3f} s ({busy / run['wall_s']:.3f} of wall), "
@@ -3643,7 +3673,7 @@ def time_exact_norm(torch, norms, launches):
         out_size = 4 if od is None else 2
         nbytes = (rows * c * (xr.element_size() + out_size)
                   + c * 4 * (1 + (not rms)))
-        bms, by = bound_ms(nbytes, 8 * rows * c, FP32_FLOPS)
+        bms, by = bound_ms(nbytes, 8 * rows * c, FP32)
         key = f"{name}_rows{rows}" + ("" if od is None else "_train")
         e["shapes"][key] = dict(
             shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16 in, "
@@ -3989,8 +4019,8 @@ def time_recurrent_kernels(torch, rk, launches):
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
         nbytes, flops = attention_work(case, causal, 16, 1, 256)
-        bms, by = bound_ms(nbytes, flops, FP32_FLOPS if "f32" in name
-                           else BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, FP32 if "f32" in name
+                           else BF16)
         exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
                                                 causal)
         pe["shapes"][name] = dict(
@@ -4044,7 +4074,7 @@ def time_recurrent_kernels(torch, rk, launches):
                                         1e-5)
                 ops_per = 8
             nbytes = 2 * rows * 64 * 4 + 2 * 64 * 64 * 4
-            bms, by = bound_ms(nbytes, ops_per * rows * 64, FP32_FLOPS)
+            bms, by = bound_ms(nbytes, ops_per * rows * 64, FP32)
             e["shapes"][name] = dict(
                 shape=f"rows {rows} C 64, (64, 64) affine, float32",
                 ms=time_ms(torch, run, flush),
@@ -4079,7 +4109,7 @@ def time_recurrent_kernels(torch, rk, launches):
             return sole_probs_chain(torch, cfg, logits, mask, KE.e2softmax)
         nbytes = logits.numel() * 4 + distinct_bytes(mask) + logits.numel() * 2
         bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
-                           FP32_FLOPS)
+                           FP32)
         e["shapes"][name] = dict(
             shape=f"logits {tuple(logits.shape)} f32, mask strides "
                   f"{tuple(mask.stride())}, bf16 out",
@@ -4377,9 +4407,7 @@ def profile_recurrent(torch, cfg, params, label, dense=False):
     finally:
         setattr(mod, fn_name, real)
         counter.close()
-    rows = sorted(((_device_us(e), e.count, e.key)
-                   for e in prof.key_averages() if _device_us(e) > 0),
-                  reverse=True)
+    rows = device_rows(torch, prof)
     busy = sum(r[0] for r in rows) / 1e6
     kernels = sum(n for _, n, _ in rows)
     norm_ms = sum(us for us, _, key in rows
@@ -4711,7 +4739,7 @@ def time_family_kernels(torch, fk, launches):
             return L._sole_probs(logits, mask, cfg, torch.bfloat16)
         nbytes = logits.numel() * 4 + distinct_bytes(mask) + logits.numel() * 2
         bms, by = bound_ms(nbytes, E2_OPS_PER_ELEMENT * logits.numel(),
-                           FP32_FLOPS)
+                           FP32)
         e["shapes"][name] = dict(
             shape=f"logits {tuple(logits.shape)} f32, mask strides "
                   f"{tuple(mask.stride())}, bf16 out",
@@ -4777,7 +4805,7 @@ def time_family_kernels(torch, fk, launches):
                     library = lambda: F.layer_norm(xf, (c,), g, b, eps)  # noqa
                 nbytes = rows * c * (2 + 4) + c * 4 * (1 + (not rms))
                 flops = 8 * rows * c
-            bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+            bms, by = bound_ms(nbytes, flops, FP32)
             e["shapes"][name] = dict(
                 shape=f"rows {rows} C {c} {'rms' if rms else 'ln'} bf16",
                 ms=time_ms(torch, run, flush),
@@ -4809,7 +4837,7 @@ def time_family_kernels(torch, fk, launches):
         def run():
             return KA.flash_e2softmax_paged(*case, causal=causal, **kw)
         nbytes, flops = attention_work(case, causal, 12, 12, 64)
-        bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        bms, by = bound_ms(nbytes, flops, BF16)
         exact_ms, sdpa_ms = paged_exact_vs_sdpa(torch, case, kvmap, flush,
                                                 causal)
         e["shapes"][name] = dict(
@@ -5001,9 +5029,7 @@ def profile_whisper(torch, cfg, params):
     finally:
         counter.close()
         encodes.close()
-    rows = sorted(((_device_us(e), e.count, e.key)
-                   for e in prof.key_averages() if _device_us(e) > 0),
-                  reverse=True)
+    rows = device_rows(torch, prof)
     busy = sum(r[0] for r in rows) / 1e6
     kernels = sum(n for _, n, _ in rows)
     frames = torch.tensor(reqs[0].frames, device="cuda")[None]
@@ -5449,7 +5475,7 @@ def time_norm_backward(torch, cases, launches):
         library = None if lib_out is None else graph(lib_out, ins)
         nbytes = (3 * rows * c * x.element_size()
                   + g.numel() * 4 * (2 if rms else 3))
-        bms, by = bound_ms(nbytes, 14 * rows * c, FP32_FLOPS)
+        bms, by = bound_ms(nbytes, 14 * rows * c, FP32)
         n_dev, kept = bwd_device_kernels(torch, run, key)
         e["shapes"][key] = dict(
             shape=f"rows {rows} C {c} {'rms' if rms else 'ln'}"
@@ -5786,6 +5812,280 @@ def train_phase(torch):
                    "smoke": smoke}
 
 
+
+# -- serve_sole, the sanitizers and the dry run against the card -------------
+
+SANITIZE_SWEEP = 4                 # refcount sweep every 4 engine steps
+DRYRUN_TOL = 0.10                  # predicted peak bytes within 10% of measured
+SWEEP_DIR = os.path.join(ROOT, "build", "dryrun_sweep")
+SWEEP_TIMEOUT = 900
+
+
+def serve_sole_phase(torch):
+    """``launch.serve_sole`` on the card: the example's smoke config, then
+    qwen2_0_5b at full width, each paged and ``--dense``: every request
+    gets its 12 tokens; the launcher prints tokens, tokens/s, peak pages
+    and steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve_sole
+    res = {}
+    for label, cfg in (("smoke", None),
+                       ("full width", get_config("qwen2_0_5b"))):
+        out = serve_sole.main(["--dense"], cfg=cfg)
+        for key in ("paged", "dense"):
+            got = [len(o) for o in out[key]]
+            if got != [12] * 12:
+                raise AssertionError(f"serve_sole {label} {key}: {got}")
+        res[label] = {k: out[k] for k in ("paged_tokens", "paged_s",
+                                          "dense_tokens", "dense_s",
+                                          "peak_pages", "steps")}
+        log(f"[serve_sole {label}] paged {out['paged_tokens']} tokens "
+            f"{out['paged_tokens'] / out['paged_s']:.1f} tok/s, dense "
+            f"{out['dense_tokens'] / out['dense_s']:.1f} tok/s, peak pages "
+            f"{out['peak_pages']}, {out['steps']} steps")
+    return res
+
+
+def sanitized_trace(torch):
+    """The sanitizers on a full-width qwen2_0_5b ``PagedEngine`` trace:
+    attached before a warm-up request, frozen after it, then the rest of
+    the trace under the sync guard: no unsanctioned sync (one raises), no
+    kernel library built and no device segment allocated after freeze
+    (the sentinel raises), at least one refcount sweep; then an
+    ``.item()`` injected into a step must raise."""
+    from repro_torch.analysis.sanitizers import attach
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import PagedEngine, Request
+    cfg = get_config("qwen2_0_5b")
+    params = api.init_params(0, cfg, "cuda")
+    eng = PagedEngine(cfg, params, num_blocks=8 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+                      block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN,
+                      max_running=8, decode_batch=DECODE_BATCH,
+                      prefill_chunk=PREFILL_CHUNK, decode_horizon=8,
+                      device="cuda")
+    san = attach(eng, sweep_every=SANITIZE_SWEEP)
+    prompts, _ = trace_prompts(cfg)
+    reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    eng.generate(reqs[:1])                       # warm-up: builds, allocates
+    frozen = san.freeze()
+    warm_steps = san.steps
+    outs = eng.generate(reqs[1:])                # guarded
+    if [len(o) for o in outs] != [NEW_TOKENS] * (len(reqs) - 1):
+        raise AssertionError(f"sanitized trace lengths {[len(o) for o in outs]}")
+    rep = san.report()
+    grown = {k: v for k, v in san.sentinel.sizes().items() if v > frozen[k]}
+    if grown or rep["refcount_sweeps"] < 1 or rep["transfers_in_decode"]:
+        raise AssertionError(f"sanitized trace: grown {grown}, {rep}")
+    inner = san._inner_step
+    san._inner_step = lambda: torch.ones(1, device="cuda").sum().item()
+    try:
+        eng.step()
+    except RuntimeError as e:
+        injected = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    else:
+        raise AssertionError("an .item() inside a guarded step did not raise")
+    finally:
+        san._inner_step = inner
+        san.detach()
+        torch.cuda.set_sync_debug_mode(0)
+    res = dict(rep, frozen=frozen, warmup_steps=warm_steps,
+               guarded_steps=rep["sanitized_steps"] - warm_steps,
+               injected_item=injected)
+    log(f"[sanitizers] {json.dumps(res)}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _within(pred, measured) -> bool:
+    return abs(pred / measured - 1) <= DRYRUN_TOL
+
+
+def dryrun_train_check(torch):
+    """Checks (a) and (c) of the dry run against one ``Trainer`` step of
+    qwen2_0_5b at full width on the training phase's 8 x 1,024 tokens:
+    the meta run's peak bytes within 10% of ``max_memory_allocated()``
+    (reset just before the step; tensors alive before the Trainer left
+    out), its roofline bound no larger than the step's device busy time,
+    and its product FLOPs equal to ``FlopCounterMode``'s on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline.analysis import PEAK_FLOPS, make_roofline
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, batch_to_device
+    cfg = get_config("qwen2_0_5b")
+    shape = ShapeConfig("train_1k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.time()
+    counter, parts = D.count_cell(cfg, shape)
+    cost = counter.cost
+    roof = make_roofline(cfg, shape, "single", 1, cost)
+    meta_s = time.time() - t0
+    tr = Trainer(cfg, shape, OptConfig(lr=TRAIN_LR), device="cuda")
+    tr.run(1)                                    # builds, cuBLAS workspaces
+    gc.collect()             # earlier phases' garbage, freed not mid-step
+    torch.cuda.synchronize()
+    other = (torch.cuda.memory_allocated() - D.tree_bytes(tr.params)
+             - D.tree_bytes(tr.opt_state))
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run(2)
+        torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - other
+    busy = sum(r[0] for r in device_rows(torch, prof)) / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batch = batch_to_device(make_batch(cfg, shape, 3), "cuda")
+    fc = FlopCounterMode(display=False)
+    with fc:
+        tr.step_fn(tr.params, tr.opt_state, batch)
+    real_flops = fc.get_total_flops()
+    res = dict(predicted_peak_bytes=int(cost.peak_bytes),
+               measured_peak_bytes=int(measured),
+               peak_ratio=cost.peak_bytes / measured,
+               bound_s=roof.bound_s, bound_by=roof.dominant,
+               device_busy_s=busy, step_wall_s=wall,
+               bound_over_busy=roof.bound_s / busy,
+               bound_over_wall=roof.bound_s / wall,
+               model_flops=roof.model_flops,
+               mfu=roof.model_flops / (PEAK_FLOPS["bfloat16"] * wall),
+               product_flops_meta=cost.product_flops,
+               product_flops_card=real_flops, meta_run_s=meta_s,
+               resident=parts)
+    log(f"[dryrun (a) train 8 x 1,024] {json.dumps(res)}")
+    del tr, batch
+    torch.cuda.empty_cache()
+    if not _within(cost.peak_bytes, measured):
+        raise AssertionError(f"(a) predicted peak {cost.peak_bytes} bytes, "
+                             f"measured {measured}")
+    if roof.bound_s > busy:
+        raise AssertionError(f"(a) bound {roof.bound_s} s > busy {busy} s")
+    if real_flops != cost.product_flops:
+        raise AssertionError(f"(c) train product FLOPs: meta "
+                             f"{cost.product_flops}, card {real_flops}")
+    return res
+
+
+def dryrun_decode_check(torch):
+    """Checks (b) and (c) at one qwen2_0_5b paged decode step at the
+    profiled wave's shape (8 lanes over its 257 pages of 16): the meta
+    run's peak within 10% of the card's, product FLOPs equal."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import api
+    cfg = get_config("qwen2_0_5b")
+    shape = ShapeConfig("wave_decode", MAX_SEQ_LEN, DECODE_BATCH, "decode")
+    counter, parts = D.count_cell(cfg, shape, paged=True)
+    cost = counter.cost
+    state, _, token, pos, refs = api.paged_decode_inputs(cfg, shape)
+    params = api.init_params(0, cfg, "cuda")
+    pools = {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda")
+             for k, v in state.items()}
+    nb = refs["tables"].shape[1]
+    tables = (torch.arange(DECODE_BATCH * nb, dtype=torch.int32,
+                           device="cuda").reshape(DECODE_BATCH, nb) + 1)
+    tok = torch.zeros(DECODE_BATCH, dtype=torch.int32, device="cuda")
+    at = torch.full((DECODE_BATCH,), 160, dtype=torch.int32, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            return api.decode_step_paged(params, tok, at, {"tables": tables},
+                                         pools, cfg)
+    step()
+    gc.collect()
+    torch.cuda.synchronize()
+    other = (torch.cuda.memory_allocated() - D.tree_bytes(params)
+             - D.tree_bytes(pools)
+             - sum(t.numel() * t.element_size() for t in (tables, tok, at)))
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - other
+    fc = FlopCounterMode(display=False)
+    with fc:
+        step()
+    real_flops = fc.get_total_flops()
+    res = dict(predicted_peak_bytes=int(cost.peak_bytes),
+               measured_peak_bytes=int(measured),
+               peak_ratio=cost.peak_bytes / measured,
+               product_flops_meta=cost.product_flops,
+               product_flops_card=real_flops, resident=parts)
+    log(f"[dryrun (b) paged decode 8 lanes] {json.dumps(res)}")
+    del params, pools
+    torch.cuda.empty_cache()
+    if not _within(cost.peak_bytes, measured):
+        raise AssertionError(f"(b) predicted peak {cost.peak_bytes} bytes, "
+                             f"measured {measured}")
+    if real_flops != cost.product_flops:
+        raise AssertionError(f"(c) decode product FLOPs: meta "
+                             f"{cost.product_flops}, card {real_flops}")
+    return res
+
+
+def _sweep_job(arch, paged):
+    """One ``launch.dryrun --arch`` process over every shape on the
+    host's CPU (meta tensors); its exit code and its log's tail."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--out", SWEEP_DIR] + (["--paged"] if paged else [])
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=SWEEP_TIMEOUT)
+    return res.returncode, (res.stdout + res.stderr)[-1500:]
+
+
+def dryrun_sweep():
+    """(d): ``launch.dryrun`` over every arch and shape, dense and paged,
+    one process per (arch, dense or paged) on every host core; fails on
+    any ``error`` cell; prints the cells that fit one card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs.base import ARCH_NAMES
+    from repro_torch.roofline.report import load
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    os.makedirs(SWEEP_DIR)
+    t0 = time.time()
+    jobs = [(arch, paged) for paged in (False, True) for arch in ARCH_NAMES]
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        done = list(pool.map(lambda job: _sweep_job(*job), jobs))
+    rows = load(SWEEP_DIR)
+    errors = [f"{r['arch']} {r['shape']}: {r.get('error')}" for r in rows
+              if r["status"] == "error"]
+    failed = [f"{arch}{' --paged' if paged else ''} rc {rc}\n{tail}"
+              for (arch, paged), (rc, tail) in zip(jobs, done) if rc]
+    if failed or errors or len(rows) != 80:
+        raise AssertionError(f"(d) dry-run sweep: {len(rows)} cells, errors "
+                             f"{errors}, failed jobs {failed}")
+    fits = [(r["arch"], r["shape"], r["memory"]["peak_bytes"])
+            for r in rows if r["status"] == "ok"
+            and r["memory"]["fits_one_card"]]
+    log(f"[dryrun (d)] {len(rows)} cells, "
+        f"{sum(r['status'] == 'ok' for r in rows)} ok, "
+        f"{sum(r['status'] == 'skipped' for r in rows)} skipped, 0 errors "
+        f"({len(jobs)} processes, {time.time() - t0:.1f} s); fit one card:")
+    for arch, shape, peak in fits:
+        log(f"  {arch:24s} {shape:12s} peak {peak / 1e9:.2f} GB")
+    return {"cells": len(rows), "fits": [f"{a} {s}" for a, s, _ in fits]}
+
+
+def dryrun_phase(torch):
+    """The card's total memory beside the constant the dry run compares
+    with, then checks (a)-(c)."""
+    from repro_torch.roofline.analysis import CARD_BYTES
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[dryrun] {torch.cuda.get_device_name(0)} total_memory {total} "
+        f"bytes (roofline.analysis.CARD_BYTES {CARD_BYTES})")
+    return {"total_memory": total, "train": dryrun_train_check(torch),
+            "decode": dryrun_decode_check(torch)}
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -5897,6 +6197,12 @@ def main() -> int:
         mark("whisper_small, qwen2_vl_7b")
         train_entry, train = train_phase(torch)
         mark("training")
+        sole = serve_sole_phase(torch)
+        mark("serve_sole")
+        sanitizers = sanitized_trace(torch)
+        mark("sanitized trace")
+        dry = dryrun_phase(torch)
+        mark("dry run against the card")
         for tag, res in rec.items():
             for key in ("paged", "paged_exact_warm", "dense"):
                 new[f"{tag}_{key}"] = res[key]
@@ -5972,13 +6278,16 @@ def main() -> int:
                         "spec_w8a8": spec8, "open_loop": open_loop,
                         "draft_pair": pair,
                         "families": fams,
-                        "training": train,
+                        "training": train, "serve_sole": sole,
+                        "sanitizers": sanitizers, "dryrun": dry,
                         "recurrent_profiles": {
                             tag: {k: v for k, v in res.items()
                                   if k in ("profile", "resident_gib")}
                             for tag, res in rec.items()},
                         **{f"trace_{k}": v[1] for k, v in new.items()}}))
         mark("qwen2_0_5b profiled waves")
+        log(json.dumps({"dryrun_sweep": dryrun_sweep()}))
+        mark("dry-run sweep (d)")
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()

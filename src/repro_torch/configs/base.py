@@ -128,6 +128,36 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + layers + head), the
+        reference's formula (``roofline.analysis.model_flops`` takes it)."""
+        d, f, h, kv, hd = (self.d_model, self.d_ff, self.n_heads,
+                           self.n_kv_heads, self.head_dim)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.mlp_kind in ("swiglu", "geglu"):
+            ffn = 3 * d * f
+        else:
+            ffn = 2 * d * f
+        if self.is_moe:
+            ffn = ffn * self.n_experts + d * self.n_experts  # + router
+        per_layer = attn + ffn + 2 * d
+        if self.family == "ssm":  # rwkv6: wkv instead of attention
+            tm = 4 * d * d + d * d  # r,k,v,g,o  (+ small loras, decay)
+            cm = 2 * d * f + d * d
+            per_layer = tm + cm + 2 * d
+        emb = self.padded_vocab * d
+        n_layers = self.n_layers + self.n_enc_layers
+        return emb * 2 + n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        ffn_all = 3 * d * f * self.n_experts
+        ffn_act = 3 * d * f * self.top_k
+        return self.param_count() - self.n_layers * (ffn_all - ffn_act)
+
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""
         return dataclasses.replace(

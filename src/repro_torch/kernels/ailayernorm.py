@@ -40,7 +40,9 @@ entries are one team-per-row kernel template; each takes the PTF params'
   its plain version is autograd through :func:`exact_norm_plain`.
 
 Each wrapper given CPU tensors computes the plain version; given CUDA
-tensors it launches its kernel or raises. The SOLE kernels have no
+tensors it launches its kernel or raises; given meta tensors it returns
+what the kernel writes and reports its work to the cost counter
+(``roofline/cost.py``). The SOLE kernels have no
 backward: on CUDA tensors they raise where grad mode is on and an input
 requires grad (``build.refuse_grad``), so a graph is never cut silently. A static-params op call on
 contiguous float32 or bf16 activations on the card is one kernel launch:
@@ -60,6 +62,10 @@ from repro_torch.core.sole.ailayernorm import (compressed_square, inv_sqrt,
 from repro_torch.core.sole.quant import (PTFQuantParams, calibrate_ptf,
                                          ptf_denom, quantize_act)
 from repro_torch.kernels import build
+from repro_torch.roofline.cost import (EXACT_NORM_BWD_OPS_PER_ELEMENT,
+                                       EXACT_NORM_OPS_PER_ELEMENT,
+                                       QNORM_OPS_PER_ELEMENT, io_bytes,
+                                       kernel_work)
 
 # shared memory holds one row of int32 codes (48 KB without opt-in)
 MAX_CHANNELS = 12288
@@ -195,7 +201,7 @@ def _check_row_args(rows_in, c: int, **args) -> None:
     and every tensor of ``args`` (name -> (tensor, dtype, shape)) is
     contiguous, of its dtype and shape and on the same device."""
     dev = rows_in.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no ailayernorm kernel for device {dev}")
     if rows_in.ndim != 2 or c > MAX_CHANNELS:
         raise ValueError(f"x must be (rows, C <= {MAX_CHANNELS}), got "
@@ -228,7 +234,7 @@ def _static_launch(wrapper, x, r, scale, alpha, gamma, beta, *, rms: bool,
     scale))`` with ``quant``."""
     build.refuse_grad(f"ailayernorm {wrapper.__name__}", x, r, scale, alpha,
                       gamma, beta)
-    if x.device.type == "cuda" and x.dtype not in _ACT_TYPES:
+    if x.device.type != "cpu" and x.dtype not in _ACT_TYPES:
         raise TypeError(f"x dtype {x.dtype}: the kernel reads float32 or "
                         "bfloat16 rows")
     rows, c = x.shape[0], x.shape[-1]
@@ -255,6 +261,11 @@ def _static_launch(wrapper, x, r, scale, alpha, gamma, beta, *, rms: bool,
         res = out = torch.empty((rows, c), dtype=out_dtype or torch.float32,
                                 device=dev)
     if rows == 0:
+        return h, res
+    if dev.type == "meta":
+        kernel_work(f"ailayernorm_{wrapper.__name__}",
+                    io_bytes(x, r, alpha, gamma, beta, h, out, codes, qscale),
+                    {"float32": QNORM_OPS_PER_ELEMENT * rows * c}, (rows, c))
         return h, res
     # 4-channel units: C a multiple of 4 and every row or channel array
     # aligned to 4 elements (16 bytes of float32, 8 of bf16, 4 of int8)
@@ -332,6 +343,10 @@ def codes_norm(xi, alpha, gamma, beta) -> torch.Tensor:
     out = torch.empty((rows, c), dtype=torch.float32, device=xi.device)
     if rows == 0:
         return out
+    if xi.device.type == "meta":
+        kernel_work("ailayernorm_codes", io_bytes(xi, alpha, gamma, beta, out),
+                    {"float32": QNORM_OPS_PER_ELEMENT * rows * c}, (rows, c))
+        return out
     lib = build.load("ailayernorm")
     fn = build.declare(lib, "ailayernorm_codes", 5, 2)
     rc = build.launch(xi.device, fn, *(t.data_ptr() for t in
@@ -388,7 +403,7 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
             beta = torch.zeros_like(gamma)
         return calibrated_norm_plain(x, r, gamma, beta, rms=rms,
                                      out_dtype=out_dtype, quant_out=quant_out)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no ailayernorm kernel for device {x.device}")
     build.refuse_grad("ailayernorm calibrated_norm", x, r, gamma, beta)
     if x.dtype not in _ACT_TYPES:
@@ -432,6 +447,13 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
     else:
         res = out = torch.empty(x.shape, dtype=out_dtype, device=dev)
     if rows == 0:
+        return h, res, alpha, scale
+    if dev.type == "meta":
+        kernel_work("ailayernorm_calib",
+                    io_bytes(x, r, gamma, None if rms else beta,
+                             None if r is None else h, out, codes, qscale,
+                             alpha, scale),
+                    {"float32": QNORM_OPS_PER_ELEMENT * rows * c}, (rows, c))
         return h, res, alpha, scale
     n = 16 // x.element_size()
     vec = int(c % n == 0 and x.data_ptr() % 16 == 0
@@ -481,7 +503,11 @@ def _exact_launch(rows, gamma, beta, *, rms: bool, eps: float,
     """One launch of ``exact_norm_kernel`` on rows (R, C): the output
     (R, C) in ``written`` (float32 or bf16)."""
     out = torch.empty(rows.shape, dtype=written, device=rows.device)
-    if rows.shape[0] and rows.shape[1]:
+    if rows.device.type == "meta":
+        kernel_work("ailayernorm_exact", io_bytes(rows, gamma, beta, out),
+                    {"float32": EXACT_NORM_OPS_PER_ELEMENT * rows.numel()},
+                    rows.shape)
+    elif rows.shape[0] and rows.shape[1]:
         lib = build.load("ailayernorm")
         fn = build.declare(lib, "ailayernorm_exact", 4, 6, 1)
         groups = gamma.shape[0] if gamma.ndim == 2 else 1
@@ -565,7 +591,7 @@ def exact_norm_backward(x, gamma, beta, dy, *, rms: bool, eps: float):
     if x.device.type == "cpu":
         return exact_norm_backward_plain(x, gamma, beta, dy, rms=rms,
                                          eps=eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no ailayernorm kernel for device {x.device}")
     rows, c = x.shape
     groups = gamma.shape[0] if gamma.ndim == 2 else 1
@@ -593,6 +619,12 @@ def exact_norm_backward(x, gamma, beta, dy, *, rms: bool, eps: float):
     parts = ctas * groups * c
     part_g = torch.empty(parts, dtype=torch.float32, device=dev)
     part_b = None if rms else torch.empty_like(part_g)
+    if dev.type == "meta":
+        kernel_work("ailayernorm_exact_bwd",
+                    io_bytes(x, dy, gamma, beta, dx, dgamma, dbeta),
+                    {"float32": EXACT_NORM_BWD_OPS_PER_ELEMENT * rows * c},
+                    x.shape)
+        return dx, dgamma, dbeta
     lib = build.load("ailayernorm")
     fn = build.declare(lib, "ailayernorm_exact_bwd", 8, 7, 1)
     rc = build.launch(
@@ -644,7 +676,7 @@ def exact_norm(x, gamma, beta=None, *, rms: bool, eps: float,
     if x.device.type == "cpu":
         out = exact_norm_plain(x, gamma, beta, rms=rms, eps=eps)
         return out if out_dtype is None else out.to(out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no ailayernorm kernel for device {x.device}")
     if not rms and beta is None:
         raise ValueError("LayerNorm needs beta")

@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, INV_LN2_SHIFT_APPROX
 from repro_torch.kernels import build
+from repro_torch.roofline.cost import (E2_OPS_PER_ELEMENT, distinct_bytes,
+                                       io_bytes, kernel_work)
 from repro_torch.kernels.flash_e2softmax import (MAX_EXP_BITS, exp2_int,
                                                  snap_reciprocal)
 
@@ -149,6 +151,11 @@ def _launch(x, mask, *, exp_bits, int8_scale, out_dtype) -> torch.Tensor:
         return out
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows: the kernel takes fewer than 2^31")
+    if x.device.type == "meta":
+        kernel_work("e2softmax", io_bytes(x, out) + (
+            0 if mask is None else distinct_bytes(mask)),
+            {"float32": E2_OPS_PER_ELEMENT * x.numel()}, out.shape)
+        return out
     vec = int(strides_vec and c % n == 0 and x.data_ptr() % 16 == 0
               and out.data_ptr() % 16 == 0
               and (mask is None or mask.data_ptr() % n == 0))
@@ -183,7 +190,7 @@ def e2softmax(x: torch.Tensor, *, exp_bits: int = 4,
     if x.device.type == "cpu":
         return e2softmax_plain(x, exp_bits=exp_bits, int8_scale=int8_scale,
                                mask=mask, out_dtype=out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no e2softmax kernel for device {x.device}")
     return _launch(x, mask, exp_bits=exp_bits, int8_scale=int8_scale,
                    out_dtype=out_dtype)

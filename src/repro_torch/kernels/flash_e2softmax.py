@@ -24,7 +24,9 @@ the counterpart of ``flash_e2softmax_pallas`` (``_kernel``): q, k, v
 tensor cores, float32 ones on the CUDA cores (:func:`dense_variant`).
 
 A wrapper given CPU tensors computes the plain version; given CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises; given meta tensors it returns
+what the kernel writes and reports its work to the cost counter
+(``roofline/cost.py``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ import torch
 
 from repro_torch.core.sole.e2softmax import ALDIV_BIAS, INV_LN2_SHIFT_APPROX
 from repro_torch.kernels import build
+from repro_torch.roofline.cost import (io_bytes, kernel_work,
+                                       paged_attention_work, type_of)
 
 NEG = -1e30
 LOG2E = 1.4426950408889634
@@ -220,6 +224,15 @@ def _launch(q, k_pool, v_pool, tables, meta, kv_head_map, *, causal, sole,
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} or {h} > "
                          f"{MAX_HEADS} query heads")
     out = torch.empty((b, h, c, d), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        # every page a table covers holds keys: the chunk ends there
+        spans = [(nb * bs - c, nb * bs)] * b
+        moved, ops = paged_attention_work(
+            q.shape, q.element_size(), k_pool.element_size(), spans,
+            causal=causal, kv_heads=kvh)
+        kernel_work("paged_e2softmax", moved, {type_of(q.dtype): ops},
+                    out.shape)
+        return out
     lib = build.load("paged_e2softmax")
     fn = build.declare(lib, "paged_e2softmax", 7, 15, 4)
     vec = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
@@ -256,7 +269,7 @@ def flash_e2softmax_paged(q, k_pool, v_pool, tables, meta, *,
     if q.device.type == "cpu":
         return flash_e2softmax_paged_plain(q, k_pool, v_pool, tables, meta,
                                            kv_head_map, **kw)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged_e2softmax for device {q.device}")
     return _launch(q, k_pool, v_pool, tables, meta, kv_head_map, **kw)
 
@@ -385,6 +398,13 @@ def _launch_dense(q, k, v, *, causal, sole, exp_bits, int8_scale, bq, bk,
     out = torch.empty((bh, s, d), dtype=torch.float32, device=dev)
     if bh == 0 or s == 0:
         return out
+    if dev.type == "meta":
+        # row r sees keys 0..r under causal: sum of min(t, r + 1)
+        m = min(s, t)
+        pairs = m * (m + 1) // 2 + (s - m) * t if causal else s * t
+        kernel_work("flash_e2softmax", io_bytes(q, k, v, out),
+                    {type_of(q.dtype): 4 * d * pairs * bh}, out.shape)
+        return out
     lib = build.load("flash_e2softmax")
     fn = build.declare(lib, "flash_e2softmax", 4, 12, 3)
     snap = int8_scale is not None
@@ -423,7 +443,7 @@ def flash_e2softmax(q, k, v, *, causal: bool = True, sole: bool = True,
     if q.device.type == "cpu":
         return flash_e2softmax_plain(q, k, v, block_q=block_q,
                                      block_k=block_k, **kw)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash_e2softmax kernel for device {q.device}")
     return _launch_dense(q.contiguous(), k.contiguous(), v.contiguous(),
                          bq=bq, bk=bk, **kw)

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline.cost import io_bytes, kernel_work
 
 # (BM, BN) output tile of each kernel instantiation, by the C interface's
 # tile code: 16 x 64 for M <= 16, 64 x 64 above, 16 x 16 for narrow N.
@@ -127,6 +128,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.int32, device=x.device)
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if x.device.type == "meta":
+        kernel_work("int8_matmul", io_bytes(x, w, out),
+                    {"int8": 2 * m * n * k}, out.shape)
+        return out
     vec = int(k % 16 == 0 and n % 4 == 0 and x.data_ptr() % 16 == 0
               and w.data_ptr() % 16 == 0)
     plan = split_plan(m, n, k)
@@ -145,7 +150,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no int8_matmul kernel for device {x.device}")
     return _launch(x, w)
 

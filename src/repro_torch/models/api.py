@@ -35,6 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import (moe, rglru, rwkv6, transformer, vlm,
                                 whisper)
+from repro_torch.models.state import tree_map
 
 _FAMILY_MODULES = {"dense": transformer, "moe": moe, "encdec": whisper,
                    "vlm": vlm, "ssm": rwkv6, "hybrid": rglru}
@@ -63,7 +64,9 @@ def init_params(seed: Union[int, torch.Generator], cfg: ArchConfig,
     default tree."""
     gen = seed
     if isinstance(seed, int):
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # the meta device draws nothing: a CPU generator stands in
+        gen_dev = "cpu" if torch.device(device).type == "meta" else device
+        gen = torch.Generator(device=gen_dev).manual_seed(seed)
     if masters:
         cfg = dataclasses.replace(cfg, dtype="float32")
     return get_model(cfg).init(gen, cfg, device)
@@ -119,6 +122,10 @@ def loss_fn(params, batch, cfg: ArchConfig
     return loss, {"xent": xent, "aux": aux}
 
 
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def train_inputs(cfg: ArchConfig, shape: ShapeConfig):
     """(batch tree of meta-device tensors, logical-axes tree) for a train
     step: the shapes and dtypes :func:`loss_fn` takes, allocating
@@ -126,9 +133,7 @@ def train_inputs(cfg: ArchConfig, shape: ShapeConfig):
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32
     dt = getattr(torch, cfg.dtype)
-
-    def meta(shp, dtype):
-        return torch.empty(shp, dtype=dtype, device="meta")
+    meta = _meta
     if cfg.family == "encdec":
         t = min(WHISPER_DEC_LEN, s)
         batch = {"frames": meta((b, s, cfg.d_model), dt),
@@ -146,6 +151,106 @@ def train_inputs(cfg: ArchConfig, shape: ShapeConfig):
         batch = {"tokens": meta((b, s), i32), "targets": meta((b, s), i32)}
         axes = {"tokens": ("batch", None), "targets": ("batch", None)}
     return batch, axes
+
+
+def prefill_inputs(cfg: ArchConfig, shape: ShapeConfig):
+    """(batch tree of meta tensors, logical-axes tree) for :func:`prefill`:
+    tokens (encdec: frames and the decoder's first ``WHISPER_DEC_LEN``
+    tokens; vlm: embeds and M-RoPE positions)."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "encdec":
+        t = min(WHISPER_DEC_LEN, s)
+        return ({"frames": _meta((b, s, cfg.d_model), dt),
+                 "tokens": _meta((b, t), torch.int32)},
+                {"frames": ("batch", None, None), "tokens": ("batch", None)})
+    if cfg.family == "vlm":
+        return ({"embeds": _meta((b, s, cfg.d_model), dt),
+                 "positions": _meta((3, b, s), torch.int32)},
+                {"embeds": ("batch", None, None),
+                 "positions": (None, "batch", None)})
+    return ({"tokens": _meta((b, s), torch.int32)},
+            {"tokens": ("batch", None)})
+
+
+_DENSE_CACHE_AXES = {"k": ("layers", "batch", "kv_heads", "head_dim", None),
+                     "v": ("layers", "batch", "kv_heads", None, "head_dim"),
+                     "pos": (None,)}
+_REC_AXES = {"h": ("layers", "batch", "ff"),
+             "conv": ("layers", "batch", None, "ff")}
+
+
+def cache_axes(cfg: ArchConfig):
+    """The logical axes of :func:`init_cache`'s tree (the reference's
+    per-family ``cache_axes``)."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return dict(_DENSE_CACHE_AXES)
+    if cfg.family == "encdec":
+        xa = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {"self": dict(_DENSE_CACHE_AXES), "cross_k": xa,
+                "cross_v": xa, "cross_pos": (None,)}
+    if cfg.family == "ssm":
+        return {"tm_x": ("layers", "batch", "embed"),
+                "cm_x": ("layers", "batch", "embed"),
+                "s": ("layers", "batch", "heads", "head_dim", None)}
+    kv = {"k": ("layers", "batch", "seq", "kv_heads", "head_dim"),
+          "v": ("layers", "batch", "seq", "kv_heads", "head_dim"),
+          "pos": ("layers", None)}
+    return {"blocks": {"rec1": dict(_REC_AXES), "rec2": dict(_REC_AXES),
+                       "attn": kv},
+            "tail": dict(_REC_AXES), "pos": ()}
+
+
+def decode_inputs(cfg: ArchConfig, shape: ShapeConfig):
+    """(cache tree, cache axes, token, pos) for :func:`decode_step` on
+    the meta device: the family's :func:`init_cache` of ``global_batch``
+    lanes of ``seq_len`` columns, token (B,) int32, pos a 0-d int32. The
+    port's dense-slot decode takes its write column on the host: the dry
+    run passes ``seq_len - 1``, the last column."""
+    b, s = shape.global_batch, shape.seq_len
+    cache = init_cache(cfg, b, s, device="meta")
+    return (cache, cache_axes(cfg), _meta((b,), torch.int32),
+            _meta((), torch.int32))
+
+
+def paged_decode_inputs(cfg: ArchConfig, shape: ShapeConfig,
+                        block_size: int = 16):
+    """(state tree, state axes, token, pos, refs) for
+    :func:`decode_step_paged` on the meta device (the reference's
+    ``paged_decode_inputs``): ``{"k", "v"}`` page pools of the
+    dense-cache-equivalent capacity plus the null page (encdec: plus each
+    lane's cross pages) in the KV store dtype, a ``"slots"`` pool of one
+    slot per lane plus the null slot, and the refs the engine passes a
+    dispatch (page tables, slot ids, cross tables). A family that is not
+    paged-servable raises."""
+    from repro_torch.models.layers import kv_store_dtype
+    from repro_torch.serve.kv_cache import cdiv
+    spec = sequence_state_spec(cfg)
+    _check_servable(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    state, axes, refs = {}, {}, {}
+    if spec.has_pages:
+        cross_blocks = cdiv(spec.cross_tokens, block_size)
+        num_blocks = b * (cdiv(s, block_size) + cross_blocks) + 1
+        pool = (spec.kv_layers, num_blocks, block_size, cfg.n_kv_heads,
+                cfg.head_dim)
+        dt = kv_store_dtype(cfg)
+        state["k"], state["v"] = _meta(pool, dt), _meta(pool, dt)
+        axes["k"] = ("layers", "pages", None, "kv_heads", "head_dim")
+        axes["v"] = ("layers", "pages", None, "kv_heads", "head_dim")
+        refs["tables"] = _meta((b, cdiv(s, block_size)), i32)
+        if spec.cross_tokens:
+            refs["cross"] = _meta((b, cross_blocks), i32)
+            refs["cross_valid"] = _meta((b,), i32)
+    if spec.has_slots:
+        state["slots"] = tree_map(
+            lambda leaf: _meta((b + 1,) + tuple(leaf.shape), leaf.dtype),
+            spec.slot_shapes)
+        axes["slots"] = tree_map(lambda ax: ("state_slots",) + tuple(ax),
+                                 spec.slot_axes)
+        refs["slots"] = _meta((b,), i32)
+    return state, axes, _meta((b,), i32), _meta((b,), i32), refs
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, device="cuda"):

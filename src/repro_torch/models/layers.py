@@ -28,6 +28,7 @@ from repro_torch.core.sole.quant import is_qtensor, quantize_act, true_div
 from repro_torch.kernels.ailayernorm import fma32
 from repro_torch.kernels.flash_e2softmax import exp2_int
 from repro_torch.ops.reference import repeat_kv
+from repro_torch.roofline.cost import Trips
 
 # int8 logit grid for E2Softmax inputs: exp(-12) is below the 4-bit log2
 # resolution, so [-12, 0] covers the useful post-max range.
@@ -223,8 +224,9 @@ def lm_logits(p, x, cfg: ArchConfig, stable: bool = False) -> torch.Tensor:
 def rope_freqs(cfg: ArchConfig, device) -> torch.Tensor:
     half = cfg.head_dim // 2
     expo = -torch.arange(half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                  device=device), expo)
+    # a fill on the device, not an upload: no sync in the decode loop
+    return torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                device=device), expo)
 
 
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
@@ -496,7 +498,9 @@ def _online_chunk(qc, qp, kb, vb, pb, cfg: ArchConfig, sole: bool,
     m_run = torch.full((b, h, qblk), _BLOCK_NEG, device=dev)
     s_run = torch.zeros((b, h, qblk), device=dev)
     acc = torch.zeros((b, h, qblk, hd), device=dev)
-    for kc, vc, pc in zip(kb, vb, pb):
+    loop = Trips(kb.shape[0], dev)     # two trips on meta, counted nkb
+    for j in loop:
+        kc, vc, pc = kb[j], vb[j], pb[j]
         logits = torch.einsum("bshd,bthd->bhst", qs, kc.float())
         mask = torch.broadcast_to(_mask(qp, pc, cfg, causal), logits.shape)
         logits = torch.where(mask, logits, _BLOCK_NEG)
@@ -516,6 +520,7 @@ def _online_chunk(qc, qp, kb, vb, pb, cfg: ArchConfig, sole: bool,
         acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", w,
                                                    vc.float())
         m_run = m_new
+        loop.carry(m_run, s_run, acc)
     s_run = torch.clamp_min(s_run, 2.0 ** -30)
     if sole:
         # ALDivision with k_y = 0: per row 2^-(k_s + 1) (1.636 - q)
@@ -572,7 +577,8 @@ def attend_blocked(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
     else:
         kb, vb, pb = blocks(k, v, k_pos)
     ctx = []
-    for i in range(nqb):
+    loop = Trips(nqb, q.device)        # two trips on meta, counted nqb
+    for i in loop:
         if band:
             start = min(max(i * qblk + qblk - span, 0), tk - span)
             kb, vb, pb = blocks(k[:, start:start + span],
@@ -581,7 +587,7 @@ def attend_blocked(q, k, v, q_pos, k_pos, cfg: ArchConfig, phase: str,
         ctx.append(_online_chunk(q[:, i * qblk:(i + 1) * qblk],
                                  q_pos[i * qblk:(i + 1) * qblk], kb, vb, pb,
                                  cfg, sole, causal, q.dtype))
-    ctx = torch.cat(ctx, 2).transpose(1, 2)          # (b, S + padq, h, hd)
+    ctx = torch.cat(loop.kept(ctx), 2).transpose(1, 2)  # (b, S + padq, h, hd)
     return ctx[:, :s]
 
 

@@ -15,9 +15,9 @@ Where the bits would part from the reference unless taken care of:
 * top-k: ``jax.lax.top_k`` puts the lower expert index first among equal
   gates; ``torch.topk`` promises no order among ties, so a stable
   descending sort is taken and its first k kept;
-* dispatch: ``argsort(stable=True)`` by expert, ``bincount``/``cumsum``
-  slot positions, tokens past an expert's capacity dropped in routing
-  order;
+* dispatch: ``argsort(stable=True)`` by expert, per-expert counts
+  (``scatter_add_``) and ``cumsum`` slot positions, tokens past an
+  expert's capacity dropped in routing order;
 * combine: the reference scatter-adds each token's contributions into a
   zero buffer of the activation dtype in sorted order, i.e. ascending
   expert id, one rounding per add; ``index_add_`` on the card uses
@@ -95,7 +95,10 @@ def dispatch(x2: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tensor,
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], top_val.reshape(-1)[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # a static-length count: bincount reads its length back from the data
+    counts = torch.zeros(n_experts, dtype=flat_e.dtype,
+                         device=dev).scatter_add_(0, flat_e,
+                                                  torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=dev) - starts[se]
     keep = pos_in_e < capacity

@@ -32,6 +32,7 @@ from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.state import SequenceStateSpec, sds, tree_map
+from repro_torch.roofline.cost import Trips
 from repro_torch.models.transformer import (_layer, _norm, _normal,
                                             remat_wrap, stacked)
 from repro_torch.serve.sampling import eos_hits, sample_tokens
@@ -98,12 +99,14 @@ def wkv_sequential(r, k, v, w, u, state):
     card."""
     uu = u[None, :, :, None]
     outs = []
-    for t in range(r.shape[1]):
+    loop = Trips(r.shape[1], r.device)   # two trips on meta, counted S
+    for t in loop:
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # rank-1 update
         outs.append(torch.matmul(r[:, t, :, None, :],
                                  L.fma(uu, kv, state))[:, :, 0])
         state = L.fma(w[:, t, :, :, None], state, kv)
-    return torch.stack(outs, 1), state
+        loop.carry(state)
+    return torch.stack(loop.kept(outs), 1), state
 
 
 def wkv_chunked(r, k, v, w, u, state, chunk: int):
@@ -127,7 +130,9 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int):
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
     outs = []
-    for rt, kt, vt, lw in zip(rc, kc, vc, logw):
+    loop = Trips(nc, r.device)         # two trips on meta, counted nc
+    for i in loop:
+        rt, kt, vt, lw = rc[i], kc[i], vc[i], logw[i]
         cum = torch.cumsum(lw, 2)                        # L_t
         prev = cum - lw                                  # L_{t-1}
         o = torch.einsum("bhtd,bhdv->bhtv", rt * torch.exp(prev), state)
@@ -142,8 +147,10 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int):
         kd = kt * torch.exp(cum[:, :, -1:, :] - cum)     # k_tau e^{L_C - L_tau}
         state = decay_out[..., None] * state + torch.einsum(
             "bhsd,bhsv->bhdv", kd, vt)
+        loop.carry(state)
         outs.append(o)
-    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hd)
+    o = torch.stack(loop.kept(outs)).permute(1, 0, 3, 2, 4).reshape(
+        b, s, h, hd)
     return o, state
 
 

@@ -357,7 +357,7 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     quant_ffn = (qact and ffn_apply is None
                  and is_qtensor(lay["mlp"].get("up")))
     ffn_apply = ffn_apply or _dense_ffn
-    stable = stable_rows and tokens.device.type == "cuda"
+    stable = stable_rows and tokens.device.type != "cpu"   # the card's route
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_start = positions[:, 0]
     pk, pv = pools["k"], pools["v"]

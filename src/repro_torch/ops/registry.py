@@ -11,11 +11,16 @@ tensors' device, never an autodetect of the machine (:func:`backend_for`):
   whose reference implementation is a Pallas kernel has one;
 * every other pair (no kernel in the reference either, e.g. exact
   norms or the softermax / I-BERT baselines, which are XLA there) runs
-  ``reference`` torch ops on the card.
+  ``reference`` torch ops on the card;
+* meta tensors (the dry run, ``launch/dryrun.py``) take the card's
+  route: a pair with a kernel reaches the kernel's wrapper, which returns
+  what the kernel writes and reports its work to the cost counter
+  (``roofline/cost.py``) and runs nothing else; every other pair runs its
+  torch ops on meta, as it would on the card.
 
 A caller may choose (``ArchConfig.ops_backend``, the launcher's
 ``--ops-backend``): ``reference`` runs the plain versions on any device,
-``cuda`` is ``auto`` that refuses tensors off the card.
+``cuda`` is ``auto`` that refuses CPU tensors.
 
 :func:`resolve` is strict: an unregistered combination raises
 ``NotImplementedError``; unknown names raise ``ValueError``.
@@ -98,7 +103,7 @@ def backend_for(op: str, mode: str, device, choice: str = "auto") -> str:
         raise ValueError(f"unknown ops backend {choice!r}; known: {CHOICES}")
     if choice == "reference":
         return "reference"
-    if torch.device(device).type != "cuda":
+    if torch.device(device).type not in ("cuda", "meta"):
         if choice == "cuda":
             raise ValueError(
                 f"ops backend 'cuda' needs CUDA tensors, got {device} "

@@ -106,11 +106,18 @@ def _sampling_tensors(streams, use_top_k: bool, stochastic: bool, tensor):
             *(tensor(c.astype(np.int64)) for c in cols[1:]))
 
 
-def _to_host(toks: torch.Tensor, done: torch.Tensor):
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A whole device array to host memory in one copy: with
+    :meth:`PagedEngine._tensor`'s uploads, the engines' only transfers
+    (``analysis/sanitizers.py`` allows these and no other sync)."""
+    return t.cpu().numpy()
+
+
+def _to_host(toks: torch.Tensor, done: torch.Tensor, host=_host):
     """(B, W) draws and eos mask -> numpy (int32, bool), in one copy."""
     w = toks.shape[1]
-    host = torch.cat([toks, done.to(torch.int32)], 1).cpu().numpy()
-    return host[:, :w], host[:, w:].astype(bool)
+    out = host(torch.cat([toks, done.to(torch.int32)], 1))
+    return out[:, :w], out[:, w:].astype(bool)
 
 
 def _check_family(cfg: ArchConfig, engine: str) -> None:
@@ -268,6 +275,8 @@ class PagedEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    _host = staticmethod(_host)
+
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Replay COW page duplications on the device before the step
         that writes into the fresh private pages."""
@@ -392,7 +401,7 @@ class PagedEngine:
                 # fresh sequence: the first generated token comes from the
                 # last real prompt position's logits (a resumed sequence
                 # already holds its next feed token in out).
-                tok = seq.sampler(logits[0, real - 1].cpu().numpy())
+                tok = seq.sampler(self._host(logits[0, real - 1]))
                 # the first token can already be a finish event.
                 _, seq.finish_reason = apply_finish(seq.sampler, seq.out,
                                                     [tok])
@@ -436,7 +445,7 @@ class PagedEngine:
             self._refs(seqs), self._state(), *sampling, self.cfg,
             num_steps=h, **flags)
         self._put_state(state)
-        rows, done_rows = _to_host(toks, done)
+        rows, done_rows = _to_host(toks, done, self._host)
         for i, seq in enumerate(lanes):
             # cut the lane at its first finish event; draws after the cut
             # never entered the stream.
@@ -543,7 +552,7 @@ class PagedEngine:
             self._tensor(n_valid), self._refs(seqs), self.cache.pools,
             *sampling, self.cfg, **flags)
         self.cache.pools = state
-        rows, done_rows = _to_host(pinned, done)
+        rows, done_rows = _to_host(pinned, done, self._host)
         for i, (seq, draft) in enumerate(lanes):
             acc = 0
             while acc < len(draft) and draft[acc] == rows[i, acc]:
@@ -773,6 +782,8 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    _host = staticmethod(_host)
+
     def _sample(self, logits: torch.Tensor, samplers: List[Sampler],
                 live: List[bool]) -> np.ndarray:
         """(B,) ids drawn on the device from (B, padded_vocab) logits, each
@@ -790,7 +801,7 @@ class Engine:
         for s, on in zip(samplers, live):
             if on and not s.greedy:
                 s.skip(1)
-        return toks.cpu().numpy()
+        return self._host(toks)
 
     def generate(self, requests: List[Request]) -> List[List[int]]:
         """Serve all requests, ``batch_size`` at a time; outputs in request

@@ -34,6 +34,7 @@ from repro import ops as jops
 from repro_torch import ops as tops
 from repro_torch.kernels import e2softmax as KE
 from repro_torch.models.layers import LOGIT_INT8_SCALE
+from repro_torch.roofline.cost import CostCounter
 
 SHAPES = [(4, 64), (3, 5, 130), (7, 257), (2, 1000)]
 RTOL = 2e-6
@@ -147,6 +148,20 @@ def test_exact_softmax_matches_reference():
                                atol=1e-7)
 
 
+def _kernel_only(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on meta tensors under a cost counter: it
+    reports one launch of kernel ``name``, and no aten op moves a byte or
+    multiplies (the plain version did not run)."""
+    with CostCounter() as counter:
+        out = fn(*args, **kwargs)
+    kernels = {k[0]: v[0] for k, v in counter.records.items()
+               if k[0].startswith("kernel:")}
+    assert kernels == {"kernel:" + name: 1}
+    assert not [k for k, v in counter.records.items()
+                if not k[0].startswith("kernel:") and (v[1] or v[2])]
+    return out
+
+
 def test_wrapper_guards():
     """The mask broadcasts; exp_bits outside [0, 6] and a tensor on any
     device but the CPU or CUDA raise."""
@@ -157,8 +172,12 @@ def test_wrapper_guards():
         KE.e2softmax(x, mask=row.expand(3, 4, 16).clone()).numpy())
     with pytest.raises(ValueError, match="exp_bits"):
         KE.e2softmax(x, exp_bits=7)
-    with pytest.raises(ValueError, match="no e2softmax kernel"):
-        KE.e2softmax(torch.zeros((2, 8), device="meta"))
+    launches = KE.e2softmax.launches       # meta: the dry run's route
+    out = _kernel_only("e2softmax", KE.e2softmax,
+                       torch.zeros((2, 8), device="meta"),
+                       out_dtype=torch.bfloat16)
+    assert out.is_meta and out.shape == (2, 8) and out.dtype == torch.bfloat16
+    assert KE.e2softmax.launches == launches
     with pytest.raises(ValueError, match="last axis"):
         tops.resolve("softmax", "sole", "cuda")(x, axis=0)
     assert tops.backend_for("softmax", "sole", "cuda") == "cuda"

@@ -35,6 +35,7 @@ from repro_torch import ops as tops
 from repro_torch.kernels import flash_e2softmax as KA
 from repro_torch.models.layers import LOGIT_INT8_SCALE
 from repro_torch.ops import oracles as tor
+from repro_torch.roofline.cost import CostCounter
 
 
 def _inputs(seed, b, s, t, h, kvh, hd, grid=True):
@@ -175,6 +176,20 @@ def test_pallas_flash_snap_multiplies_by_the_reciprocal():
     assert f"constant({inv:.8g}" in hlo or f"constant({inv:.7g}" in hlo
 
 
+def _kernel_only(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on meta tensors under a cost counter: it
+    reports one launch of kernel ``name``, and no aten op moves a byte or
+    multiplies (the plain version did not run)."""
+    with CostCounter() as counter:
+        out = fn(*args, **kwargs)
+    kernels = {k[0]: v[0] for k, v in counter.records.items()
+               if k[0].startswith("kernel:")}
+    assert kernels == {"kernel:" + name: 1}
+    assert not [k for k, v in counter.records.items()
+                if not k[0].startswith("kernel:") and (v[1] or v[2])]
+    return out
+
+
 def test_wrapper_guards():
     q = torch.zeros((2, 300, 16))
     with pytest.raises(ValueError, match="tiles"):
@@ -183,10 +198,11 @@ def test_wrapper_guards():
         KA.flash_e2softmax(q, q, q, exp_bits=7)
     with pytest.raises(ValueError, match="zero keys"):
         KA.flash_e2softmax(q, q[:, :0], q[:, :0], causal=False)
-    with pytest.raises(ValueError, match="no flash_e2softmax kernel"):
-        m = torch.zeros((1, 8, 16), device="meta")
-        KA.flash_e2softmax(m, m, m)
     before = KA.flash_e2softmax.launches
+    m = torch.zeros((1, 8, 16), device="meta")     # the dry run's route
+    out = _kernel_only("flash_e2softmax", KA.flash_e2softmax, m, m, m)
+    assert out.is_meta and out.shape == (1, 8, 16)
+    assert KA.flash_e2softmax.launches == before    # meta never launches
     KA.flash_e2softmax(q[:, :8], q[:, :8], q[:, :8])
     assert KA.flash_e2softmax.launches == before    # CPU tensors never launch
     assert KA.dense_blocks(100, 300, 128, 128, True) == (100, 100)

@@ -35,6 +35,7 @@ from repro_torch import ops as tops
 from repro_torch.core.sole.quant import calibrate_ptf, quantize_act
 from repro_torch.kernels import ailayernorm as KN
 from repro_torch.ops import oracles as tor
+from repro_torch.roofline.cost import CostCounter
 
 
 def _case(seed, shape):
@@ -177,11 +178,36 @@ def test_static_params_must_be_ptf_params():
                                                 params=object())
 
 
+def _kernel_only(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on meta tensors under a cost counter: it
+    reports one launch of kernel ``name``, and no aten op moves a byte or
+    multiplies (the plain version did not run)."""
+    with CostCounter() as counter:
+        out = fn(*args, **kwargs)
+    kernels = {k[0]: v[0] for k, v in counter.records.items()
+               if k[0].startswith("kernel:")}
+    assert kernels == {"kernel:" + name: 1}
+    assert not [k for k, v in counter.records.items()
+                if not k[0].startswith("kernel:") and (v[1] or v[2])]
+    return out
+
+
 def test_fused_wrappers_take_only_cpu_or_cuda_tensors():
+    """No plain version runs off the CPU: on meta tensors (the dry run's
+    route) the wrappers return the kernels' outputs and launch nothing."""
     x = torch.zeros((2, 8), device="meta")
-    chan = (x[0], x[0].int(), x[0], x[0])
-    for fn in (KN.add_norm, KN.add_norm_quant):
-        with pytest.raises(ValueError, match="no ailayernorm kernel"):
-            fn(x, x, *chan, rms=True)
-    with pytest.raises(ValueError, match="no ailayernorm kernel"):
-        KN.codes_norm(x.int(), *chan[1:])
+    chan = (x[0, :1], x[0].int(), x[0], x[0])
+    counts = (KN.add_norm.launches, KN.add_norm_quant.launches,
+              KN.codes_norm.launches)
+    h, out = _kernel_only("ailayernorm_add_norm", KN.add_norm, x, x, *chan,
+                          rms=True)
+    assert (h.dtype, out.dtype, out.shape) == (torch.float32, torch.float32,
+                                               (2, 8))
+    h, codes, scale = _kernel_only("ailayernorm_add_norm_quant",
+                                   KN.add_norm_quant, x, x, *chan, rms=True)
+    assert (codes.dtype, scale.shape) == (torch.int8, (2, 1))
+    xi = x.int()
+    out = _kernel_only("ailayernorm_codes", KN.codes_norm, xi, *chan[1:])
+    assert out.is_meta and out.shape == (2, 8)
+    assert counts == (KN.add_norm.launches, KN.add_norm_quant.launches,
+                      KN.codes_norm.launches)

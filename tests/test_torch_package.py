@@ -39,6 +39,7 @@ from repro_torch.kernels import flash_e2softmax as KA
 from repro_torch.kernels import int8_matmul as KM
 from repro_torch import ops as tops
 from repro_torch.models import api
+from repro_torch.roofline.cost import CostCounter
 from repro_torch.serve.engine import PagedEngine, Request
 from repro_torch.train.optimizer import OptConfig
 
@@ -282,18 +283,42 @@ def test_missing_nvcc_raises(monkeypatch):
         build.nvcc_path()
 
 
+def _kernel_only(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on meta tensors under a cost counter: it
+    reports one launch of kernel ``name``, and no aten op moves a byte or
+    multiplies (the plain version did not run)."""
+    with CostCounter() as counter:
+        out = fn(*args, **kwargs)
+    kernels = {k[0]: v[0] for k, v in counter.records.items()
+               if k[0].startswith("kernel:")}
+    assert kernels == {"kernel:" + name: 1}
+    assert not [k for k, v in counter.records.items()
+                if not k[0].startswith("kernel:") and (v[1] or v[2])]
+    return out
+
+
 def test_wrappers_take_only_cpu_or_cuda_tensors():
-    """A tensor on any other device raises: nothing is computed with the
-    plain version unless the tensor lies on the CPU."""
+    """Nothing is computed with the plain version unless the tensor lies
+    on the CPU: meta tensors (the dry run's) take the card's route, where
+    each wrapper returns the kernel's outputs, shapes and dtypes, and
+    neither launches nor computes anything."""
     q = torch.zeros((1, 2, 1, 8), device="meta")
     pool = torch.zeros((3, 4, 1, 8), device="meta")
     tables = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     meta = torch.zeros((1, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no paged_e2softmax"):
-        KA.flash_e2softmax_paged(q, pool, pool, tables, meta)
+    counts = (KA.flash_e2softmax_paged.launches, KN.qnorm.launches,
+              KM.int8_matmul.launches)
+    heads = KA.default_kv_head_map(2, 1, "meta")    # an input, made outside
+    out = _kernel_only("paged_e2softmax", KA.flash_e2softmax_paged, q, pool,
+                       pool, tables, meta, kv_head_map=heads)
+    assert out.is_meta and out.shape == q.shape and out.dtype == torch.float32
     x = torch.zeros((2, 8), device="meta")
-    with pytest.raises(ValueError, match="no ailayernorm kernel"):
-        KN.qnorm(x, x[0], x[0].int(), x[0], x[0], rms=True)
+    out = _kernel_only("ailayernorm_qnorm", KN.qnorm, x, x[0, :1],
+                       x[0].int(), x[0], x[0], rms=True)
+    assert out.is_meta and out.shape == (2, 8)
     a = torch.zeros((2, 8), dtype=torch.int8, device="meta")
-    with pytest.raises(ValueError, match="no int8_matmul kernel"):
-        KM.int8_matmul(a, a.t().contiguous())
+    w = a.t().contiguous()
+    out = _kernel_only("int8_matmul", KM.int8_matmul, a, w)
+    assert out.is_meta and out.shape == (2, 2) and out.dtype == torch.int32
+    assert counts == (KA.flash_e2softmax_paged.launches, KN.qnorm.launches,
+                      KM.int8_matmul.launches)
