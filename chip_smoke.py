@@ -573,16 +573,28 @@ CALIB_CASES.update({f"rms4096_{name}": (rows, 4096, True)
                                        ("dense_prefill", DECODE_BATCH * 300))})
 
 
+# (rows, C, rms) on each side of the calibrating norm's plan boundaries
+# (kernels.ailayernorm.calib_plan): the decode cluster's 16 CTAs, the
+# route at 128 rows and the grid's one CTA an SM; checked, not timed
+CALIB_BOUNDARY_CASES = {f"boundary_{rows}x{c}": (rows, c, rows % 2 == 0)
+                        for rows, c in ((16, 6144), (17, 6144), (127, 896),
+                                        (129, 896), (127, 6144), (129, 6144),
+                                        (132, 896), (133, 896))}
+
+
 def check_calib_norm(torch):
     """Phase 3, the calibrating norm: residual add, PTF calibration over
-    all rows and quantize+norm in one cluster launch, against the torch
-    chain it replaces (its plain version) on bf16 activations: ``h``,
-    ``alpha``, ``scale``, the bf16 output and the quantize-out codes and
-    row scales bitwise, on two calls in a row."""
+    all rows and quantize+norm in one launch (a cluster for decode rows, a
+    cooperative grid for prefill rows), against the torch chain it
+    replaces (its plain version) on bf16 activations: ``h``, ``alpha``,
+    ``scale``, the bf16 output and the quantize-out codes and row scales
+    bitwise, on two calls in a row, at the timed cases and the plan's
+    boundary rows; each case logs its route."""
     from repro_torch.kernels import ailayernorm as KN
     gen = torch.Generator(device="cuda").manual_seed(3)
     res = {}
-    for name, (rows, c, rms) in CALIB_CASES.items():
+    for name, (rows, c, rms) in {**CALIB_CASES,
+                                 **CALIB_BOUNDARY_CASES}.items():
         x = torch.randn((rows, c), generator=gen, device="cuda") * 3
         x[:, ::7] *= 8                         # outlier channels, alpha > 0
         x = x.to(torch.bfloat16)
@@ -610,10 +622,14 @@ def check_calib_norm(torch):
             if not same:
                 raise AssertionError(f"ailayernorm_calib {name}: not bitwise "
                                      "equal to the torch chain")
-        res[name] = dict(x=x, r=r, gamma=gamma, beta=beta, rms=rms,
-                         max_abs_err=0.0)
+        if name in CALIB_CASES:
+            res[name] = dict(x=x, r=r, gamma=gamma, beta=beta, rms=rms,
+                             max_abs_err=0.0)
+        plan = KN.calib_plan(rows, c, x.element_size())
         log(f"ailayernorm_calib {name} rows={rows} C={c} "
-            f"{'rms' if rms else 'ln'}: h, alpha, scale, bf16 out, int8 "
+            f"{'rms' if rms else 'ln'} [{plan.route}, {plan.ctas} CTAs of "
+            f"{plan.chunk} rows, {plan.keep} kept, {plan.teams} teams]: h, "
+            f"alpha, scale, bf16 out, int8 "
             f"codes and row scales bitwise equal (scale "
             f"{want[3].item():.6g}, alpha histogram "
             f"{torch.bincount(want[2], minlength=4).tolist()})")

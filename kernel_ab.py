@@ -4,7 +4,7 @@
 one card. Run from the root of a checkout, with another checkout of the
 repository at ``BASE``::
 
-    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,exact,wave,moe]
+    python3 kernel_ab.py --base BASE [--only paged,sweep,norm,flash,gemm,e2,qnorm,exact,calib,wave,moe]
 
 Each turn is a fresh process that puts ``<checkout>/src`` first on the
 path, builds that checkout's kernels there (``kernels/build.py``) and
@@ -57,11 +57,27 @@ times, with CUDA events and the L2 cache flushed before each launch:
   and its backward (``exact_norm_backward``, both of its launches) at
   every ``chip_smoke.NORM_BWD_CASES`` shape on float32 and bf16 rows
   (both checkouts' functions take the same arguments);
+* ``calib``: the calibrating norm (``calibrated_norm``, one launch of
+  ``calib_norm_kernel``) as a model's SOLE norms call it: the op
+  ``residual_rmsnorm`` / ``residual_layernorm`` on bf16 x and r with bf16
+  out (as ``chip_smoke.time_calib_norm`` calls it) at every
+  ``chip_smoke.CALIB_CASES`` shape and ``chip_smoke.FAMILY_NORM_CASES``
+  shape (whisper's LN 768 x 8 / 128 / 1,500, qwen2-vl's RMS 3,584 x 8 /
+  2,048), one-row calls (RMS 896 and LN 4,096 x 1: one CTA), and rwkv6's
+  GroupNorm rows (float32, a (64, 64) affine, no residual, float32 out)
+  at 64 rows (one group) and every ``chip_smoke.GROUPNORM_CASES`` row
+  count; by CUDA events into ``calib`` and the profiler's
+  ``calib_norm_kernel`` time into ``calib_kernel`` (the wrapper's
+  signature is the same in both checkouts);
 * ``wave``: the host wall of one decode-heavy wave of ``PagedEngine`` and
   of the dense-slot ``Engine`` at qwen2_0_5b's full width, in bf16 and at
   w8a8 with int8 pages or cache (the end-to-end effect of the kernels and
-  the host work around them), and the device kernels per forward of the
-  same wave under the profiler;
+  the host work around them), and of ``PagedEngine`` at minitron_8b's in
+  bf16; and, from the same wave under the profiler, the device kernels
+  per forward, the device busy seconds, the calibrating norm's share of
+  them, and its launches and device microseconds a launch by route (its
+  kernel's instantiations: ``<T, V, true>`` the grid, ``<T, V, false>``
+  the cluster; one name in a checkout without routes);
 * ``moe``: mixtral_8x7b at full width and ``chip_smoke.MIXTRAL_LAYERS``
   layers (bf16, SOLE), one profiled paged wave (``chip_smoke.profile_moe``):
   its wall, device busy, the expert FFN's device time and share of busy.
@@ -88,11 +104,13 @@ FLASH = (("qwen2_causal", "sole"), ("qwen2_causal", "sole_int8"),
 
 
 KINDS = ("paged", "sweep", "norm", "flash", "gemm", "e2", "qnorm", "exact",
-         "wave", "moe")
+         "calib", "wave", "moe")
 # the paged kind's wide-head shapes: (label, heads, KV heads, head dim,
 # pools); decode over chip_smoke's 1-300 keys, prefill a 128-row chunk
 WIDE_PAGED = (("minitron", 32, 8, 128, ("bf16", "int8")),
               ("recurrentgemma", 16, 1, 256, ("bf16",)))
+# the calib kind's one-row calls (rows, C, rms), beside chip_smoke's cases
+CALIB_ONE_ROW = {"rms896_rows1": (1, 896, True), "ln4096_rows1": (1, 4096, False)}
 # kv lengths of the decode sweep: one to sixteen 128-key chunks
 SWEEP_KV = (16, 128, 300, 1024, 2048)
 
@@ -117,7 +135,8 @@ def worker(src: str, kinds) -> dict:
     names = {"paged": "paged_e2softmax", "sweep": "paged_e2softmax",
              "norm": "ailayernorm", "flash": "flash_e2softmax",
              "gemm": "int8_matmul", "e2": "e2softmax",
-             "qnorm": "ailayernorm", "exact": "ailayernorm"}
+             "qnorm": "ailayernorm", "exact": "ailayernorm",
+             "calib": "ailayernorm"}
     # a wave runs every kernel of the serve paths
     build.build_all(None if {"wave", "moe"} & set(kinds)
                     else [names[k] for k in kinds])
@@ -126,7 +145,8 @@ def worker(src: str, kinds) -> dict:
     out = {"paged": {}, "sweep": {}, "norm": {}, "norm_wall": {}, "flash": {},
            "gemm": {}, "sdpa": {}, "int_mm": {}, "e2": {}, "e2_wall": {},
            "qnorm": {}, "static_ops": {}, "static_ops_wall": {},
-           "exact_fwd": {}, "exact_bwd": {}, "wave": {}, "moe": {}}
+           "exact_fwd": {}, "exact_bwd": {}, "calib": {}, "calib_kernel": {},
+           "wave": {}, "moe": {}}
     cfg = get_config("qwen2_0_5b")
     if "paged" in kinds:
         shapes = {"decode": dict(b=DECODE_BATCH, c=1,
@@ -187,6 +207,8 @@ def worker(src: str, kinds) -> dict:
         static_norms(torch, gen, flush, out)
     if "exact" in kinds:
         exact_norms(torch, gen, flush, out)
+    if "calib" in kinds:
+        calib_norms(torch, flush, out)
     if "wave" in kinds:
         out["wave"] = waves(torch, cfg)
     if "moe" in kinds:
@@ -371,6 +393,43 @@ def exact_norms(torch, gen, flush, out) -> None:
                     flush)
 
 
+def calib_norms(torch, flush, out) -> None:
+    """The ``calib`` kind: the calibrating norm's op calls by events into
+    ``out["calib"]`` and by the profiler into ``out["calib_kernel"]``."""
+    from chip_smoke import (CALIB_CASES, FAMILY_NORM_CASES, GROUPNORM_CASES,
+                            _groupnorm_rows, profiled_kernel_ms, time_ms)
+    from repro_torch import ops
+    from repro_torch.kernels import ailayernorm as KN
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for rows, c, rms in (*CALIB_CASES.values(), *FAMILY_NORM_CASES.values(),
+                         *CALIB_ONE_ROW.values()):
+        x = torch.randn((rows, c), generator=gen, device="cuda") * 3
+        x[:, ::7] *= 8                         # outlier channels, alpha > 0
+        x = x.to(torch.bfloat16)
+        r = torch.randn((rows, c), generator=gen, device="cuda").to(x.dtype)
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        extra = () if rms else (0.1 * torch.randn((c,), generator=gen,
+                                                  device="cuda"),)
+        stage = ops.resolve("residual_rmsnorm" if rms
+                            else "residual_layernorm", "sole", "cuda")
+
+        def run():
+            return stage(x, r, gamma, *extra, out_dtype=x.dtype)
+        key = f"{'rms' if rms else 'ln'}{c}_rows{rows}"
+        out["calib"][key] = time_ms(torch, run, flush)
+        out["calib_kernel"][key] = profiled_kernel_ms(torch, run, flush,
+                                                      "calib_norm_kernel")
+    for rows in (*GROUPNORM_CASES.values(), 64):
+        x, g, b = _groupnorm_rows(torch, gen, rows)
+
+        def run():
+            return KN.calibrated_norm(x, None, g, b, rms=False)
+        key = f"groupnorm_rows{rows}"
+        out["calib"][key] = time_ms(torch, run, flush)
+        out["calib_kernel"][key] = profiled_kernel_ms(torch, run, flush,
+                                                      "calib_norm_kernel")
+
+
 def e2_stage(torch, cfg, gen, flush, out) -> None:
     """The ``e2`` kind: the kernel alone and the ``_sole_probs`` stage at
     the dense path's decode and prefill inputs (``chip_smoke``'s), by
@@ -405,14 +464,17 @@ def e2_stage(torch, cfg, gen, flush, out) -> None:
 def waves(torch, cfg) -> dict:
     """Host wall seconds of one decode-heavy wave (8 requests of 128-token
     prompts, 32 new tokens each, as ``chip_smoke.py`` profiles it) through
-    ``PagedEngine`` at qwen2_0_5b's full width, in bf16 and at w8a8 with
-    int8 pages, after a warm-up request."""
+    ``PagedEngine`` and the dense-slot ``Engine`` at qwen2_0_5b's full
+    width, in bf16 and at w8a8 with int8 pages, and through
+    ``PagedEngine`` at minitron_8b's in bf16, after a warm-up request; from
+    the same wave under the profiler, device kernels per forward, device
+    busy seconds and the calibrating norm's share of them."""
     import dataclasses
     import numpy as np
     from chip_smoke import (BLOCK_SIZE, DECODE_BATCH, DENSE_MAX_LEN,
                             MAX_SEQ_LEN, NEW_TOKENS, PREFILL_CHUNK,
-                            _device_us, is_dense_e2)
-    from repro_torch.configs.base import QuantConfig
+                            device_rows, is_dense_e2)
+    from repro_torch.configs.base import QuantConfig, get_config
     from repro_torch.models import api
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Engine, PagedEngine, Request
@@ -420,7 +482,8 @@ def waves(torch, cfg) -> dict:
     cfg8 = dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                kv_cache_dtype="int8")
     for label, c in (("paged_bf16", cfg), ("paged_w8a8", cfg8),
-                     ("dense_bf16", cfg), ("dense_w8a8", cfg8)):
+                     ("dense_bf16", cfg), ("dense_w8a8", cfg8),
+                     ("minitron_paged_bf16", get_config("minitron_8b"))):
         params = api.init_params(0, c, "cuda")
         dense = label.startswith("dense")
         if dense:
@@ -451,13 +514,25 @@ def waves(torch, cfg) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng.generate(reqs)
             torch.cuda.synchronize()
-        events = [(e.key, e.count) for e in prof.key_averages()
-                  if _device_us(e) > 0]
-        forwards = sum(n for k, n in events
+        rows = device_rows(torch, prof)
+        forwards = sum(n for _, n, k in rows
                        if (is_dense_e2(k) if dense
                            else "paged_e2softmax" in k)) / c.n_layers
         res[f"{label}_kernels_per_forward"] = \
-            sum(n for _, n in events) / forwards
+            sum(n for _, n, _ in rows) / forwards
+        busy = sum(us for us, _, _ in rows) / 1e6
+        res[f"{label}_busy_s"] = busy
+        calib = [(us, n, k) for us, n, k in rows if "calib_norm_kernel" in k]
+        res[f"{label}_calib_share"] = sum(us for us, _, _ in calib) / 1e6 / busy
+        res[f"{label}_calib_launches"] = sum(n for _, n, _ in calib)
+        res[f"{label}_calib_us"] = (sum(us for us, _, _ in calib)
+                                    / max(1, sum(n for _, n, _ in calib)))
+        for route, tag in (("grid", ", true>"), ("cluster", ", false>")):
+            mine = [(us, n) for us, n, k in calib if tag in k]
+            if mine:
+                res[f"{label}_calib_launches_{route}"] = sum(n for _, n in mine)
+                res[f"{label}_calib_us_{route}"] = (sum(us for us, _ in mine)
+                                                    / sum(n for _, n in mine))
         del eng, params
         torch.cuda.empty_cache()
     return res
@@ -502,8 +577,20 @@ def main() -> int:
               flush=True)
     for kind in ("paged", "sweep", "norm", "norm_wall", "flash", "gemm",
                  "e2", "e2_wall", "qnorm", "static_ops", "static_ops_wall",
-                 "exact_fwd", "exact_bwd", "wave", "moe"):
-        for name in turns[0][1][kind]:
+                 "exact_fwd", "exact_bwd", "calib", "calib_kernel", "wave",
+                 "moe"):
+        for name in dict.fromkeys(n for _, t in turns for n in t[kind]):
+            if all(t[kind].get(name) is not None for lb, t in turns
+                   if lb == "this") and all(name not in t[kind]
+                                            for lb, t in turns if lb == "base"):
+                vals = [t[kind][name] for lb, t in turns if lb == "this"]
+                print(f"{kind} {name}: this {sum(vals) / len(vals):.2f} "
+                      "(base has none)")
+                continue
+            if any(t[kind].get(name) is None for _, t in turns):
+                print(f"{kind} {name}: not measured (the profiler kept no "
+                      "record in a turn)")
+                continue
             mean = {lab: sum(t[kind][name] for lb, t in turns if lb == lab)
                     / 2 for lab in ("base", "this")}
             lib = {"flash": "sdpa", "gemm": "int_mm",
@@ -513,6 +600,10 @@ def main() -> int:
             scale = 1 if kind == "wave" else 1e3
             if name.endswith("_per_forward"):
                 unit, scale = "kernels", 1
+            if name.endswith("_share") or "_calib_launches" in name:
+                unit, scale = "", 1
+            if "_calib_us" in name:
+                unit, scale = "us", 1
             if kind == "moe":                  # named by their units
                 unit, scale = "", 1
             print(f"{kind} {name}: base {mean['base'] * scale:.2f} {unit}, "

@@ -22,7 +22,9 @@ entries are one team-per-row kernel template; each takes the PTF params'
 * :func:`calibrated_norm`: the ``params=None`` chain of the serve path —
   the residual add, ``calibrate_ptf`` over all rows and the quantize+norm
   (``_qnorm_kernel``), with the output in the model dtype or as per-row
-  int8 — in one launch of one thread-block cluster.
+  int8 — in one launch, laid out by :func:`calib_plan`: one
+  thread-block cluster for decode and verify rows, a cooperative grid over
+  the card for prefill rows.
   :func:`ailayernorm`/:func:`airmsnorm`/:func:`fused_add_norm`/
   :func:`fused_add_norm_quant` without params reach it.
 * :func:`exact_norm`: the exact mode's float LayerNorm / RMSNorm (no TPU
@@ -53,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -386,14 +388,98 @@ def calibrated_norm_plain(x, r, gamma, beta, *, rms: bool,
     return h, res, params.alpha, params.scale.float().reshape(1)
 
 
+# csrc/ailayernorm.cu's calibrating-norm geometry: threads of a CTA
+# (kCalThreads), CTAs of a decode cluster at most (kCalClusterMax), the
+# dynamic shared memory a CTA may take (kCalSmemMax: the H100's 227 KB less
+# room for the kernel's static shared memory), and the SMs of an H100, the
+# grid route's width where no card is asked (the meta device)
+CALIB_THREADS = 512
+CALIB_CLUSTER_MAX = 16
+CALIB_SMEM_MAX = 232448 - 1024
+H100_SMS = 132
+# the decode route: fewer rows than this, or at most this many elements
+CALIB_PREFILL_ROWS = 128
+CALIB_DECODE_ELEMENTS = 32768
+
+
+class CalibPlan(NamedTuple):
+    """How ``calib_norm_kernel`` takes a call (:func:`calib_plan`)."""
+    route: str      # "cluster" (decode and verify rows) or "grid"
+    ctas: int       # CTAs of the launch (a cluster of them, or the grid)
+    chunk: int      # rows of a CTA at most (CTA k takes the rows of groups
+                    # [k sets / ctas, (k + 1) sets / ctas), sets = rows / G)
+    teams: int      # row teams of a CTA (a team of 512 / teams threads)
+    keep: int       # rows of a CTA whose h stays in shared memory
+    smem: int       # dynamic shared memory of a CTA, bytes
+    scratch: int    # float32 elements of device scratch (grid route)
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=4096)
+def calib_plan(rows: int, c: int, itemsize: int, groups: int = 1,
+               sms: int = H100_SMS) -> CalibPlan:
+    """The calibrating norm's plan for ``rows`` rows of ``c`` channels of
+    ``itemsize`` bytes, the rows a multiple of ``groups`` (the affine's
+    rows), from the shape alone. Decode and verify rows (fewer than 128,
+    or at most 32,768 elements) take one cluster of up to 16 CTAs, a row
+    (or a group of rows) each where there are that few: the code of a
+    decode call runs once, so its time is a chain of latencies that more
+    CTAs shorten; prefill rows one cooperative launch of up to ``sms``
+    CTAs, one an SM (the co-resident limit).
+    CTA k takes the consecutive rows of groups [k sets / ctas, (k + 1)
+    sets / ctas) (sets = rows / groups, so at most ``chunk`` rows, whole
+    groups) and keeps h of as many of them as fit in its shared memory; a
+    row
+    team is the fewest lanes, a power of two up to a warp, that cover the
+    row's 16-byte units, widened while lanes still lack a unit and the
+    CTA's rows still take every team at once.
+    No bit of a result depends on the plan."""
+    if rows < 1 or c < 1 or groups < 1 or rows % groups or sms < 1:
+        raise ValueError(f"calib_plan: rows {rows}, C {c}, groups {groups}, "
+                         f"sms {sms}")
+    sets = rows // groups
+    if rows < CALIB_PREFILL_ROWS or rows * c <= CALIB_DECODE_ELEMENTS:
+        route = "cluster"
+        n = min(CALIB_CLUSTER_MAX, sets)
+    else:
+        route = "grid"
+        n = min(sms, sets)
+    chunk = -(-sets // n) * groups
+    ctas = n
+    units = -(-c * itemsize // 16)
+    tt = 1
+    while tt < 32 and tt < units:
+        tt *= 2
+    while (tt < CALIB_THREADS and tt < units
+           and CALIB_THREADS // (2 * tt) >= chunk):
+        tt *= 2
+    fixed = (_r16(4 * c) + _r16(c)
+             + (_r16(4 * -(-c // ctas)) if ctas > 1 else 0))
+    row_bytes = _r16(c * itemsize)
+    keep = max(0, min(chunk, (CALIB_SMEM_MAX - fixed) // row_bytes))
+    return CalibPlan(route, ctas, chunk, CALIB_THREADS // tt, keep,
+                     fixed + keep * row_bytes,
+                     ctas * (c + 1) + c if route == "grid" else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                     out_dtype=torch.float32, quant_out: bool = False,
                     with_params: bool = True):
     """The residual add, PTF calibration over all rows and the
     quantize+norm of ``x`` (..., C) float32 or bf16, ``r`` of the same
     shape and type or None, ``gamma``/``beta`` (C,) float32, or (G, C) with
-    row r of ``x`` taking row r mod G (``beta`` None for RMS): one cluster
-    launch on CUDA tensors, which must be contiguous. Returns what
+    row r of ``x`` taking row r mod G (``beta`` None for RMS): one launch
+    of ``calib_norm_kernel`` on CUDA tensors, which must be contiguous,
+    as :func:`calib_plan` lays it out (the grid route's device scratch
+    from ``torch.empty``). Returns what
     :func:`calibrated_norm_plain` returns, the output in ``out_dtype``
     (float32 or the activation type);
     ``with_params=False`` leaves out the calibration (None, None) on the
@@ -448,6 +534,12 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
         res = out = torch.empty(x.shape, dtype=out_dtype, device=dev)
     if rows == 0:
         return h, res, alpha, scale
+    plan = calib_plan(rows, c, x.element_size(), groups,
+                      H100_SMS if dev.type == "meta"
+                      else _sm_count(dev.index if dev.index is not None
+                                     else torch.cuda.current_device()))
+    scratch = (torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
+               if plan.scratch else None)
     if dev.type == "meta":
         kernel_work("ailayernorm_calib",
                     io_bytes(x, r, gamma, None if rms else beta,
@@ -456,19 +548,20 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                     {"float32": QNORM_OPS_PER_ELEMENT * rows * c}, (rows, c))
         return h, res, alpha, scale
     n = 16 // x.element_size()
-    vec = int(c % n == 0 and x.data_ptr() % 16 == 0
-              and (r is None or (r.data_ptr() % 16 == 0
-                                 and h.data_ptr() % 16 == 0)))
+    vec = int(c % n == 0 and all(t.data_ptr() % 16 == 0 for t in
+                                 (x, *chan, *(() if r is None else (r, h)))))
     ptrs = [None if t is None else t.data_ptr()
             for t in (x, r, gamma, None if rms else beta,
                       None if r is None else h, out, codes, qscale, alpha,
-                      scale)]
+                      scale, scratch)]
     lib = build.load("ailayernorm")
-    fn = build.declare(lib, "ailayernorm_calib", 10, 8, 2)
+    fn = build.declare(lib, "ailayernorm_calib", 11, 12, 2)
     eps, eps6 = _fill_eps(x.dtype)
     rc = build.launch(dev, fn, *ptrs, rows, c, groups, int(rms),
                       _ACT_TYPES[x.dtype],
                       int(out_dtype != torch.float32), int(quant_out), vec,
+                      int(plan.route == "grid"), plan.ctas, plan.keep,
+                      CALIB_THREADS // plan.teams,
                       ctypes.c_float(eps), ctypes.c_float(eps6))
     build.check(lib, rc, "ailayernorm_calib launch")
     calibrated_norm.launches += 1

@@ -711,15 +711,16 @@ def test_static_norm_extreme_scales(cuda_device, scale, c):
                           torch.float32)
 
 
-def _profiled_kernels(fn, counters, reps=5):
+def _profiled_kernels(fn, counters, reps=5,
+                      ours=("qnorm_kernel", "add_norm_kernel",
+                            "add_norm_quant", "norm_row_kernel")):
     """Device kernels per call of ``fn`` under ``torch.profiler`` (between
-    two ``torch.cuda._sleep`` markers, not counted), the static-params
-    norm kernels by their launch counters (the profiler can drop a record
+    two ``torch.cuda._sleep`` markers, not counted), the kernels named in
+    ``ours`` (by default the static-params norm kernels) by the launch
+    counters ``counters`` of their wrappers (the profiler can drop a record
     of a kernel launched through ctypes). Returns (kernels per call, the
     names of every other kernel seen)."""
     from torch.profiler import ProfilerActivity, profile
-    ours = ("qnorm_kernel", "add_norm_kernel", "add_norm_quant",
-            "norm_row_kernel")
     fn()
     torch.cuda.synchronize()
     before = sum(f.launches for f in counters)
@@ -1276,6 +1277,185 @@ def test_model_norms_launch_only_the_calibrating_kernel(cuda_device):
     assert out.dtype == torch.bfloat16 and torch.equal(hq, h)
     assert torch.equal(n, KN.calibrated_norm_plain(
         x, None, gamma, None, rms=True, out_dtype=torch.bfloat16)[1])
+
+
+# (rows, C) on each side of calib_plan's boundaries (bf16 / float32 rows):
+# the decode cluster's size (a row a CTA up to 16: 16 -> 17 rows of 2,048
+# and 6,144; 32 -> 33 rows, two -> three a CTA), the route (127 / 128 / 129
+# rows; 128 x 256 = 32,768 elements against 128 x 264), the grid's one CTA
+# an SM (131 / 132 / 133 and 263 / 264 / 265 rows) and the h slab (2,400
+# rows of 6,144 keep 16 of a CTA's 19 bf16 rows, 8 of float32 ones; the
+# rest are read again)
+CALIB_BOUNDARIES = [(1, 896), (16, 6144), (17, 6144), (32, 896), (33, 896),
+                    (16, 2048), (17, 2048),
+                    (127, 896), (128, 896), (129, 896), (127, 6144),
+                    (128, 6144), (129, 6144), (128, 256), (128, 264),
+                    (131, 896), (132, 896), (133, 896), (263, 896),
+                    (264, 896), (265, 896), (2400, 6144)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,c", CALIB_BOUNDARIES)
+def test_calibrated_norm_at_the_plan_boundaries(cuda_device, rows, c, dtype):
+    """Row counts on each side of every boundary of the plan, with and
+    without ``r``, RMS and LayerNorm: bitwise equal to the torch chain
+    (norm and quantize-out, twice each)."""
+    rng = np.random.default_rng(rows * 7 + c)
+    x, r, gamma, beta = _calib_case(rng, rows, c, getattr(torch, dtype),
+                                    cuda_device)
+    _check_calib(x, r, gamma, beta, rows % 2 == 0)
+    _check_calib(x, None, gamma, beta, rows % 2 == 1)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,c", [(8, 896), (40, 4096), (127, 6144),
+                                    (2400, 896), (2400, 6144)])
+def test_calibrated_norm_max_in_the_last_row(cuda_device, rows, c, dtype):
+    """One channel whose maximum sits only in the last row of the last CTA
+    (it sets the base scale): the maxima cross every CTA before any row is
+    normalized, so alpha, scale and the outputs equal the torch chain."""
+    rng = np.random.default_rng(rows + c + 5)
+    x = rng.uniform(-1, 1, (rows, c)).astype(np.float32)
+    x[-1, c - 3] = -50.0
+    dt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(cuda_device, dt)
+    rt = torch.from_numpy(rng.uniform(-0.25, 0.25, (rows, c)).astype(
+        np.float32)).to(cuda_device, dt)
+    gamma = torch.ones(c, device=cuda_device)
+    beta = torch.zeros(c, device=cuda_device)
+    want = KN.calibrated_norm_plain(xt, rt, gamma, beta, rms=False)
+    assert int(want[2][c - 3]) == 3 and want[2][:c - 3].max() < 3
+    _check_calib(xt, rt, gamma, beta, False)
+    _check_calib(xt, rt, gamma, beta, True)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,c", [(8, 896), (40, 4096), (2400, 896)])
+def test_calibrated_norm_all_zero_rows(cuda_device, rows, c, dtype):
+    """All-zero RMS rows among others (every code 0: the zero dividends
+    ``code_of`` keeps off the division's slow path) and an all-zero
+    tensor (every channel at calibrate_ptf's 1e-8 floor): bitwise."""
+    rng = np.random.default_rng(rows + c)
+    x, r, gamma, beta = _calib_case(rng, rows, c, getattr(torch, dtype),
+                                    cuda_device)
+    x[::3] = 0
+    r[::3] = 0
+    _check_calib(x, r, gamma, beta, True)
+    _check_calib(torch.zeros_like(x), None, gamma, beta, True)
+    _check_calib(torch.zeros_like(x), torch.zeros_like(x), gamma, beta,
+                 False)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,c", [(8, 897), (40, 4098), (2400, 900),
+                                    (8, 896), (2400, 896)])
+def test_calibrated_norm_scalar_route(cuda_device, rows, c, dtype):
+    """C not a multiple of the 16-byte vector, and x, r and gamma one
+    element off 16-byte alignment (contiguous views into larger buffers):
+    the scalar instantiation, bitwise equal to the torch chain."""
+    rng = np.random.default_rng(rows + c + 11)
+    x, r, gamma, beta = _calib_case(rng, rows, c, getattr(torch, dtype),
+                                    cuda_device)
+    if c % 16 == 0:
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            return view
+        x, r, gamma, beta = (shift(t) for t in (x, r, gamma, beta))
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _check_calib(x, r, gamma, beta, True)
+    _check_calib(x, r, gamma, beta, False)
+
+
+@pytest.mark.parametrize("rows,c", [(8, 896), (40, 4096), (2400, 6144)])
+def test_calibrated_norm_float32_out_and_without_params(cuda_device, rows, c):
+    """bf16 rows with a float32 output, quantize-out, and
+    ``with_params=False`` (no copy of the calibration): the same bits as
+    the torch chain."""
+    rng = np.random.default_rng(rows + c + 3)
+    x, r, gamma, beta = _calib_case(rng, rows, c, torch.bfloat16, cuda_device)
+    for rms in (True, False):
+        b = None if rms else beta
+        want = KN.calibrated_norm_plain(x, r, gamma, beta, rms=rms)
+        want_q = KN.calibrated_norm_plain(x, r, gamma, beta, rms=rms,
+                                          quant_out=True)
+        got = KN.calibrated_norm(x, r, gamma, b, rms=rms)
+        h, out, alpha, scale = KN.calibrated_norm(
+            x, r, gamma, b, rms=rms, with_params=False)
+        hq, (codes, qs), aq, sq = KN.calibrated_norm(
+            x, r, gamma, b, rms=rms, quant_out=True, with_params=False)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+        assert got[1].dtype == torch.float32
+        assert alpha is scale is aq is sq is None
+        assert torch.equal(h, want[0]) and torch.equal(out, want[1])
+        assert torch.equal(hq, want[0])
+        assert torch.equal(codes, want_q[1][0]) and torch.equal(qs,
+                                                                 want_q[1][1])
+
+
+@pytest.mark.parametrize("rows,route,ctas", [(64, "cluster", 1),
+                                             (153600, "grid", 132)])
+def test_calibrated_norm_grouped_bf16_rows(cuda_device, rows, route, ctas):
+    """rwkv6's (64, 64) affine on bf16 rows with a residual and
+    quantize-out: one group (one CTA, a plain launch) and 153,600 rows (the
+    grid route with whole groups a CTA), bitwise equal to the torch
+    chain."""
+    x, g, b = _groupnorm_case(np.random.default_rng(9), rows, cuda_device)
+    r = torch.randn(x.shape, device=cuda_device) * 0.5
+    x, r = x.to(torch.bfloat16), r.to(torch.bfloat16)
+    plan = KN.calib_plan(rows, 64, 2, 64)
+    assert (plan.route, plan.ctas) == (route, ctas)
+    _check_calib(x, r, g, b, False)
+
+
+def test_calibrated_norm_calls_in_a_row(cuda_device):
+    """Ten calls in a row at alternating shapes and routes, enqueued
+    without a synchronize: each equals the torch chain, so no scratch or
+    barrier state is carried from one launch to the next."""
+    rng = np.random.default_rng(10)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for rows, c, dt, rms in ((8, 896, bf, True), (2400, 6144, bf, False),
+                             (128, 896, f32, True), (40, 4096, bf, False),
+                             (2048, 3584, bf, True)):
+        x, r, gamma, beta = _calib_case(rng, rows, c, dt, cuda_device)
+        want = KN.calibrated_norm_plain(x, r, gamma, beta, rms=rms,
+                                        out_dtype=dt)
+        cases.append(((x, r, gamma, None if rms else beta), rms, dt, want))
+    torch.cuda.synchronize()
+    got = [KN.calibrated_norm(*args, rms=rms, out_dtype=dt)
+           for i in range(10)
+           for args, rms, dt, _ in [cases[(3 * i) % len(cases)]]]
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        want = cases[(3 * i) % len(cases)][3]
+        assert all(torch.equal(p, q) for p, q in zip(g, want)), i
+
+
+@pytest.mark.parametrize("rows,c,rms", [(8, 896, True), (40, 4096, False),
+                                        (2400, 6144, False),
+                                        (2048, 3584, True)])
+def test_calibrating_norm_op_call_is_one_kernel(cuda_device, rows, c, rms):
+    """A model's SOLE norm op call (``residual_rmsnorm`` /
+    ``residual_layernorm``, bf16 out) is one device kernel on either route:
+    one ``calib_norm_kernel`` launch (by its counter: the profiler can drop
+    a record of a kernel launched through ctypes) and no memset or other
+    kernel under the profiler."""
+    rng = np.random.default_rng(rows)
+    x, r, gamma, beta = _calib_case(rng, rows, c, torch.bfloat16, cuda_device)
+    fn = ops.resolve("residual_rmsnorm" if rms else "residual_layernorm",
+                     "sole", "cuda")
+    extra = () if rms else (beta,)
+
+    def call():
+        return fn(x, r, gamma, *extra, out_dtype=torch.bfloat16)
+    before = KN.calibrated_norm.launches
+    n, other = _profiled_kernels(call, (KN.calibrated_norm,),
+                                 ours=("calib_norm_kernel",))
+    assert KN.calibrated_norm.launches - before == 6
+    assert n == 1 and not other, (n, other)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8"])
