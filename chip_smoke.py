@@ -217,11 +217,45 @@ step at the profiled wave's shape predicts its peak within 10%, (c) both
 count the product FLOPs ``FlopCounterMode`` counts on the card, and (d)
 ``launch.dryrun --all`` and ``--all --paged`` end with no ``error``
 cell; the cells that fit one card are printed. The sweep runs on the
-host's CPU after the last timed phase (the profiled waves), one process
-per (arch, dense or paged) on every core, into ``build/dryrun_sweep``, so
-no timed phase shares the host with it. The profiled
+host's CPU, one process per (arch, dense or paged), into
+``build/dryrun_sweep``: its longest jobs on three cores while the kernels
+build (five ``nvcc`` processes on the machine's eight cores; the jobs
+started then are waited for after the kernel checks), the rest on every
+core after the last timed phase (the profiled waves), so no timed phase
+shares the host with it. The profiled
 waves read the profiler's raw events (``device_rows``), not
 ``key_averages()``.
+
+Tensor-parallel serving (``mesh_serve``, after the dry run's checks, its
+``[phase time]`` logged): the paged kernel at the per-rank shapes of the
+mesh plans (qwen2_0_5b's 7 q heads on 1 KV head at M = 2; its
+replicated-KV maps at M = 7, every rank, rank 3's group straddling two KV
+heads and the other ranks leaving a pool head unread; minitron_8b at M =
+2 and 4; recurrentgemma_9b's 8 heads on its one replicated KV head) at
+decode and a 128-row chunk, bf16 and int8 + ``quant_pv`` pools, SOLE and
+exact, bitwise the single card's launch on the same heads and within the
+card tests' bar of the plain version, and the int8 GEMM at qwen2_0_5b's
+and minitron_8b's N / 2 and K / 2 shapes bitwise; qwen2_0_5b's bf16
+products in their tensor-parallel forms (column-parallel slices bitwise
+the single card's columns, row-parallel float32 partial sums within a
+rounding step of the single card's product, the share apart printed);
+then qwen2_0_5b at full width and depth (ten greedy requests of at most
+64 prompt tokens, 8 new tokens, decode horizon 2) on one card and on a
+(1, 2) mesh whose two ranks (``launch.mesh.spawn``) share the card over
+gloo, each engine built from host-memory weights after the peak is reset:
+exact float32 (tokens equal, or the first divergence inside a top-2
+margin no larger than the first forward's measured logit difference),
+then the n-gram drafter on the same requests (every rank's tokens its
+plain decode's), SOLE bf16 (agreement share printed), W8A8 + int8 KV
+(tokens and the first and last logits bitwise); and SOLE bf16 on a (1, 4)
+mesh (attention replicated; the first four requests, beside the single
+card on the same four). Every rank's tokens are equal; collectives a
+forward (2L + 2; 4L + 2 at W8A8; L + 2 at (1, 4)), the collectives' host
+share of the wall, parameter, pool and peak bytes a rank are checked or
+printed, and where each spawn's wall went. Where the machine shows two
+cards or more, the (1, 2) exact trace runs again over nccl, one card a
+rank, under the sanitizers' sync guard; with one card the phase says nccl
+did not run.
 
 Prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -236,6 +270,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -5835,6 +5870,9 @@ SANITIZE_SWEEP = 4                 # refcount sweep every 4 engine steps
 DRYRUN_TOL = 0.10                  # predicted peak bytes within 10% of measured
 SWEEP_DIR = os.path.join(ROOT, "build", "dryrun_sweep")
 SWEEP_TIMEOUT = 900
+# sweep jobs run while the kernels build: the build runs one nvcc a source
+# (five) on the machine's eight cores
+EARLY_SWEEP_JOBS = 3
 
 
 def serve_sole_phase(torch):
@@ -5912,6 +5950,663 @@ def sanitized_trace(torch):
     del eng, params
     torch.cuda.empty_cache()
     return res
+
+
+# -- tensor-parallel serving over a mesh of ranks (mesh_serve) -------------------
+
+MESH_NEW_TOKENS = 8
+MESH_PROMPT = 64                   # tokens of a mesh request's prompt, at most
+MESH_FOUR_REQUESTS = 4             # the (1, 4) trace serves the first four
+MESH_SPEC_REQUESTS = 3             # the n-gram trace serves the first three
+MESH_SPAWN_TIMEOUT = 600           # seconds for one spawned battery
+MESH_MODES = ("exact", "sole", "w8a8")
+# per-rank paged shapes: (label, H, KV, d, M); every rank of the model axis
+# is checked (the replicated-KV maps of qwen2 at M = 7 straddle KV heads on
+# rank 3 and leave a pool head unread on the others)
+MESH_PAGED_CASES = (("qwen2_m2", 14, 2, 64, 2), ("qwen2_m7", 14, 2, 64, 7),
+                    ("minitron_m2", 32, 8, 128, 2),
+                    ("minitron_m4", 32, 8, 128, 4),
+                    ("recurrentgemma_m2", 16, 1, 256, 2))
+
+
+def mesh_cfg(mode):
+    """qwen2_0_5b as the mesh traces serve it: ``exact`` float32 (exact
+    softmax and norms), ``sole`` bf16, ``w8a8`` SOLE with int8 KV."""
+    from repro_torch.configs.base import QuantConfig, get_config
+    cfg = get_config("qwen2_0_5b")
+    if mode == "exact":
+        return dataclasses.replace(cfg, softmax_mode="exact",
+                                   norm_mode="exact", logit_int8=False,
+                                   dtype="float32")
+    if mode == "w8a8":
+        return dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
+                                   kv_cache_dtype="int8")
+    return cfg
+
+
+def mesh_requests(cfg, n=None):
+    """The first ``n`` (all ten by default) of ten greedy requests: the
+    trace's eight prompts, wave 2's and the first again (a prefix hit),
+    each cut to ``MESH_PROMPT`` tokens (gloo stages every collective
+    through host memory; each prompt is one 128-row prefill chunk). The
+    third prompt repeats a 16-token run four times, so the n-gram drafter
+    proposes from its first decode step."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    prompts, tail = trace_prompts(cfg)
+    prompts[2] = np.tile(prompts[2][:16], 4)
+    return [Request(prompt=p[:MESH_PROMPT], max_new_tokens=MESH_NEW_TOKENS)
+            for p in prompts + [tail, prompts[0]]][:n]
+
+
+class LogitsKeeper:
+    """The first and the last forward's logits (whole rows, host memory)
+    of the traces run inside it (``layers.lm_logits`` wrapped)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.orig, self.first, self.last = L, L.lm_logits, None, None
+
+        def keep(*a, **kw):
+            out = self.orig(*a, **kw)
+            if self.first is None:
+                self.first = out.detach().float().cpu().numpy()
+            self.last = out
+            return out
+        L.lm_logits = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.L.lm_logits = self.orig
+        if self.last is not None:
+            self.last = self.last.detach().float().cpu().numpy()
+
+
+def mesh_params(torch, cfg, device):
+    """qwen2_0_5b's weights from seed 0, drawn on ``device`` (the draws of
+    the single-card phases) and moved to host memory: each engine moves
+    what it keeps, so a rank's card holds only its slices and the peak
+    measured from the engine's construction on counts them."""
+    from repro_torch.models import api
+    from repro_torch.models.state import tree_map
+    params = tree_map(lambda t: t.cpu(), api.init_params(0, cfg, device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
+               spec=0):
+    """qwen2_0_5b at full width and depth (``mesh_cfg(mode)``) through
+    ``PagedEngine`` on ``mesh_requests(cfg, n)``: one rank's engine under
+    ``rules``, or the whole model without, built from host-memory weights
+    after the peak is reset. Returns the tokens, the first and last
+    forward's logits, launches, collectives of one prefill forward, the
+    wall, peak memory (construction included) and parameter and pool
+    bytes, and the seconds set-up took (weights, engine, the rest after
+    the wall). ``sanitize``: the same requests again under the sanitizers'
+    sync guard. ``spec``: the first ``spec`` requests again through an
+    engine with the n-gram drafter on the same weights (its tokens and
+    counters; exact mode's rows do not depend on the batch)."""
+    import numpy as np
+    from repro_torch.serve.engine import PagedEngine, Request
+    from repro_torch.serve.spec import NGramDrafter, SpecConfig
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import param_bytes
+    cfg = mesh_cfg(mode)
+    t0 = time.time()
+    params = mesh_params(torch, cfg, device)
+    setup = {"weights": time.time() - t0}
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats(device)
+    kw = dict(num_blocks=10 * MAX_SEQ_LEN // BLOCK_SIZE + 1,
+              block_size=BLOCK_SIZE, max_seq_len=MAX_SEQ_LEN, max_running=8,
+              decode_batch=DECODE_BATCH, prefill_chunk=PREFILL_CHUNK,
+              decode_horizon=8, device=device, rules=rules)
+    eng = PagedEngine(cfg, params, **kw)
+    del params
+    setup["engine"] = time.time() - t0
+    reqs = mesh_requests(cfg, n)
+    reset_launches()
+    san = guarded = None
+    sec0 = sum(comm.SECONDS.values())
+    with LogitsKeeper() as keep:
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        outs = eng.generate(reqs)
+        if sanitize:
+            # the trace above warmed the allocator and the kernel libraries
+            # (a fresh rank's first requests do not reach its peak
+            # shapes); the same requests again, prefix hits and all, run
+            # under the guard
+            from repro_torch.analysis.sanitizers import attach
+            san = attach(eng)
+            san.freeze()
+            again = eng.generate(reqs)
+            if [len(o) for o in again] != [MESH_NEW_TOKENS] * len(reqs):
+                raise AssertionError("mesh guarded trace lengths")
+            guarded = dict(san.report(), tokens_as_first_run=again == outs)
+            san.detach()
+        torch.cuda.synchronize(device)
+        wall = time.time() - t0
+    t_after = time.time()
+    coll_s = sum(comm.SECONDS.values()) - sec0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    if [len(o) for o in outs] != [MESH_NEW_TOKENS] * len(reqs):
+        raise AssertionError(f"mesh {mode}: lengths {[len(o) for o in outs]}")
+    before = dict(comm.COUNTS)
+    eng.generate([Request(prompt=np.arange(1, 9, dtype=np.int32),
+                          max_new_tokens=1)])
+    per_forward = {k: comm.COUNTS[k] - before.get(k, 0) for k in comm.COUNTS
+                   if comm.COUNTS[k] > before.get(k, 0)}
+    eng.cache.check_refcounts()
+    res = dict(tokens=outs, first=keep.first, last=keep.last, wall_s=wall,
+               collective_s=coll_s, collective_share=coll_s / wall,
+               launches={k: v for k, v in launches.items() if v},
+               collectives_per_forward=per_forward, peak_gib=peak,
+               param_bytes=param_bytes(eng.params),
+               pool_bytes=sum(p.numel() * p.element_size()
+                              for p in eng.cache.pools.values()))
+    if guarded is not None:
+        res["sanitizer"] = guarded
+    setup["after"] = time.time() - t_after
+    res["setup_s"] = setup
+    if spec:
+        twin = PagedEngine(cfg, eng.params, spec_config=SpecConfig(
+            NGramDrafter(), max_k=4), **kw)
+        t0 = time.time()
+        toks = twin.generate(mesh_requests(cfg, spec))
+        torch.cuda.synchronize(device)
+        twin.cache.check_refcounts()
+        st = twin.stats()
+        res["spec_ngram"] = dict(
+            tokens=toks, wall_s=time.time() - t0,
+            stats={k: st[k] for k in (
+                "spec_dispatches", "spec_proposed_tokens",
+                "spec_accepted_tokens", "decode_dispatches")})
+        del twin
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(rank, world, modes, backend, t_spawn, n=None, spec=0):
+    """One rank of a (1, ``world``) mesh (``launch.mesh.spawn`` started
+    it and its group): the traces of ``modes`` on the first ``n``
+    requests, ``spec`` > 0 adding the n-gram trace of that many requests
+    to the exact one; under nccl on its own card with the sanitizers' sync
+    guard, under gloo on the shared card. Rank 0 returns the first and the
+    last forward's logits (every rank holds the same rows after the
+    gather). ``t_spawn``: the parent's clock at the spawn, for the seconds
+    the rank took to start and each trace's."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    started = time.time() - t_spawn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", rank) if backend == "nccl"
+              else torch.device("cuda", 0))
+    torch.cuda.set_device(device)
+    rules = make_rules(make_mesh((1, world), ("data", "model")))
+    out = {"started_s": started, "trace_s": {}}
+    for mode in modes:
+        t0 = time.time()
+        res = mesh_trace(torch, mode, device, rules,
+                         sanitize=backend == "nccl", n=n,
+                         spec=spec if mode == "exact" else 0)
+        if rank:
+            res.pop("first")
+            res.pop("last")
+        out[mode] = res
+        out["trace_s"][mode] = time.time() - t0
+    out["done_s"] = time.time() - t_spawn
+    return out
+
+
+def check_mesh_kernels(torch):
+    """The paged kernel and the int8 GEMM at the per-rank shapes of the
+    mesh plans, each local launch against its plain version (the card
+    tests' bars: 1e-5 on exact-logit inputs at head dim 64 and 256; at 128
+    exact mode 1e-4 of the output scale and SOLE at most 1% of rows off by
+    more than 1e-3) and bitwise against the single card's launch on the
+    same heads: decode (8 lanes, null lanes) and a 128-row causal chunk,
+    bf16 pools and int8 pools with ``quant_pv``, SOLE and exact. Returns
+    (paged results, GEMM results)."""
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.kernels import int8_matmul as KM
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    shapes = {"decode": dict(b=DECODE_BATCH, c=1, q_start=[0] * DECODE_BATCH,
+                             kv_lens=[49, 300, 117, 1, 256, 83, 160, 1]),
+              "chunk": dict(b=1, c=PREFILL_CHUNK, q_start=[PREFILL_CHUNK],
+                            kv_lens=[2 * PREFILL_CHUNK])}
+    paged = {}
+    for label, h, kvh, d, m in MESH_PAGED_CASES:
+        hloc, g = h // m, h // kvh
+        matched = kvh % m == 0
+        kvloc = kvh // m if matched else kvh
+        for name, sh in shapes.items():
+            causal = name == "chunk"
+            for int8 in (False, True):
+                case = paged_case(torch, gen, h=h, kvh=kvh, d=d,
+                                  grid=True, int8=int8, **sh)
+                q, k, v, tables, meta = case
+                for mode in ("sole", "exact"):
+                    kw = dict(sole=mode == "sole", exp_bits=4,
+                              int8_scale=(LOGIT_INT8_SCALE if mode == "sole"
+                                          else None))
+                    if int8:
+                        kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                    full = KA.flash_e2softmax_paged(*case, causal=causal,
+                                                    **kw)
+                    worst, off = 0.0, 0.0
+                    for s in range(m):
+                        ql = q[:, s * hloc:(s + 1) * hloc].contiguous()
+                        kl, vl = ((k, v) if not matched else
+                                  (t[:, :, s * kvloc:(s + 1) * kvloc]
+                                   .contiguous() for t in (k, v)))
+                        first = 0 if matched else s * hloc
+                        kvmap = ((torch.arange(hloc, device="cuda") + first)
+                                 // g).to(torch.int32)
+                        out = KA.flash_e2softmax_paged(
+                            ql, kl, vl, tables, meta, kv_head_map=kvmap,
+                            causal=causal, **kw)
+                        ref = KA.flash_e2softmax_paged_plain(
+                            ql, kl, vl, tables, meta, kvmap, causal=causal,
+                            **kw)
+                        torch.cuda.synchronize()
+                        tag = (f"paged {label} rank {s} {name} "
+                               f"{'int8' if int8 else 'bf16'} {mode}")
+                        if not torch.equal(out, full[:, s * hloc:
+                                                     (s + 1) * hloc]):
+                            raise AssertionError(
+                                f"{tag}: differs from the single-card "
+                                "launch's heads")
+                        err = (out - ref).abs()
+                        scale = max(ref.abs().max().item(), 1.0)
+                        worst = max(worst, err.max().item())
+                        if d == 128 and mode == "sole":
+                            frac = (err.amax(-1) > 1e-3 * scale).float(
+                                ).mean().item()
+                            off = max(off, frac)
+                            bad = frac > 0.01
+                        else:
+                            bad = err.max().item() > (
+                                1e-4 * scale if d == 128 else 1e-5 * scale)
+                        if bad:
+                            raise AssertionError(
+                                f"{tag}: max |err| {err.max().item()} "
+                                "against the plain version")
+                    key = f"{label}_{name}_{'int8' if int8 else 'bf16'}_{mode}"
+                    paged[key] = dict(max_abs_err=worst, rows_off=off,
+                                      ranks=m, q_heads=hloc, pool_heads=kvloc)
+        log(f"[mesh kernels] paged {label}: {hloc} q heads a rank on "
+            f"{kvloc} {'own' if matched else 'replicated'} KV heads, d {d}: "
+            "every rank bitwise the single-card launch's heads, within the "
+            "plain version's bar (decode and 128-row chunk, bf16 and int8 "
+            "+ quant_pv pools, SOLE and exact)")
+    gemm = {}
+    for pre, kn in (("", GEMM_KN), ("minitron_", MINITRON_GEMM_KN)):
+        for nm, k, n in kn:
+            row = nm in ("wq_wo", "down")       # wo and down contract K / 2
+            for m in (DECODE_BATCH, PREFILL_CHUNK):
+                x = torch.randint(-127, 128, (m, k), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                w = torch.randint(-127, 128, (k, n), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                whole = KM.int8_matmul(x, w)
+                parts = []
+                for s in range(2):
+                    if row:
+                        xs = x[:, s * k // 2:(s + 1) * k // 2].contiguous()
+                        ws = w[s * k // 2:(s + 1) * k // 2].contiguous()
+                    else:
+                        xs, ws = x, w[:, s * n // 2:(s + 1) * n // 2
+                                      ].contiguous()
+                    out = KM.int8_matmul(xs, ws)
+                    if not torch.equal(out, KM.int8_matmul_plain(xs, ws)):
+                        raise AssertionError(f"int8_matmul {pre}{nm} rank {s}"
+                                             f" m {m}: differs from plain")
+                    parts.append(out)
+                joined = (parts[0] + parts[1] if row
+                          else torch.cat(parts, 1))
+                if not torch.equal(joined, whole):
+                    raise AssertionError(f"int8_matmul {pre}{nm} m {m}: the "
+                                         "ranks' products do not make the "
+                                         "single-card one")
+                shape = ((m, k // 2, n) if row else (m, k, n // 2))
+                gemm[f"{pre}{nm}_m{m}"] = dict(shape=shape, max_abs_err=0)
+    log(f"[mesh kernels] int8_matmul at {len(gemm)} per-rank shapes "
+        "(qwen2_0_5b's and minitron_8b's N / 2 and K / 2, M 8 and 128): "
+        "bitwise the plain version; the K halves sum, and the N halves "
+        "join, to the single-card product")
+    return paged, gemm
+
+
+def check_mesh_products(torch):
+    """qwen2_0_5b's bf16 products in their tensor-parallel forms, each
+    rank's on the single card's inputs (random bf16 weights and rows, seed
+    29), prefill (64- and 128-row chunks: the plain forms) and decode (8
+    rows through ``stable_mm``'s row tiles). Column-parallel, each rank's
+    slice bitwise the single card's columns: q/k/v through
+    ``layers._project_qkv`` (biases included) at M = 2, ``gate`` and ``up``
+    at M = 2 and 4 (``apply_mlp``'s forms), the head through
+    ``layers.lm_logits`` at M = 2 and 4. Row-parallel (``wo`` at M = 2,
+    ``down`` at M = 2 and 4): the ranks' float32 partials (``out32``)
+    summed and rounded once against the single card's product, every
+    output within one bf16 rounding step (2^-7 of its magnitude) plus the
+    float32 accumulation bound K 2^-23 (|a| @ |w|); the share of outputs
+    that differ is returned per product and shape."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2_0_5b")
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ff, voc = cfg.d_ff, cfg.padded_vocab
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def rnd(*shape, k=1):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * k ** -0.5).to(torch.bfloat16)
+
+    attn = {"wq": rnd(d, h, hd, k=d), "wk": rnd(d, kvh, hd, k=d),
+            "wv": rnd(d, kvh, hd, k=d), "bq": rnd(h, hd, k=64),
+            "bk": rnd(kvh, hd, k=64), "bv": rnd(kvh, hd, k=64)}
+    mlp = {"gate": rnd(d, ff, k=d), "up": rnd(d, ff, k=d)}
+    wo, down, head = rnd(h, hd, d, k=h * hd), rnd(ff, d, k=ff), rnd(d, voc, k=d)
+
+    def part(t, dim, r, m):
+        n = t.shape[dim] // m
+        return t.narrow(dim, r * n, n).contiguous()
+
+    def col(a, w, stable):                  # apply_mlp's gate/up forms
+        if not stable:
+            return a @ w
+        a2 = a.reshape(-1, a.shape[-1])
+        return L.tile_mm(L.pad_rows(a2), w)[:a2.shape[0]]
+
+    def row(a, w, stable):                  # a rank's wo or down partial
+        a2 = a.reshape(-1, a.shape[-1])
+        if stable:
+            return L.tile_mm(L.pad_rows(a2), w, True)[:a2.shape[0]]
+        return L.mm(a2, w, True)
+
+    diff = {}
+    for name, (b, s) in (("prefill_64", (1, 64)), ("prefill_128", (1, 128)),
+                         ("decode", (DECODE_BATCH, 1))):
+        stable = name == "decode"
+        x = rnd(b, s, d)
+        cases = []
+        whole = L._project_qkv(attn, x, cfg, stable)
+        cases += [(f"{t} m2", lambda r, i=i: L._project_qkv(
+            {k: part(v, 1 if k[0] == "w" else 0, r, 2)
+             for k, v in attn.items()}, x, cfg, stable)[i],
+            whole[i], 2, 2) for i, t in enumerate("qkv")]
+        for m in (2, 4):
+            for k, w in mlp.items():
+                cases.append((f"{k} m{m}", lambda r, w=w, m=m: col(
+                    x, part(w, 1, r, m), stable), col(x, w, stable), m, -1))
+            cases.append((f"head m{m}", lambda r, m=m: L.lm_logits(
+                {"head": part(head, 1, r, m)}, x, cfg, stable),
+                L.lm_logits({"head": head}, x, cfg, stable), m, -1))
+        for label, got, want, m, dim in cases:
+            for r in range(m):
+                if not torch.equal(got(r), part(want, dim, r, m)):
+                    raise AssertionError(f"mesh products {label} rank {r} "
+                                         f"{name}: not the single card's "
+                                         "columns bitwise")
+        ctx, hid = rnd(b, s, h * hd), rnd(b, s, ff)
+        for label, a, w, ms, single in (
+                ("wo", ctx, wo.reshape(h * hd, d), (2,), L._wo_proj(
+                    ctx.reshape(b, s, h, hd), {"wo": wo}, cfg, stable)),
+                ("down", hid, down, (2, 4), col(hid, down, stable))):
+            single = single.reshape(-1, d)
+            k = w.shape[0]
+            bound = (a.abs().float().reshape(-1, k) @ w.abs().float()
+                     * (k * 2.0 ** -23))
+            for m in ms:
+                acc = sum(row(part(a, -1, r, m), part(w, 0, r, m), stable)
+                          for r in range(m))
+                tp = L.cast(acc, cfg)
+                gap = (tp.float() - single.float()).abs()
+                top = torch.maximum(tp.float().abs(), single.float().abs())
+                if bool((gap > top * 2.0 ** -7 + bound).any()):
+                    raise AssertionError(f"mesh products {label} m{m} {name}:"
+                                         " the partials' sum is more than a "
+                                         "rounding step from the card's")
+                diff[f"{label}_m{m}_{name}"] = (tp != single).float().mean(
+                    ).item()
+    log("[mesh products] column-parallel q/k/v (M 2), gate/up and the head "
+        "(M 2, 4): every rank's slice bitwise the single card's columns "
+        "(prefill 64/128 rows, decode 8 rows through stable_mm); "
+        "row-parallel wo/down, float32 partials summed and rounded once: "
+        f"within a rounding step of the card's product, share of outputs "
+        f"apart {json.dumps({k: round(v, 6) for k, v in diff.items()})}")
+    return diff
+
+
+def first_divergence_margin(torch, cfg, prompt, prefix):
+    """The single card's top-2 margin of the logits at the position after
+    ``prompt`` + ``prefix`` (a teacher-forced dense forward)."""
+    import numpy as np
+    from repro_torch.models import api
+    params = api.init_params(0, cfg, "cuda")
+    toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])[None]
+    with torch.no_grad():
+        logits = api.forward(params, {"tokens": torch.from_numpy(
+            toks).cuda()}, cfg)[0, -1, :cfg.vocab_size]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def agreement(a, b):
+    """The share of positions where two token lists of lists agree."""
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    return same / max(sum(len(p) for p in a), 1)
+
+
+def mesh_spawn(world, modes, backend, n=None, spec=0):
+    """``mesh_rank`` on a (1, ``world``) mesh; logs where its wall went
+    (the ranks' start, their traces, the rest: exit and join)."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.time()
+    ranks = spawn(mesh_rank, world, (modes, backend, t0, n, spec),
+                  backend=backend, timeout=MESH_SPAWN_TIMEOUT, threads=0)
+    wall = time.time() - t0
+    log(f"[phase time] mesh (1, {world}) {backend}: {wall:.1f} s (ranks "
+        f"started after {max(r['started_s'] for r in ranks):.1f} s, done "
+        f"after {max(r['done_s'] for r in ranks):.1f} s; rank 0's traces "
+        f"{json.dumps({k: round(v, 1) for k, v in ranks[0]['trace_s'].items()})}"
+        f", set-up {json.dumps({k: {p: round(v, 1) for p, v in ranks[0][k]['setup_s'].items()} for k in modes})})")
+    return ranks
+
+
+def first_diffs(ranks, firsts):
+    """Rank 0's first forward against the single card's (``firsts`` by
+    mode), as ``first_max_abs_diff`` of each trace."""
+    import numpy as np
+    for mode, res in ranks[0].items():
+        if isinstance(res, dict) and "first" in res:
+            res["first_max_abs_diff"] = float(
+                np.abs(res.pop("first") - firsts[mode]).max())
+    return ranks
+
+
+def mesh_serve_phase(torch):
+    """Tensor-parallel paged serving (``PagedEngine(rules=)``): the kernels
+    and the bf16 products at the per-rank shapes, then qwen2_0_5b at full
+    width and depth on a (1, 2) mesh whose two ranks share the card over
+    gloo (exact float32 with an n-gram spec trace held to its plain
+    tokens, SOLE bf16, W8A8 + int8 KV) and on a (1, 4) mesh (SOLE bf16 on
+    the first four requests: attention replicated, FFN and vocabulary
+    sharded), each against the single card in this process; where the
+    machine has two cards, the exact trace over nccl, one card a rank,
+    under the sanitizers' sync guard. gloo stages every collective through
+    host memory: its walls are correctness runs, no speed claim."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    paged, gemm = check_mesh_kernels(torch)
+    products = check_mesh_products(torch)
+    log(f"[phase time] mesh kernels and products: {time.time() - t0:.1f} s")
+    # the single card's traces run here while the (1, 2) ranks start
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(mesh_spawn, 2, MESH_MODES, "gloo",
+                          spec=MESH_SPEC_REQUESTS)
+        t0 = time.time()
+        dev = torch.device("cuda", 0)
+        single = {mode: mesh_trace(torch, mode, dev) for mode in MESH_MODES}
+        four_single = mesh_trace(torch, "sole", dev, n=MESH_FOUR_REQUESTS)
+        firsts = {m: r.pop("first") for m, r in single.items()}
+        log(f"[phase time] mesh single card (beside the (1, 2) ranks): "
+            f"{time.time() - t0:.1f} s")
+        two = first_diffs(fut.result(), firsts)
+    res = {"kernels": {"paged": paged, "int8_matmul": gemm},
+           "products_share_apart": products, "single": {}}
+    four = first_diffs(mesh_spawn(4, ("sole",), "gloo",
+                                  n=MESH_FOUR_REQUESTS), firsts)
+    for mesh, ranks in (("1x2", two), ("1x4", four)):
+        for mode in MESH_MODES:
+            if mode not in ranks[0]:
+                continue
+            toks = [r[mode]["tokens"] for r in ranks]
+            if any(t != toks[0] for t in toks):
+                raise AssertionError(f"mesh {mesh} {mode}: the ranks' tokens "
+                                     "differ")
+            path = {"paged_e2softmax", "ailayernorm_exact"
+                    if mode == "exact" else "ailayernorm_calib"}
+            if mode == "w8a8":
+                path.add("int8_matmul")
+            for r, res_r in enumerate(ranks):
+                idle = [k for k in path if not res_r[mode]["launches"].get(k)]
+                if idle:
+                    raise AssertionError(f"mesh {mesh} {mode} rank {r}: "
+                                         f"{idle} never launched on the path")
+    # n-gram speculation on (1, 2): every rank's tokens are its plain
+    # decode's (verify rows are decode rows bit for bit on each rank)
+    for r, rr in enumerate(two):
+        sp = rr["exact"].pop("spec_ngram")
+        plain = rr["exact"]["tokens"][:MESH_SPEC_REQUESTS]
+        if sp["tokens"] != plain:
+            bad = sum(a != b for a, b in zip(sp["tokens"], plain))
+            raise AssertionError(f"mesh 1x2 spec ngram rank {r}: {bad} "
+                                 "requests differ from plain decode's")
+        if not sp["stats"]["spec_dispatches"]:
+            raise AssertionError("mesh 1x2 spec ngram: no verify dispatch")
+        if r == 0:
+            res["1x2_spec_ngram"] = {k: v for k, v in sp.items()
+                                     if k != "tokens"}
+            log(f"[mesh 1x2 exact ngram] every rank's tokens equal to its "
+                f"plain decode's ({MESH_SPEC_REQUESTS} requests); "
+                f"{json.dumps(sp['stats'])}; rank 0 "
+                f"wall {sp['wall_s']:.2f} s (gloo, correctness only)")
+    # exact float32: equal, or the first divergence inside a top-2 margin
+    # no larger than the measured logit difference
+    cfg = mesh_cfg("exact")
+    ex, diff = two[0]["exact"]["tokens"], two[0]["exact"]["first_max_abs_diff"]
+    divergence = None
+    for i, (a, b) in enumerate(zip(single["exact"]["tokens"], ex)):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = first_divergence_margin(
+                torch, cfg, mesh_requests(cfg)[i].prompt, a[:j])
+            divergence = dict(request=i, position=j, margin=margin,
+                              logit_diff=diff)
+            log(f"[mesh 1x2 exact] request {i} parts at token {j}: top-2 "
+                f"margin {margin:.3e}, measured logit difference {diff:.3e}")
+            if margin > diff:
+                raise AssertionError("mesh 1x2 exact: a divergence outside "
+                                     "the measured logit difference")
+            break
+    # W8A8 + int8 KV: tokens and the first and last logits bitwise
+    w8 = two[0]["w8a8"]
+    if w8["tokens"] != single["w8a8"]["tokens"]:
+        raise AssertionError("mesh 1x2 w8a8: tokens differ from the card's")
+    if w8["first_max_abs_diff"] != 0:
+        raise AssertionError("mesh 1x2 w8a8: the first forward's logits "
+                             "differ from the card's")
+    if w8["last"].tobytes() != single["w8a8"]["last"].tobytes():
+        bad = int((w8["last"] != single["w8a8"]["last"]).sum())
+        raise AssertionError(f"mesh 1x2 w8a8: {bad} last logits differ")
+    for mode in MESH_MODES:
+        single[mode].pop("last")
+    n = mesh_cfg("sole").n_layers
+    want = {("1x2", "exact"): {"all_reduce_sum": 1 + 2 * n,
+                               "all_gather": 1, "agreed": 1},
+            ("1x2", "sole"): {"all_reduce_sum": 1 + 2 * n,
+                              "all_gather": 1, "agreed": 1},
+            ("1x2", "w8a8"): {"all_reduce_sum": 1 + 2 * n,
+                              "all_reduce_max": 2 * n, "all_gather": 1,
+                              "agreed": 1},
+            # 14 heads on 4 ranks replicate attention: no wo all-reduce
+            ("1x4", "sole"): {"all_reduce_sum": 1 + n, "all_gather": 1,
+                              "agreed": 1}}
+    for mesh, ranks in (("1x2", two), ("1x4", four)):
+        for mode in MESH_MODES:
+            if mode not in ranks[0]:
+                continue
+            got = ranks[0][mode]["collectives_per_forward"]
+            if got != want[(mesh, mode)]:
+                raise AssertionError(f"mesh {mesh} {mode}: collectives a "
+                                     f"forward {got}")
+            ref = (four_single if mesh == "1x4" else single[mode])["tokens"]
+            share = agreement(ref, ranks[0][mode]["tokens"])
+            entry = {"agreement_with_single_card": share,
+                     "ranks": [{k: v for k, v in r[mode].items()
+                                if k not in ("tokens", "last")}
+                               for r in ranks]}
+            res.setdefault(mesh, {})[mode] = entry
+            log(f"[mesh {mesh} {mode}] tokens equal on every rank; agreement "
+                f"with the single card {share:.4f} ({len(ref)} requests), "
+                f"first forward's logits "
+                f"{ranks[0][mode]['first_max_abs_diff']:.3e} apart; rank 0: wall "
+                f"{ranks[0][mode]['wall_s']:.2f} s (gloo, correctness only; "
+                f"{ranks[0][mode]['collective_share']:.3f} of it in the "
+                f"collectives), "
+                f"peak {ranks[0][mode]['peak_gib']:.3f} GiB, params "
+                f"{ranks[0][mode]['param_bytes']} B, pools "
+                f"{ranks[0][mode]['pool_bytes']} B; collectives a forward "
+                f"{json.dumps(got)}; launches "
+                f"{json.dumps(ranks[0][mode]['launches'])}")
+    res["1x2"]["exact"]["divergence"] = divergence
+    for mode, r in single.items():
+        res["single"][mode] = {k: v for k, v in r.items() if k != "tokens"}
+        log(f"[mesh single card {mode}] wall {r['wall_s']:.2f} s, peak "
+            f"{r['peak_gib']:.3f} GiB, params {r['param_bytes']} B, pools "
+            f"{r['pool_bytes']} B")
+    res["1x2_nccl"] = nccl_leg(torch, single["exact"]["tokens"], firsts)
+    return res
+
+
+def nccl_leg(torch, single_tokens, firsts):
+    """Where the machine shows two cards or more: the (1, 2) exact trace
+    over nccl, one card a rank, under the sanitizers' sync guard (the
+    collectives must add no host sync), its tokens and first logits
+    against the single card's. Says so where it cannot run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh] nccl not run: the machine shows {cards} card (nccl "
+            "needs one a rank)")
+        return f"not run: {cards} card on this machine"
+    nccl = first_diffs(mesh_spawn(2, ("exact",), "nccl"), firsts)
+    toks = [r["exact"]["tokens"] for r in nccl]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError("mesh 1x2 nccl: the ranks' tokens differ")
+    san = nccl[0]["exact"]["sanitizer"]
+    if san["transfers_in_decode"] or san["sanitized_steps"] < 1:
+        raise AssertionError(f"mesh 1x2 nccl: sanitizer {san}")
+    share = agreement(single_tokens, toks[0])
+    log(f"[mesh 1x2 nccl exact] {cards} cards, one a rank: tokens equal "
+        f"on both ranks, agreement with the single card {share:.4f}, "
+        f"first-forward logit difference "
+        f"{nccl[0]['exact']['first_max_abs_diff']:.3e}; rank 0 wall "
+        f"{nccl[0]['exact']['wall_s']:.2f} s, host share in the "
+        f"collectives {nccl[0]['exact']['collective_share']:.3f}; "
+        f"sanitizer {json.dumps(san)}")
+    return {"exact": {"agreement_with_single_card": share,
+                      "ranks": [{k: v for k, v in r["exact"].items()
+                                 if k not in ("tokens", "last")}
+                                for r in nccl]}}
 
 
 def _within(pred, measured) -> bool:
@@ -6045,50 +6740,128 @@ def dryrun_decode_check(torch):
     return res
 
 
-def _sweep_job(arch, paged):
+def _sweep_job(arch, paged, live):
     """One ``launch.dryrun --arch`` process over every shape on the
-    host's CPU (meta tensors); its exit code and its log's tail."""
+    host's CPU (meta tensors; registered in ``live`` while it runs); its
+    exit code and its log's tail."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--out", SWEEP_DIR] + (["--paged"] if paged else [])
-    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=SWEEP_TIMEOUT)
-    return res.returncode, (res.stdout + res.stderr)[-1500:]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    live.add(proc)
+    try:
+        out, _ = proc.communicate(timeout=SWEEP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    finally:
+        live.discard(proc)
+    return proc.returncode, out[-1500:]
 
 
-def dryrun_sweep():
+class DryRunSweep:
     """(d): ``launch.dryrun`` over every arch and shape, dense and paged,
-    one process per (arch, dense or paged) on every host core; fails on
-    any ``error`` cell; prints the cells that fit one card."""
-    from concurrent.futures import ThreadPoolExecutor
+    one process per (arch, dense or paged), longest first (the recurrent
+    families' cells). ``early()`` runs jobs on ``EARLY_SWEEP_JOBS`` of the
+    host cores the kernel build leaves free (one ``nvcc`` a source) and
+    ``build_done()`` stops it taking new ones; ``finish()``, after the
+    last timed phase, runs the rest on every core, waits for all, fails on
+    any ``error`` cell and prints the cells that fit one card. ``abort()``
+    ends whatever still runs."""
 
-    from repro_torch.configs.base import ARCH_NAMES
-    from repro_torch.roofline.report import load
-    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
-    os.makedirs(SWEEP_DIR)
-    t0 = time.time()
-    jobs = [(arch, paged) for paged in (False, True) for arch in ARCH_NAMES]
-    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        done = list(pool.map(lambda job: _sweep_job(*job), jobs))
-    rows = load(SWEEP_DIR)
-    errors = [f"{r['arch']} {r['shape']}: {r.get('error')}" for r in rows
-              if r["status"] == "error"]
-    failed = [f"{arch}{' --paged' if paged else ''} rc {rc}\n{tail}"
-              for (arch, paged), (rc, tail) in zip(jobs, done) if rc]
-    if failed or errors or len(rows) != 80:
-        raise AssertionError(f"(d) dry-run sweep: {len(rows)} cells, errors "
-                             f"{errors}, failed jobs {failed}")
-    fits = [(r["arch"], r["shape"], r["memory"]["peak_bytes"])
-            for r in rows if r["status"] == "ok"
-            and r["memory"]["fits_one_card"]]
-    log(f"[dryrun (d)] {len(rows)} cells, "
-        f"{sum(r['status'] == 'ok' for r in rows)} ok, "
-        f"{sum(r['status'] == 'skipped' for r in rows)} skipped, 0 errors "
-        f"({len(jobs)} processes, {time.time() - t0:.1f} s); fit one card:")
-    for arch, shape, peak in fits:
-        log(f"  {arch:24s} {shape:12s} peak {peak / 1e9:.2f} GB")
-    return {"cells": len(rows), "fits": [f"{a} {s}" for a, s, _ in fits]}
+    def __init__(self):
+        from repro_torch.configs.base import ARCH_NAMES
+        shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+        os.makedirs(SWEEP_DIR)
+        order = sorted(ARCH_NAMES, key=lambda a: a not in ("rwkv6_7b",
+                                                           "recurrentgemma_9b"))
+        self.jobs = [(arch, paged) for arch in order
+                     for paged in (False, True)]
+        self.todo = list(self.jobs)
+        self.done, self.live, self.threads = {}, set(), []
+        self.lock = threading.Lock()
+        self.taking = False
+        self.early_jobs = 0
+
+    def _take(self):
+        with self.lock:
+            if not self.taking or not self.todo:
+                return None
+            self.early_jobs += 1
+            return self.todo.pop(0)
+
+    def _run(self, job):
+        self.done[job] = _sweep_job(*job, self.live)
+
+    def early(self, workers):
+        def loop():
+            job = self._take()
+            while job is not None:
+                self._run(job)
+                job = self._take()
+        self.taking = True
+        self.threads = [threading.Thread(target=loop, daemon=True)
+                        for _ in range(workers)]
+        for t in self.threads:
+            t.start()
+
+    def build_done(self):
+        with self.lock:
+            self.taking = False
+
+    def settle(self):
+        """Wait for the jobs started during the build, so that no timed
+        phase shares the host with the sweep; returns the seconds
+        waited."""
+        t0 = time.time()
+        for t in self.threads:
+            t.join()
+        return time.time() - t0
+
+    def finish(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.roofline.report import load
+        t0 = time.time()
+        with self.lock:
+            self.taking = False
+            rest, self.todo = self.todo, []
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            list(pool.map(self._run, rest))
+        for t in self.threads:
+            t.join()
+        rows = load(SWEEP_DIR)
+        errors = [f"{r['arch']} {r['shape']}: {r.get('error')}" for r in rows
+                  if r["status"] == "error"]
+        failed = [f"{arch}{' --paged' if paged else ''} rc {rc}\n{tail}"
+                  for (arch, paged), (rc, tail) in self.done.items() if rc]
+        if failed or errors or len(rows) != 80 or len(self.done) != len(
+                self.jobs):
+            raise AssertionError(f"(d) dry-run sweep: {len(rows)} cells, "
+                                 f"errors {errors}, failed jobs {failed}")
+        fits = [(r["arch"], r["shape"], r["memory"]["peak_bytes"])
+                for r in rows if r["status"] == "ok"
+                and r["memory"]["fits_one_card"]]
+        log(f"[dryrun (d)] {len(rows)} cells, "
+            f"{sum(r['status'] == 'ok' for r in rows)} ok, "
+            f"{sum(r['status'] == 'skipped' for r in rows)} skipped, 0 "
+            f"errors ({len(self.jobs)} processes: {self.early_jobs} during "
+            f"the kernel build, {len(rest)} here in "
+            f"{time.time() - t0:.1f} s); fit one card:")
+        for arch, shape, peak in fits:
+            log(f"  {arch:24s} {shape:12s} peak {peak / 1e9:.2f} GB")
+        return {"cells": len(rows), "fits": [f"{a} {s}" for a, s, _ in fits]}
+
+    def abort(self):
+        with self.lock:
+            self.taking = False
+            self.todo = []
+        for proc in list(self.live):
+            proc.kill()
+        for t in self.threads:
+            t.join(timeout=60)
 
 
 def dryrun_phase(torch):
@@ -6122,13 +6895,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    sweep = None
     try:
         smi = nvidia_smi_line()
         log(f"card: {smi}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         t0 = time.time()
+        sweep = DryRunSweep()
+        sweep.early(EARLY_SWEEP_JOBS)
         logs = build.build_all()
+        sweep.build_done()
         log(f"kernel build: {time.time() - t0:.1f} s")
         t_mark = [time.time()]
 
@@ -6181,6 +6958,9 @@ def main() -> int:
         rk = check_recurrent_kernels(torch)
         ops_inp = ops_inputs(torch)
         ops_res = check_ops_kernels(torch, ops_inp)
+        log(f"[dryrun (d)] {sweep.early_jobs} jobs started during the "
+            f"kernel build; waited {sweep.settle():.1f} s for them after the "
+            "kernel checks")
         mark("kernel checks")
         launches, trace, params = serve_full_width(torch, cfg, "bf16")
         spec = spec_traces(torch, cfg, params, "bf16")
@@ -6219,6 +6999,8 @@ def main() -> int:
         mark("sanitized trace")
         dry = dryrun_phase(torch)
         mark("dry run against the card")
+        mesh = mesh_serve_phase(torch)
+        mark("mesh_serve")
         for tag, res in rec.items():
             for key in ("paged", "paged_exact_warm", "dense"):
                 new[f"{tag}_{key}"] = res[key]
@@ -6277,6 +7059,10 @@ def main() -> int:
             e["launches_spec_traces"] = {
                 label: counts[key] for label, counts in spec_launches.items()
                 if key in counts}
+            e["launches_mesh_serve_rank0"] = {
+                f"{m} {mode}": r["ranks"][0]["launches"][key]
+                for m in ("1x2", "1x4") for mode, r in mesh[m].items()
+                if key in r["ranks"][0]["launches"]}
         mark("timings")
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")
         dtrace["profile"] = profile_engine(torch, cfg, params, "dense bf16",
@@ -6296,18 +7082,22 @@ def main() -> int:
                         "families": fams,
                         "training": train, "serve_sole": sole,
                         "sanitizers": sanitizers, "dryrun": dry,
+                        "mesh_serve": mesh,
                         "recurrent_profiles": {
                             tag: {k: v for k, v in res.items()
                                   if k in ("profile", "resident_gib")}
                             for tag, res in rec.items()},
                         **{f"trace_{k}": v[1] for k, v in new.items()}}))
         mark("qwen2_0_5b profiled waves")
-        log(json.dumps({"dryrun_sweep": dryrun_sweep()}))
+        log(json.dumps({"dryrun_sweep": sweep.finish()}))
         mark("dry-run sweep (d)")
         log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        if sweep is not None:
+            sweep.abort()
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,10 @@ Under ``cfg.quant.weights`` packed ``{"q", "s"}`` leaves become int8 codes
 and float32 scales, and unpacked matmul weights (``QUANT_WEIGHT_SPEC``)
 stay float32 so that the engine packs them from the same float32 masters
 as the reference: codes packed from a bf16 copy would differ.
+
+:func:`shard_params` cuts any of these trees to one rank's slices of a
+mesh, by the logical axes of ``models.api.param_axes`` and the mesh rules
+(``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -91,3 +95,54 @@ def serving_view(masters: Mapping, cfg: ArchConfig):
         return node if _keeps_float32(key, in_norm, cfg) else node.to(dt)
 
     return conv(masters, None, False)
+
+
+def shard_slices(spec, shape, rules, rank: int):
+    """The index of ``rank``'s shard of a leaf of ``shape`` laid out by
+    ``spec`` (``Rules.spec``): each sharded dim cut into as many equal
+    pieces as its mesh axes' product, the piece at ``rank``'s index along
+    them (row-major over a tuple of axes, as JAX lays a dim over several
+    axes); replicated dims whole."""
+    coords = rules.mesh.coords(rank)
+    index = []
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            index.append(slice(None))
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n, i = 1, 0
+        for a in names:
+            n *= rules.axis_sizes[a]
+            i = i * rules.axis_sizes[a] + coords[a]
+        step = dim // n
+        index.append(slice(i * step, (i + 1) * step))
+    return tuple(index)
+
+
+def shard_shape(spec, shape, rules) -> tuple:
+    """The shape of every rank's shard of a leaf of ``shape`` laid out by
+    ``spec`` (the pieces :func:`shard_slices` cuts are equal)."""
+    out = []
+    for dim, ax in zip(shape, spec):
+        names = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        for a in names:
+            dim //= rules.axis_sizes[a]
+        out.append(dim)
+    return tuple(out)
+
+
+def shard_params(params, axes, rules, rank: int):
+    """``rank``'s local tree: every leaf sliced to its shard per
+    ``rules.spec(axes, shape)`` (``sharding.rules``; the divisibility
+    fallback keeps a dim whole), a contiguous copy, so the whole tree can
+    be freed. ``axes`` is ``models.api.param_axes(cfg)``'s tree (its
+    quantized mirror for packed ``{"q", "s"}`` leaves). Bitwise a slice of
+    the single-device tree."""
+    if isinstance(params, Mapping):
+        return {k: shard_params(v, axes[k], rules, rank)
+                for k, v in params.items()}
+    spec = rules.spec(axes, tuple(params.shape))
+    if all(ax is None for ax in spec):
+        return params
+    return params[shard_slices(spec, params.shape, rules, rank)].clone(
+        memory_format=torch.contiguous_format)

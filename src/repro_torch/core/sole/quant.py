@@ -178,11 +178,16 @@ def dequantize_weight(qw: dict) -> torch.Tensor:
     return qw["q"].float() * qw["s"]
 
 
-def quantize_act(x: torch.Tensor, n_contract: int = 1):
+def quantize_act(x: torch.Tensor, n_contract: int = 1, amax_reduce=None):
     """Dynamic per-row symmetric int8 over the trailing ``n_contract``
     axes: ``(int8 codes, float32 scale)``, the scale keeping the reduced
-    axes as size 1."""
+    axes as size 1. ``amax_reduce`` takes the local row maxima to the
+    row's max over every slice of it (a tensor-parallel product's max
+    all-reduce), so each slice quantizes with the whole row's scale."""
     axes = tuple(range(x.ndim - n_contract, x.ndim))
-    amax = _nonzero(x.abs().amax(dim=axes, keepdim=True)).float()
+    amax = x.abs().amax(dim=axes, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    amax = _nonzero(amax).float()
     scale = amax * INV_127
     return _codes(x, scale), scale

@@ -30,8 +30,8 @@ Usage:
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--paged]
 
-``--mesh multi`` (the reference's 2 x 16 x 16 pods) waits for the port's
-multi-GPU sharding (ROADMAP.md queue 1 item 9) and raises.
+``--mesh multi`` (the reference's 2 x 16 x 16 pods) waits for the dry
+run's mesh cells (ROADMAP.md queue 1 item 9.4) and raises.
 """
 from __future__ import annotations
 
@@ -150,8 +150,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
              tag: str = "", paged: bool = False) -> dict:
     if mesh_kind != "single":
         raise NotImplementedError(
-            f"--mesh {mesh_kind} needs the port's multi-GPU sharding "
-            "(ROADMAP.md queue 1 item 9); the dry run counts one card")
+            f"--mesh {mesh_kind} needs the dry run's mesh cells "
+            "(ROADMAP.md queue 1 item 9.4); the dry run counts one card")
     cfg = configure(arch, overrides)
     shape = SHAPES[shape_name]
     t0 = time.time()
@@ -221,8 +221,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     overrides = dict(kv.split("=", 1) for kv in getattr(args, "set"))
     if args.mesh != "single":
         raise NotImplementedError(
-            f"--mesh {args.mesh} needs the port's multi-GPU sharding "
-            "(ROADMAP.md queue 1 item 9); the dry run counts one card")
+            f"--mesh {args.mesh} needs the dry run's mesh cells "
+            "(ROADMAP.md queue 1 item 9.4); the dry run counts one card")
     archs = ARCH_NAMES if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
     results = []

@@ -31,6 +31,13 @@ Examples::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small \
       --smoke --device cpu --engine paged
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --smoke --device cpu --engine paged --mesh 1,2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --engine paged --mesh 1,2 --dist-backend gloo
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen2_0_5b --engine paged --mesh 1,2
+
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
 ``minitron_8b``, ``nemotron_4_15b``, the MoE ``mixtral_8x7b``,
 ``dbrx_132b``, the ssm ``rwkv6_7b``, the hybrid ``recurrentgemma_9b``,
@@ -42,12 +49,23 @@ their state spec allows). ``whisper_small`` is served by ``--engine
 paged`` only, each request with synthetic (cross_len, d_model) encoder
 frames from ``--seed``; ``--engine dense`` refuses it and both engines
 refuse ``qwen2_vl_7b`` (not paged-servable), with the reference's
-messages. Not ported yet (ROADMAP.md queue 1 item 9): ``--mesh``.
+messages.
+
+``--mesh 1,M`` serves the dense family tensor-parallel through the paged
+engine on M ranks (``launch/mesh.py``): under ``torchrun`` (``WORLD_SIZE``
+set) each process is one rank, otherwise the launcher spawns M ranks
+itself. On the CPU they join over gloo; on CUDA over nccl, one card a
+rank, or over gloo sharing the cards with ``--dist-backend gloo`` (asked
+for explicitly: fewer cards than ranks raise otherwise). The weights are
+drawn in host memory, so each card holds only its rank's slices. Rank 0 prints
+what the single-device launcher prints. ``--mesh D,M`` with D > 1 and
+``--engine dense`` under a mesh raise (ROADMAP.md queue 1 item 9.1).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -55,6 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ARCH_NAMES, QuantConfig, get_config
+from repro_torch.launch import mesh as M
 from repro_torch.models import api
 from repro_torch.ops import CHOICES
 from repro_torch.serve.engine import Engine, PagedEngine, Request
@@ -125,13 +144,81 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda unless asked)")
+    ap.add_argument("--mesh", default="", metavar="D,M",
+                    help="serve tensor-parallel on a (data, model) mesh of "
+                         "D x M ranks (paged engine, dense family, D = 1)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="process group backend under --mesh (default: "
+                         "gloo on the CPU, nccl with a card per rank; gloo "
+                         "lets ranks share a card)")
     return ap.parse_args(argv)
+
+
+def mesh_shape(flag: str):
+    """``--mesh D,M`` -> (D, M); a data axis wider than 1 raises."""
+    try:
+        shape = tuple(int(x) for x in flag.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh takes D,M, got {flag!r}") from None
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"--mesh takes D,M, got {flag!r}")
+    if shape[0] > 1:
+        raise NotImplementedError(
+            f"--mesh {flag}: the data axis in serving is not ported yet "
+            "(ROADMAP.md queue 1 item 9.1); serve on --mesh 1,M")
+    return shape
+
+
+def _mesh_rank(rank: int, world: int, argv, backend: str):
+    """One spawned rank of ``--mesh``: its group is up (``M.spawn``)."""
+    return _serve(parse_args(argv), backend, rank)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     """Serve ``--requests`` random prompts and print a summary; returns the
-    generated token lists in request order."""
+    generated token lists in request order (rank 0's under ``--mesh``)."""
     args = parse_args(argv)
+    if not args.mesh:
+        return _serve(args)
+    shape = mesh_shape(args.mesh)
+    if args.engine != "paged":
+        raise NotImplementedError(
+            "--mesh with --engine dense: the dense-slot engine under mesh "
+            "rules is not ported yet (ROADMAP.md queue 1 item 9.1); pass "
+            "--engine paged")
+    world = shape[0] * shape[1]
+    backend = M.pick_backend(world, args.device, args.dist_backend)
+    env = M.world_from_env()
+    if env is not None:                  # torchrun: this process is a rank
+        rank, size = env
+        if size != world:
+            raise SystemExit(f"--mesh {args.mesh} needs {world} ranks, "
+                             f"torchrun started {size}")
+        torch.distributed.init_process_group(backend)
+        if backend == "nccl":
+            torch.cuda.set_device(M.rank_device(args.device, backend, rank))
+        try:
+            return _serve(args, backend, rank)
+        finally:
+            torch.distributed.destroy_process_group()
+    threads = max(1, (os.cpu_count() or 1) // world)
+    outs = M.spawn(_mesh_rank, world, (argv, backend), backend=backend,
+                   timeout=24 * 3600, threads=threads)
+    return outs[0]
+
+
+def _serve(args, backend: Optional[str] = None,
+           rank: int = 0) -> List[List[int]]:
+    """The serving run of one process: the whole model, or (``backend``
+    set, the process group up) rank ``rank`` of ``--mesh``'s model, which
+    prints only on rank 0."""
+    rules = None
+    device = torch.device(args.device)
+    if backend is not None:
+        device = M.rank_device(args.device, backend, rank)
+        rules = M.make_rules(M.make_mesh(mesh_shape(args.mesh),
+                                         ("data", "model")))
+    echo = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -144,8 +231,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     if (args.spec_decode or args.open_loop > 0) and not paged:
         raise SystemExit("--spec-decode and --open-loop require "
                          "--engine paged")
-    device = torch.device(args.device)
-    params = api.init_params(args.seed, cfg, device)
+    # under a mesh the weights are drawn in host memory (a CPU generator:
+    # other draws than the card's) and each rank moves only its slices
+    params = api.init_params(args.seed, cfg,
+                             device if rules is None else "cpu")
     rng = np.random.default_rng(args.seed)
     eos_ids = tuple(int(t) for t in args.eos_ids.split(",") if t.strip())
     # encdec requests carry synthetic encoder frames (the paged engine
@@ -170,7 +259,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
             16)
         spec = spec_config_from_flag(args.spec_decode, cfg,
                                      max_k=args.spec_k, seed=args.seed,
-                                     smoke=args.smoke, device=device)
+                                     smoke=args.smoke, device=device,
+                                     rules=rules)
 
         def make_engine(p):
             return PagedEngine(cfg, p, num_blocks=blocks, block_size=16,
@@ -179,7 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
                                decode_horizon=args.decode_horizon,
                                prefix_cache=args.prefix_cache,
                                watermark=args.watermark, spec_config=spec,
-                               device=device)
+                               device=device, rules=rules)
         eng = make_engine(params)
         # replicas share the engine's device-resident parameter tree; each
         # owns its KV pool, scheduler and prefix cache
@@ -192,28 +282,30 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
             f"quant={cfg.quant.mode}, ops_backend={cfg.ops_backend}, "
             f"temperature={args.temperature}, top_k={args.top_k}, "
             f"spec={args.spec_decode or 'off'}")
+    if rules is not None:
+        mode += f", mesh={args.mesh} ({backend})"
     if args.open_loop > 0:
-        return _open_loop(args, engines, reqs, rng, device, cfg, mode)
+        return _open_loop(args, engines, reqs, rng, device, cfg, mode, echo)
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     total = sum(len(o) for o in outs)
-    print(f"arch={cfg.name} engine={args.engine} device={device} "
-          f"requests={len(reqs)} generated={total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, {mode})")
+    echo(f"arch={cfg.name} engine={args.engine} device={device} "
+         f"requests={len(reqs)} generated={total} tokens in {dt:.2f}s "
+         f"({total / dt:.1f} tok/s, {mode})")
     if paged:
-        print("stats:", eng.stats())
+        echo("stats:", eng.stats())
     else:
-        print("finish_reasons:", eng.finish_reasons)
+        echo("finish_reasons:", eng.finish_reasons)
     for o in outs[:2]:
-        print("sample:", o)
+        echo("sample:", o)
     return outs
 
 
-def _open_loop(args, engines, reqs, rng, device, cfg,
-               mode) -> List[List[int]]:
+def _open_loop(args, engines, reqs, rng, device, cfg, mode,
+               echo=print) -> List[List[int]]:
     """Serve ``reqs`` through ``AsyncEngine`` (or ``ReplicatedAsyncEngine``
     over ``engines``) with Poisson arrivals at ``--open-loop`` requests per
     engine step; print latency percentiles and return the tokens in
@@ -225,7 +317,7 @@ def _open_loop(args, engines, reqs, rng, device, cfg,
     on_token = None
     if args.stream:
         def on_token(h, tok):
-            print(f"  req@{h.arrival} -> {tok}")
+            echo(f"  req@{h.arrival} -> {tok}")
     t0 = time.perf_counter()
     handles = [loop.add_request(r, arrival=int(a), on_token=on_token)
                for r, a in zip(reqs, arrivals)]
@@ -236,23 +328,23 @@ def _open_loop(args, engines, reqs, rng, device, cfg,
     outs = [h.tokens for h in handles]
     total = sum(len(o) for o in outs)
     st = loop.stats()
-    print(f"arch={cfg.name} engine=paged(open-loop) device={device} "
-          f"replicas={len(engines)} requests={len(reqs)} generated={total} "
-          f"tokens in {dt:.2f}s ({total / dt:.1f} tok/s, {mode})")
+    echo(f"arch={cfg.name} engine=paged(open-loop) device={device} "
+         f"replicas={len(engines)} requests={len(reqs)} generated={total} "
+         f"tokens in {dt:.2f}s ({total / dt:.1f} tok/s, {mode})")
     if len(engines) > 1:
-        print(f"routing: {st['routed_by_prefix']} by prefix, "
-              f"{st['routed_by_load']} by load")
+        echo(f"routing: {st['routed_by_prefix']} by prefix, "
+             f"{st['routed_by_load']} by load")
         for i, rep in enumerate(st["per_replica"]):
-            print(f"  replica {i}: completed={rep['completed']} "
-                  f"decode_tokens={rep['engine']['decode_tokens']} "
-                  f"prefix_hit_rate={rep['engine']['prefix_hit_rate']}")
+            echo(f"  replica {i}: completed={rep['completed']} "
+                 f"decode_tokens={rep['engine']['decode_tokens']} "
+                 f"prefix_hit_rate={rep['engine']['prefix_hit_rate']}")
         return outs
-    print(f"finish_reasons: {st['finish_reasons']}")
+    echo(f"finish_reasons: {st['finish_reasons']}")
     for key in ("ttft", "itl"):
-        print(f"{key.upper()} steps p50/p99: {st[key + '_steps']['p50']}/"
-              f"{st[key + '_steps']['p99']}  ms: {st[key + '_ms']['p50']}/"
-              f"{st[key + '_ms']['p99']}")
-    print("engine stats:", st["engine"])
+        echo(f"{key.upper()} steps p50/p99: {st[key + '_steps']['p50']}/"
+             f"{st[key + '_steps']['p99']}  ms: {st[key + '_ms']['p50']}/"
+             f"{st[key + '_ms']['p99']}")
+    echo("engine stats:", st["engine"])
     return outs
 
 

@@ -13,8 +13,8 @@ Examples::
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \\
       --smoke --steps 50
 
-``--mesh`` (a data/model mesh) waits for multi-GPU support
-(ROADMAP.md queue 1 item 9) and raises.
+``--mesh`` (a data/model mesh) waits for training over a mesh
+(ROADMAP.md queue 1 item 9.3) and raises.
 """
 from __future__ import annotations
 
@@ -56,8 +56,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh needs the port's multi-GPU sharding (ROADMAP.md queue 1 "
-            "item 9); the port trains on one device")
+            "--mesh needs training over a mesh (ROADMAP.md queue 1 item "
+            "9.3); the port trains on one device")
     cfg = dataclasses.replace(get_config(args.arch),
                               ops_backend=args.ops_backend)
     if args.smoke:

@@ -72,6 +72,98 @@ def init_params(seed: Union[int, torch.Generator], cfg: ArchConfig,
     return get_model(cfg).init(gen, cfg, device)
 
 
+class _Stacked:
+    """A schema whose leaves carry the leading stacked ``layers`` axis."""
+
+    def __init__(self, schema):
+        self.schema = schema
+
+
+_NORM_AXES = {"g": ("embed",), "b": ("embed",)}
+_EMBED_AXES = {"table": ("vocab", "embed"), "head": ("embed", "vocab")}
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+_MLP_AXES = {"gate": ("embed", "ff"), "up": ("embed", "ff"),
+             "down": ("ff", "embed")}
+_MOE_AXES = {"router": ("embed", None),
+             "gate": ("experts", "embed", "expert_ff"),
+             "up": ("experts", "embed", "expert_ff"),
+             "down": ("experts", "expert_ff", "embed")}
+_DECODER_LAYER = {"ln1": _NORM_AXES, "attn": _ATTN_AXES, "ln2": _NORM_AXES,
+                  "mlp": _MLP_AXES}
+_TIME_MIX_AXES = {"mu_x": ("embed",), "mu": (None, "embed"),
+                  "lora_a": ("embed", None), "lora_b": (None, None, "embed"),
+                  "w0": ("embed",), "w1": ("embed", None),
+                  "w2": (None, "embed"),
+                  **{k: ("embed", "heads", "head_dim")
+                     for k in ("wr", "wk", "wv", "wg")},
+                  "u": ("heads", "head_dim"),
+                  "wo": ("heads", "head_dim", "embed"),
+                  "gn_g": ("heads", "head_dim"), "gn_b": ("heads", "head_dim")}
+_CHANNEL_MIX_AXES = {"mu_k": ("embed",), "mu_r": ("embed",),
+                     "wk": ("embed", "ff"), "wv": ("ff", "embed"),
+                     "wr": ("embed", "embed2")}
+_RECURRENT_AXES = {"ln": _NORM_AXES, "in_x": ("embed", "ff"),
+                   "in_gate": ("embed", "ff"), "conv_w": ("conv", "ff"),
+                   "conv_b": ("ff",), "wa": ("ff", None), "ba": ("ff",),
+                   "wx": ("ff", None), "bx": ("ff",), "lam": ("ff",),
+                   "out": ("ff", "embed"), "ln_mlp": _NORM_AXES,
+                   "mlp": _MLP_AXES}
+
+
+def _family_schema(cfg: ArchConfig):
+    top = {"embed": _EMBED_AXES, "final_norm": _NORM_AXES}
+    if cfg.family in ("dense", "vlm"):
+        return {**top, "layers": _Stacked(_DECODER_LAYER)}
+    if cfg.family == "moe":
+        return {**top, "layers": _Stacked({**_DECODER_LAYER,
+                                           "mlp": _MOE_AXES})}
+    if cfg.family == "ssm":
+        return {**top, "layers": _Stacked({
+            "ln1": _NORM_AXES, "tm": _TIME_MIX_AXES, "ln2": _NORM_AXES,
+            "cm": _CHANNEL_MIX_AXES})}
+    if cfg.family == "hybrid":
+        return {**top, "blocks": _Stacked({
+            "rec1": _RECURRENT_AXES, "rec2": _RECURRENT_AXES,
+            "attn": {"ln": _NORM_AXES, "attn": _ATTN_AXES,
+                     "ln_mlp": _NORM_AXES, "mlp": _MLP_AXES}}),
+            "tail": _Stacked(_RECURRENT_AXES)}
+    if cfg.family == "encdec":
+        return {**top, "enc_layers": _Stacked(_DECODER_LAYER),
+                "enc_norm": _NORM_AXES,
+                "dec_layers": _Stacked({**_DECODER_LAYER,
+                                        "ln_x": _NORM_AXES,
+                                        "xattn": _ATTN_AXES})}
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def param_axes(cfg: ArchConfig):
+    """The logical-axes tree of :func:`init_params`'s values (the tree
+    ``repro.models.api.init_params`` returns beside them): one tuple of
+    logical axis names per leaf, ``"layers"`` first on stacked leaves.
+    Under ``cfg.quant.weights`` each matmul weight's axes are mirrored onto
+    its packed ``{"q", "s"}`` leaf (``sharding.rules.quantize_param_axes``),
+    the tree a quantizing engine lays out."""
+    from repro_torch.sharding.rules import quantize_param_axes
+
+    def walk(tree, schema, stacked: bool):
+        out = {}
+        for k, v in tree.items():
+            s, st = schema[k], stacked
+            if isinstance(s, _Stacked):
+                s, st = s.schema, True
+            out[k] = (walk(v, s, st) if isinstance(v, dict)
+                      else (("layers",) if st else ()) + s)
+        return out
+
+    axes = walk(init_params(0, cfg, "meta"), _family_schema(cfg), False)
+    return quantize_param_axes(axes) if cfg.quant.weights else axes
+
+
 def sequence_state_spec(cfg: ArchConfig):
     return get_model(cfg).sequence_state_spec(cfg)
 

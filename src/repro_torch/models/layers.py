@@ -12,10 +12,24 @@ float32 for norm gains, which the reference never casts). Under
 ``cfg.quant.weights`` the projections are packed ``{"q", "s"}`` int8
 leaves (``sharding.rules.quantize_params``) and go through
 :func:`qmatmul`.
+
+Under active mesh rules (``sharding.rules.use_rules``) each rank holds
+its local slice of every weight (``convert.shard_params``) and the layers
+take their tensor-parallel forms, each calling ``sharding/comm.py``'s
+collective over the model axis where the reference's SPMD partitioner
+inserts one: QKV, ``gate`` and ``up`` column-parallel (no collective),
+``wo`` and ``down`` row-parallel (one sum all-reduce of the partial
+outputs; at w8a8 a max all-reduce of the row scale first and the int32
+partials summed, exact), the embedding vocab-parallel (a masked lookup,
+summed: one rank holds each row) and the head vocab-parallel (its float32
+logits gathered along the vocabulary). A dim the divisibility fallback
+replicates is whole on every rank and runs no collective; paged attention
+reads its KV heads through :func:`_paged_tp_plan`'s map.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +43,8 @@ from repro_torch.kernels.ailayernorm import fma32
 from repro_torch.kernels.flash_e2softmax import exp2_int
 from repro_torch.ops.reference import repeat_kv
 from repro_torch.roofline.cost import Trips
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import active_rules
 
 # int8 logit grid for E2Softmax inputs: exp(-12) is below the 4-bit log2
 # resolution, so [-12, 0] covers the useful post-max range.
@@ -79,23 +95,46 @@ def fma(a, b, c) -> torch.Tensor:
     return torch.addcmul(c, a, b)
 
 
-def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1) -> torch.Tensor:
+def model_split(logical: str, size: int) -> Optional[comm.ModelAxis]:
+    """The model axis when the active rules split a dim of ``size`` along
+    ``logical`` over it (the weights' layout, ``convert.shard_params``),
+    else None."""
+    rules = active_rules()
+    if rules is None or rules.split(logical, size) == 1:
+        return None
+    return comm.model_axis(rules)
+
+
+def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1,
+            ax: Optional[comm.ModelAxis] = None) -> torch.Tensor:
     """Matmul against a packed int8 weight ``{"q", "s"}``.
 
     ``x`` is a plain activation (consumed as it is at w8a16, quantized
     per row on the fly in float32 at w8a8) or an ``(int8 codes, per-row
     scale)`` pair from a ``residual_*_q`` norm, which feeds the w8a8
     matmul directly. Returns float32; call sites cast to the model dtype.
+
+    ``ax``: a row-parallel product (the contracted dim split over the
+    model axis). At w8a8 the row scale takes the row's max over every
+    rank (one max all-reduce of the local maxima), each rank quantizes its
+    slice with it and the int32 partials are summed (exact), then scaled
+    as on one device: bitwise the single-device product. At w8a16 the
+    float partials are summed.
     """
     b = cfg.ops_backend
     if isinstance(x, tuple):
         return ops.matmul_fn("w8a8", x[0].device, b)(x, w,
                                                      n_contract=n_contract)
     if cfg.quant.acts:
-        qx = quantize_act(x.float(), n_contract)
-        return ops.matmul_fn("w8a8", x.device, b)(qx, w,
-                                                  n_contract=n_contract)
-    return ops.matmul_fn("w8a16", x.device, b)(x, w, n_contract=n_contract)
+        red = None if ax is None else (
+            lambda t: comm.all_reduce_max(t, ax))
+        qx = quantize_act(x.float(), n_contract, amax_reduce=red)
+        acc = None if ax is None else (
+            lambda t: comm.all_reduce_sum(t, ax))
+        return ops.matmul_fn("w8a8", x.device, b)(
+            qx, w, n_contract=n_contract, acc_reduce=acc)
+    out = ops.matmul_fn("w8a16", x.device, b)(x, w, n_contract=n_contract)
+    return out if ax is None else comm.all_reduce_sum(out, ax)
 
 
 # -- decode and verify products ----------------------------------------------
@@ -120,15 +159,32 @@ def pad_rows(a2: torch.Tensor) -> torch.Tensor:
     return torch.cat([a2, _zero_rows(k, a2.dtype, a2.device)[:pad]])
 
 
-def tile_mm(ap: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def mm(a2: torch.Tensor, w: torch.Tensor, out32: bool = False):
+    """``a2 @ w`` for 2-D operands; ``out32``: the product in float32,
+    rounded once (a row-parallel partial that is summed over the ranks
+    before its one rounding to the model dtype, as the single-device
+    product rounds once): bf16 operands accumulate into a float32 output
+    on the card (``torch.mm``'s ``out_dtype``), into float32 operands'
+    product on the CPU."""
+    if not out32 or a2.dtype == torch.float32:
+        return a2 @ w
+    if a2.device.type == "cuda":
+        return torch.mm(a2, w, out_dtype=torch.float32)
+    return a2.float() @ w.float()
+
+
+def tile_mm(ap: torch.Tensor, w: torch.Tensor,
+            out32: bool = False) -> torch.Tensor:
     """``ap @ w`` for ``ap`` of a multiple of ``ROW_TILE`` rows, as one
-    (ROW_TILE, K) x (K, N) product per tile of rows."""
+    (ROW_TILE, K) x (K, N) product per tile of rows (``out32``: as
+    :func:`mm`)."""
     if ap.shape[0] == ROW_TILE:
-        return ap @ w
-    return torch.cat([t @ w for t in ap.split(ROW_TILE)])
+        return mm(ap, w, out32)
+    return torch.cat([mm(t, w, out32) for t in ap.split(ROW_TILE)])
 
 
-def stable_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def stable_mm(a: torch.Tensor, w: torch.Tensor,
+              out32: bool = False) -> torch.Tensor:
     """``a @ w`` for ``a`` (..., K) and ``w`` (K, N), whose rows do not
     depend on how many rows ride with them: the rows run zero-padded in
     tiles of ``ROW_TILE``, each one product of the same shape.
@@ -144,10 +200,11 @@ def stable_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     bytes, so the padding costs little device time. It runs only on the
     card: on the CPU the products keep the reference's forms (one product
     per projection), which the engines' parity tests against JAX hold,
-    and prefill chunks keep them on both devices."""
+    and prefill chunks keep them on both devices. ``out32``: as
+    :func:`mm`."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
-    out = tile_mm(pad_rows(a2), w)[:a2.shape[0]]
+    out = tile_mm(pad_rows(a2), w, out32)[:a2.shape[0]]
     return out.reshape(lead + (w.shape[1],))
 
 
@@ -205,17 +262,33 @@ def apply_residual_norm(x, r, p, cfg: ArchConfig, phase: str,
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+    """The table's rows of ``tokens``; vocab-parallel under a split
+    vocabulary: each rank looks up the tokens in its range, zeros
+    elsewhere, and one sum all-reduce assembles the rows (one rank holds
+    each, so the sum is exact)."""
+    ax = model_split("vocab", cfg.padded_vocab)
+    if ax is None:
+        return F.embedding(tokens.long(), p["table"])
+    rows = p["table"].shape[0]
+    local = tokens.long() - ax.index * rows
+    hit = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(hit, local, 0), p["table"])
+    return comm.all_reduce_sum(torch.where(hit[..., None], x, 0), ax)
 
 
 def lm_logits(p, x, cfg: ArchConfig, stable: bool = False) -> torch.Tensor:
     """The head's logits in float32; ``stable``: through :func:`stable_mm`
-    (a decode or verify dispatch on the card)."""
+    (a decode or verify dispatch on the card). Under a split vocabulary
+    each rank computes its columns and they are gathered along the
+    vocabulary, so every rank holds the whole float32 rows."""
     if is_qtensor(p["head"]):
-        return qmatmul(x, p["head"], cfg)
-    if stable:
-        return stable_mm(x, p["head"]).float()
-    return (x @ p["head"]).float()
+        logits = qmatmul(x, p["head"], cfg)
+    elif stable:
+        logits = stable_mm(x, p["head"]).float()
+    else:
+        logits = (x @ p["head"]).float()
+    ax = model_split("vocab", cfg.padded_vocab)
+    return logits if ax is None else comm.all_gather(logits, -1, ax)
 
 
 # -- RoPE ---------------------------------------------------------------------
@@ -283,30 +356,41 @@ def apply_mlp(x, p, cfg: ArchConfig, stable: bool = False) -> torch.Tensor:
     w8a8; the ``down`` input is then quantized per row on the fly.
     ``stable`` (a decode or verify dispatch on the card): the float
     products run as :func:`stable_mm` does, the rows padded once and the
-    hidden rows kept padded for ``down``."""
+    hidden rows kept padded for ``down``. Under a split ``ff`` dim
+    ``gate``/``up`` are column-parallel and ``down`` row-parallel: its
+    float32 partial rows summed over the model axis, then rounded to the
+    model dtype once."""
     kind = cfg.mlp_kind
     if kind not in MLP_KINDS:
         raise ValueError(f"unknown mlp_kind {kind!r}")
+    ax = model_split("ff", cfg.d_ff)
     lead = None
     if is_qtensor(p["up"]):
-        def mm(a, w):
-            return cast(qmatmul(a, w, cfg), cfg)
-    elif stable:
-        lead = x.shape[:-1]
-        x = pad_rows(x.reshape(-1, x.shape[-1]))
-        mm = tile_mm
+        def proj(a, w, ax=None):
+            return cast(qmatmul(a, w, cfg, ax=ax), cfg)
     else:
-        def mm(a, w):
-            return a @ w
+        if stable:
+            lead = x.shape[:-1]
+            x = pad_rows(x.reshape(-1, x.shape[-1]))
+
+        def proj(a, w, ax=None):
+            if ax is None:
+                return tile_mm(a, w) if stable else a @ w
+            if stable:
+                out = tile_mm(a, w, out32=True)[:lead.numel()]
+            else:
+                out = mm(a.reshape(-1, a.shape[-1]), w, out32=True
+                         ).reshape(a.shape[:-1] + (w.shape[1],))
+            return cast(comm.all_reduce_sum(out, ax), cfg)
     if kind == "swiglu":
-        h = F.silu(mm(x, p["gate"])) * mm(x, p["up"])
+        h = F.silu(proj(x, p["gate"])) * proj(x, p["up"])
     elif kind == "geglu":
-        h = F.gelu(mm(x, p["gate"]), approximate="tanh") * mm(x, p["up"])
+        h = F.gelu(proj(x, p["gate"]), approximate="tanh") * proj(x, p["up"])
     elif kind == "gelu":
-        h = F.gelu(mm(x, p["up"]), approximate="tanh")
+        h = F.gelu(proj(x, p["up"]), approximate="tanh")
     else:
-        h = torch.square(F.relu(mm(x, p["up"])))
-    out = mm(h, p["down"])
+        h = torch.square(F.relu(proj(x, p["up"])))
+    out = proj(h, p["down"], ax)
     if lead is not None:
         out = out[:lead.numel()].reshape(lead + (out.shape[-1],))
     return out
@@ -344,14 +428,22 @@ def _project_qkv(p, x, cfg: ArchConfig, stable: bool = False):
 def _wo_proj(ctx: torch.Tensor, p, cfg: ArchConfig,
              stable: bool = False) -> torch.Tensor:
     """Output projection ctx (B,S,H,hd) @ wo (H,hd,D) -> (B,S,D);
-    ``stable``: as :func:`stable_mm`."""
+    ``stable``: as :func:`stable_mm`. Row-parallel under split heads:
+    each rank's float32 (B, S, D) partial over its heads, summed over the
+    model axis, then rounded to the model dtype once."""
+    ax = model_split("heads", cfg.n_heads)
     if is_qtensor(p["wo"]):
-        return cast(qmatmul(ctx, p["wo"], cfg, n_contract=2), cfg)
+        return cast(qmatmul(ctx, p["wo"], cfg, n_contract=2, ax=ax), cfg)
+    b, s, h, hd = ctx.shape
     if stable:
-        b, s, h, hd = ctx.shape
-        return stable_mm(ctx.reshape(b, s, h * hd),
-                         p["wo"].reshape(h * hd, -1))
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+        out = stable_mm(ctx.reshape(b, s, h * hd),
+                        p["wo"].reshape(h * hd, -1), out32=ax is not None)
+    elif ax is None:
+        return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+    else:
+        out = mm(ctx.reshape(b * s, h * hd), p["wo"].reshape(h * hd, -1),
+                 out32=True).reshape(b, s, -1)
+    return out if ax is None else cast(comm.all_reduce_sum(out, ax), cfg)
 
 
 def _softmax_mode(cfg: ArchConfig, phase: str) -> str:
@@ -428,11 +520,73 @@ def paged_attend(q, pool_k, pool_v, tables, q_start, kv_len,
               # w8a8: V stays raw int8 codes through P.V and kv_scale
               # folds into the final row scale (exact: a power of two).
               quant_pv=bool(cfg.quant.acts and kv_scale is not None))
+    plan = _paged_tp_plan(active_rules(), cfg.n_heads, cfg.n_kv_heads)
+    if plan is not None:
+        kw["kv_head_map"] = _local_kv_map(plan, cfg, q.shape[2], q.device)
     if rows_as_decode and causal:
         rq, rt, rpos, rlen = decode_rows(q, tables, q_start, kv_len)
         out = fn(rq, pool_k, pool_v, rt, rpos, rlen, causal=False, **kw)
         return out.reshape(q.shape)
     return fn(q, pool_k, pool_v, tables, q_start, kv_len, causal=causal, **kw)
+
+
+def _paged_tp_plan(rules, h: int, kvh: int):
+    """Tensor-parallel plan for paged attention under the active rules
+    (``repro/models/layers.py``'s ``_paged_tp_plan``).
+
+    Returns ``(axes, kv_sharded)`` — the mesh axis (or axis tuple)
+    sharding the q-heads dim, and whether the pool's kv_heads dim shards
+    the same way — or None when heads fall back to replicated (the
+    divisibility fallback, e.g. qwen2's 14 heads on a 4-way axis), the
+    axis product is 1 (nothing to split) or no rules are active.
+    """
+    if rules is None:
+        return None
+    ax = rules.dim_spec("heads", h)
+    if ax is None:
+        return None
+    names = ax if isinstance(ax, tuple) else (ax,)
+    if math.prod(rules.axis_sizes[a] for a in names) == 1:
+        return None
+    return ax, rules.dim_spec("kv_heads", kvh) == ax
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_map(hloc: int, first: int, g: int, device) -> torch.Tensor:
+    """(hloc,) int32 ``(first + i) // g`` on ``device`` (made once; never
+    written)."""
+    i = torch.arange(hloc, dtype=torch.int32, device=device)
+    return (i + first) // g
+
+
+def _local_kv_map(plan, cfg: ArchConfig, hloc: int, device) -> torch.Tensor:
+    """The KV head each of this rank's ``hloc`` query heads reads, the
+    reference's two pool regimes:
+
+    * matched — kv_heads shards with the heads; each rank holds its own
+      contiguous KV block and local head ``i`` reads ``i // g``;
+    * replicated KV — kv_heads does not divide the axis (GQA with few KV
+      heads): the pool is whole on every rank and local head ``i`` on
+      rank ``s`` reads global KV head ``(s * hloc + i) // g`` (a group
+      may straddle two KV heads, and a KV head may be read by no local
+      head).
+    """
+    _, kv_sharded = plan
+    g = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    first = 0 if kv_sharded else comm.model_axis(active_rules()).index * hloc
+    return _kv_map(hloc, first, g, device)
+
+
+def _kv_for_local_heads(k, v, cfg: ArchConfig):
+    """Under the replicated-KV regime, the dense paths' K/V gathered to
+    one KV head per local query head (the heads :func:`_local_kv_map`
+    names), so ``repeat_kv`` sees g = 1; otherwise as they are."""
+    plan = _paged_tp_plan(active_rules(), cfg.n_heads, cfg.n_kv_heads)
+    if plan is None or plan[1]:
+        return k, v
+    hloc = cfg.n_heads // comm.model_axis(active_rules()).size
+    idx = _local_kv_map(plan, cfg, hloc, k.device).long()
+    return k[:, :, idx], v[:, :, idx]
 
 
 # -- dense and blocked attention (whole sequences) ------------------------------
@@ -598,6 +752,7 @@ def apply_attention(p, x, positions, cfg: ArchConfig, phase: str,
     tokens on)."""
     causal = cfg.causal if causal is None else causal
     q, k, v = _project_qkv(p, x, cfg)
+    k, v = _kv_for_local_heads(k, v, cfg)
     if cfg.pos_kind == "rope":
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)

@@ -7,8 +7,8 @@ this FFN in place of the MLP.
 Counterpart of ``repro/models/moe.py``, local branch. The reference
 routes under ``shard_map`` with expert parallelism (an ``all_to_all``)
 and tensor parallelism (a ``psum``) when a mesh is active; one card needs
-neither, and the mesh half waits for the port's sharding rules (ROADMAP.md
-queue 1 item 9).
+neither; the mesh half (``PagedEngine`` refuses MoE under mesh rules)
+is ROADMAP.md queue 1 item 9.2.
 
 Where the bits would part from the reference unless taken care of:
 

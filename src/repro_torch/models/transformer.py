@@ -24,6 +24,11 @@ from repro_torch.serve.sampling import eos_hits, sample_tokens
 
 
 def _normal(gen, shape, scale, dtype, device):
+    if torch.device(device).type == "meta":
+        # shapes only (``models.api.param_axes``, the dry run): a meta draw
+        # runs torch's Python reference of ``normal_``, whose first call
+        # imports the compiler stack (seconds a process)
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     # scaled in place: one float32 draw of nemotron_4_15b's MLP is 19 GB
     return w.mul_(scale).to(dtype)

@@ -146,12 +146,12 @@ for _kind, _rms in (("layernorm", False), ("rmsnorm", True)):
 
 
 @registry.register("matmul", "w8a8", "cuda")
-def w8a8_matmul_cuda(x, w, *, n_contract: int = 1, **kw):
+def w8a8_matmul_cuda(x, w, *, n_contract: int = 1, acc_reduce=None, **kw):
     """int8 x int8 through the GEMM kernel: both sides flatten to 2-D
     (the contraction axes are contiguous, activation trailing, weight
     leading) and the scales apply afterwards in the reference twin's
     order, so the two agree bit for bit."""
-    return w8a8_matmul_with(int8_matmul, x, w, n_contract)
+    return w8a8_matmul_with(int8_matmul, x, w, n_contract, acc_reduce)
 
 
 def _flash_attention(sole: bool):

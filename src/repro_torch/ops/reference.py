@@ -175,15 +175,20 @@ def wscale(w, n_contract: int) -> torch.Tensor:
     return w["s"].reshape(w["s"].shape[n_contract:])
 
 
-def w8a8_matmul_with(int_mm, x, w, n_contract: int) -> torch.Tensor:
+def w8a8_matmul_with(int_mm, x, w, n_contract: int,
+                     acc_reduce=None) -> torch.Tensor:
     """Flatten the contraction axes to 2-D, take the exact int32 product
     with ``int_mm`` ((M, K) int8, (K, N) int8 -> (M, N) int32), then
-    ``acc * sx * sw`` in float32, left to right, as the reference."""
+    ``acc * sx * sw`` in float32, left to right, as the reference.
+    ``acc_reduce`` sums a row-parallel product's int32 partials over the
+    ranks first (exact)."""
     q, sx = x
     qw = w["q"]
     batch, out_dims = q.shape[:q.ndim - n_contract], qw.shape[n_contract:]
     k = qw.shape[:n_contract].numel()
     acc = int_mm(q.reshape(-1, k).contiguous(), qw.reshape(k, -1).contiguous())
+    if acc_reduce is not None:
+        acc = acc_reduce(acc)
     acc = acc.reshape(batch + out_dims)
     sx = sx.reshape(sx.shape[:sx.ndim - n_contract] + (1,) * len(out_dims))
     return acc.float() * sx.float() * wscale(w, n_contract)
@@ -203,10 +208,10 @@ def w8a16_matmul(x, w, *, n_contract: int = 1, **kw):
 
 
 @registry.register("matmul", "w8a8", "reference")
-def w8a8_matmul(x, w, *, n_contract: int = 1, **kw):
+def w8a8_matmul(x, w, *, n_contract: int = 1, acc_reduce=None, **kw):
     """int8 x int8 with exact int32 sums; ``x`` is a ``(codes, per-row
     scale)`` pair."""
-    return w8a8_matmul_with(int8_matmul_plain, x, w, n_contract)
+    return w8a8_matmul_with(int8_matmul_plain, x, w, n_contract, acc_reduce)
 
 
 # -- attention ----------------------------------------------------------------

@@ -10,7 +10,8 @@ Usage:
 A row is one (op, output shape): an aten op, or ``kernel:<name>`` for a
 hand-written kernel's launch, with its calls (a trip-counted loop's
 multiplied), bytes or FLOPs and share of the step's total. ``coll`` has
-nothing on one card (``ROADMAP.md`` queue 1 item 9).
+nothing on one card (the dry run's mesh cells: ``ROADMAP.md`` queue 1
+item 9.4).
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ and counts every aten op the step issues:
   with the tensors handed to :meth:`CostCounter.resident` alive from the
   start: the step's memory, predicted without a card;
 * ``coll_bytes`` — 0: one card has no collectives (the field waits for the
-  multi-GPU port, ``ROADMAP.md`` queue 1 item 9).
+  dry run's mesh cells, ``ROADMAP.md`` queue 1 item 9.4).
 
 A Python loop over tokens (rwkv6's WKV) or over attention blocks would
 issue millions of ops at 32k tokens. :class:`Trips` runs two trips of it

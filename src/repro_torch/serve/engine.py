@@ -36,6 +36,18 @@ in pages the scheduler reserved beside the self-attention pages; a
 preempted request re-encodes on re-admission. The vlm family is not
 paged-servable and neither engine serves it (its ``prefill``/``decode_step``
 are reached through ``models.api``).
+
+``PagedEngine(rules=, param_axes=)`` serves the dense family tensor-parallel
+over a (1, M) mesh of ``torch.distributed`` ranks (``launch/mesh.py``): each
+rank runs this engine on the same requests with its slice of the weights
+(``convert.shard_params``) and of every KV page's heads
+(``PagedKVCache.shard``); the layers call the collectives
+(``models/layers.py``). Page tables, refcounts, the prefix index and the
+scheduler are host state, identical on every rank. Every value a rank's
+host acts on (the sampled tokens, a prefill's logits row) is replicated
+after the head's gather, and each readback checks that every rank holds
+the same bytes (``sharding.comm.agreed``): a rank whose tokens parted
+would desynchronise the schedulers, so it fails at once instead.
 """
 from __future__ import annotations
 
@@ -44,8 +56,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import shard_params
 from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
 from repro_torch.models.state import tree_map
@@ -54,7 +68,9 @@ from repro_torch.serve.sampling import (Sampler, apply_finish, eos_table,
                                         sample_tokens, sampler_for)
 from repro_torch.serve.scheduler import Scheduler, Sequence
 from repro_torch.serve.state import StateCheckpointCache, StateSlotPool
-from repro_torch.sharding.rules import QUANT_WEIGHT_SPEC, quantize_params
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import (QUANT_WEIGHT_SPEC, quantize_param_axes,
+                                        quantize_params, use_rules)
 
 
 @dataclasses.dataclass
@@ -137,15 +153,67 @@ def _check_family(cfg: ArchConfig, engine: str) -> None:
             "none")
 
 
-def _serving_params(cfg: ArchConfig, params, device):
+class ShardedTree(dict):
+    """A parameter tree already laid out for one rank of a mesh
+    (``layout`` = (rules, rank)): replica engines sharing it take it as
+    it is."""
+
+    layout: tuple = ()
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _check_rules(cfg: ArchConfig, rules, engine: str) -> None:
+    """Mesh rules: the dense family over a (1, M) mesh. The combinations
+    with no port yet raise, naming their ``ROADMAP.md`` item."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{engine}: mesh rules on the {cfg.family!r} family are not "
+            "ported yet (ROADMAP.md queue 1 item 9.2: MoE's TP/EP branch "
+            "and the recurrent, encdec and vlm families under rules)")
+    wide = {a: n for a, n in rules.axis_sizes.items()
+            if a != "model" and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"{engine}: mesh axes {wide} beyond the model axis: the data "
+            "axis in serving is not ported yet (ROADMAP.md queue 1 item "
+            "9.1); serve on a (1, M) mesh")
+    n = rules.axis_sizes.get("model", 1)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n != world:
+        raise ValueError(f"{engine}: a model axis of {n} ranks in a process "
+                         f"group of {world}")
+
+
+def _serving_params(cfg: ArchConfig, params, device, rules=None,
+                    axes=None):
     """The engine's parameter tree on ``device``: under ``cfg.quant.weights``
     every matmul weight packed to int8 + per-channel scales, as the
     reference engines do (idempotent), from float32 masters only (codes
-    packed from bf16 would differ)."""
+    packed from bf16 would differ); under ``rules`` then this rank's slice
+    of each leaf per ``axes`` (``models.api.param_axes(cfg)`` by default;
+    packing comes first, so each scale covers the whole contraction),
+    packed and cut where ``params`` lie: a tree in host memory puts only
+    the rank's slices on ``device``."""
+    if rules is not None:
+        layout = (rules, _rank())
+        if isinstance(params, ShardedTree) and params.layout == layout:
+            return params
     if cfg.quant.weights:
         _check_float32_masters(params)
         params = quantize_params(params)
-    return tree_map(lambda t: t.to(device), params)
+    if rules is None:
+        return tree_map(lambda t: t.to(device), params)
+    axes = api.param_axes(cfg) if axes is None else axes
+    if cfg.quant.weights:
+        axes = quantize_param_axes(axes)
+    out = ShardedTree(tree_map(lambda t: t.to(device),
+                               shard_params(params, axes, rules,
+                                            layout[1])))
+    out.layout = layout
+    return out
 
 
 class PagedEngine:
@@ -179,10 +247,20 @@ class PagedEngine:
     K/V into the request's cross pages, which each prefill chunk and decode
     horizon reads (null lanes claim one valid cross row).
 
+    With ``rules`` (a (1, M) mesh's ``sharding.rules.Rules``) the engine
+    is one rank of a tensor-parallel dense model (module docstring): it
+    keeps this rank's slice of the weights (``param_axes`` their logical
+    axes, ``models.api.param_axes(cfg)`` by default; a ``ShardedTree`` of
+    another engine on the same rules is taken as it is; pass ``params`` in
+    host memory, so that the card never holds the whole tree) and of the
+    KV pages (allocated at the slice's shape), and every step runs under
+    the rules.
+
     Features without a path raise here rather than being silently
     downgraded: the vlm family (not paged-servable), int8 weights on every
     family but dense, int8 KV pages on encdec (the reference reads its int8
-    cross pages undequantized) and mesh rules.
+    cross pages undequantized), mesh rules on any family but dense and a
+    mesh axis other than ``model`` wider than 1.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -190,8 +268,11 @@ class PagedEngine:
                  max_running: int = 8, decode_batch: int = 4,
                  prefill_chunk: int = 16, decode_horizon: int = 8,
                  device="cuda", prefix_cache: Optional[bool] = None,
-                 watermark: int = 1, rules=None, spec_config=None):
+                 watermark: int = 1, rules=None, param_axes=None,
+                 spec_config=None):
         device = _resolve_device(device, "PagedEngine")
+        if rules is not None:
+            _check_rules(cfg, rules, "PagedEngine")
         _check_family(cfg, "PagedEngine")
         state_spec = api.sequence_state_spec(cfg)
         if not state_spec.servable:
@@ -205,10 +286,6 @@ class PagedEngine:
                 "cast, not dequantized (repro/models/whisper.py:318-320), "
                 "so its tokens part from its own dense oracle; the port has "
                 "no such path")
-        if rules is not None:
-            raise NotImplementedError(
-                "sharding rules are not ported yet (ROADMAP.md queue 1 "
-                "item 9)")
         if cfg.window and max_seq_len > cfg.window:
             raise ValueError(
                 "pages are append-only: serving past the sliding window "
@@ -240,7 +317,9 @@ class PagedEngine:
         self.device = device
         self.state_spec = state_spec
         self.prefix_cache = prefix_cache
-        self.params = _serving_params(cfg, params, device)
+        self.rules = rules
+        self._model_axis = comm.model_axis(rules)
+        self.params = _serving_params(cfg, params, device, rules, param_axes)
         self.decode_batch = decode_batch
         self.decode_horizon = decode_horizon
         # always built: a pure-recurrent family gets zero-byte pools with
@@ -251,7 +330,8 @@ class PagedEngine:
                                   prefix_cache=(prefix_cache
                                                 and state_spec.has_pages),
                                   device=device,
-                                  kv_layers=state_spec.kv_layers)
+                                  kv_layers=state_spec.kv_layers,
+                                  rules=rules)
         # recurrent families: one state slot per running lane (+ the null
         # slot) and, with prefix caching, the block-boundary checkpoints
         # that stand in for page sharing
@@ -275,7 +355,12 @@ class PagedEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    _host = staticmethod(_host)
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """:func:`_host`; under mesh rules after checking that every rank
+        of the model axis reads the same bytes (one gather)."""
+        if self._model_axis is None:
+            return _host(t)
+        return comm.agreed(t, self._model_axis, "PagedEngine readback")
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Replay COW page duplications on the device before the step
@@ -590,15 +675,18 @@ class PagedEngine:
         """One engine iteration: admit, one prefill chunk, one speculative
         round or else one decode horizon for the running batch, reclaim
         finished sequences (also right after the prefill, so their pages
-        fund the decode batch's growth)."""
-        self.sched.admit()
-        seq = self.sched.next_prefill()
-        if seq is not None:
-            self._prefill_step(seq)
-        self._reap_done()
-        if not self._spec_step():
-            self._decode_step()
-        self._reap_done()
+        fund the decode batch's growth). The step enters the engine's
+        rules, so every caller (``generate()``, the async loop, an
+        external loop) runs the tensor-parallel layers."""
+        with use_rules(self.rules):
+            self.sched.admit()
+            seq = self.sched.next_prefill()
+            if seq is not None:
+                self._prefill_step(seq)
+            self._reap_done()
+            if not self._spec_step():
+                self._decode_step()
+            self._reap_done()
         self.steps += 1
 
     # -- public API -----------------------------------------------------------
@@ -746,7 +834,7 @@ class Engine:
     vlm are not LM families and raise, as in the reference, as do int8
     weights on MoE and the recurrent families, int8 KV on the hybrid's
     dense caches (the reference stores a cast there, with no scale) and
-    mesh rules (ROADMAP.md queue 1 item 9).
+    mesh rules (ROADMAP.md queue 1 item 9.1; ``PagedEngine`` takes them).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
@@ -757,8 +845,9 @@ class Engine:
         _check_family(cfg, "Engine")
         if rules is not None:
             raise NotImplementedError(
-                "sharding rules are not ported yet (ROADMAP.md queue 1 "
-                "item 9)")
+                "Engine: the dense-slot engine under mesh rules is not "
+                "ported yet (ROADMAP.md queue 1 item 9.1); PagedEngine "
+                "serves the dense family tensor-parallel")
         if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
             raise NotImplementedError(
                 "Engine: int8 KV on the hybrid's dense caches: the "

@@ -47,15 +47,29 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# Logical axes of the page pools: pages replicate (any rank can host any
+# sequence's pages); each page's kv_heads dim shards over the model axis.
+PAGED_KV_AXES = {
+    "k": ("layers", "pages", None, "kv_heads", "head_dim"),
+    "v": ("layers", "pages", None, "kv_heads", "head_dim"),
+}
+
+
 class PagedKVCache:
     """Fixed pool of KV pages + host-side tables, refcounts and index."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int,
                  block_size: int = 16, max_seq_len: int = 512,
                  prefix_cache: bool = True, device="cuda",
-                 kv_layers: Optional[int] = None):
+                 kv_layers: Optional[int] = None, rules=None):
+        """``rules`` (mesh rules, ``sharding.rules``): the pools are
+        allocated at one rank's shard of ``PAGED_KV_AXES`` (pages whole,
+        each page's kv_heads cut over the model axis where they divide
+        it, whole where they do not); page tables, refcounts, the prefix
+        index and COW are host state, the same on every rank."""
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (page 0 is the null page)")
+        from repro_torch.convert import shard_shape
         from repro_torch.models.layers import kv_store_dtype
         self.cfg = cfg
         self.block_size = block_size
@@ -70,6 +84,9 @@ class PagedKVCache:
         self.kv_layers = cfg.n_layers if kv_layers is None else kv_layers
         shape = (self.kv_layers, num_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
+        if rules is not None:
+            shape = shard_shape(rules.spec(PAGED_KV_AXES["k"], shape), shape,
+                                rules)
         dt = kv_store_dtype(cfg)
         self.pools: Dict[str, torch.Tensor] = {
             "k": torch.zeros(shape, dtype=dt, device=self.device),

@@ -44,7 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, get_config
+from repro_torch.convert import shard_params
 from repro_torch.models import api
+from repro_torch.models.state import tree_map
+from repro_torch.serve.engine import _check_rules, _rank
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import use_rules
 
 
 @dataclasses.dataclass
@@ -125,15 +130,33 @@ class DraftModelDrafter:
     are clipped to the last ``window`` tokens, positions re-based to the
     window, and right-padded: the model is causal, so the padding never
     reaches the logits a proposal reads. Only those rows leave the device.
+
+    With ``rules`` the draft model is sharded by its own rules
+    (``param_axes`` its logical axes, ``models.api.param_axes(cfg)`` by
+    default; cut where ``params`` lie, then moved to ``device`` when it is
+    given, so a tree in host memory puts only the slices on the card) and
+    each forward runs under them; without, every rank of a
+    tensor-parallel target runs the whole draft model (its forward leaves
+    the target's rules). Under rules the rows read back are checked equal
+    on every rank, as the engine's are.
     """
 
-    def __init__(self, cfg: ArchConfig, params, *, window: int = 64):
+    def __init__(self, cfg: ArchConfig, params, *, window: int = 64,
+                 rules=None, param_axes=None, device=None):
         if cfg.family != "dense":
             raise ValueError(
                 f"DraftModelDrafter drafts with dense LMs, got {cfg.family}")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.cfg = cfg
+        self.rules = rules
+        if rules is not None:
+            _check_rules(cfg, rules, "DraftModelDrafter")
+            params = shard_params(
+                params, api.param_axes(cfg) if param_axes is None
+                else param_axes, rules, _rank())
+            if device is not None:
+                params = tree_map(lambda t: t.to(device), params)
         self.params = params
         self.window = window
         self.vocab_size = cfg.vocab_size
@@ -157,15 +180,18 @@ class DraftModelDrafter:
             toks = np.zeros((b, w), np.int32)
             for r, t in enumerate(tails):
                 toks[r, :len(t)] = t
-            logits = api.forward(
-                self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)}, self.cfg,
-                "serve")
+            with use_rules(self.rules):
+                logits = api.forward(
+                    self.params,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    self.cfg, "serve")
             self.forwards += 1
             last = torch.tensor([len(t) - 1 for t in tails],
                                 device=self.device)
-            rows = logits[torch.arange(len(live), device=self.device),
-                          last].float().cpu().numpy()
+            rows = comm.agreed(
+                logits[torch.arange(len(live), device=self.device),
+                       last].float(), comm.model_axis(self.rules),
+                "DraftModelDrafter readback")
             for r, j in enumerate(live):
                 seq = lanes[j]
                 drafts[j].append(seq.sampler.draw(rows[r], len(seq.out) + i))
@@ -174,14 +200,16 @@ class DraftModelDrafter:
 
 def spec_config_from_flag(flag: Optional[str], cfg: ArchConfig, *,
                           max_k: int = 4, seed: int = 0, smoke: bool = False,
-                          device="cuda") -> Optional[SpecConfig]:
+                          device="cuda", rules=None) -> Optional[SpecConfig]:
     """A :class:`SpecConfig` from the launcher's ``--spec-decode`` flag.
 
     ``""``/None: no speculation; ``"ngram"``: the model-free drafter;
     ``"draft:<arch>"``: a fresh draft model of that config with weights
     from ``api.init_params(seed + 1, ...)`` on ``device`` (``smoke``
     shrinks it like the target; its vocabulary must equal the target's);
-    ``"draft"`` alone self-drafts with the target's architecture.
+    ``"draft"`` alone self-drafts with the target's architecture. Under
+    ``rules`` (a tensor-parallel target) the draft model is drawn in host
+    memory and sharded by them, its slices on ``device``.
     """
     if not flag:
         return None
@@ -197,8 +225,13 @@ def spec_config_from_flag(flag: Optional[str], cfg: ArchConfig, *,
             raise ValueError(
                 f"draft vocab {dcfg.vocab_size} != target vocab "
                 f"{cfg.vocab_size}: speculation needs a shared tokenizer")
-        dparams = api.init_params(seed + 1, dcfg, device)
-        return SpecConfig(DraftModelDrafter(dcfg, dparams), max_k=max_k)
+        if rules is None:
+            return SpecConfig(DraftModelDrafter(
+                dcfg, api.init_params(seed + 1, dcfg, device)), max_k=max_k)
+        # drawn in host memory; each rank moves only its slices
+        dparams = api.init_params(seed + 1, dcfg, "cpu")
+        return SpecConfig(DraftModelDrafter(dcfg, dparams, rules=rules,
+                                            device=device), max_k=max_k)
     raise ValueError(
         f"unknown --spec-decode mode {flag!r} "
         "(expected 'ngram', 'draft' or 'draft:<arch>')")

@@ -3,8 +3,8 @@
 
 1. **Re-placement** (:func:`reshard_checkpoint`): checkpoints are host
    npz trees; restoring moves every leaf to the target device. The mesh
-   form (a different data/model mesh) waits for multi-GPU support
-   (ROADMAP queue 1 item 9) and raises. Because the data pipeline is a
+   form (a different data/model mesh) waits for training over a mesh
+   (ROADMAP queue 1 item 9.3) and raises. Because the data pipeline is a
    pure function of (seed, step, shard), a resumed run consumes exactly
    the remaining data.
 2. **Straggler mitigation** (:func:`drop_slowest_microbatch`): zero the
@@ -29,8 +29,8 @@ def reshard_checkpoint(ckpt_dir: str, template: Any, target=None, *,
     layout yet."""
     if target is not None and not isinstance(target, (str, torch.device)):
         raise NotImplementedError(
-            "restoring onto a mesh needs the port's multi-GPU sharding "
-            "(ROADMAP queue 1 item 9); pass a device")
+            "restoring onto a mesh needs training over a mesh "
+            "(ROADMAP queue 1 item 9.3); pass a device")
     return ckpt.restore(ckpt_dir, template, step=step, device=target)
 
 

@@ -642,16 +642,18 @@ def _static_case(rng, rows, c, rms, x_dtype, device):
                                 None if rms else beta)
 
 
-def _check_static_entries(x, r, chan, rms, od):
+def _check_static_entries(x, r, chan, rms, od, count=True):
     """qnorm, add_norm and add_norm_quant on ``x``/``r`` bitwise equal to
     their plain versions on the float32 view of the same rows, the
-    outputs then cast to ``od``."""
+    outputs then cast to ``od``; ``count``: one launch each (a caller
+    alone in the process)."""
     counters = (KN.qnorm, KN.add_norm, KN.add_norm_quant)
     before = [f.launches for f in counters]
     out = KN.qnorm(x, *chan, rms=rms, out_dtype=od)
     h, out2 = KN.add_norm(x, r, *chan, rms=rms, out_dtype=od)
     h8, codes, scale = KN.add_norm_quant(x, r, *chan, rms=rms)
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    if count:
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
     want = KN.qnorm_plain(x.float(), *chan, rms=rms).to(od)
     h_ref, want2 = KN.add_norm_plain(x.float(), r.float(), *chan, rms=rms)
     _, want_codes, want_scale = KN.add_norm_quant_plain(
@@ -692,6 +694,32 @@ def test_static_norm_wide_rows_take_norm_row(cuda_device, c, x_dtype,
     rng = np.random.default_rng(c + len(x_dtype + out_dtype))
     x, r, chan = _static_case(rng, 64, c, False, x_dtype, cuda_device)
     _check_static_entries(x, r, chan, False, getattr(torch, out_dtype))
+
+
+def test_static_norm_on_every_card_in_one_process(cuda_device):
+    """The static-params launcher's occupancy cache is per device, row
+    width and entry, behind a lock: calls alternating between cuda:0 and,
+    where present, cuda:1 at two widths, then two threads at once on each
+    card, stay bitwise equal to the plain version."""
+    import concurrent.futures
+    cards = [torch.device("cuda", i)
+             for i in range(min(2, torch.cuda.device_count()))]
+
+    def run(dev, c, seed, count=True):
+        with torch.cuda.device(dev):
+            rng = np.random.default_rng(seed)
+            x, r, chan = _static_case(rng, 127, c, c == 896, "bfloat16", dev)
+            _check_static_entries(x, r, chan, c == 896, torch.bfloat16,
+                                  count)
+    for rnd in range(2):
+        for i, dev in enumerate(cards):
+            for c in (896, 2048):
+                run(dev, c, 100 * rnd + 10 * i + c)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(run, dev, c, 7 * c + i, False)
+                for i, dev in enumerate(cards) for c in (2048, 896)]
+        for j in jobs:
+            j.result()
 
 
 @pytest.mark.parametrize("c", [896, 5000])

@@ -271,6 +271,10 @@ def test_engine_raises_for_unported_families(change, err, match):
 
 
 def test_engine_raises_for_rules_and_sampling():
+    """The dense-slot engine refuses mesh rules, even a (1, 2) mesh the
+    paged engine serves, naming its roadmap item."""
+    from repro_torch.launch.mesh import Mesh, make_rules
     cfg, params = _smoke()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        Engine(cfg, params, device="cpu", rules=object())
+    rules = make_rules(Mesh((1, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
+        Engine(cfg, params, device="cpu", rules=rules)

@@ -260,18 +260,25 @@ def test_static_norm_params_raise_on_the_cuda_backend(kind, quant_out):
         fn(x, x, torch.ones(8), torch.zeros(8), params=object())
 
 
+def _data_axis_rules():
+    from repro_torch.launch.mesh import Mesh, make_rules
+    return make_rules(Mesh((2, 1), ("data", "model")))
+
+
 @pytest.mark.parametrize("kw", [dict(cfg=dict(family="vlm")),
-                                dict(rules=object())])
+                                dict(rules=_data_axis_rules())])
 def test_engine_raises_for_unported_features(kw):
     """The vlm family is not paged-servable (the reference's ``ValueError``)
-    and mesh rules raise, naming the roadmap item (speculative decoding is
-    ported: ``tests/test_torch_spec.py``)."""
+    and mesh rules with a data axis wider than 1 raise, naming the roadmap
+    item (the (1, M) tensor-parallel path is ported:
+    ``tests/test_torch_mesh_serve.py``; speculative decoding:
+    ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
     kw = dict(kw)
     change = kw.pop("cfg", {})
     cfg = dataclasses.replace(cfg, **change)
     err, match = ((ValueError, "not paged-servable") if change
-                  else (NotImplementedError, "ROADMAP"))
+                  else (NotImplementedError, "ROADMAP.md queue 1 item 9.1"))
     with pytest.raises(err, match=match):
         PagedEngine(cfg, params, device="cpu", **kw)
 
