@@ -5873,6 +5873,10 @@ SWEEP_TIMEOUT = 900
 # sweep jobs run while the kernels build: the build runs one nvcc a source
 # (five) on the machine's eight cores
 EARLY_SWEEP_JOBS = 3
+# the sweep starts these archs' jobs first: rwkv6_7b's two take about
+# three times any other's host seconds (the log of each job's seconds
+# says so), the rest follow in ``ARCH_NAMES`` order
+SWEEP_FIRST = ("rwkv6_7b",)
 
 
 def serve_sole_phase(torch):
@@ -5960,6 +5964,9 @@ MESH_FOUR_REQUESTS = 4             # the (1, 4) trace serves the first four
 MESH_SPEC_REQUESTS = 3             # the n-gram trace serves the first three
 MESH_SPAWN_TIMEOUT = 600           # seconds for one spawned battery
 MESH_MODES = ("exact", "sole", "w8a8")
+# the data axis, each on the first four requests: (2, 1) serves
+# ``MESH_MODES``, (2, 2) SOLE and W8A8 and the dense-slot engine (exact)
+MESH_DATA2_MODES = ("sole", "w8a8")
 # per-rank paged shapes: (label, H, KV, d, M); every rank of the model axis
 # is checked (the replicated-KV maps of qwen2 at M = 7 straddle KV heads on
 # rank 3 and leave a pool head unread on the others)
@@ -6101,7 +6108,11 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
     per_forward = {k: comm.COUNTS[k] - before.get(k, 0) for k in comm.COUNTS
                    if comm.COUNTS[k] > before.get(k, 0)}
     eng.cache.check_refcounts()
-    res = dict(tokens=outs, first=keep.first, last=keep.last, wall_s=wall,
+    res = {}
+    if rules is not None and rules.axis_sizes.get("data", 1) > 1:
+        res["collectives_per_decode_step"] = decode_step_collectives(
+            torch, eng, cfg, rules, device)
+    res.update(tokens=outs, first=keep.first, last=keep.last, wall_s=wall,
                collective_s=coll_s, collective_share=coll_s / wall,
                launches={k: v for k, v in launches.items() if v},
                collectives_per_forward=per_forward, peak_gib=peak,
@@ -6132,15 +6143,85 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
     return res
 
 
-def mesh_rank(rank, world, modes, backend, t_spawn, n=None, spec=0):
-    """One rank of a (1, ``world``) mesh (``launch.mesh.spawn`` started
-    it and its group): the traces of ``modes`` on the first ``n``
-    requests, ``spec`` > 0 adding the n-gram trace of that many requests
-    to the exact one; under nccl on its own card with the sanitizers' sync
-    guard, under gloo on the shared card. Rank 0 returns the first and the
-    last forward's logits (every rank holds the same rows after the
-    gather). ``t_spawn``: the parent's clock at the spawn, for the seconds
-    the rank took to start and each trace's."""
+def decode_step_collectives(torch, eng, cfg, rules, device):
+    """The collectives of one decode step of ``decode_batch`` null lanes
+    (each on the null page) through ``eng``'s weights and pools under
+    ``rules``: the model axis's, and over data one gather of the K/V rows
+    a layer, one of the draws and, in SOLE mode, one max all-reduce a
+    norm."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import use_rules
+    b = eng.decode_batch
+    zeros = torch.zeros((b,), dtype=torch.int32, device=device)
+    tables = torch.zeros((b, 8), dtype=torch.int32, device=device)
+    before = dict(comm.COUNTS)
+    with use_rules(rules):
+        T.decode_horizon_paged(
+            eng.params, eng.cache.pools, zeros, zeros, tables, None, None,
+            None, zeros, torch.full((b, 1), -1, dtype=torch.int32,
+                                    device=device),
+            cfg, num_steps=1, use_top_k=False, stochastic=False,
+            use_eos=False)
+    return {k: comm.COUNTS[k] - before.get(k, 0) for k in comm.COUNTS
+            if comm.COUNTS[k] > before.get(k, 0)}
+
+
+def mesh_dense_trace(torch, device, rules=None, n=MESH_FOUR_REQUESTS):
+    """qwen2_0_5b at full width and depth in exact float32 through the
+    dense-slot ``Engine``: one batch of the first ``n`` requests
+    (left-padded to the longest prompt), one rank's engine under ``rules``
+    or the whole model. Returns the tokens, the first and last forward's
+    logits (a rank's lanes), launches, the collectives of a batch with
+    one real request (one prefill and its sample), the wall."""
+    import numpy as np
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import param_bytes
+    cfg = mesh_cfg("exact")
+    params = mesh_params(torch, cfg, device)
+    eng = Engine(cfg, params, batch_size=n,
+                 max_len=MESH_PROMPT + MESH_NEW_TOKENS, device=device,
+                 rules=rules)
+    del params
+    reqs = mesh_requests(cfg, n)
+    reset_launches()
+    with LogitsKeeper() as keep:
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize(device)
+        wall = time.time() - t0
+    launches = read_launches()
+    if [len(o) for o in outs] != [MESH_NEW_TOKENS] * len(reqs):
+        raise AssertionError(f"mesh dense: lengths {[len(o) for o in outs]}")
+    before = dict(comm.COUNTS)
+    eng.generate([Request(prompt=np.arange(1, 9, dtype=np.int32),
+                          max_new_tokens=1)])
+    per_call = {k: comm.COUNTS[k] - before.get(k, 0) for k in comm.COUNTS
+                if comm.COUNTS[k] > before.get(k, 0)}
+    res = dict(tokens=outs, first=keep.first, last=keep.last, wall_s=wall,
+               launches={k: v for k, v in launches.items() if v},
+               collectives_per_forward=per_call,
+               param_bytes=param_bytes(eng.params))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(rank, world, jobs, backend, t_spawn, shape):
+    """One rank of a ``shape`` (data, model) mesh (``launch.mesh.spawn``
+    started it and its group): each job ``(label, mode, n, spec, dense)``
+    a trace of ``mode`` on the first ``n`` requests (``spec`` > 0 adds
+    the n-gram trace of that many requests; ``dense``: the dense-slot
+    engine's exact trace); under nccl on its own card with the sanitizers'
+    sync guard, under gloo on the shared card. Rank 0 returns the first
+    forward's logits and every rank the last forward's (whole rows over
+    the vocabulary; the rank's lanes of a dispatch the data axis splits,
+    its data coordinate as ``data_index``). ``t_spawn``: the parent's
+    clock at the spawn, for the seconds the rank took to start and each
+    trace's."""
     import torch
     from repro_torch.launch.mesh import make_mesh, make_rules
     started = time.time() - t_spawn
@@ -6149,19 +6230,154 @@ def mesh_rank(rank, world, modes, backend, t_spawn, n=None, spec=0):
     device = (torch.device("cuda", rank) if backend == "nccl"
               else torch.device("cuda", 0))
     torch.cuda.set_device(device)
-    rules = make_rules(make_mesh((1, world), ("data", "model")))
-    out = {"started_s": started, "trace_s": {}}
-    for mode in modes:
+    rules = make_rules(make_mesh(shape, ("data", "model")))
+    out = {"started_s": started, "trace_s": {},
+           "data_index": rules.mesh.coordinate("data")}
+    for label, mode, n, spec, dense in jobs:
         t0 = time.time()
-        res = mesh_trace(torch, mode, device, rules,
-                         sanitize=backend == "nccl", n=n,
-                         spec=spec if mode == "exact" else 0)
+        if dense:
+            res = mesh_dense_trace(torch, device, rules, n)
+        else:
+            res = mesh_trace(torch, mode, device, rules,
+                             sanitize=backend == "nccl", n=n, spec=spec)
         if rank:
             res.pop("first")
-            res.pop("last")
-        out[mode] = res
-        out["trace_s"][mode] = time.time() - t0
+        out[label] = res
+        out["trace_s"][label] = time.time() - t0
     out["done_s"] = time.time() - t_spawn
+    return out
+
+
+def check_data_split_kernels(torch):
+    """The kernels of a data rank's share of a dispatch (D = 2: the
+    second half of the lanes), each against the single card's launch on
+    the whole batch, qwen2_0_5b's shapes: the paged kernel on lanes 4..7
+    of an 8-lane decode step and on rows 20..39 of a 40-row verify
+    dispatch run as decode rows (bf16 and int8 + ``quant_pv`` pools, SOLE
+    and exact) bitwise those rows of the whole launch; the calibrating
+    norm of a half of 8 decode rows, 40 verify rows and a 128-row chunk
+    (RMS, C 896, bf16; bf16 out and int8 out), the other half's
+    per-channel maxima folded in as the all-reduce over data folds them,
+    through ``calibrated_norm_split`` (the static-params kernels) bitwise
+    the calibrating kernel's rows, alpha and scale, and the split route
+    timed against the calibrating kernel on a rank's 4, 20 and 64 rows
+    (``split_norm_times``). Returns the cases' counts and the times."""
+    from repro_torch.kernels import ailayernorm as KN
+    from repro_torch.kernels import flash_e2softmax as KA
+    from repro_torch.models.layers import KV_INT8_SCALE, LOGIT_INT8_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    half = DECODE_BATCH // 2
+    kv40 = [1 if i % 9 == 4 else 1 + (37 * i) % 300 for i in range(40)]
+    cases = {"decode": (DECODE_BATCH, [49, 300, 117, 1, 256, 83, 160, 1]),
+             "verify_rows": (40, kv40)}
+    checked = 0
+    for name, (b, kv_lens) in cases.items():
+        for int8 in (False, True):
+            case = paged_case(torch, gen, b=b, c=1, q_start=[0] * b,
+                              kv_lens=kv_lens, h=14, kvh=2, d=64, grid=True,
+                              int8=int8)
+            q, k, v, tables, meta = case
+            for mode in ("sole", "exact"):
+                kw = dict(sole=mode == "sole", exp_bits=4,
+                          int8_scale=(LOGIT_INT8_SCALE if mode == "sole"
+                                      else None))
+                if int8:
+                    kw.update(kv_scale=KV_INT8_SCALE, quant_pv=True)
+                full = KA.flash_e2softmax_paged(*case, causal=False, **kw)
+                part = KA.flash_e2softmax_paged(
+                    q[b // 2:].contiguous(), k, v,
+                    tables[b // 2:].contiguous(), meta[b // 2:].contiguous(),
+                    causal=False, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(part, full[b // 2:]):
+                    raise AssertionError(
+                        f"data split paged {name} {'int8' if int8 else 'bf16'}"
+                        f" {mode}: a half's launch differs from the whole "
+                        "batch's rows")
+                checked += 1
+    norms, timed = {}, {}
+    c = 896
+    gamma = (1 + 0.1 * torch.randn((c,), generator=gen, device="cuda"))
+    for rows in (DECODE_BATCH, 5 * DECODE_BATCH, PREFILL_CHUNK):
+        x = (torch.randn((rows, c), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        r = torch.randn((rows, c), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x[rows - 1, 17] = 60.0      # a channel whose max is in one half
+        lo, hi = slice(0, rows // 2), slice(rows // 2, rows)
+        for quant in (False, True):
+            full = KN.calibrated_norm(x, r, gamma, None, rms=True,
+                                      out_dtype=torch.bfloat16,
+                                      quant_out=quant)
+            for own, other in ((lo, hi), (hi, lo)):
+                folded = (x[other] + r[other]).abs().amax(0)
+                before = (KN.qnorm.launches, KN.add_norm_quant.launches)
+                got = KN.calibrated_norm_split(
+                    x[own], r[own], gamma, None, rms=True,
+                    amax_reduce=lambda t, f=folded: torch.maximum(t, f),
+                    out_dtype=torch.bfloat16, quant_out=quant)
+                launched = (KN.qnorm.launches - before[0],
+                            KN.add_norm_quant.launches - before[1])
+                if launched != ((0, 1) if quant else (1, 0)):
+                    raise AssertionError(f"split norm launches {launched}")
+                torch.cuda.synchronize()
+                want_res = ((full[1][0][own], full[1][1][own]) if quant
+                            else (full[1][own],))
+                got_res = got[1] if quant else (got[1],)
+                same = (torch.equal(got[0], full[0][own])
+                        and all(torch.equal(a, w)
+                                for a, w in zip(got_res, want_res))
+                        and torch.equal(got[2], full[2])
+                        and torch.equal(got[3], full[3]))
+                if not same:
+                    raise AssertionError(
+                        f"data split norm rows {rows} quant {quant}: not "
+                        "the calibrating kernel's rows bitwise")
+            norms[f"rows{rows}_{'int8' if quant else 'bf16'}"] = "bitwise"
+        timed[rows // 2] = split_norm_times(torch, x[lo].contiguous(),
+                                            r[lo].contiguous(), gamma,
+                                            (x[hi] + r[hi]).abs().amax(0))
+    log(f"[mesh data kernels] paged kernel on half the lanes: {checked} "
+        "cases (8-lane decode, 40 verify rows as decode rows; bf16 and int8 "
+        "pools; SOLE and exact) bitwise the whole launch's rows; the split "
+        "calibrating norm (maxima folded over the halves, static-params "
+        f"kernels) bitwise the calibrating kernel's rows: {json.dumps(norms)}")
+    for rows, t in timed.items():
+        log(f"[mesh data kernels] norm of a rank's {rows} rows (RMS, C {c}, "
+            "bf16), split route (maxima folded in place of the all-reduce) "
+            "against the calibrating kernel on the same rows: "
+            + ", ".join(f"{out} out events {t[out]['split_ms'] * 1e3:.1f} "
+                        f"against {t[out]['calib_ms'] * 1e3:.1f} us, host "
+                        f"wall {t[out]['split_wall_ms'] * 1e3:.1f} against "
+                        f"{t[out]['calib_wall_ms'] * 1e3:.1f} us"
+                        for out in ("bf16", "int8")))
+    return {"paged_cases": checked, "norm": norms, "norm_times": timed}
+
+
+def split_norm_times(torch, x, r, gamma, folded):
+    """``calibrated_norm_split`` of a rank's rows ``x``/``r`` (its maxima
+    folded with ``folded``, the other ranks', in place of the max
+    all-reduce) against ``calibrated_norm`` (one calibrating kernel) on
+    the same rows, bf16 out and int8 out: device time by CUDA events and
+    the host's wall a call (the split route is a chain of torch ops)."""
+    from repro_torch.kernels import ailayernorm as KN
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_
+    out = {}
+    for name, quant in (("bf16", False), ("int8", True)):
+        kw = dict(rms=True, out_dtype=torch.bfloat16, quant_out=quant)
+
+        def split():
+            return KN.calibrated_norm_split(
+                x, r, gamma, None,
+                amax_reduce=lambda t: torch.maximum(t, folded), **kw)
+
+        def calib():
+            return KN.calibrated_norm(x, r, gamma, None, with_params=False,
+                                      **kw)
+        out[name] = dict(split_ms=time_ms(torch, split, flush),
+                         calib_ms=time_ms(torch, calib, flush),
+                         split_wall_ms=wall_ms(torch, split),
+                         calib_wall_ms=wall_ms(torch, calib))
     return out
 
 
@@ -6406,31 +6622,59 @@ def agreement(a, b):
     return same / max(sum(len(p) for p in a), 1)
 
 
-def mesh_spawn(world, modes, backend, n=None, spec=0):
-    """``mesh_rank`` on a (1, ``world``) mesh; logs where its wall went
-    (the ranks' start, their traces, the rest: exit and join)."""
+def mesh_spawn(shape, jobs, backend):
+    """``mesh_rank`` on a ``shape`` mesh with ``jobs`` (``mesh_jobs``);
+    logs where its wall went (the ranks' start, their traces, the rest:
+    exit and join)."""
+    import math
     from repro_torch.launch.mesh import spawn
     t0 = time.time()
-    ranks = spawn(mesh_rank, world, (modes, backend, t0, n, spec),
+    ranks = spawn(mesh_rank, math.prod(shape), (jobs, backend, t0, shape),
                   backend=backend, timeout=MESH_SPAWN_TIMEOUT, threads=0)
     wall = time.time() - t0
-    log(f"[phase time] mesh (1, {world}) {backend}: {wall:.1f} s (ranks "
+    setup = {j[0]: {p: round(v, 1) for p, v in ranks[0][j[0]].get(
+        "setup_s", {}).items()} for j in jobs}
+    log(f"[phase time] mesh {tuple(shape)} {backend}: {wall:.1f} s (ranks "
         f"started after {max(r['started_s'] for r in ranks):.1f} s, done "
         f"after {max(r['done_s'] for r in ranks):.1f} s; rank 0's traces "
         f"{json.dumps({k: round(v, 1) for k, v in ranks[0]['trace_s'].items()})}"
-        f", set-up {json.dumps({k: {p: round(v, 1) for p, v in ranks[0][k]['setup_s'].items()} for k in modes})})")
+        f", set-up {json.dumps(setup)})")
     return ranks
+
+
+def mesh_jobs(modes, n=None, spec=0, dense=False, suffix=""):
+    """``mesh_rank``'s jobs: a paged trace of each of ``modes`` on the
+    first ``n`` requests (``spec`` n-gram requests beside the exact one),
+    labelled by mode (plus ``suffix``); ``dense`` adds the dense-slot
+    engine's exact trace, labelled ``dense_exact``."""
+    jobs = [(mode + suffix, mode, n, spec if mode == "exact" else 0, False)
+            for mode in modes]
+    if dense:
+        jobs.append(("dense_exact", "exact", n, 0, True))
+    return jobs
 
 
 def first_diffs(ranks, firsts):
     """Rank 0's first forward against the single card's (``firsts`` by
-    mode), as ``first_max_abs_diff`` of each trace."""
+    label), as ``first_max_abs_diff`` of each trace with such a label."""
     import numpy as np
-    for mode, res in ranks[0].items():
-        if isinstance(res, dict) and "first" in res:
+    for label, res in ranks[0].items():
+        if isinstance(res, dict) and "first" in res and label in firsts:
             res["first_max_abs_diff"] = float(
-                np.abs(res.pop("first") - firsts[mode]).max())
+                np.abs(res.pop("first") - firsts[label]).max())
     return ranks
+
+
+def lane_rows(ref, lanes_, index):
+    """``ref``'s rows (dim 0) that data rank ``index`` of a batch split in
+    ``lanes_``-row shares holds (all of them where the rows match)."""
+    if ref.shape[0] == lanes_:
+        return ref
+    return ref[index * lanes_:(index + 1) * lanes_]
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
 def mesh_serve_phase(torch):
@@ -6448,40 +6692,50 @@ def mesh_serve_phase(torch):
     t0 = time.time()
     paged, gemm = check_mesh_kernels(torch)
     products = check_mesh_products(torch)
+    data_kernels = check_data_split_kernels(torch)
     log(f"[phase time] mesh kernels and products: {time.time() - t0:.1f} s")
-    # the single card's traces run here while the (1, 2) ranks start
-    with ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(mesh_spawn, 2, MESH_MODES, "gloo",
-                          spec=MESH_SPEC_REQUESTS)
+    four_n = MESH_FOUR_REQUESTS
+    # the single card's traces run here while the (1, 2) and (2, 1) ranks
+    # start and serve beside them; then (1, 4) and (2, 2) side by side
+    with ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(mesh_spawn, (1, 2), mesh_jobs(
+            MESH_MODES, spec=MESH_SPEC_REQUESTS) + mesh_jobs(
+            ("sole",), n=four_n, suffix="_four"), "gloo")
+        fut21 = pool.submit(mesh_spawn, (2, 1), mesh_jobs(
+            MESH_MODES, n=four_n), "gloo")
         t0 = time.time()
         dev = torch.device("cuda", 0)
         single = {mode: mesh_trace(torch, mode, dev) for mode in MESH_MODES}
-        four_single = mesh_trace(torch, "sole", dev, n=MESH_FOUR_REQUESTS)
+        single_four = {mode: mesh_trace(torch, mode, dev, n=four_n)
+                       for mode in MESH_MODES}
+        four_single = single_four["sole"]
+        dense_single = mesh_dense_trace(torch, dev)
         firsts = {m: r.pop("first") for m, r in single.items()}
-        log(f"[phase time] mesh single card (beside the (1, 2) ranks): "
-            f"{time.time() - t0:.1f} s")
+        log(f"[phase time] mesh single card (beside the (1, 2) and (2, 1) "
+            f"ranks): {time.time() - t0:.1f} s")
         two = first_diffs(fut.result(), firsts)
-    res = {"kernels": {"paged": paged, "int8_matmul": gemm},
+        two_one = fut21.result()
+    with ThreadPoolExecutor(2) as pool:
+        fut4 = pool.submit(mesh_spawn, (1, 4), mesh_jobs(("sole",), n=four_n),
+                           "gloo")
+        two_two = mesh_spawn((2, 2), mesh_jobs(MESH_DATA2_MODES, n=four_n,
+                                               dense=True), "gloo")
+        four = first_diffs(fut4.result(), firsts)
+    res = {"kernels": {"paged": paged, "int8_matmul": gemm,
+                       "data_split": data_kernels},
            "products_share_apart": products, "single": {}}
-    four = first_diffs(mesh_spawn(4, ("sole",), "gloo",
-                                  n=MESH_FOUR_REQUESTS), firsts)
+    res.update(data_axis_checks(torch, two, two_one, two_two, single_four,
+                                dense_single))
     for mesh, ranks in (("1x2", two), ("1x4", four)):
-        for mode in MESH_MODES:
+        for mode in MESH_MODES + ("sole_four",):
             if mode not in ranks[0]:
                 continue
             toks = [r[mode]["tokens"] for r in ranks]
             if any(t != toks[0] for t in toks):
                 raise AssertionError(f"mesh {mesh} {mode}: the ranks' tokens "
                                      "differ")
-            path = {"paged_e2softmax", "ailayernorm_exact"
-                    if mode == "exact" else "ailayernorm_calib"}
-            if mode == "w8a8":
-                path.add("int8_matmul")
-            for r, res_r in enumerate(ranks):
-                idle = [k for k in path if not res_r[mode]["launches"].get(k)]
-                if idle:
-                    raise AssertionError(f"mesh {mesh} {mode} rank {r}: "
-                                         f"{idle} never launched on the path")
+            mesh_path_launched(f"mesh {mesh} {mode}", mode.split("_")[0],
+                               ranks, mode, split=False)
     # n-gram speculation on (1, 2): every rank's tokens are its plain
     # decode's (verify rows are decode rows bit for bit on each rank)
     for r, rr in enumerate(two):
@@ -6575,7 +6829,175 @@ def mesh_serve_phase(torch):
             f"{r['peak_gib']:.3f} GiB, params {r['param_bytes']} B, pools "
             f"{r['pool_bytes']} B")
     res["1x2_nccl"] = nccl_leg(torch, single["exact"]["tokens"], firsts)
+    res["2x2_nccl"] = nccl_data_leg(torch, single_four["exact"])
     return res
+
+
+def mesh_path_launched(tag, mode, ranks, label, split):
+    """Every kernel of ``mode``'s path launched on every rank in the trace
+    ``label``: the paged kernel and the mode's norms (the calibrating
+    norm for the replicated prefill chunks; ``split``: a data axis splits
+    the decode dispatches, whose SOLE norms take the static-params
+    kernels with the whole batch's maxima), the int8 GEMM at W8A8."""
+    path = {"paged_e2softmax", "ailayernorm_exact"
+            if mode == "exact" else "ailayernorm_calib"}
+    if mode != "exact" and split:
+        path.add("ailayernorm_add_norm_quant" if mode == "w8a8"
+                 else "ailayernorm_qnorm")
+    if mode == "w8a8":
+        path.add("int8_matmul")
+    for r, res_r in enumerate(ranks):
+        idle = [k for k in path if not res_r[label]["launches"].get(k)]
+        if idle:
+            raise AssertionError(f"{tag} rank {r}: {idle} never launched on "
+                                 "the path")
+
+
+def data_axis_checks(torch, two, two_one, two_two, single_four,
+                     dense_single):
+    """The data axis's legs against their references. (2, 1): exact
+    float32, SOLE bf16 and W8A8 + int8 KV on four requests, tokens and
+    the first and last forward's logits bitwise the single card's (the
+    last on each rank's lanes). (2, 2): W8A8 bitwise the single card, SOLE
+    bitwise the (1, 2) ranks' four-request SOLE trace; the dense-slot
+    engine's exact tokens equal on every rank and equal to the single
+    card's dense engine, or parting inside a top-2 margin no larger than
+    the measured logit difference. Every trace's collectives a prefill
+    forward and a decode step against the prediction; each rank's paths
+    launched."""
+    n = mesh_cfg("sole").n_layers
+    out = {}
+    model = {"all_reduce_sum": 1 + 2 * n, "all_gather": 1}
+    w8_model = dict(model, all_reduce_max=2 * n)
+    kv_draws = {"data.all_gather": n + 1}
+    calib = {"data.all_reduce_max": 2 * n + 1}
+    want = {
+        ("2x1", "exact"): ({"agreed": 1}, kv_draws),
+        ("2x1", "sole"): ({"agreed": 1}, dict(kv_draws, **calib)),
+        ("2x1", "w8a8"): ({"agreed": 1}, dict(kv_draws, **calib)),
+        ("2x2", "sole"): (dict(model, agreed=1),
+                          dict(model, **kv_draws, **calib)),
+        ("2x2", "w8a8"): (dict(w8_model, agreed=1),
+                          dict(w8_model, **kv_draws, **calib))}
+    refs = {("2x1", m): (single_four[m], single_four[m]["last"])
+            for m in MESH_MODES}
+    refs[("2x2", "w8a8")] = refs[("2x1", "w8a8")]
+    refs[("2x2", "sole")] = (two[0]["sole_four"], two[0]["sole_four"]["last"])
+    for (mesh, mode), (fwd, step) in want.items():
+        ranks = two_one if mesh == "2x1" else two_two
+        toks = [r[mode]["tokens"] for r in ranks]
+        if any(t != toks[0] for t in toks):
+            raise AssertionError(f"mesh {mesh} {mode}: the ranks' tokens "
+                                 "differ")
+        mesh_path_launched(f"mesh {mesh} {mode}", mode, ranks, mode,
+                           split=True)
+        ref, last = refs[(mesh, mode)]
+        r0 = ranks[0][mode]
+        lanes_ = r0["last"].shape[0]
+        bitwise = dict(tokens=toks[0] == ref["tokens"],
+                       first=same_bits(r0["first"], ref["first"]),
+                       last=all(same_bits(r[mode]["last"], lane_rows(
+                           last, lanes_, r["data_index"])) for r in ranks))
+        if not all(bitwise.values()):
+            raise AssertionError(f"mesh {mesh} {mode}: not bitwise its "
+                                 f"reference: {bitwise}")
+        got = (r0["collectives_per_forward"],
+               r0["collectives_per_decode_step"])
+        if got != (fwd, step):
+            raise AssertionError(f"mesh {mesh} {mode}: collectives a prefill "
+                                 f"forward and a decode step {got}, "
+                                 f"predicted {(fwd, step)}")
+        out.setdefault(mesh, {})[mode] = {
+            "bitwise": True, "ranks": [
+                {k: v for k, v in r[mode].items()
+                 if k not in ("tokens", "first", "last")} for r in ranks]}
+        log(f"[mesh {mesh} {mode}] tokens, first logits (rank 0's) and "
+            f"last logits (each rank's {lanes_} lanes) bitwise its reference ("
+            f"{'(1, 2) four-request SOLE' if ref is not single_four.get(mode) else 'the single card'}"
+            f"); collectives a prefill forward {json.dumps(fwd)}, a decode "
+            f"step {json.dumps(step)}; rank 0: wall {r0['wall_s']:.2f} s "
+            f"(gloo, correctness only), peak {r0['peak_gib']:.3f} GiB, "
+            f"params {r0['param_bytes']} B, pools {r0['pool_bytes']} B; "
+            f"launches {json.dumps(r0['launches'])}")
+    # the dense-slot engine on (2, 2), exact float32
+    toks = [r["dense_exact"]["tokens"] for r in two_two]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError("mesh 2x2 dense: the ranks' tokens differ")
+    r0 = two_two[0]["dense_exact"]
+    lanes_ = r0["first"].shape[0]
+    diff = float(abs(r0["first"] - lane_rows(dense_single["first"], lanes_,
+                                             0)).max())
+    cfg = mesh_cfg("exact")
+    divergence = None
+    for i, (a, b) in enumerate(zip(dense_single["tokens"], toks[0])):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = first_divergence_margin(
+                torch, cfg, mesh_requests(cfg)[i].prompt, a[:j])
+            divergence = dict(request=i, position=j, margin=margin,
+                              logit_diff=diff)
+            log(f"[mesh 2x2 dense exact] request {i} parts at token {j}: "
+                f"top-2 margin {margin:.3e}, measured logit difference "
+                f"{diff:.3e}")
+            if margin > diff:
+                raise AssertionError("mesh 2x2 dense: a divergence outside "
+                                     "the measured logit difference")
+            break
+    fwd = dict(model, agreed=1, **{"data.all_gather": 1})
+    for r, rr in enumerate(two_two):
+        if "ailayernorm_exact" not in rr["dense_exact"]["launches"]:
+            raise AssertionError(f"mesh 2x2 dense rank {r}: the exact norm "
+                                 "never launched")
+    if r0["collectives_per_forward"] != fwd:
+        raise AssertionError(f"mesh 2x2 dense: collectives a call "
+                             f"{r0['collectives_per_forward']}, predicted "
+                             f"{fwd}")
+    out.setdefault("2x2", {})["dense_exact"] = {
+        "tokens_equal_single_card": divergence is None,
+        "first_max_abs_diff": diff, "divergence": divergence,
+        "ranks": [{k: v for k, v in r["dense_exact"].items()
+                   if k not in ("tokens", "first", "last")}
+                  for r in two_two]}
+    log(f"[mesh 2x2 dense exact] tokens equal on every rank, "
+        f"{'equal to' if divergence is None else 'parting from'} the single "
+        f"card's dense engine; first logits (rank 0's {lanes_} lanes) "
+        f"{diff:.3e} apart; collectives a call {json.dumps(fwd)}; rank 0 "
+        f"wall {r0['wall_s']:.2f} s (gloo, correctness only), launches "
+        f"{json.dumps(r0['launches'])}")
+    return out
+
+
+def nccl_data_leg(torch, single_exact):
+    """Where the machine shows four cards or more: the exact float32 trace
+    on a (2, 2) mesh over nccl, one card a rank, under the sanitizers'
+    sync guard, its tokens and first logits against the single card's
+    four-request trace. Says so where it cannot run."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"[mesh] (2, 2) nccl not run: the machine shows {cards} card(s) "
+            "(nccl needs one a rank)")
+        return f"not run: {cards} card(s) on this machine"
+    ranks = mesh_spawn((2, 2), mesh_jobs(("exact",), n=MESH_FOUR_REQUESTS),
+                       "nccl")
+    toks = [r["exact"]["tokens"] for r in ranks]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError("mesh 2x2 nccl: the ranks' tokens differ")
+    san = ranks[0]["exact"]["sanitizer"]
+    if san["transfers_in_decode"] or san["sanitized_steps"] < 1:
+        raise AssertionError(f"mesh 2x2 nccl: sanitizer {san}")
+    first = float(abs(ranks[0]["exact"]["first"]
+                      - single_exact["first"]).max())
+    share = agreement(single_exact["tokens"], toks[0])
+    log(f"[mesh 2x2 nccl exact] {cards} cards, one a rank: tokens equal on "
+        f"every rank, agreement with the single card {share:.4f}, first "
+        f"logits {first:.3e} apart; rank 0 wall "
+        f"{ranks[0]['exact']['wall_s']:.2f} s, host share in the collectives "
+        f"{ranks[0]['exact']['collective_share']:.3f}; sanitizer "
+        f"{json.dumps(san)}")
+    return {"agreement_with_single_card": share, "first_max_abs_diff": first,
+            "ranks": [{k: v for k, v in r["exact"].items()
+                       if k not in ("tokens", "first", "last")}
+                      for r in ranks]}
 
 
 def nccl_leg(torch, single_tokens, firsts):
@@ -6588,7 +7010,8 @@ def nccl_leg(torch, single_tokens, firsts):
         log(f"[mesh] nccl not run: the machine shows {cards} card (nccl "
             "needs one a rank)")
         return f"not run: {cards} card on this machine"
-    nccl = first_diffs(mesh_spawn(2, ("exact",), "nccl"), firsts)
+    nccl = first_diffs(mesh_spawn((1, 2), mesh_jobs(("exact",)), "nccl"),
+                       firsts)
     toks = [r["exact"]["tokens"] for r in nccl]
     if any(t != toks[0] for t in toks):
         raise AssertionError("mesh 1x2 nccl: the ranks' tokens differ")
@@ -6763,8 +7186,8 @@ def _sweep_job(arch, paged, live):
 
 class DryRunSweep:
     """(d): ``launch.dryrun`` over every arch and shape, dense and paged,
-    one process per (arch, dense or paged), longest first (the recurrent
-    families' cells). ``early()`` runs jobs on ``EARLY_SWEEP_JOBS`` of the
+    one process per (arch, dense or paged), the longest
+    (``SWEEP_FIRST``) first. ``early()`` runs jobs on ``EARLY_SWEEP_JOBS`` of the
     host cores the kernel build leaves free (one ``nvcc`` a source) and
     ``build_done()`` stops it taking new ones; ``finish()``, after the
     last timed phase, runs the rest on every core, waits for all, fails on
@@ -6775,12 +7198,12 @@ class DryRunSweep:
         from repro_torch.configs.base import ARCH_NAMES
         shutil.rmtree(SWEEP_DIR, ignore_errors=True)
         os.makedirs(SWEEP_DIR)
-        order = sorted(ARCH_NAMES, key=lambda a: a not in ("rwkv6_7b",
-                                                           "recurrentgemma_9b"))
+        order = sorted(ARCH_NAMES, key=lambda a: a not in SWEEP_FIRST)
         self.jobs = [(arch, paged) for arch in order
                      for paged in (False, True)]
         self.todo = list(self.jobs)
         self.done, self.live, self.threads = {}, set(), []
+        self.seconds = {}
         self.lock = threading.Lock()
         self.taking = False
         self.early_jobs = 0
@@ -6793,7 +7216,9 @@ class DryRunSweep:
             return self.todo.pop(0)
 
     def _run(self, job):
+        t0 = time.time()
         self.done[job] = _sweep_job(*job, self.live)
+        self.seconds[job] = time.time() - t0
 
     def early(self, workers):
         def loop():
@@ -6844,6 +7269,10 @@ class DryRunSweep:
         fits = [(r["arch"], r["shape"], r["memory"]["peak_bytes"])
                 for r in rows if r["status"] == "ok"
                 and r["memory"]["fits_one_card"]]
+        log("[dryrun (d)] seconds a job (host wall, longest first): "
+            + json.dumps({f"{a}{' --paged' if p else ''}": round(t, 1)
+                          for (a, p), t in sorted(self.seconds.items(),
+                                                  key=lambda kv: -kv[1])}))
         log(f"[dryrun (d)] {len(rows)} cells, "
             f"{sum(r['status'] == 'ok' for r in rows)} ok, "
             f"{sum(r['status'] == 'skipped' for r in rows)} skipped, 0 "
@@ -7061,7 +7490,8 @@ def main() -> int:
                 if key in counts}
             e["launches_mesh_serve_rank0"] = {
                 f"{m} {mode}": r["ranks"][0]["launches"][key]
-                for m in ("1x2", "1x4") for mode, r in mesh[m].items()
+                for m in ("1x2", "1x4", "2x1", "2x2")
+                for mode, r in mesh[m].items()
                 if key in r["ranks"][0]["launches"]}
         mark("timings")
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")

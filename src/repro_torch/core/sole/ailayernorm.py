@@ -80,11 +80,12 @@ def ailayernorm_int(x_q: torch.Tensor, alpha: torch.Tensor, zero_point: int,
 
 def ailayernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                 params: Optional[PTFQuantParams] = None,
-                use_rsqrt_lut: bool = False) -> torch.Tensor:
+                use_rsqrt_lut: bool = False, amax_reduce=None) -> torch.Tensor:
     """AILayerNorm on real-valued inputs; ``params=None`` calibrates PTF
-    on the fly over the whole tensor."""
+    on the fly over the whole tensor (``amax_reduce``: over the whole
+    batch ``x`` holds a share of, ``calibrate_ptf``'s hook)."""
     if params is None:
-        params = calibrate_ptf(x, unsigned=True)
+        params = calibrate_ptf(x, unsigned=True, amax_reduce=amax_reduce)
     return ailayernorm_int(params.quantize(x), params.alpha,
                            params.zero_point, gamma, beta,
                            use_rsqrt_lut=use_rsqrt_lut)
@@ -105,8 +106,8 @@ def airmsnorm_int(x_q: torch.Tensor, alpha: torch.Tensor,
 
 def airmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
               params: Optional[PTFQuantParams] = None,
-              use_rsqrt_lut: bool = False) -> torch.Tensor:
+              use_rsqrt_lut: bool = False, amax_reduce=None) -> torch.Tensor:
     if params is None:
-        params = calibrate_ptf(x, unsigned=False)
+        params = calibrate_ptf(x, unsigned=False, amax_reduce=amax_reduce)
     return airmsnorm_int(params.quantize(x), params.alpha, gamma,
                          use_rsqrt_lut=use_rsqrt_lut)

@@ -102,7 +102,7 @@ class PTFQuantParams:
 
 
 def calibrate_ptf(x: torch.Tensor, *, max_alpha: int = 3,
-                  unsigned: bool = True) -> PTFQuantParams:
+                  unsigned: bool = True, amax_reduce=None) -> PTFQuantParams:
     """FQ-ViT-style PTF calibration over the last axis (channels),
     reducing over **all** leading axes — in SOLE mode a row's codes
     depend on the whole batch it was normalized with.
@@ -110,11 +110,16 @@ def calibrate_ptf(x: torch.Tensor, *, max_alpha: int = 3,
     Channel ranges are symmetric around zero: the shared base scale is
     the widest channel's ``amax / 127`` divided by ``2^max_alpha``, and
     each channel takes the smallest alpha whose ``2^alpha * s`` covers
-    its range.
+    its range. ``amax_reduce`` takes the (C,) maxima of ``x``'s rows to
+    the whole batch's, where ``x`` holds a share of its rows (a max
+    all-reduce over the mesh's data axis): the params are then those of
+    the whole batch, bit for bit, as a max rounds nothing.
     """
     amax = x.abs()
     if x.ndim > 1:
         amax = amax.flatten(0, -2).amax(0)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     ideal = true_div(torch.maximum(amax, torch.full_like(amax, 1e-8)), 127.0)
     scale = true_div(ideal.amax(), float(2 ** max_alpha))
     ratio = ideal / scale.expand_as(ideal)

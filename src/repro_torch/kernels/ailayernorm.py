@@ -27,6 +27,14 @@ entries are one team-per-row kernel template; each takes the PTF params'
   the card for prefill rows.
   :func:`ailayernorm`/:func:`airmsnorm`/:func:`fused_add_norm`/
   :func:`fused_add_norm_quant` without params reach it.
+* :func:`calibrated_norm_split`: the same chain on a share of the batch's
+  rows (the mesh's data axis splits a dispatch's lanes), calibrated over
+  the whole batch through a max all-reduce of the per-channel maxima: the
+  add and the maxima as torch ops, as the reference computes them in XLA
+  outside its Pallas kernel (``repro/kernels/ailayernorm.py:305-359``),
+  then :func:`qnorm` (or :func:`add_norm_quant` for int8 out) with the
+  PTF params the whole batch's maxima give. Bitwise the rows the
+  calibrating norm gives on the whole batch.
 * :func:`exact_norm`: the exact mode's float LayerNorm / RMSNorm (no TPU
   kernel: XLA's reduction there). A team of threads per row, its size
   chosen by C alone (:func:`exact_team`), holds the row in registers,
@@ -470,9 +478,45 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def calibrated_norm_split(x, r, gamma, beta=None, *, rms: bool,
+                          amax_reduce, out_dtype=torch.float32,
+                          quant_out: bool = False):
+    """:func:`calibrated_norm` of ``x`` (..., C), a share of a batch's
+    rows, calibrated over the whole batch: ``h = x + r`` and its (C,)
+    maxima in torch ops, ``amax_reduce`` (one max all-reduce of C values
+    over the data axis) makes them the batch's, ``calibrate_ptf`` derives
+    the PTF params from them, and the static-params kernel normalizes the
+    rows: :func:`qnorm` (output in ``out_dtype``) or, with ``quant_out``,
+    :func:`add_norm_quant` of ``h`` and zero rows (its ``h + 0`` is ``h``
+    exactly; the int8 codes and row scale are ``quantize_act`` of the
+    norm's float32 output, as the calibrating norm's). On CPU tensors the
+    same calls run their plain versions. Every result is bitwise what
+    :func:`calibrated_norm_plain` (and so the calibrating kernel) gives
+    these rows on the whole batch. ``gamma``/``beta`` (C,) float32
+    (``beta`` None for RMS). Returns what :func:`calibrated_norm_plain`
+    returns."""
+    if gamma.ndim != 1:
+        raise ValueError("calibrated_norm_split takes a (C,) affine: no "
+                         "model path splits a grouped norm's rows")
+    h = x if r is None else x + r
+    params = calibrate_ptf(h, unsigned=not rms, amax_reduce=amax_reduce)
+    c = x.shape[-1]
+    rows = h.reshape(-1, c).contiguous()
+    chan = (params.scale, params.alpha, gamma, None if rms else beta)
+    if quant_out:
+        _, codes, qscale = add_norm_quant(rows, torch.zeros_like(rows),
+                                          *chan, rms=rms)
+        res = (codes.reshape(x.shape),
+               qscale.reshape(x.shape[:-1] + (1,)))
+    else:
+        res = qnorm(rows, *chan, rms=rms,
+                    out_dtype=out_dtype).reshape(x.shape)
+    return h, res, params.alpha, params.scale.float().reshape(1)
+
+
 def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
                     out_dtype=torch.float32, quant_out: bool = False,
-                    with_params: bool = True):
+                    with_params: bool = True, amax_reduce=None):
     """The residual add, PTF calibration over all rows and the
     quantize+norm of ``x`` (..., C) float32 or bf16, ``r`` of the same
     shape and type or None, ``gamma``/``beta`` (C,) float32, or (G, C) with
@@ -483,7 +527,13 @@ def calibrated_norm(x, r, gamma, beta=None, *, rms: bool,
     :func:`calibrated_norm_plain` returns, the output in ``out_dtype``
     (float32 or the activation type);
     ``with_params=False`` leaves out the calibration (None, None) on the
-    card, where the model paths need no copy of it."""
+    card, where the model paths need no copy of it. ``amax_reduce``: ``x``
+    holds a share of the batch's rows, calibrated over the whole batch
+    (:func:`calibrated_norm_split`, on either device)."""
+    if amax_reduce is not None:
+        return calibrated_norm_split(x, r, gamma, beta, rms=rms,
+                                     amax_reduce=amax_reduce,
+                                     out_dtype=out_dtype, quant_out=quant_out)
     if x.device.type == "cpu":
         if beta is None:
             beta = torch.zeros_like(gamma)
@@ -841,9 +891,9 @@ def _norm_call(x, params: PTFQuantParams, gamma, beta, rms: bool, out_dtype):
 
 
 def _calibrated(x, r, gamma, beta, rms: bool, out_dtype=None,
-                quant_out: bool = False):
+                quant_out: bool = False, amax_reduce=None):
     """:func:`calibrated_norm` on ``x`` (..., C): ``(h, out)`` or ``(h,
-    (codes, scale))`` in ``x``'s shape."""
+    (codes, scale))`` in ``x``'s shape (``amax_reduce``: its hook)."""
     if not rms and beta is None:
         beta = torch.zeros_like(gamma)
     h, res, _, _ = calibrated_norm(
@@ -851,40 +901,45 @@ def _calibrated(x, r, gamma, beta, rms: bool, out_dtype=None,
         gamma.float().contiguous(),
         None if rms else beta.float().contiguous(), rms=rms,
         out_dtype=out_dtype or torch.float32, quant_out=quant_out,
-        with_params=False)
+        with_params=False, amax_reduce=amax_reduce)
     return h, res
 
 
 def ailayernorm(x, gamma, beta, *, params: Optional[PTFQuantParams] = None,
-                out_dtype=None) -> torch.Tensor:
+                out_dtype=None, amax_reduce=None) -> torch.Tensor:
     """AILayerNorm (unsigned codes) with the caller's static PTF params,
-    or calibrated on the fly over the whole tensor (:func:`calibrated_norm`).
+    or calibrated on the fly over the whole tensor (:func:`calibrated_norm`;
+    ``amax_reduce``: over the whole batch ``x`` holds a share of).
     The output is float32 unless ``out_dtype`` names another type (the
     kernels write float32 or bf16; another type is cast after)."""
     if params is None:
-        return _calibrated(x, None, gamma, beta, False, out_dtype)[1]
+        return _calibrated(x, None, gamma, beta, False, out_dtype,
+                           amax_reduce=amax_reduce)[1]
     return _norm_call(x, params, gamma, beta, False, out_dtype)
 
 
 def airmsnorm(x, gamma, *, params: Optional[PTFQuantParams] = None,
-              out_dtype=None) -> torch.Tensor:
+              out_dtype=None, amax_reduce=None) -> torch.Tensor:
     """AIRMSNorm (symmetric codes), params as :func:`ailayernorm`."""
     if params is None:
-        return _calibrated(x, None, gamma, None, True, out_dtype)[1]
+        return _calibrated(x, None, gamma, None, True, out_dtype,
+                           amax_reduce=amax_reduce)[1]
     return _norm_call(x, params, gamma, None, True, out_dtype)
 
 
 def fused_add_norm(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
                    params: Optional[PTFQuantParams] = None,
-                   rms: bool = False,
-                   out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   rms: bool = False, out_dtype=None,
+                   amax_reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(h, norm(h))`` with ``h = x + r``: the residual carry and the norm
     (float32, or ``out_dtype``). With static ``params`` the add, quantize,
     statistics and affine are one kernel on the rows as they are, and
     ``h`` comes back float32; without them :func:`calibrated_norm` adds
-    in the inputs' dtype and calibrates on ``h`` in the same launch."""
+    in the inputs' dtype and calibrates on ``h`` in the same launch
+    (``amax_reduce``: over the whole batch ``x`` holds a share of)."""
     if params is None:
-        return _calibrated(x, r, gamma, beta, rms, out_dtype)
+        return _calibrated(x, r, gamma, beta, rms, out_dtype,
+                           amax_reduce=amax_reduce)
     x2, r2 = _static_rows(x, r)
     h, out = add_norm(x2, r2, *_chan_args(params, gamma,
                                           None if rms else beta),
@@ -895,12 +950,14 @@ def fused_add_norm(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
 
 def fused_add_norm_quant(x, r, gamma, beta: Optional[torch.Tensor] = None, *,
                          params: Optional[PTFQuantParams] = None,
-                         rms: bool = False):
+                         rms: bool = False, amax_reduce=None):
     """:func:`fused_add_norm` with the norm leaving as per-row int8:
     ``(h, (codes, scale))``, the scale (..., 1). One kernel either way:
-    the static-params one, or :func:`calibrated_norm` with quant-out."""
+    the static-params one, or :func:`calibrated_norm` with quant-out
+    (``amax_reduce``: as :func:`fused_add_norm`'s)."""
     if params is None:
-        return _calibrated(x, r, gamma, beta, rms, quant_out=True)
+        return _calibrated(x, r, gamma, beta, rms, quant_out=True,
+                           amax_reduce=amax_reduce)
     x2, r2 = _static_rows(x, r)
     h, codes, scale = add_norm_quant(
         x2, r2, *_chan_args(params, gamma, None if rms else beta), rms=rms)

@@ -37,6 +37,10 @@ Examples::
       --engine paged --mesh 1,2 --dist-backend gloo
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch qwen2_0_5b --engine paged --mesh 1,2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --smoke --device cpu --engine paged --mesh 2,2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
+      --smoke --device cpu --engine dense --mesh 1,2
 
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
 ``minitron_8b``, ``nemotron_4_15b``, the MoE ``mixtral_8x7b``,
@@ -51,15 +55,17 @@ frames from ``--seed``; ``--engine dense`` refuses it and both engines
 refuse ``qwen2_vl_7b`` (not paged-servable), with the reference's
 messages.
 
-``--mesh 1,M`` serves the dense family tensor-parallel through the paged
-engine on M ranks (``launch/mesh.py``): under ``torchrun`` (``WORLD_SIZE``
-set) each process is one rank, otherwise the launcher spawns M ranks
-itself. On the CPU they join over gloo; on CUDA over nccl, one card a
-rank, or over gloo sharing the cards with ``--dist-backend gloo`` (asked
-for explicitly: fewer cards than ranks raise otherwise). The weights are
-drawn in host memory, so each card holds only its rank's slices. Rank 0 prints
-what the single-device launcher prints. ``--mesh D,M`` with D > 1 and
-``--engine dense`` under a mesh raise (ROADMAP.md queue 1 item 9.1).
+``--mesh D,M`` serves the dense family on a (data, model) mesh of D x M
+ranks (``launch/mesh.py``), through either engine: tensor-parallel over
+the M ranks of the model axis, each dispatch's lanes split over the D
+ranks of the data axis where D divides them. Under ``torchrun``
+(``WORLD_SIZE`` set) each process is one rank, otherwise the launcher
+spawns the D x M ranks itself. On the CPU they join over gloo; on CUDA
+over nccl, one card a rank, or over gloo sharing the cards with
+``--dist-backend gloo`` (asked for explicitly: fewer cards than ranks
+raise otherwise). The weights are drawn in host memory, so each card
+holds only its rank's slices. Rank 0 prints what the single-device
+launcher prints.
 """
 from __future__ import annotations
 
@@ -145,8 +151,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda unless asked)")
     ap.add_argument("--mesh", default="", metavar="D,M",
-                    help="serve tensor-parallel on a (data, model) mesh of "
-                         "D x M ranks (paged engine, dense family, D = 1)")
+                    help="serve on a (data, model) mesh of D x M ranks "
+                         "(dense family): tensor-parallel over M, lanes "
+                         "split over D")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="process group backend under --mesh (default: "
                          "gloo on the CPU, nccl with a card per rank; gloo "
@@ -155,17 +162,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def mesh_shape(flag: str):
-    """``--mesh D,M`` -> (D, M); a data axis wider than 1 raises."""
+    """``--mesh D,M`` -> (D, M)."""
     try:
         shape = tuple(int(x) for x in flag.split(","))
     except ValueError:
         raise SystemExit(f"--mesh takes D,M, got {flag!r}") from None
     if len(shape) != 2 or min(shape) < 1:
         raise SystemExit(f"--mesh takes D,M, got {flag!r}")
-    if shape[0] > 1:
-        raise NotImplementedError(
-            f"--mesh {flag}: the data axis in serving is not ported yet "
-            "(ROADMAP.md queue 1 item 9.1); serve on --mesh 1,M")
     return shape
 
 
@@ -181,11 +184,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     if not args.mesh:
         return _serve(args)
     shape = mesh_shape(args.mesh)
-    if args.engine != "paged":
-        raise NotImplementedError(
-            "--mesh with --engine dense: the dense-slot engine under mesh "
-            "rules is not ported yet (ROADMAP.md queue 1 item 9.1); pass "
-            "--engine paged")
     world = shape[0] * shape[1]
     backend = M.pick_backend(world, args.device, args.dist_backend)
     env = M.world_from_env()
@@ -277,7 +275,7 @@ def _serve(args, backend: Optional[str] = None,
                            for _ in range(args.replicas - 1)]
     else:
         eng = Engine(cfg, params, batch_size=args.batch, max_len=max_len,
-                     device=device)
+                     device=device, rules=rules)
     mode = (f"softmax={cfg.softmax_mode}, norm={cfg.norm_mode}, "
             f"quant={cfg.quant.mode}, ops_backend={cfg.ops_backend}, "
             f"temperature={args.temperature}, top_k={args.top_k}, "

@@ -25,9 +25,20 @@ summed: one rank holds each row) and the head vocab-parallel (its float32
 logits gathered along the vocabulary). A dim the divisibility fallback
 replicates is whole on every rank and runs no collective; paged attention
 reads its KV heads through :func:`_paged_tp_plan`'s map.
+
+Over the mesh's ``data`` axis a dispatch's lanes split (:func:`data_split`:
+where D divides them, as the reference lays ``"batch"`` over data; else
+every data rank runs every lane): the model functions take this rank's
+share (:func:`lanes`) and run the products, attention and sampling on it
+alone inside :func:`lane_split`, which gives every SOLE norm the whole
+batch's calibration (one max all-reduce of its C per-channel maxima over
+data, ``calibrate_ptf``'s ``amax_reduce``; exact, so the rows are bitwise
+those of the whole batch). Weights and pools replicate over data.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import Optional, Tuple
@@ -95,7 +106,7 @@ def fma(a, b, c) -> torch.Tensor:
     return torch.addcmul(c, a, b)
 
 
-def model_split(logical: str, size: int) -> Optional[comm.ModelAxis]:
+def model_split(logical: str, size: int) -> Optional[comm.MeshAxis]:
     """The model axis when the active rules split a dim of ``size`` along
     ``logical`` over it (the weights' layout, ``convert.shard_params``),
     else None."""
@@ -105,8 +116,67 @@ def model_split(logical: str, size: int) -> Optional[comm.ModelAxis]:
     return comm.model_axis(rules)
 
 
+# -- the lane split over the data axis -------------------------------------------
+
+_LANES: contextvars.ContextVar = contextvars.ContextVar("lane_split",
+                                                       default=None)
+
+
+def data_split(lanes_: int) -> Optional[comm.MeshAxis]:
+    """The data axis when the active rules split a dispatch of ``lanes_``
+    lanes over it (``rules.dim_spec("batch", lanes_)`` names ``data``: D
+    divides the lanes), else None: every data rank runs every lane (a B =
+    1 prefill chunk; 4 lanes on 8 data ranks)."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    ax = rules.dim_spec("batch", lanes_)
+    if "data" not in (ax if isinstance(ax, tuple) else (ax,)):
+        return None
+    return comm.data_axis(rules)
+
+
+def lanes(t: Optional[torch.Tensor], ax: Optional[comm.MeshAxis],
+          dim: int = 0) -> Optional[torch.Tensor]:
+    """This data rank's contiguous share of ``t``'s lanes along ``dim``
+    (``t`` itself where nothing splits)."""
+    if ax is None or t is None:
+        return t
+    n = t.shape[dim] // ax.size
+    return t.narrow(dim, ax.index * n, n)
+
+
+def gather_lanes(t: torch.Tensor, ax: Optional[comm.MeshAxis],
+                 dim: int = 0) -> torch.Tensor:
+    """Every data rank's lanes of ``t`` joined along ``dim`` in lane order
+    (one all-gather over data; ``t`` itself where nothing splits)."""
+    return t if ax is None else comm.all_gather(t, dim, ax)
+
+
+@contextlib.contextmanager
+def lane_split(ax: Optional[comm.MeshAxis]):
+    """The layers inside run on this data rank's lanes of a batch split
+    over ``ax`` (None: the whole batch): each SOLE norm calibrates over
+    the whole batch (:func:`apply_norm`)."""
+    tok = _LANES.set(ax)
+    try:
+        yield ax
+    finally:
+        _LANES.reset(tok)
+
+
+def _calibration(mode: str) -> dict:
+    """A SOLE norm's ``amax_reduce`` inside a lane split: the max
+    all-reduce over data that makes its per-channel maxima the whole
+    batch's. The exact norm is per row and needs none."""
+    ax = _LANES.get()
+    if ax is None or mode != "sole":
+        return {}
+    return {"amax_reduce": lambda t: comm.all_reduce_max(t, ax)}
+
+
 def qmatmul(x, w, cfg: ArchConfig, n_contract: int = 1,
-            ax: Optional[comm.ModelAxis] = None) -> torch.Tensor:
+            ax: Optional[comm.MeshAxis] = None) -> torch.Tensor:
     """Matmul against a packed int8 weight ``{"q", "s"}``.
 
     ``x`` is a plain activation (consumed as it is at w8a16, quantized
@@ -219,7 +289,7 @@ def apply_norm(x, p, cfg: ArchConfig, phase: str) -> torch.Tensor:
     """The norm in the model dtype; ``out_dtype`` lets a kernel write it
     directly (the other backends' float32 output is cast here)."""
     mode = _norm_mode(cfg, phase)
-    kw = dict(out_dtype=torch_dtype(cfg.dtype))
+    kw = dict(out_dtype=torch_dtype(cfg.dtype), **_calibration(mode))
     if cfg.norm_kind == "layernorm":
         out = ops.layernorm_fn(mode, x.device, cfg.ops_backend)(
             x, p["g"], p["b"], **kw)
@@ -238,19 +308,21 @@ def apply_residual_norm(x, r, p, cfg: ArchConfig, phase: str,
 
     With ``quant_out`` (and w8a8 active) the ``residual_*_q`` op runs
     instead: the normalized output leaves as an ``(int8 codes, per-row
-    scale)`` pair that the next :func:`qmatmul` consumes directly."""
+    scale)`` pair that the next :func:`qmatmul` consumes directly. Inside
+    a :func:`lane_split` a SOLE norm calibrates over the whole batch."""
     mode = _norm_mode(cfg, phase)
+    calib = _calibration(mode)
     if quant_out and cfg.quant.acts:
         fn = ops.residual_norm_q_fn(cfg.norm_kind, mode, x.device,
                                     cfg.ops_backend)
         if cfg.norm_kind == "layernorm":
-            s, out = fn(x, r, p["g"], p["b"])
+            s, out = fn(x, r, p["g"], p["b"], **calib)
         else:
-            s, out = fn(x, r, p["g"])
+            s, out = fn(x, r, p["g"], **calib)
         return cast(s, cfg), out
     fn = ops.residual_norm_fn(cfg.norm_kind, mode, x.device,
                               cfg.ops_backend)
-    kw = dict(out_dtype=torch_dtype(cfg.dtype))
+    kw = dict(out_dtype=torch_dtype(cfg.dtype), **calib)
     if cfg.norm_kind == "layernorm":
         s, out = fn(x, r, p["g"], p["b"], **kw)
     else:
@@ -577,15 +649,25 @@ def _local_kv_map(plan, cfg: ArchConfig, hloc: int, device) -> torch.Tensor:
     return _kv_map(hloc, first, g, device)
 
 
-def _kv_for_local_heads(k, v, cfg: ArchConfig):
-    """Under the replicated-KV regime, the dense paths' K/V gathered to
-    one KV head per local query head (the heads :func:`_local_kv_map`
-    names), so ``repeat_kv`` sees g = 1; otherwise as they are."""
+def _replicated_kv_index(cfg: ArchConfig, device) -> Optional[torch.Tensor]:
+    """Under the replicated-KV regime (heads split over the model axis, KV
+    heads whole), the global KV head each local query head reads
+    (:func:`_local_kv_map`, int64); None in the other regimes (matched:
+    local head ``i`` reads local KV head ``i // g``; heads replicated)."""
     plan = _paged_tp_plan(active_rules(), cfg.n_heads, cfg.n_kv_heads)
     if plan is None or plan[1]:
-        return k, v
+        return None
     hloc = cfg.n_heads // comm.model_axis(active_rules()).size
-    idx = _local_kv_map(plan, cfg, hloc, k.device).long()
+    return _local_kv_map(plan, cfg, hloc, device).long()
+
+
+def _kv_for_local_heads(k, v, cfg: ArchConfig):
+    """Under the replicated-KV regime, the dense paths' K/V (B, T, KV, hd)
+    gathered to one KV head per local query head, so ``repeat_kv`` sees g
+    = 1; otherwise as they are."""
+    idx = _replicated_kv_index(cfg, k.device)
+    if idx is None:
+        return k, v
     return k[:, :, idx], v[:, :, idx]
 
 
@@ -831,7 +913,9 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     """One-token attention against the stacked dot-layout caches
     ck (L,B,KV,hd,T) and cv (L,B,KV,T,hd), which are only read here: the
     current token's (k, v) is attended as column T+1 and returned, and the
-    caller writes every layer's column after the layer loop. ``cpos`` is
+    caller writes every layer's column after the layer loop. Under mesh
+    rules the caches hold the rank's KV heads and this rank's query heads
+    read them as the paged kernel does (:func:`_replicated_kv_index`). ``cpos`` is
     the position ring (T,) or per lane (B,T); ``pos`` scalar or per lane
     (B,); ``slot`` the ring column this step writes (its stale content is
     masked out). M-RoPE models pass the token's 3-axis ``positions3``
@@ -850,6 +934,10 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     t = ck.shape[-1]
     kl = kv_dequant(ck[layer_idx], cfg)                  # (B,KV,hd,T)
     vl = kv_dequant(cv[layer_idx], cfg)                  # (B,KV,T,hd)
+    kq, vq = k, v
+    idx = _replicated_kv_index(cfg, q.device)
+    if idx is not None:          # local query heads on the whole KV
+        kl, vl, k, v = kl[:, idx], vl[:, idx], k[:, :, idx], v[:, :, idx]
     b, _, h, hd = q.shape
     kvh = kl.shape[1]
     g = h // kvh
@@ -878,8 +966,8 @@ def decode_attend_stacked(p, x1, ck, cv, cpos, layer_idx: int, pos,
     ctx = torch.einsum("bkgt,bktd->bkgd", probs[..., :t], vl)
     ctx = ctx + probs[..., t:] * vc
     out = _wo_proj(ctx.reshape(b, 1, h, hd), p, cfg)
-    k_col = kv_quant(k, cfg).permute(0, 2, 3, 1)         # (B,KV,hd,1)
-    v_row = kv_quant(v, cfg).permute(0, 2, 1, 3)         # (B,KV,1,hd)
+    k_col = kv_quant(kq, cfg).permute(0, 2, 3, 1)        # (B,KV,hd,1)
+    v_row = kv_quant(vq, cfg).permute(0, 2, 1, 3)        # (B,KV,1,hd)
     return out, k_col, v_row
 
 

@@ -8,6 +8,14 @@ verify).
 MoE archs reuse this module with the FFN swapped (``models/moe.py``): every
 entry takes an ``ffn_init`` / ``ffn_apply`` hook, ``ffn_apply(p, h, cfg,
 phase)`` in place of :func:`layers.apply_mlp`, as in the reference.
+
+Under mesh rules whose data axis splits a call's lanes
+(:func:`layers.data_split`), each serving entry runs this rank's lanes
+only, inside :func:`layers.lane_split`: the dense-slot calls and the
+serving forward gather their logits over data at the end; the paged
+forward gathers each layer's new K/V rows over data before the page
+write, so every data rank's pool holds every lane's keys; the decode
+horizon and verify sample their lanes and gather the tokens at the end.
 """
 from __future__ import annotations
 
@@ -189,6 +197,19 @@ def forward(params, tokens, cfg: ArchConfig, phase: str,
     ``(logits, sum of the layers' aux)``, summed layer by layer in float32
     from 0, as the reference's scan carry (MoE)."""
     ffn_apply = ffn_apply or _dense_ffn
+    # the serving forward (a draft model's) runs this data rank's lanes
+    dax = (None if with_aux or phase == "train"
+           else L.data_split(tokens.shape[0]))
+    with L.lane_split(dax):
+        logits = _forward(params, L.lanes(tokens, dax), cfg, phase,
+                          ffn_apply, with_aux)
+    if dax is None:
+        return logits
+    return L.gather_lanes(logits, dax)
+
+
+def _forward(params, tokens, cfg: ArchConfig, phase: str, ffn_apply,
+             with_aux: bool):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
@@ -244,8 +265,21 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
     RoPE sees the local positions; pad rows still take part in every SOLE
     norm's batch-global calibration, as in the reference. ``n_pad=None``
     keeps the shared ``arange(S)`` positions.
+
+    Under rules whose data axis splits the B lanes the rank runs its
+    lanes, fills the cache at its shape (its lanes, its KV heads) and
+    returns every lane's logits (gathered over data).
     """
-    ffn_apply = ffn_apply or _dense_ffn
+    dax = L.data_split(tokens.shape[0])
+    with L.lane_split(dax):
+        logits, cache = _prefill(params, L.lanes(tokens, dax), cfg,
+                                 cache_len, L.lanes(n_pad, dax),
+                                 ffn_apply or _dense_ffn)
+    return L.gather_lanes(logits, dax), cache
+
+
+def _prefill(params, tokens, cfg: ArchConfig, cache_len: int, n_pad,
+             ffn_apply):
     b, s = tokens.shape
     dev = tokens.device
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -269,7 +303,8 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int,
         if cfg.pos_kind == "rope":
             q = L.apply_rope(q, rope_pos, cfg)
             k = L.apply_rope(k, rope_pos, cfg)
-        ctx = attend(q, k, v, q_pos, k_pos, cfg, "serve", causal=cfg.causal)
+        ka, va = L._kv_for_local_heads(k, v, cfg)
+        ctx = attend(q, ka, va, q_pos, k_pos, cfg, "serve", causal=cfg.causal)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg)
         x, h = L.apply_residual_norm(x, attn_out, lp["ln2"], cfg, "serve")
         x = x + ffn_apply(lp["mlp"], h, cfg, "serve")
@@ -292,14 +327,25 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
     The cache is updated **in place**: the layers only read it (the
     current token is attended as an extra column), then every layer's new
     column is written at one slot, as the reference does after its layer
-    scan.
+    scan. Under a data split (:func:`prefill`'s) the cache holds this
+    rank's lanes, the rank runs them and every lane's logits come back.
     """
-    ffn_apply = ffn_apply or _dense_ffn
-    x = L.embed_tokens(params["embed"], token[:, None], cfg)
+    dax = L.data_split(token.shape[0])
     t = cache["k"].shape[-1]
     wp = int(pos if write_pos is None else write_pos)
     slot = wp % t if cfg.window else min(wp, t - 1)
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    if pos.ndim:
+        pos = L.lanes(pos, dax)
+    with L.lane_split(dax):
+        logits = _decode_step(params, cache, L.lanes(token, dax), pos, slot,
+                              cfg, ffn_apply or _dense_ffn)
+    return L.gather_lanes(logits, dax), cache
+
+
+def _decode_step(params, cache, token, pos, slot: int, cfg: ArchConfig,
+                 ffn_apply) -> torch.Tensor:
+    x = L.embed_tokens(params["embed"], token[:, None], cfg)
     cpos = cache["pos"]
     if cpos.ndim == 2:                   # per-lane position ring (B, T)
         cpos[:, slot] = torch.broadcast_to(pos, (cpos.shape[0],))
@@ -319,8 +365,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
         v_rows.append(v_row)
     L.write_kv_columns(ck, cv, torch.stack(k_cols), torch.stack(v_rows), slot)
     x = L.apply_norm(x, params["final_norm"], cfg, "serve")
-    logits = L.lm_logits(params["embed"], x, cfg)
-    return logits[:, 0], cache
+    return L.lm_logits(params["embed"], x, cfg)[:, 0]
 
 
 # -- paged serving --------------------------------------------------------------
@@ -328,7 +373,8 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig,
 
 def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
                    pools, cfg: ArchConfig, *, causal: bool, ffn_apply=None,
-                   rows_as_decode: bool = False, stable_rows: bool = False):
+                   rows_as_decode: bool = False, stable_rows: bool = False,
+                   local_lanes: bool = False):
     """Run C tokens per sequence against the paged pools.
 
     tokens/positions: (B, C) absolute positions; n_valid: (B,) real
@@ -356,6 +402,13 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
     row-stable route (:func:`layers.stable_mm`), so a row's logits do not
     depend on how many rows the dispatch carries (``ffn_apply`` takes it as
     ``stable=``).
+
+    Under rules whose data axis splits the B lanes (:func:`layers.data_split`)
+    the rank runs its lanes and each layer's new K/V rows are gathered
+    over data (one all-gather of the quantized rows) and written for every
+    lane, so every data rank's pool stays whole. The logits come back for
+    every lane; with ``local_lanes`` ``tokens`` holds this rank's lanes
+    only (every other input is the whole batch's) and so do the logits.
     """
     lay = params["layers"]
     qact = cfg.quant.acts and is_qtensor(lay["attn"]["wq"])
@@ -363,12 +416,36 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
                  and is_qtensor(lay["mlp"].get("up")))
     ffn_apply = ffn_apply or _dense_ffn
     stable = stable_rows and tokens.device.type != "cpu"   # the card's route
+    pk, pv = pools["k"], pools["v"]
+    # every lane's page slots (the gathered K/V rows are written for all)
+    block_ids, offsets = slots_for_positions(positions, pk.shape[2], tables)
+    write_end = (positions[:, 0] + n_valid)[:, None]
+    block_ids = torch.where(positions < write_end, block_ids, 0)
+    dax = L.data_split(positions.shape[0])
+    if not local_lanes:
+        tokens = L.lanes(tokens, dax)
+    positions, kv_len, tables = (L.lanes(t, dax)
+                                 for t in (positions, kv_len, tables))
+    with L.lane_split(dax):
+        logits = _paged_layers(params, tokens, positions, kv_len, tables,
+                               block_ids, offsets, pk, pv, cfg, dax, causal,
+                               ffn_apply, qact, quant_ffn, rows_as_decode,
+                               stable)
+    if not local_lanes:
+        logits = L.gather_lanes(logits, dax)
+    return logits, pools
+
+
+def _paged_layers(params, tokens, positions, kv_len, tables, block_ids,
+                  offsets, pk, pv, cfg: ArchConfig, dax, causal: bool,
+                  ffn_apply, qact: bool, quant_ffn: bool,
+                  rows_as_decode: bool, stable: bool) -> torch.Tensor:
+    """:func:`_paged_forward`'s layers on this rank's lanes (``tokens``,
+    ``positions``, ``kv_len``, ``tables``); ``block_ids``/``offsets`` every
+    lane's page slots. Returns the lanes' logits."""
+    lay = params["layers"]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_start = positions[:, 0]
-    pk, pv = pools["k"], pools["v"]
-    block_ids, offsets = slots_for_positions(positions, pk.shape[2], tables)
-    write_end = (q_start + n_valid)[:, None]
-    block_ids = torch.where(positions < write_end, block_ids, 0)
     pending = None                      # deferred MLP residual
     for i in range(cfg.n_layers):
         lp = _layer(lay, i)
@@ -381,8 +458,11 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         if cfg.pos_kind == "rope":
             q = L.apply_rope(q, positions, cfg)
             k = L.apply_rope(k, positions, cfg)
-        write_tokens(pk[i], L.kv_quant(k, cfg), block_ids, offsets)
-        write_tokens(pv[i], L.kv_quant(v, cfg), block_ids, offsets)
+        kq, vq = L.kv_quant(k, cfg), L.kv_quant(v, cfg)
+        if dax is not None:             # every lane's rows reach every pool
+            kq, vq = L.gather_lanes(torch.stack([kq, vq]), dax, dim=1)
+        write_tokens(pk[i], kq, block_ids, offsets)
+        write_tokens(pv[i], vq, block_ids, offsets)
         ctx = L.paged_attend(q, pk[i], pv[i], tables, q_start, kv_len, cfg,
                              causal=causal, rows_as_decode=rows_as_decode)
         attn_out = L._wo_proj(ctx, lp["attn"], cfg, stable)
@@ -391,35 +471,38 @@ def _paged_forward(params, tokens, positions, n_valid, kv_len, tables,
         pending = ffn_apply(lp["mlp"], h, cfg, "serve", stable=stable)
     _, x = L.apply_residual_norm(x, pending, params["final_norm"], cfg,
                                  "serve", quant_out=qact)
-    return L.lm_logits(params["embed"], x, cfg, stable), pools
+    return L.lm_logits(params["embed"], x, cfg, stable)
 
 
 def prefill_paged(params, tokens, q_start, n_valid, tables, pools,
                   cfg: ArchConfig, *, ffn_apply=None,
-                  rows_as_decode: bool = False):
+                  rows_as_decode: bool = False, local_lanes: bool = False):
     """One chunked-prefill step: tokens (B, C) at absolute positions
     q_start..q_start+C-1, of which the first n_valid (B,) are real.
     Returns (logits (B, C, V), pools). ``rows_as_decode``: attend the rows
     as decode steps, and take the row-stable products (speculative
-    verify)."""
+    verify). ``local_lanes``: under a data split ``tokens`` holds this
+    rank's lanes only and so do the logits (the verify dispatch's)."""
     c = tokens.shape[1]
     positions = q_start[:, None] + torch.arange(c, device=tokens.device)
     kv_len = q_start + n_valid
     return _paged_forward(params, tokens, positions, n_valid, kv_len,
                           tables, pools, cfg, causal=True,
                           ffn_apply=ffn_apply, rows_as_decode=rows_as_decode,
-                          stable_rows=rows_as_decode)
+                          stable_rows=rows_as_decode, local_lanes=local_lanes)
 
 
 def decode_step_paged(params, pools, token, pos, tables, cfg: ArchConfig, *,
-                      ffn_apply=None):
+                      ffn_apply=None, local_lanes: bool = False):
     """One continuous-batching decode step: token (B,) at positions (B,),
     attended with kv_len = pos + 1 and no causal mask, its products
-    row-stable (``stable_rows``). Returns (logits (B, V), pools)."""
+    row-stable (``stable_rows``). Returns (logits (B, V), pools).
+    ``local_lanes``: under a data split ``token`` holds this rank's lanes
+    only and so do the logits (the decode horizon's feed)."""
     logits, pools = _paged_forward(
         params, token[:, None], pos[:, None], torch.ones_like(pos), pos + 1,
         tables, pools, cfg, causal=False, ffn_apply=ffn_apply,
-        stable_rows=True)
+        stable_rows=True, local_lanes=local_lanes)
     return logits[:, 0], pools
 
 
@@ -445,10 +528,17 @@ def decode_horizon_paged(params, pools, token, pos, tables, temperature,
     table rows) write and read only the null page. Returns (tokens
     (B, num_steps) int32, eos (B, num_steps) bool, pools), on the device.
     """
+    dax = L.data_split(token.shape[0])
+    # this data rank's lanes sample and feed their own tokens; every lane's
+    # K/V reaches the pools inside each step
+    token, temperature, top_k, seed, counter, eos_ids = (
+        L.lanes(t, dax) for t in (token, temperature, top_k, seed, counter,
+                                  eos_ids))
     toks, done = [], []
     for i in range(num_steps):
         logits, pools = decode_step_paged(params, pools, token, pos, tables,
-                                          cfg, ffn_apply=ffn_apply)
+                                          cfg, ffn_apply=ffn_apply,
+                                          local_lanes=True)
         token = sample_tokens(logits, temperature, top_k, seed,
                               counter + i if stochastic else counter,
                               cfg.vocab_size, use_top_k=use_top_k,
@@ -457,7 +547,20 @@ def decode_horizon_paged(params, pools, token, pos, tables, temperature,
         done.append(eos_hits(token, eos_ids) if use_eos
                     else torch.zeros_like(token, dtype=torch.bool))
         pos = pos + 1
-    return torch.stack(toks, 1), torch.stack(done, 1), pools
+    toks, done = _gather_draws(torch.stack(toks, 1), torch.stack(done, 1),
+                               dax)
+    return toks, done, pools
+
+
+def _gather_draws(toks, done, dax):
+    """Every lane's (B, W) draws and eos flags from this data rank's, in
+    one all-gather over data (as they are where nothing splits)."""
+    if dax is None:
+        return toks, done
+    w = toks.shape[1]
+    both = L.gather_lanes(torch.cat([toks.to(torch.int32),
+                                     done.to(torch.int32)], 1), dax)
+    return both[:, :w], both[:, w:].bool()
 
 
 def verify_paged(params, pools, tokens, q_start, n_valid, tables,
@@ -483,11 +586,16 @@ def verify_paged(params, pools, tokens, q_start, n_valid, tables,
     membership in the lane's ``-1``-padded eos table (B, E), pools), on
     the device; the caller truncates the rejected tails' pages.
     """
-    logits, pools = prefill_paged(params, tokens, q_start, n_valid, tables,
-                                  pools, cfg, ffn_apply=ffn_apply,
-                                  rows_as_decode=True)
-    b, c = tokens.shape
+    dax = L.data_split(tokens.shape[0])
+    logits, pools = prefill_paged(params, L.lanes(tokens, dax), q_start,
+                                  n_valid, tables, pools, cfg,
+                                  ffn_apply=ffn_apply, rows_as_decode=True,
+                                  local_lanes=True)
+    b, c = logits.shape[:2]              # this data rank's lanes
     flat = logits.reshape(b * c, logits.shape[-1])
+    temperature, top_k, seed, counter, eos_ids = (
+        L.lanes(t, dax) for t in (temperature, top_k, seed, counter,
+                                  eos_ids))
 
     def rep(a):                          # (B,) lane values -> (B * C,)
         return None if a is None else torch.repeat_interleave(a, c)
@@ -500,4 +608,5 @@ def verify_paged(params, pools, tokens, q_start, n_valid, tables,
                            stochastic=stochastic).reshape(b, c)
     done = (eos_hits(pinned, eos_ids[:, None, :]) if use_eos
             else torch.zeros_like(pinned, dtype=torch.bool))
+    pinned, done = _gather_draws(pinned, done, dax)
     return pinned, done, pools

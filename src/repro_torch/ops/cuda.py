@@ -53,42 +53,48 @@ def _static(params) -> Optional[PTFQuantParams]:
 
 
 @registry.register("layernorm", "sole", "cuda")
-def sole_layernorm_cuda(x, gamma, beta, *, params=None, out_dtype=None, **kw):
+def sole_layernorm_cuda(x, gamma, beta, *, params=None, out_dtype=None,
+                        amax_reduce=None, **kw):
     """The quantize+norm kernel with the caller's static PTF ``params``
     (one launch on contiguous float32 or bf16 rows, read as they are);
     without them the calibrating norm kernel (calibration over the whole
     tensor and the norm in one launch). ``out_dtype`` (float32 by default,
-    or x's dtype) is the type the kernel writes the output in."""
+    or x's dtype) is the type the kernel writes the output in.
+    ``amax_reduce``: ``x`` is a share of the batch's rows, calibrated over
+    the whole batch (``calibrated_norm_split``)."""
     return K_norm.ailayernorm(x, gamma, beta, params=_static(params),
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, amax_reduce=amax_reduce)
 
 
 @registry.register("rmsnorm", "sole", "cuda")
-def sole_rmsnorm_cuda(x, gamma, *, params=None, out_dtype=None, **kw):
+def sole_rmsnorm_cuda(x, gamma, *, params=None, out_dtype=None,
+                      amax_reduce=None, **kw):
     return K_norm.airmsnorm(x, gamma, params=_static(params),
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, amax_reduce=amax_reduce)
 
 
 @registry.register("residual_layernorm", "sole", "cuda")
 def sole_residual_layernorm_cuda(x, r, gamma, beta=None, *, params=None,
-                                 out_dtype=None, **kw):
+                                 out_dtype=None, amax_reduce=None, **kw):
     """Static ``params``: the fused add+norm kernel (``_fused_kernel``),
     one launch on float32 or bf16 rows, ``h`` in float32; without them
     the calibrating norm kernel: the add, the calibration and the
     quantize+norm in one launch."""
     return K_norm.fused_add_norm(x, r, gamma, beta, params=_static(params),
-                                 rms=False, out_dtype=out_dtype)
+                                 rms=False, out_dtype=out_dtype,
+                                 amax_reduce=amax_reduce)
 
 
 @registry.register("residual_rmsnorm", "sole", "cuda")
 def sole_residual_rmsnorm_cuda(x, r, gamma, beta=None, *, params=None,
-                               out_dtype=None, **kw):
+                               out_dtype=None, amax_reduce=None, **kw):
     return K_norm.fused_add_norm(x, r, gamma, None, params=_static(params),
-                                 rms=True, out_dtype=out_dtype)
+                                 rms=True, out_dtype=out_dtype,
+                                 amax_reduce=amax_reduce)
 
 
 def _residual_norm_q(rms: bool):
-    def fn(x, r, gamma, beta=None, *, params=None, **kw):
+    def fn(x, r, gamma, beta=None, *, params=None, amax_reduce=None, **kw):
         """``(x + r, (int8 codes, per-row scale))``. Static ``params``:
         the fused add+norm+quantize-out kernel (``_fused_q_kernel``);
         without them the calibrating norm kernel with its quantize-out:
@@ -97,7 +103,7 @@ def _residual_norm_q(rms: bool):
         one launch."""
         return K_norm.fused_add_norm_quant(
             x, r, gamma, None if rms else beta, params=_static(params),
-            rms=rms)
+            rms=rms, amax_reduce=amax_reduce)
     return fn
 
 

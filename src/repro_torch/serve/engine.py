@@ -37,21 +37,28 @@ preempted request re-encodes on re-admission. The vlm family is not
 paged-servable and neither engine serves it (its ``prefill``/``decode_step``
 are reached through ``models.api``).
 
-``PagedEngine(rules=, param_axes=)`` serves the dense family tensor-parallel
-over a (1, M) mesh of ``torch.distributed`` ranks (``launch/mesh.py``): each
-rank runs this engine on the same requests with its slice of the weights
-(``convert.shard_params``) and of every KV page's heads
-(``PagedKVCache.shard``); the layers call the collectives
-(``models/layers.py``). Page tables, refcounts, the prefix index and the
-scheduler are host state, identical on every rank. Every value a rank's
-host acts on (the sampled tokens, a prefill's logits row) is replicated
-after the head's gather, and each readback checks that every rank holds
-the same bytes (``sharding.comm.agreed``): a rank whose tokens parted
-would desynchronise the schedulers, so it fails at once instead.
+``PagedEngine(rules=, param_axes=)`` and ``Engine(rules=, param_axes=)``
+serve the dense family over a (D, M) mesh of ``torch.distributed`` ranks
+(``launch/mesh.py``): each rank runs the engine on the same requests with
+its slice of the weights (``convert.shard_params``: split over the model
+axis, whole over data) and of every KV page's heads (``PagedKVCache``
+at the rank's shape, every page on every data rank); the layers call the
+collectives (``models/layers.py``). Over the data axis a dispatch's lanes
+split where D divides them (a decode or verify batch, a dense-slot
+batch; a B = 1 prefill chunk replicates): each data rank runs its lanes,
+SOLE's norms calibrate over the whole batch, every lane's new K/V rows
+reach every data rank's pool and the draws are gathered. Page tables,
+refcounts, the prefix index and the scheduler are host state, identical
+on every rank. Every value a rank's host acts on (the sampled tokens, a
+prefill's logits row) is replicated after the gathers, and each readback
+checks that every rank of the mesh holds the same bytes
+(``sharding.comm.agreed``): a rank whose tokens parted would
+desynchronise the schedulers, so it fails at once instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -59,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.convert import shard_params
+from repro_torch.convert import shard_params, shard_shape
 from repro_torch.core.sole.quant import is_qtensor
 from repro_torch.models import api
 from repro_torch.models.state import tree_map
@@ -166,25 +173,20 @@ def _rank() -> int:
 
 
 def _check_rules(cfg: ArchConfig, rules, engine: str) -> None:
-    """Mesh rules: the dense family over a (1, M) mesh. The combinations
-    with no port yet raise, naming their ``ROADMAP.md`` item."""
+    """Mesh rules: the dense family over a (D, M) mesh of every rank of
+    the process group. The families with no port under rules yet raise,
+    naming their ``ROADMAP.md`` item."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{engine}: mesh rules on the {cfg.family!r} family are not "
             "ported yet (ROADMAP.md queue 1 item 9.2: MoE's TP/EP branch "
             "and the recurrent, encdec and vlm families under rules)")
-    wide = {a: n for a, n in rules.axis_sizes.items()
-            if a != "model" and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"{engine}: mesh axes {wide} beyond the model axis: the data "
-            "axis in serving is not ported yet (ROADMAP.md queue 1 item "
-            "9.1); serve on a (1, M) mesh")
-    n = rules.axis_sizes.get("model", 1)
+    n = math.prod(rules.axis_sizes.values())
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n != world:
-        raise ValueError(f"{engine}: a model axis of {n} ranks in a process "
-                         f"group of {world}")
+        raise ValueError(f"{engine}: a mesh of {n} ranks "
+                         f"{dict(rules.axis_sizes)} in a process group of "
+                         f"{world}")
 
 
 def _serving_params(cfg: ArchConfig, params, device, rules=None,
@@ -247,20 +249,20 @@ class PagedEngine:
     K/V into the request's cross pages, which each prefill chunk and decode
     horizon reads (null lanes claim one valid cross row).
 
-    With ``rules`` (a (1, M) mesh's ``sharding.rules.Rules``) the engine
-    is one rank of a tensor-parallel dense model (module docstring): it
-    keeps this rank's slice of the weights (``param_axes`` their logical
-    axes, ``models.api.param_axes(cfg)`` by default; a ``ShardedTree`` of
-    another engine on the same rules is taken as it is; pass ``params`` in
-    host memory, so that the card never holds the whole tree) and of the
-    KV pages (allocated at the slice's shape), and every step runs under
-    the rules.
+    With ``rules`` (a (D, M) mesh's ``sharding.rules.Rules``) the engine
+    is one rank of a dense model served over the mesh (module docstring):
+    it keeps this rank's slice of the weights (``param_axes`` their
+    logical axes, ``models.api.param_axes(cfg)`` by default; a
+    ``ShardedTree`` of another engine on the same rules is taken as it is;
+    pass ``params`` in host memory, so that the card never holds the whole
+    tree) and of the KV pages (allocated at the slice's shape, whole over
+    data), runs its data rank's share of each decode or verify dispatch's
+    lanes, and every step runs under the rules.
 
     Features without a path raise here rather than being silently
     downgraded: the vlm family (not paged-servable), int8 weights on every
     family but dense, int8 KV pages on encdec (the reference reads its int8
-    cross pages undequantized), mesh rules on any family but dense and a
-    mesh axis other than ``model`` wider than 1.
+    cross pages undequantized) and mesh rules on any family but dense.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -318,7 +320,7 @@ class PagedEngine:
         self.state_spec = state_spec
         self.prefix_cache = prefix_cache
         self.rules = rules
-        self._model_axis = comm.model_axis(rules)
+        self._mesh = comm.whole_mesh(rules)
         self.params = _serving_params(cfg, params, device, rules, param_axes)
         self.decode_batch = decode_batch
         self.decode_horizon = decode_horizon
@@ -357,10 +359,8 @@ class PagedEngine:
 
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """:func:`_host`; under mesh rules after checking that every rank
-        of the model axis reads the same bytes (one gather)."""
-        if self._model_axis is None:
-            return _host(t)
-        return comm.agreed(t, self._model_axis, "PagedEngine readback")
+        of the mesh reads the same bytes (one gather)."""
+        return comm.agreed(t, self._mesh, "PagedEngine readback")
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Replay COW page duplications on the device before the step
@@ -832,22 +832,30 @@ class Engine:
     hybrid) keep the reference's shared positions: pad tokens run through
     the recurrence, so parity batches use equal-length prompts. Encdec and
     vlm are not LM families and raise, as in the reference, as do int8
-    weights on MoE and the recurrent families, int8 KV on the hybrid's
-    dense caches (the reference stores a cast there, with no scale) and
-    mesh rules (ROADMAP.md queue 1 item 9.1; ``PagedEngine`` takes them).
+    weights on MoE and the recurrent families, and int8 KV on the hybrid's
+    dense caches (the reference stores a cast there, with no scale).
+
+    With ``rules`` (a (D, M) mesh's, dense family only, as
+    ``PagedEngine``'s) the engine is one rank of the model served over the
+    mesh: this rank's slice of the weights (``param_axes`` as
+    ``PagedEngine``'s), the dense caches at the rank's shape by
+    ``models.api.cache_axes`` (lanes over data where D divides the batch,
+    KV heads over model where they divide it; checked at the first
+    prefill), each call's lanes split over data with every lane's logits
+    gathered, the attention in the paged plan's regime (matched,
+    replicated KV, heads replicated) and each readback checked equal on
+    every rank.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,
-                 max_len: int = 256, device="cuda", rules=None):
+                 max_len: int = 256, device="cuda", rules=None,
+                 param_axes=None):
         device = _resolve_device(device, "Engine")
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"Engine serves LM families, got {cfg.family}")
         _check_family(cfg, "Engine")
         if rules is not None:
-            raise NotImplementedError(
-                "Engine: the dense-slot engine under mesh rules is not "
-                "ported yet (ROADMAP.md queue 1 item 9.1); PagedEngine "
-                "serves the dense family tensor-parallel")
+            _check_rules(cfg, rules, "Engine")
         if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
             raise NotImplementedError(
                 "Engine: int8 KV on the hybrid's dense caches: the "
@@ -856,7 +864,10 @@ class Engine:
                 "int8 KV)")
         self.cfg = cfg
         self.device = device
-        self.params = _serving_params(cfg, params, device)
+        self.rules = rules
+        self._mesh = comm.whole_mesh(rules)
+        self._cache_checked = rules is None
+        self.params = _serving_params(cfg, params, device, rules, param_axes)
         self.batch = batch_size
         self.max_len = max_len
         # attention-cache families thread per-lane positions through prefill
@@ -871,7 +882,25 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    _host = staticmethod(_host)
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """As ``PagedEngine._host``."""
+        return comm.agreed(t, self._mesh, "Engine readback")
+
+    def _check_cache(self, cache, b: int) -> None:
+        """Under rules, once: the dense caches hold the rank's shard of
+        ``models.api.cache_axes`` (its lanes and KV heads)."""
+        axes = api.cache_axes(self.cfg)
+        for key in ("k", "v"):
+            t = cache[key]             # (L, B, KV, ...) of the whole batch
+            whole = ((t.shape[0], b, self.cfg.n_kv_heads)
+                     + tuple(t.shape[3:]))
+            want = shard_shape(self.rules.spec(axes[key], whole), whole,
+                               self.rules)
+            if tuple(t.shape) != tuple(want):
+                raise AssertionError(
+                    f"Engine: cache {key!r} {tuple(t.shape)} is not the "
+                    f"rank's shard {tuple(want)} of {whole}")
+        self._cache_checked = True
 
     def _sample(self, logits: torch.Tensor, samplers: List[Sampler],
                 live: List[bool]) -> np.ndarray:
@@ -898,10 +927,12 @@ class Engine:
         "length")."""
         outs: List[List[int]] = []
         self.finish_reasons = []
-        for i in range(0, len(requests), self.batch):
-            res, reasons = self._generate_batch(requests[i:i + self.batch])
-            outs.extend(res)
-            self.finish_reasons.extend(reasons)
+        with use_rules(self.rules):
+            for i in range(0, len(requests), self.batch):
+                res, reasons = self._generate_batch(
+                    requests[i:i + self.batch])
+                outs.extend(res)
+                self.finish_reasons.extend(reasons)
         return outs
 
     def _generate_batch(self, chunk: List[Request]
@@ -921,6 +952,8 @@ class Engine:
             self.params, self._tensor(toks), self.cfg, self.max_len,
             n_pad=self._tensor(n_pad) if self._lane_pos else None)
         self.prefill_calls += 1
+        if not self._cache_checked:
+            self._check_cache(cache, b)
         first = self._sample(logits[:, -1], samplers,
                              [j < real for j in range(b)])
         results: List[List[int]] = [[] for _ in range(b)]

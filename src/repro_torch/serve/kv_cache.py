@@ -65,8 +65,9 @@ class PagedKVCache:
         """``rules`` (mesh rules, ``sharding.rules``): the pools are
         allocated at one rank's shard of ``PAGED_KV_AXES`` (pages whole,
         each page's kv_heads cut over the model axis where they divide
-        it, whole where they do not); page tables, refcounts, the prefix
-        index and COW are host state, the same on every rank."""
+        it, whole where they do not; replicated over the data axis, which
+        is asserted); page tables, refcounts, the prefix index and COW
+        are host state, the same on every rank."""
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (page 0 is the null page)")
         from repro_torch.convert import shard_shape
@@ -85,8 +86,15 @@ class PagedKVCache:
         shape = (self.kv_layers, num_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
         if rules is not None:
-            shape = shard_shape(rules.spec(PAGED_KV_AXES["k"], shape), shape,
-                                rules)
+            spec = rules.spec(PAGED_KV_AXES["k"], shape)
+            # every data rank's pool holds every lane's pages: a lane may
+            # run on another data rank at its next step
+            split = {a for d in spec if d is not None
+                     for a in (d if isinstance(d, tuple) else (d,))}
+            if split - {"model"}:
+                raise ValueError(f"PagedKVCache: pools split over {spec}; "
+                                 "they replicate over every axis but model")
+            shape = shard_shape(spec, shape, rules)
         dt = kv_store_dtype(cfg)
         self.pools: Dict[str, torch.Tensor] = {
             "k": torch.zeros(shape, dtype=dt, device=self.device),

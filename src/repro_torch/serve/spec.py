@@ -137,8 +137,10 @@ class DraftModelDrafter:
     given, so a tree in host memory puts only the slices on the card) and
     each forward runs under them; without, every rank of a
     tensor-parallel target runs the whole draft model (its forward leaves
-    the target's rules). Under rules the rows read back are checked equal
-    on every rank, as the engine's are.
+    the target's rules). On a (D, M) mesh each data rank runs its share of
+    a round's lanes where D divides them (``transformer.forward``'s lane
+    split). Under rules the rows read back are checked equal on every rank
+    of the mesh, as the engine's are.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, window: int = 64,
@@ -190,7 +192,7 @@ class DraftModelDrafter:
                                 device=self.device)
             rows = comm.agreed(
                 logits[torch.arange(len(live), device=self.device),
-                       last].float(), comm.model_axis(self.rules),
+                       last].float(), comm.whole_mesh(self.rules),
                 "DraftModelDrafter readback")
             for r, j in enumerate(live):
                 seq = lanes[j]

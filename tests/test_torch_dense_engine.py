@@ -271,10 +271,15 @@ def test_engine_raises_for_unported_families(change, err, match):
 
 
 def test_engine_raises_for_rules_and_sampling():
-    """The dense-slot engine refuses mesh rules, even a (1, 2) mesh the
-    paged engine serves, naming its roadmap item."""
+    """The dense-slot engine serves mesh rules of every rank of the
+    process group (``tests/test_torch_mesh_data.py``); a (1, 2) mesh in a
+    process of its own, and the MoE family under rules (ROADMAP item 9.2),
+    raise."""
     from repro_torch.launch.mesh import Mesh, make_rules
     cfg, params = _smoke()
     rules = make_rules(Mesh((1, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
+    with pytest.raises(ValueError, match="in a process group of 1"):
         Engine(cfg, params, device="cpu", rules=rules)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9.2"):
+        Engine(dataclasses.replace(cfg, family="moe"), params, device="cpu",
+               rules=rules)

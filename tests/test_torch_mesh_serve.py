@@ -19,6 +19,7 @@ import pytest
 from repro.serve.engine import PagedEngine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro_torch.configs.base import get_config
+from repro_torch.convert import params_from_jax
 from repro_torch.launch.mesh import Mesh, make_rules, spawn
 from repro_torch.serve.engine import Engine, PagedEngine
 from repro_torch.serve.spec import DraftModelDrafter
@@ -122,32 +123,45 @@ def test_unported_families_raise_under_rules(arch):
         PagedEngine(cfg, {}, device="cpu", rules=_rules((1, 2)))
 
 
-def test_unported_meshes_and_engines_raise_under_rules():
-    """A data axis wider than 1 and the dense-slot engine under rules
-    raise, naming ROADMAP item 9.1; so does a draft model on such a
-    mesh."""
+def test_unported_meshes_and_engines_raise_under_rules(oracle):
+    """What raised before the data axis was ported (ROADMAP item 9.1) now
+    serves: ``PagedEngine`` and a draft model on (2, 1) and (2, 2) meshes
+    and the dense-slot ``Engine`` under rules give the single-device
+    port's tokens on every rank (the draft model's verify keeps plain
+    decode's). A mesh of more ranks than the process group holds still
+    raises."""
     cfg = C.exact_cfg()
+    params = params_from_jax(oracle["params"], cfg, "cpu")
+    specs = C.short_requests(cfg)
+    paged = PagedEngine(cfg, params, device="cpu",
+                        **C.ENGINE_KW).generate(C.reqs(specs))
+    dense = Engine(cfg, params, device="cpu",
+                   **C.DENSE_KW).generate(C.reqs(specs))
     for shape in ((2, 1), (2, 2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
-            PagedEngine(cfg, {}, device="cpu", rules=_rules(shape))
-        with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
-            DraftModelDrafter(cfg, {}, rules=_rules(shape))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
-        Engine(cfg, {}, device="cpu", rules=_rules((1, 2)))
+        ranks = spawn(C.admits_battery, shape[0] * shape[1],
+                      (shape, oracle["params"]), timeout=C.SPAWN_TIMEOUT)
+        for out in ranks:
+            assert out["paged"] == out["draft"] == paged, shape
+            assert out["dense"] == dense, shape
+    for cls in (PagedEngine, Engine):
+        with pytest.raises(ValueError, match="in a process group of 1"):
+            cls(cfg, params, device="cpu", rules=_rules((2, 2)))
+    with pytest.raises(ValueError, match="in a process group of 1"):
+        DraftModelDrafter(cfg, params, rules=_rules((2, 1)))
 
 
 def test_launcher_mesh_matches_single_device():
     """``launch.serve --mesh 1,2`` spawns two gloo ranks whose rank 0
-    returns the single-device launcher's tokens (SOLE, the smoke config);
-    a data axis, the dense engine under a mesh and nccl on the CPU
-    raise."""
+    returns the single-device launcher's tokens (SOLE, the smoke config),
+    as do ``--mesh 2,1`` (a data axis) and the dense engine under ``--mesh
+    1,2``; nccl on the CPU raises."""
     from repro_torch.launch import serve
     argv = ["--arch", "qwen2_0_5b", "--smoke", "--device", "cpu",
             "--engine", "paged", "--requests", "3", "--new-tokens", "4"]
-    assert serve.main(argv + ["--mesh", "1,2"]) == serve.main(argv)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
-        serve.main(argv + ["--mesh", "2,1"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.1"):
-        serve.main(argv[:-6] + ["--engine", "dense", "--mesh", "1,2"])
+    single = serve.main(argv)
+    assert serve.main(argv + ["--mesh", "1,2"]) == single
+    assert serve.main(argv + ["--mesh", "2,1"]) == single
+    dense = argv[:-6] + ["--engine", "dense"] + argv[-4:]
+    assert serve.main(dense + ["--mesh", "1,2"]) == serve.main(dense)
     with pytest.raises(ValueError, match="only gloo"):
         serve.main(argv + ["--mesh", "1,2", "--dist-backend", "nccl"])

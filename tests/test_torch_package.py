@@ -269,16 +269,16 @@ def _data_axis_rules():
                                 dict(rules=_data_axis_rules())])
 def test_engine_raises_for_unported_features(kw):
     """The vlm family is not paged-servable (the reference's ``ValueError``)
-    and mesh rules with a data axis wider than 1 raise, naming the roadmap
-    item (the (1, M) tensor-parallel path is ported:
-    ``tests/test_torch_mesh_serve.py``; speculative decoding:
+    and mesh rules of more ranks than the process group holds raise (the
+    (D, M) paths are ported: ``tests/test_torch_mesh_serve.py``,
+    ``tests/test_torch_mesh_data.py``; speculative decoding:
     ``tests/test_torch_spec.py``)."""
     cfg, params = _smoke_engine_args()
     kw = dict(kw)
     change = kw.pop("cfg", {})
     cfg = dataclasses.replace(cfg, **change)
     err, match = ((ValueError, "not paged-servable") if change
-                  else (NotImplementedError, "ROADMAP.md queue 1 item 9.1"))
+                  else (ValueError, "in a process group of 1"))
     with pytest.raises(err, match=match):
         PagedEngine(cfg, params, device="cpu", **kw)
 
