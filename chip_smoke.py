@@ -5970,6 +5970,10 @@ MESH_DATA2_MODES = ("sole", "w8a8")
 # per-rank paged shapes: (label, H, KV, d, M); every rank of the model axis
 # is checked (the replicated-KV maps of qwen2 at M = 7 straddle KV heads on
 # rank 3 and leave a pool head unread on the others)
+# the MoE leg: mixtral_8x7b at full width, its depth cut (of 32 layers: 4
+# hold 11.3 GB of bf16 expert weights on the single card, 5.6 GB a rank at
+# (1, 2) and 2.8 GB at (2, 2)), on the first four requests
+MESH_MOE_LAYERS = 4
 MESH_PAGED_CASES = (("qwen2_m2", 14, 2, 64, 2), ("qwen2_m7", 14, 2, 64, 7),
                     ("minitron_m2", 32, 8, 128, 2),
                     ("minitron_m4", 32, 8, 128, 4),
@@ -5988,6 +5992,20 @@ def mesh_cfg(mode):
     if mode == "w8a8":
         return dataclasses.replace(cfg, quant=QuantConfig("w8a8"),
                                    kv_cache_dtype="int8")
+    return cfg
+
+
+def moe_mesh_cfg(mode):
+    """mixtral_8x7b at full width and ``MESH_MOE_LAYERS`` layers as the
+    MoE leg serves it: ``exact`` float32 (exact softmax and norms),
+    ``sole`` bf16."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"),
+                              n_layers=MESH_MOE_LAYERS)
+    if mode == "exact":
+        return dataclasses.replace(cfg, softmax_mode="exact",
+                                   norm_mode="exact", logit_int8=False,
+                                   dtype="float32")
     return cfg
 
 
@@ -6042,8 +6060,35 @@ def mesh_params(torch, cfg, device):
     return params
 
 
+def card_params(torch, cfg, device, rules):
+    """``cfg``'s weights from seed 0 drawn on ``device`` (the single card's
+    draws) and, under ``rules``, cut there to this rank's slices (a
+    ``ShardedTree`` the engine takes as it is), the whole tree freed: no
+    host copy of a model whose experts take gigabytes. The ranks draw one
+    at a time (a barrier after each), so a card the ranks share holds one
+    whole tree at once."""
+    import torch.distributed as dist
+    from repro_torch.convert import shard_params
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ShardedTree, _rank
+    if rules is None:
+        return api.init_params(0, cfg, device)
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == _rank():
+            params = api.init_params(0, cfg, device)
+            out = ShardedTree(shard_params(params, api.param_axes(cfg),
+                                           rules, r))
+            out.layout = (rules, r)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
 def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
-               spec=0):
+               spec=0, cfg=None):
     """qwen2_0_5b at full width and depth (``mesh_cfg(mode)``) through
     ``PagedEngine`` on ``mesh_requests(cfg, n)``: one rank's engine under
     ``rules``, or the whole model without, built from host-memory weights
@@ -6054,15 +6099,20 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
     the wall). ``sanitize``: the same requests again under the sanitizers'
     sync guard. ``spec``: the first ``spec`` requests again through an
     engine with the n-gram drafter on the same weights (its tokens and
-    counters; exact mode's rows do not depend on the batch)."""
+    counters; exact mode's rows do not depend on the batch). ``cfg``: the
+    model to serve in place of ``mesh_cfg(mode)`` (the MoE leg's, whose
+    weights are drawn and cut on the card: ``card_params``)."""
     import numpy as np
     from repro_torch.serve.engine import PagedEngine, Request
     from repro_torch.serve.spec import NGramDrafter, SpecConfig
     from repro_torch.sharding import comm
     from repro_torch.sharding.rules import param_bytes
-    cfg = mesh_cfg(mode)
     t0 = time.time()
-    params = mesh_params(torch, cfg, device)
+    if cfg is None:
+        cfg = mesh_cfg(mode)
+        params = mesh_params(torch, cfg, device)
+    else:
+        params = card_params(torch, cfg, device, rules)
     setup = {"weights": time.time() - t0}
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats(device)
@@ -6076,7 +6126,7 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
     reqs = mesh_requests(cfg, n)
     reset_launches()
     san = guarded = None
-    sec0 = sum(comm.SECONDS.values())
+    sec0, n0 = dict(comm.SECONDS), dict(comm.COUNTS)
     with LogitsKeeper() as keep:
         torch.cuda.synchronize(device)
         t0 = time.time()
@@ -6097,7 +6147,10 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
         torch.cuda.synchronize(device)
         wall = time.time() - t0
     t_after = time.time()
-    coll_s = sum(comm.SECONDS.values()) - sec0
+    coll_s = sum(comm.SECONDS.values()) - sum(sec0.values())
+    by_name = {k: {"calls": comm.COUNTS[k] - n0.get(k, 0),
+                   "seconds": comm.SECONDS[k] - sec0.get(k, 0.0)}
+               for k in comm.COUNTS if comm.COUNTS[k] > n0.get(k, 0)}
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     if [len(o) for o in outs] != [MESH_NEW_TOKENS] * len(reqs):
@@ -6114,6 +6167,7 @@ def mesh_trace(torch, mode, device, rules=None, sanitize=False, n=None,
             torch, eng, cfg, rules, device)
     res.update(tokens=outs, first=keep.first, last=keep.last, wall_s=wall,
                collective_s=coll_s, collective_share=coll_s / wall,
+               collectives_in_trace=by_name,
                launches={k: v for k, v in launches.items() if v},
                collectives_per_forward=per_forward, peak_gib=peak,
                param_bytes=param_bytes(eng.params),
@@ -6148,8 +6202,8 @@ def decode_step_collectives(torch, eng, cfg, rules, device):
     (each on the null page) through ``eng``'s weights and pools under
     ``rules``: the model axis's, and over data one gather of the K/V rows
     a layer, one of the draws and, in SOLE mode, one max all-reduce a
-    norm."""
-    from repro_torch.models import transformer as T
+    norm (and the MoE FFN's two all_to_all a layer)."""
+    from repro_torch.models import api
     from repro_torch.sharding import comm
     from repro_torch.sharding.rules import use_rules
     b = eng.decode_batch
@@ -6157,7 +6211,7 @@ def decode_step_collectives(torch, eng, cfg, rules, device):
     tables = torch.zeros((b, 8), dtype=torch.int32, device=device)
     before = dict(comm.COUNTS)
     with use_rules(rules):
-        T.decode_horizon_paged(
+        api.get_model(cfg).decode_horizon_paged(
             eng.params, eng.cache.pools, zeros, zeros, tables, None, None,
             None, zeros, torch.full((b, 1), -1, dtype=torch.int32,
                                     device=device),
@@ -6212,11 +6266,12 @@ def mesh_dense_trace(torch, device, rules=None, n=MESH_FOUR_REQUESTS):
 
 def mesh_rank(rank, world, jobs, backend, t_spawn, shape):
     """One rank of a ``shape`` (data, model) mesh (``launch.mesh.spawn``
-    started it and its group): each job ``(label, mode, n, spec, dense)``
-    a trace of ``mode`` on the first ``n`` requests (``spec`` > 0 adds
-    the n-gram trace of that many requests; ``dense``: the dense-slot
-    engine's exact trace); under nccl on its own card with the sanitizers'
-    sync guard, under gloo on the shared card. Rank 0 returns the first
+    started it and its group): each job ``(label, mode, n, spec, dense,
+    moe)`` a trace of ``mode`` on the first ``n`` requests (``spec`` > 0
+    adds the n-gram trace of that many requests; ``dense``: the dense-slot
+    engine's exact trace; ``moe``: of ``moe_mesh_cfg(mode)``); under nccl
+    on its own card with the sanitizers' sync guard, under gloo on the
+    shared card. Rank 0 returns the first
     forward's logits and every rank the last forward's (whole rows over
     the vocabulary; the rank's lanes of a dispatch the data axis splits,
     its data coordinate as ``data_index``). ``t_spawn``: the parent's
@@ -6233,13 +6288,14 @@ def mesh_rank(rank, world, jobs, backend, t_spawn, shape):
     rules = make_rules(make_mesh(shape, ("data", "model")))
     out = {"started_s": started, "trace_s": {},
            "data_index": rules.mesh.coordinate("data")}
-    for label, mode, n, spec, dense in jobs:
+    for label, mode, n, spec, dense, moe in jobs:
         t0 = time.time()
         if dense:
             res = mesh_dense_trace(torch, device, rules, n)
         else:
             res = mesh_trace(torch, mode, device, rules,
-                             sanitize=backend == "nccl", n=n, spec=spec)
+                             sanitize=backend == "nccl", n=n, spec=spec,
+                             cfg=moe_mesh_cfg(mode) if moe else None)
         if rank:
             res.pop("first")
         out[label] = res
@@ -6602,6 +6658,247 @@ def check_mesh_products(torch):
     return diff
 
 
+def check_moe_mesh_products(torch):
+    """mixtral_8x7b's expert products in their mesh forms on the card
+    (``models/moe.py``; bf16 random weights and rows, seed 31), on a
+    decode dispatch's (E, ROW_TILE, d) buffer through the row tiles and on
+    a 128-row prefill chunk's (E, 128, d) buffer. Expert parallelism on a
+    data axis of 2: rank r's experts 4r .. 4r + 3 on their rows of the
+    buffer alone (route (b)) and, at decode, on route (a)'s (4, 2 cap, d)
+    buffer of two sources' rows, bitwise the single card's experts. Tensor
+    parallelism on a model axis of 2: ``gate``/``up`` on each rank's
+    d_ff / 2 columns and ``down``'s float32 partials, summed and rounded
+    once, within one bf16 rounding step (2^-7 of the magnitude) plus the
+    float32 accumulation bound d_ff 2^-23 (|h| @ |down|) of the single
+    card's outputs; the share of outputs apart is returned per buffer."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as TM
+    cfg = moe_mesh_cfg("sole")
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    e_loc, half = e // 2, f // 2
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def rnd(*shape, k=1):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * k ** -0.5).to(torch.bfloat16)
+
+    wg, wu, wd = rnd(e, d, f, k=d), rnd(e, d, f, k=d), rnd(e, f, d, k=f)
+    apart, checked = {}, 0
+    for name, rows, stable in (("decode", L.ROW_TILE, True),
+                               ("prefill_128", 128, False)):
+        xe, other = rnd(e, rows, d), rnd(e, rows, d)
+        whole = TM.expert_ffn(xe, wg, wu, wd, cfg, stable)
+        whole_other = TM.expert_ffn(other, wg, wu, wd, cfg, stable)
+        for r in range(2):
+            s = slice(r * e_loc, (r + 1) * e_loc)
+            w = (wg[s], wu[s], wd[s])
+            got = [(TM.expert_ffn(xe[s], *w, cfg, stable), whole[s])]
+            if stable:
+                both = TM.expert_ffn(torch.cat([other[s], xe[s]], 1), *w,
+                                     cfg, stable)
+                got += [(both[:, :rows], whole_other[s]),
+                        (both[:, rows:], whole[s])]
+            for a, b in got:
+                checked += 1
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"moe mesh products {name} rank {r}: the rank's "
+                        "experts are not the single card's bitwise")
+        acc = sum(TM.expert_ffn(
+            xe, wg[..., m * half:(m + 1) * half].contiguous(),
+            wu[..., m * half:(m + 1) * half].contiguous(),
+            wd[:, m * half:(m + 1) * half].contiguous(), cfg, stable,
+            out32=True) for m in range(2))
+        tp = acc.to(torch.bfloat16)
+        h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+        bound = torch.bmm(h.abs().float(), wd.abs().float()) * (f * 2.0 ** -23)
+        gap = (tp.float() - whole.float()).abs()
+        top = torch.maximum(tp.float().abs(), whole.float().abs())
+        if bool((gap > top * 2.0 ** -7 + bound).any()):
+            raise AssertionError(f"moe mesh products {name}: the down "
+                                 "partials' sum is more than a rounding step "
+                                 "from the card's")
+        apart[f"down_m2_{name}"] = (tp != whole).float().mean().item()
+        del h, bound, acc
+    log(f"[moe mesh products] mixtral experts (d {d}, d_ff {f}, bf16): each "
+        f"data rank's {e_loc} experts bitwise the single card's ({checked} "
+        "buffers: decode 64-row tiles alone and as route (a)'s two-source "
+        "buffer, 128-row prefill chunk); d_ff split over 2 model ranks, "
+        "float32 down partials summed and rounded once: within a rounding "
+        f"step of the card's, share of outputs apart {json.dumps(apart)}")
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return {"buffers_bitwise": checked, "tp_share_apart": apart}
+
+
+def moe_mesh_leg(torch):
+    """The MoE family under mesh rules (``models/moe.py``'s routes):
+    ``check_moe_mesh_products``, then mixtral_8x7b at full width and
+    ``MESH_MOE_LAYERS`` layers on the first ``MESH_FOUR_REQUESTS``
+    requests, its ranks sharing the card over gloo, against the single
+    card's traces: (2, 1) SOLE bf16 (decode dispatches through expert
+    parallelism, prefill chunks through the replicated-batch route) with
+    tokens and the first and last forward's logits bitwise the card's;
+    (1, 2) exact float32 (expert-FF tensor parallelism) with the card's
+    tokens, or parting inside a top-2 margin no larger than the measured
+    logit difference; (2, 2) SOLE bf16 with every rank's tokens equal and
+    their agreement with the card logged. Each trace's collectives a
+    prefill forward and a decode step against the prediction, every
+    rank's path launched; per rank its launches, the all_to_all calls and
+    their host seconds, parameter bytes against the card's and peak
+    memory logged. Where the machine shows two cards, the (2, 1) trace
+    again over nccl, one card a rank. Each rank draws the whole model on
+    the card before it keeps its slices, so one mesh spawns at a time
+    (the (2, 1) ranks beside the single card's traces)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh moe] this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB of the card at the leg's start "
+        f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
+    products = check_moe_mesh_products(torch)
+    dev = torch.device("cuda", 0)
+    n4 = MESH_FOUR_REQUESTS
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(mesh_spawn, (2, 1),
+                          mesh_jobs(("sole",), n=n4, moe=True), "gloo")
+        single = {m: mesh_trace(torch, m, dev, n=n4, cfg=moe_mesh_cfg(m))
+                  for m in ("sole", "exact")}
+        two_one = fut.result()
+    one_two = mesh_spawn((1, 2), mesh_jobs(("exact",), n=n4, moe=True),
+                         "gloo")
+    two_two = mesh_spawn((2, 2), mesh_jobs(("sole",), n=n4, moe=True),
+                         "gloo")
+    n = MESH_MOE_LAYERS
+    model = {"all_reduce_sum": 1 + 2 * n, "all_gather": 1}
+    replicated = {"data.all_reduce_sum": n}
+    step = {"data.all_gather": n + 1, "data.all_reduce_max": 2 * n + 1,
+            "data.all_to_all": 2 * n}
+    legs = {"2x1": ("sole", two_one, dict(replicated, agreed=1), step),
+            "1x2": ("exact", one_two, dict(model, agreed=1), None),
+            "2x2": ("sole", two_two, dict(model, **replicated, agreed=1),
+                    dict(model, **step))}
+    out = {"products": products, "single": {}}
+    for mode, r in single.items():
+        out["single"][mode] = {k: v for k, v in r.items()
+                               if k not in ("tokens", "first", "last")}
+        log(f"[mesh moe single card {mode}] wall {r['wall_s']:.2f} s, peak "
+            f"{r['peak_gib']:.3f} GiB, params {r['param_bytes']} B, pools "
+            f"{r['pool_bytes']} B; launches {json.dumps(r['launches'])}")
+    for mesh, (mode, ranks, fwd, dstep) in legs.items():
+        ref = single[mode]
+        toks = [r[mode]["tokens"] for r in ranks]
+        if any(t != toks[0] for t in toks):
+            raise AssertionError(f"mesh moe {mesh} {mode}: the ranks' tokens "
+                                 "differ")
+        mesh_path_launched(f"mesh moe {mesh} {mode}", mode, ranks, mode,
+                           split=mesh[0] == "2")
+        r0 = ranks[0][mode]
+        r0["first_max_abs_diff"] = float(abs(r0["first"]
+                                             - ref["first"]).max())
+        got = (r0["collectives_per_forward"],
+               r0.get("collectives_per_decode_step"))
+        if got != (fwd, dstep):
+            raise AssertionError(f"mesh moe {mesh} {mode}: collectives a "
+                                 f"prefill forward and a decode step {got}, "
+                                 f"predicted {(fwd, dstep)}")
+        entry = {"agreement_with_single_card": agreement(ref["tokens"],
+                                                         toks[0]),
+                 "first_max_abs_diff": r0["first_max_abs_diff"],
+                 "ranks": [{k: v for k, v in r[mode].items()
+                            if k not in ("tokens", "first", "last")}
+                           for r in ranks]}
+        if mesh == "2x1":
+            lanes_ = r0["last"].shape[0]
+            bitwise = dict(
+                tokens=toks[0] == ref["tokens"],
+                first=same_bits(r0["first"], ref["first"]),
+                last=all(same_bits(r[mode]["last"], lane_rows(
+                    ref["last"], lanes_, r["data_index"])) for r in ranks))
+            if not all(bitwise.values()):
+                raise AssertionError(f"mesh moe 2x1 sole: not bitwise the "
+                                     f"single card: {bitwise}")
+            entry["bitwise"] = True
+        if mesh == "1x2":
+            entry["divergence"] = moe_divergence(torch, ref["tokens"],
+                                                 toks[0], r0)
+        out[mesh] = {mode: entry}
+        log(f"[mesh moe {mesh} {mode}] mixtral_8x7b {n} layers: tokens equal "
+            f"on every rank; agreement with the single card "
+            f"{entry['agreement_with_single_card']:.4f} ({n4} requests)"
+            f"{', tokens and first/last logits bitwise' if mesh == '2x1' else ''}"
+            f"; first forward's logits {entry['first_max_abs_diff']:.3e} "
+            f"apart; collectives a prefill forward {json.dumps(fwd)}, a "
+            f"decode step {json.dumps(dstep)}; card params "
+            f"{ref['param_bytes']} B, peak {ref['peak_gib']:.3f} GiB")
+        for i, r in enumerate(ranks):
+            rr = r[mode]
+            a2a = rr["collectives_in_trace"].get("data.all_to_all")
+            log(f"[mesh moe {mesh} {mode} rank {i}] launches "
+                f"{json.dumps(rr['launches'])}; all_to_all in the trace "
+                f"{json.dumps(a2a)}; collectives in the trace "
+                f"{json.dumps(rr['collectives_in_trace'])}; wall "
+                f"{rr['wall_s']:.2f} s (gloo, correctness only), peak "
+                f"{rr['peak_gib']:.3f} GiB, params {rr['param_bytes']} B "
+                f"({rr['param_bytes'] / ref['param_bytes']:.4f} of the "
+                "card's)")
+    out["2x1_nccl"] = moe_nccl_leg(torch, single["sole"])
+    log(f"[phase time] mesh moe leg: {time.time() - t0:.1f} s")
+    return out
+
+
+def moe_divergence(torch, single_tokens, tokens, r0):
+    """None where ``tokens`` equal the single card's; else the first
+    divergence, which must sit inside a top-2 margin no larger than the
+    first forward's measured logit difference."""
+    for i, (a, b) in enumerate(zip(single_tokens, tokens)):
+        if a == b:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        cfg = moe_mesh_cfg("exact")
+        margin = first_divergence_margin(
+            torch, cfg, mesh_requests(cfg)[i].prompt, a[:j])
+        diff = r0["first_max_abs_diff"]
+        log(f"[mesh moe 1x2 exact] request {i} parts at token {j}: top-2 "
+            f"margin {margin:.3e}, measured logit difference {diff:.3e}")
+        if margin > diff:
+            raise AssertionError("mesh moe 1x2 exact: a divergence outside "
+                                 "the measured logit difference")
+        return dict(request=i, position=j, margin=margin, logit_diff=diff)
+    return None
+
+
+def moe_nccl_leg(torch, single_sole):
+    """Where the machine shows two cards or more: the MoE leg's (2, 1)
+    SOLE trace over nccl, one card a rank, under the sanitizers' sync
+    guard, its tokens against the single card's. Says so where it cannot
+    run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh moe] (2, 1) nccl not run: the machine shows {cards} "
+            "card(s) (nccl needs one a rank)")
+        return f"not run: {cards} card(s) on this machine"
+    ranks = mesh_spawn((2, 1), mesh_jobs(("sole",), n=MESH_FOUR_REQUESTS,
+                                         moe=True), "nccl")
+    toks = [r["sole"]["tokens"] for r in ranks]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError("mesh moe 2x1 nccl: the ranks' tokens differ")
+    san = ranks[0]["sole"]["sanitizer"]
+    if san["transfers_in_decode"] or san["sanitized_steps"] < 1:
+        raise AssertionError(f"mesh moe 2x1 nccl: sanitizer {san}")
+    share = agreement(single_sole["tokens"], toks[0])
+    log(f"[mesh moe 2x1 nccl sole] {cards} cards, one a rank: tokens equal "
+        f"on both ranks, agreement with the single card {share:.4f}; rank 0 "
+        f"wall {ranks[0]['sole']['wall_s']:.2f} s; sanitizer "
+        f"{json.dumps(san)}")
+    return {"agreement_with_single_card": share,
+            "ranks": [{k: v for k, v in r["sole"].items()
+                       if k not in ("tokens", "first", "last")}
+                      for r in ranks]}
+
+
 def first_divergence_margin(torch, cfg, prompt, prefix):
     """The single card's top-2 margin of the logits at the position after
     ``prompt`` + ``prefix`` (a teacher-forced dense forward)."""
@@ -6642,15 +6939,16 @@ def mesh_spawn(shape, jobs, backend):
     return ranks
 
 
-def mesh_jobs(modes, n=None, spec=0, dense=False, suffix=""):
+def mesh_jobs(modes, n=None, spec=0, dense=False, suffix="", moe=False):
     """``mesh_rank``'s jobs: a paged trace of each of ``modes`` on the
     first ``n`` requests (``spec`` n-gram requests beside the exact one),
     labelled by mode (plus ``suffix``); ``dense`` adds the dense-slot
-    engine's exact trace, labelled ``dense_exact``."""
-    jobs = [(mode + suffix, mode, n, spec if mode == "exact" else 0, False)
-            for mode in modes]
+    engine's exact trace, labelled ``dense_exact``; ``moe``: the traces
+    serve the MoE leg's model (``moe_mesh_cfg``)."""
+    jobs = [(mode + suffix, mode, n, spec if mode == "exact" else 0, False,
+             moe) for mode in modes]
     if dense:
-        jobs.append(("dense_exact", "exact", n, 0, True))
+        jobs.append(("dense_exact", "exact", n, 0, True, False))
     return jobs
 
 
@@ -6830,6 +7128,7 @@ def mesh_serve_phase(torch):
             f"{r['pool_bytes']} B")
     res["1x2_nccl"] = nccl_leg(torch, single["exact"]["tokens"], firsts)
     res["2x2_nccl"] = nccl_data_leg(torch, single_four["exact"])
+    res["moe"] = moe_mesh_leg(torch)
     return res
 
 
@@ -7492,6 +7791,11 @@ def main() -> int:
                 f"{m} {mode}": r["ranks"][0]["launches"][key]
                 for m in ("1x2", "1x4", "2x1", "2x2")
                 for mode, r in mesh[m].items()
+                if key in r["ranks"][0]["launches"]}
+            e["launches_mesh_moe_rank0"] = {
+                f"{m} {mode}": r["ranks"][0]["launches"][key]
+                for m in ("2x1", "1x2", "2x2")
+                for mode, r in mesh["moe"][m].items()
                 if key in r["ranks"][0]["launches"]}
         mark("timings")
         trace["profile"] = profile_engine(torch, cfg, params, "bf16")

@@ -41,6 +41,8 @@ Examples::
       --smoke --device cpu --engine paged --mesh 2,2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \
       --smoke --device cpu --engine dense --mesh 1,2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x7b \
+      --smoke --device cpu --engine paged --mesh 2,2
 
 ``--arch`` takes the ported configs (``qwen2_0_5b``, ``stablelm_1_6b``,
 ``minitron_8b``, ``nemotron_4_15b``, the MoE ``mixtral_8x7b``,
@@ -55,10 +57,11 @@ frames from ``--seed``; ``--engine dense`` refuses it and both engines
 refuse ``qwen2_vl_7b`` (not paged-servable), with the reference's
 messages.
 
-``--mesh D,M`` serves the dense family on a (data, model) mesh of D x M
-ranks (``launch/mesh.py``), through either engine: tensor-parallel over
-the M ranks of the model axis, each dispatch's lanes split over the D
-ranks of the data axis where D divides them. Under ``torchrun``
+``--mesh D,M`` serves the dense and MoE families on a (data, model) mesh
+of D x M ranks (``launch/mesh.py``), through either engine:
+tensor-parallel over the M ranks of the model axis, each dispatch's lanes
+split over the D ranks of the data axis where D divides them, and the MoE
+experts laid over the data axis (``models/moe.py``). Under ``torchrun``
 (``WORLD_SIZE`` set) each process is one rank, otherwise the launcher
 spawns the D x M ranks itself. On the CPU they join over gloo; on CUDA
 over nccl, one card a rank, or over gloo sharing the cards with
@@ -152,8 +155,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="torch device to serve on (cuda unless asked)")
     ap.add_argument("--mesh", default="", metavar="D,M",
                     help="serve on a (data, model) mesh of D x M ranks "
-                         "(dense family): tensor-parallel over M, lanes "
-                         "split over D")
+                         "(dense and MoE families): tensor-parallel over "
+                         "M, lanes split over D")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="process group backend under --mesh (default: "
                          "gloo on the CPU, nccl with a card per rank; gloo "

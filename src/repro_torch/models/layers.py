@@ -165,6 +165,12 @@ def lane_split(ax: Optional[comm.MeshAxis]):
         _LANES.reset(tok)
 
 
+def split_lanes() -> Optional[comm.MeshAxis]:
+    """The data axis the lanes of the enclosing :func:`lane_split` are
+    split over (None: the whole batch runs here)."""
+    return _LANES.get()
+
+
 def _calibration(mode: str) -> dict:
     """A SOLE norm's ``amax_reduce`` inside a lane split: the max
     all-reduce over data that makes its per-channel maxima the whole

@@ -1,14 +1,39 @@
-"""Mixture-of-Experts FFN (mixtral / dbrx) on one device: the router,
-sort-based capacity dispatch, the expert products over the reference's
-(E, capacity, d) buffer and a combine in the reference's order; and the
-MoE model, which is the dense backbone (``models/transformer.py``) with
-this FFN in place of the MLP.
+"""Mixture-of-Experts FFN (mixtral / dbrx): the router, sort-based
+capacity dispatch, the expert products over the reference's (E, capacity,
+d) buffer and a combine in the reference's order; and the MoE model, which
+is the dense backbone (``models/transformer.py``) with this FFN in place
+of the MLP.
 
-Counterpart of ``repro/models/moe.py``, local branch. The reference
-routes under ``shard_map`` with expert parallelism (an ``all_to_all``)
-and tensor parallelism (a ``psum``) when a mesh is active; one card needs
-neither; the mesh half (``PagedEngine`` refuses MoE under mesh rules)
-is ROADMAP.md queue 1 item 9.2.
+Counterpart of ``repro/models/moe.py``. On one device the local branch;
+under mesh rules (``sharding.rules.use_rules``) each rank holds the
+experts ``convert.shard_params`` gave it (``experts`` over ``data``,
+``expert_ff`` over ``model``) and the FFN takes one of three routes
+(:func:`apply_moe_ffn`):
+
+* (a) expert parallelism, the dispatch's lanes split over data
+  (``layers.data_split``): each data rank routes and dispatches its own
+  tokens, one ``all_to_all`` over data sends each expert's rows to its
+  owner, the rank runs its experts on every source's rows, a second
+  ``all_to_all`` brings the rows back and the combine runs in source
+  order, as the reference's ``_moe_inner`` does;
+* (b) the batch replicated over data while the experts lie over it (a B
+  = 1 prefill chunk; a dense-slot batch D does not divide): each rank
+  dispatches the whole batch as one card does, runs its experts' rows of
+  the buffer only, combines their contributions (the other experts' rows
+  zero, in the combine's order) and one sum over data joins the ranks'
+  (T, d) partials. The reference cannot take this case (its weight specs
+  keep the experts over data while its EP fallback gives each shard the
+  whole buffer, and the einsum's expert counts disagree); with top-2
+  routing a token has at most two non-zero terms, so the float32 sum of
+  the partials rounds as one card's combine does, bit for bit;
+* (c) tensor parallelism over model: ``gate``/``up`` column-parallel on
+  the rank's ``d_ff / M`` columns, ``down`` row-parallel with float32
+  partials, the combine in float32, one sum over model of the (T, d)
+  output and one cast to the model dtype (the dense TP forms' rounding,
+  ``layers.apply_mlp``). It composes with (a) or (b).
+
+The aux loss is the rank's own (its tokens' routing); its mean over the
+data axis is training's, ROADMAP.md queue 1 item 9.3.
 
 Where the bits would part from the reference unless taken care of:
 
@@ -30,10 +55,13 @@ Where the bits would part from the reference unless taken care of:
   softmaxed in float32 (the exact softmax: SOLE targets the attention
   softmax).
 
-The paged serve path pins capacity to the token count (drop-free), which
-makes a row's output independent of its batch; the dense-slot path uses
-the capacity-factor formula, so tokens can drop there, as in the
-reference.
+The paged serve path pins capacity to the dispatch's token count (every
+data rank's lanes: drop-free), which makes a row's output independent of
+its batch; the dense-slot path uses the capacity-factor formula on the
+tokens the rank dispatches (its lanes under route (a), as the reference's
+formula inside ``shard_map``), so tokens can drop there, and on a data
+axis they can drop otherwise than on one card: the reference's mesh
+semantics.
 """
 from __future__ import annotations
 
@@ -47,6 +75,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.state import SequenceStateSpec
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import active_rules
 
 
 def init_moe_ffn(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
@@ -135,25 +165,56 @@ def combine(ye: torch.Tensor, info, top_idx: torch.Tensor,
 
 
 def expert_ffn(xe: torch.Tensor, wg, wu, wd, cfg: ArchConfig,
-               stable: bool = False) -> torch.Tensor:
+               stable: bool = False, out32: bool = False) -> torch.Tensor:
     """(E, C, D) dispatched rows through each expert's gated FFN: SwiGLU,
     else tanh-GELU gating, in the activation dtype -> (E, C, D).
     ``stable`` (C a multiple of ``layers.ROW_TILE``): one set of products
     of (E, ROW_TILE, D) rows per tile of the capacity, so each row's
-    result is the same whatever C and its slot."""
+    result is the same whatever C and its slot. ``out32``: ``down``'s
+    product in float32, rounded once (a row-parallel partial)."""
     if stable and xe.shape[1] > L.ROW_TILE:
-        return torch.cat([_expert_products(t.contiguous(), wg, wu, wd, cfg)
+        return torch.cat([_expert_products(t.contiguous(), wg, wu, wd, cfg,
+                                           out32)
                           for t in xe.split(L.ROW_TILE, 1)], 1)
-    return _expert_products(xe, wg, wu, wd, cfg)
+    return _expert_products(xe, wg, wu, wd, cfg, out32)
 
 
-def _expert_products(xe, wg, wu, wd, cfg: ArchConfig) -> torch.Tensor:
+def _bmm(a: torch.Tensor, w: torch.Tensor, out32: bool) -> torch.Tensor:
+    """``torch.bmm``; ``out32`` as ``layers.mm``'s."""
+    if not out32 or a.dtype == torch.float32:
+        return torch.bmm(a, w)
+    if a.device.type == "cuda":
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.bmm(a.float(), w.float())
+
+
+def _expert_products(xe, wg, wu, wd, cfg: ArchConfig,
+                     out32: bool = False) -> torch.Tensor:
     h = torch.bmm(xe, wg)
     if cfg.mlp_kind == "swiglu":
         h = F.silu(h) * torch.bmm(xe, wu)
     else:
         h = F.gelu(h, approximate="tanh") * torch.bmm(xe, wu)
-    return torch.bmm(h, wd)
+    return _bmm(h, wd, out32)
+
+
+def mesh_routes(cfg: ArchConfig):
+    """The FFN's mesh axes under the active rules: ``(ep, replicated,
+    tp)``. ``ep``: the data axis the experts lie over, the lanes split
+    over it too (route (a)); ``replicated``: that axis where the batch is
+    whole on every data rank (route (b)); ``tp``: the model axis
+    ``d_ff`` is split over (route (c)). Nones without rules or where a
+    dim replicates."""
+    rules = active_rules()
+    if rules is None:
+        return None, None, None
+    tp = L.model_split("expert_ff", cfg.d_ff)
+    if rules.split("experts", cfg.n_experts) == 1:
+        return None, None, tp
+    ax = comm.data_axis(rules)
+    if L.split_lanes() is not None:
+        return ax, None, tp
+    return None, ax, tp
 
 
 def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
@@ -167,7 +228,12 @@ def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
     decode or verify dispatch on the card) rounds the capacity up to a
     multiple of ``layers.ROW_TILE`` and runs the router and the experts'
     products on fixed row counts, so a row's bits do not depend on T or
-    on its slot in the expert buffer either."""
+    on its slot in the expert buffer either.
+
+    Under mesh rules the rank's experts (``p`` holds their slices) run on
+    the route :func:`mesh_routes` names, as the module docstring sets
+    out; ``capacity`` must then be the same on every data rank of route
+    (a)."""
     if any(isinstance(p[n], dict) for n in ("gate", "up", "down")):
         raise NotImplementedError(
             "MoE experts with packed int8 weights: the reference has no "
@@ -183,13 +249,41 @@ def apply_moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, phase: str,
         cap = max(int(math.ceil(t * k * cfg.capacity_factor / e)), 1)
     if stable:
         cap = -(-cap // L.ROW_TILE) * L.ROW_TILE
+    ep, rep, tp = mesh_routes(cfg)
     xe, info = dispatch(x2, top_idx, top_val.to(x2.dtype), e, cap)
-    ye = expert_ffn(xe.reshape(e, cap, d), p["gate"], p["up"], p["down"],
-                    cfg, stable)
-    out = combine(ye.reshape(e * cap, d), info, top_idx, x.dtype)
+    xe = xe.reshape(e, cap, d)
+    wg, wu, wd = p["gate"], p["up"], p["down"]
+    e_loc = wg.shape[0]
+    over = ep or rep
+    if e_loc != (e if over is None else e // over.size):
+        raise ValueError(
+            f"MoE FFN: {e_loc} experts on this rank, the rules lay "
+            f"{e} over {1 if over is None else over.size} ranks (the "
+            "weights must be the rank's slice: convert.shard_params)")
+    out32 = tp is not None
+    if ep is not None:                   # (a): every source's rows, mine
+        xr = comm.all_to_all(xe.reshape(ep.size, e_loc * cap, d), ep)
+        xr = xr.reshape(ep.size, e_loc, cap, d).transpose(0, 1)
+        ye = expert_ffn(xr.reshape(e_loc, ep.size * cap, d), wg, wu, wd,
+                        cfg, stable, out32)
+        ye = ye.reshape(e_loc, ep.size, cap, d).transpose(0, 1)
+        ye = comm.all_to_all(ye.reshape(ep.size, e_loc * cap, d), ep)
+    elif rep is not None:                # (b): my experts' rows, others 0
+        lo = rep.index * e_loc
+        mine = expert_ffn(xe[lo:lo + e_loc], wg, wu, wd, cfg, stable, out32)
+        ye = mine.new_zeros((e, cap, d))
+        ye[lo:lo + e_loc] = mine
+    else:
+        ye = expert_ffn(xe, wg, wu, wd, cfg, stable, out32)
+    out = combine(ye.reshape(e * cap, d), info, top_idx,
+                  torch.float32 if out32 else x.dtype)
+    if tp is not None:
+        out = comm.all_reduce_sum(out, tp)
+    if rep is not None:
+        out = comm.all_reduce_sum(out, rep)
     frac = F.one_hot(top_idx, e).float().mean((0, 1))
     aux = e * torch.sum(frac * gates.mean(0))
-    return out.reshape(b, s, d), aux
+    return out.to(x.dtype).reshape(b, s, d), aux
 
 
 # -- full model (the dense backbone with the MoE FFN) --------------------------
@@ -200,20 +294,24 @@ def init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict:
 
 
 def _serve_ffn(p, x, cfg: ArchConfig, phase: str) -> torch.Tensor:
-    """The dense-slot serve FFN: the capacity-factor formula (tokens can
-    drop, as in the reference)."""
+    """The dense-slot serve FFN: the capacity-factor formula on the tokens
+    this rank dispatches (tokens can drop, as in the reference; under
+    route (a) on the rank's lanes, as the reference's formula inside
+    ``shard_map``, so a data axis can drop other tokens than one card)."""
     return apply_moe_ffn(p, x, cfg, phase)[0]
 
 
 def _paged_ffn(p, x, cfg: ArchConfig, phase: str,
                stable: bool = False) -> torch.Tensor:
-    """The paged serve FFN: capacity pinned to the token count, so no
-    token drops and a lane's rows never depend on what else rides in the
-    batch (padded chunks, null lanes); the paged engine then gives its
-    dense oracle's tokens. ``stable``: the row-stable products of a
-    decode or verify dispatch on the card."""
-    return apply_moe_ffn(p, x, cfg, phase, capacity=x.shape[0] * x.shape[1],
-                         stable=stable)[0]
+    """The paged serve FFN: capacity pinned to the dispatch's token count
+    (every data rank's lanes where they split, as the reference takes it
+    from the global batch), so no token drops and a lane's rows never
+    depend on what else rides in the batch (padded chunks, null lanes);
+    the paged engine then gives its dense oracle's tokens. ``stable``: the
+    row-stable products of a decode or verify dispatch on the card."""
+    ax = L.split_lanes()
+    t = x.shape[0] * x.shape[1] * (1 if ax is None else ax.size)
+    return apply_moe_ffn(p, x, cfg, phase, capacity=t, stable=stable)[0]
 
 
 def forward(params, tokens, cfg: ArchConfig, phase: str):

@@ -38,10 +38,12 @@ paged-servable and neither engine serves it (its ``prefill``/``decode_step``
 are reached through ``models.api``).
 
 ``PagedEngine(rules=, param_axes=)`` and ``Engine(rules=, param_axes=)``
-serve the dense family over a (D, M) mesh of ``torch.distributed`` ranks
-(``launch/mesh.py``): each rank runs the engine on the same requests with
-its slice of the weights (``convert.shard_params``: split over the model
-axis, whole over data) and of every KV page's heads (``PagedKVCache``
+serve the dense and MoE families over a (D, M) mesh of
+``torch.distributed`` ranks (``launch/mesh.py``): each rank runs the
+engine on the same requests with its slice of the weights
+(``convert.shard_params``: split over the model axis, whole over data but
+for the MoE experts, which lie over it: ``models/moe.py``'s routes) and
+of every KV page's heads (``PagedKVCache``
 at the rank's shape, every page on every data rank); the layers call the
 collectives (``models/layers.py``). Over the data axis a dispatch's lanes
 split where D divides them (a decode or verify batch, a dense-slot
@@ -173,14 +175,14 @@ def _rank() -> int:
 
 
 def _check_rules(cfg: ArchConfig, rules, engine: str) -> None:
-    """Mesh rules: the dense family over a (D, M) mesh of every rank of
-    the process group. The families with no port under rules yet raise,
-    naming their ``ROADMAP.md`` item."""
-    if cfg.family != "dense":
+    """Mesh rules: the dense and MoE families over a (D, M) mesh of every
+    rank of the process group. The families with no port under rules yet
+    raise, naming their ``ROADMAP.md`` item."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{engine}: mesh rules on the {cfg.family!r} family are not "
-            "ported yet (ROADMAP.md queue 1 item 9.2: MoE's TP/EP branch "
-            "and the recurrent, encdec and vlm families under rules)")
+            "ported yet (ROADMAP.md queue 1 item 9.2b: the recurrent, "
+            "encdec and vlm families under rules)")
     n = math.prod(rules.axis_sizes.values())
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n != world:
@@ -250,7 +252,8 @@ class PagedEngine:
     horizon reads (null lanes claim one valid cross row).
 
     With ``rules`` (a (D, M) mesh's ``sharding.rules.Rules``) the engine
-    is one rank of a dense model served over the mesh (module docstring):
+    is one rank of a dense or MoE model served over the mesh (module
+    docstring):
     it keeps this rank's slice of the weights (``param_axes`` their
     logical axes, ``models.api.param_axes(cfg)`` by default; a
     ``ShardedTree`` of another engine on the same rules is taken as it is;
@@ -262,7 +265,8 @@ class PagedEngine:
     Features without a path raise here rather than being silently
     downgraded: the vlm family (not paged-servable), int8 weights on every
     family but dense, int8 KV pages on encdec (the reference reads its int8
-    cross pages undequantized) and mesh rules on any family but dense.
+    cross pages undequantized) and mesh rules on any family but dense and
+    MoE.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, num_blocks: int = 64,
@@ -835,7 +839,7 @@ class Engine:
     weights on MoE and the recurrent families, and int8 KV on the hybrid's
     dense caches (the reference stores a cast there, with no scale).
 
-    With ``rules`` (a (D, M) mesh's, dense family only, as
+    With ``rules`` (a (D, M) mesh's, dense and MoE families, as
     ``PagedEngine``'s) the engine is one rank of the model served over the
     mesh: this rank's slice of the weights (``param_axes`` as
     ``PagedEngine``'s), the dense caches at the rank's shape by
@@ -844,7 +848,10 @@ class Engine:
     prefill), each call's lanes split over data with every lane's logits
     gathered, the attention in the paged plan's regime (matched,
     replicated KV, heads replicated) and each readback checked equal on
-    every rank.
+    every rank. MoE's capacity-factor formula counts the tokens a rank
+    dispatches: its lanes where the data axis splits the batch (expert
+    parallelism, as the reference's formula inside ``shard_map``), so the
+    tokens it drops there can differ from one card's.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, batch_size: int = 4,

@@ -25,7 +25,11 @@ Over the data axis (the lane split of ``models/layers.py``):
 which every data rank's replicated pool stores; the sampled tokens at a
 horizon's end; the logits of a dense-slot call) and :func:`all_reduce_max`
 takes SOLE's per-channel calibration maxima to the whole batch's (exact
-in any order). No weight or pool is split over data.
+in any order). The MoE family's experts are the one weight split over
+data (``models/moe.py``): :func:`all_to_all` sends each expert's
+dispatched rows to the rank that holds it and brings its rows back, and
+where the batch is whole on every data rank :func:`all_reduce_sum` joins
+the ranks' partial outputs. No pool is split over data.
 
 Under the ``nccl`` backend every collective runs on the card. Under
 ``gloo`` (CPU ranks, or ranks that share one card and asked for it) a
@@ -182,6 +186,26 @@ def stack(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
                       device=t.device)
     dist.all_gather_into_tensor(out, t, group=ax.group)
     return out
+
+
+def all_to_all(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
+    """``t`` (ax.size, ...) exchanged over ``ax``: chunk i of the leading
+    dim goes to rank i along ``ax``, and the result's chunk j is the one
+    rank j sent here (``jax.lax.all_to_all(t, axis, 0, 0,
+    tiled=False)``). Another type than ``_GATHER_TYPES`` (bf16 expert
+    rows) travels as its bytes under gloo, bit for bit."""
+    with _counted("all_to_all", ax):
+        t = t.contiguous()
+        if _staged(t, ax.group) or t.device.type == "cpu":
+            h = t.cpu()
+            raw = (h if h.dtype in _GATHER_TYPES
+                   else h.reshape(ax.size, -1).view(torch.uint8))
+            out = torch.empty_like(raw)
+            dist.all_to_all_single(out, raw, group=ax.group)
+            return out.view(t.dtype).reshape(t.shape).to(t.device)
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=ax.group)
+        return out
 
 
 def all_gather(t: torch.Tensor, dim: int, ax: MeshAxis) -> torch.Tensor:

@@ -272,14 +272,17 @@ def test_engine_raises_for_unported_families(change, err, match):
 
 def test_engine_raises_for_rules_and_sampling():
     """The dense-slot engine serves mesh rules of every rank of the
-    process group (``tests/test_torch_mesh_data.py``); a (1, 2) mesh in a
-    process of its own, and the MoE family under rules (ROADMAP item 9.2),
-    raise."""
+    process group (``tests/test_torch_mesh_data.py``, the MoE family in
+    ``tests/test_torch_mesh_moe.py``); a (1, 2) mesh in a process of its
+    own raises for dense and MoE alike, and the recurrent families under
+    rules (ROADMAP item 9.2b) raise."""
     from repro_torch.launch.mesh import Mesh, make_rules
     cfg, params = _smoke()
     rules = make_rules(Mesh((1, 2), ("data", "model")))
-    with pytest.raises(ValueError, match="in a process group of 1"):
-        Engine(cfg, params, device="cpu", rules=rules)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.2"):
-        Engine(dataclasses.replace(cfg, family="moe"), params, device="cpu",
+    for family in ("dense", "moe"):
+        with pytest.raises(ValueError, match="in a process group of 1"):
+            Engine(dataclasses.replace(cfg, family=family), params,
+                   device="cpu", rules=rules)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9.2b"):
+        Engine(dataclasses.replace(cfg, family="ssm"), params, device="cpu",
                rules=rules)
